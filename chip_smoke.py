@@ -10,12 +10,25 @@ Phases, in order; any failed check exits nonzero:
 1. the card: name and power limit, a build of every CUDA source;
 2. each kernel against its plain PyTorch version on the card, at the
    engine's main-path shapes and at ragged shapes, with times (CUDA
-   events, median after warm-up) beside the card's bound;
-3. the main path: ``repro_torch.run_batch`` on the gram_sweep
-   configuration (B = 32 trials, T = 120 steps, n = 8 workers, f = 2,
-   byz = (2, 5), drift attack, q = 0.2, n_data = 64, d = 2^20), with the
-   kernels' launch counts, against the same run with the plain versions
-   (``kernel_impl="torch"``) and against the CPU run on a small input;
+   events, median after warm-up) beside the card's bound and, where one
+   PyTorch call computes the same function, that call's time;
+3. the main paths, each driven through ``repro_torch.run_batch`` with
+   the launch counts set to 0 just before and read just after, checked
+   against the same run with the plain versions
+   (``kernel_impl="torch"``): control exact, W within 1e-4*(1+max|W|),
+   no honest worker identified:
+   - gram_sweep (B = 32, T = 120, n_data = 64, d = 2^20): K1, K3;
+   - fused_sweep (B = 256, T = 3, d = 2^20, default lr) with
+     ``fused=True`` (K2) and ``fused=False`` (K4), which must agree with
+     each other; the default lr diverges at this width, so both run
+     again at a contractive lr with W held against the plain versions
+     per trial; and once more with bf16 rows, against the f32 run;
+   - per-trial problems (B = 8, 4 problems, T = 3, d = 2^20): K4, K5;
+   - the single-vector ops (``ops.sketch``, ``ops.vote``,
+     ``ops.coded_encode``) at the reference kernel bench's shapes:
+     K4s, K3s, K5s;
+   and small inputs on the card against the CPU run (gram, fused,
+   unfused, per-problem, a filter batch);
 4. a ``{"kernels": [...]}`` line;
 5. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -24,6 +37,7 @@ script imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -41,6 +55,14 @@ F32_ADDS_S = 67e12 / 2
 F32_OPS_S = 67e12
 
 GRAM_SWEEP = dict(B=32, T=120, n_data=64, d=1 << 20)
+# benchmarks/bench_protocol.py:304-331 with its default knobs; the plan
+# cuts it into chunks of 64 trials
+FUSED_SWEEP = dict(B=256, T=3, n_data=64, d=1 << 20)
+FUSED_CHUNK = 64
+# per-trial problems: fused_sweep's trials over 4 problems; B = 8, where
+# the reference's host-staged (B, n_data, d) f32 data is 2 GiB (the port
+# gathers each chunk's rows on the card by problem index)
+PER_PROBLEM = dict(B=8, T=3, n_data=64, d=1 << 20, problems=4)
 
 
 def fail(msg: str) -> None:
@@ -75,6 +97,28 @@ def max_err(a, b) -> float:
 
 def close(a, b, rtol: float, atol: float) -> bool:
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def rel_err(a, b) -> float:
+    """max|a - b| / max(1, max|b|): the check for sums whose terms
+    cancel (products over long d)."""
+    return max_err(a, b) / max(1.0, float(b.abs().max())) if b.numel() \
+        else 0.0
+
+
+def bound(bytes_: float, ops: float, ops_rate: float) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S * 1e3, ops / ops_rate * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
+          library_ms):
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{source}",
+                replaces=replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def phase_card(torch):
@@ -163,20 +207,14 @@ def phase_kernels(torch):
     library_ms = median_ms(torch, lambda: torch.einsum("imb,tmb->tib",
                                                         g3, signs))
     del signs, g3
-    bytes_k1 = Ie * d * 4 + T * 4 + T * Ie * k * 4
-    ops_k1 = T * Ie * d                       # signed f32 adds
-    t_bytes, t_ops = bytes_k1 / HBM_BYTES_S * 1e3, ops_k1 / F32_ADDS_S * 1e3
-    report["gram_factors"] = dict(
-        name="gram_factors", route="cuda",
-        source="src/repro_torch/kernels/csrc/gram.cu",
-        replaces="src/repro/kernels/gram.py:45",
-        max_abs_err=err_sk, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=library_ms)
+    # signed f32 adds: T * Ie * d
+    b_ms, b_by = bound(Ie * d * 4 + T * 4 + T * Ie * k * 4, T * Ie * d,
+                       F32_ADDS_S)
+    report["gram_factors"] = entry(
+        "gram_factors", "gram.cu", "src/repro/kernels/gram.py:45", err_sk,
+        ms, plain_ms, b_ms, b_by, library_ms)
     print(f"K1 gram SK: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
-          f"(bytes {t_bytes:.4f} ms, adds {t_ops:.4f} ms)")
+          f"library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     del rows, sk_k, sk_p
 
     # -- K3: batched pairwise relmax ----------------------------------------
@@ -200,20 +238,238 @@ def phase_kernels(torch):
     plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_batched_plain(
         x_main), reps=50)
     B, R, dd = main_shape
-    bytes_k3 = B * R * dd * 4 + B * R * R * 4
-    ops_k3 = B * R * R * dd                   # one f32 division per element
-    t_bytes, t_ops = bytes_k3 / HBM_BYTES_S * 1e3, ops_k3 / F32_OPS_S * 1e3
-    report["pairwise_relmax_batched"] = dict(
-        name="pairwise_relmax_batched", route="cuda",
-        source="src/repro_torch/kernels/csrc/majority_vote.cu",
-        replaces="src/repro/kernels/majority_vote.py:63",
-        max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None)
+    # one f32 division per element and pair
+    b_ms, b_by = bound(B * R * dd * 4 + B * R * R * 4, B * R * R * dd,
+                       F32_OPS_S)
+    report["pairwise_relmax_batched"] = entry(
+        "pairwise_relmax_batched", "majority_vote.cu",
+        "src/repro/kernels/majority_vote.py:63", err_main, ms, plain_ms,
+        b_ms, b_by, None)
     print(f"K3 relmax {main_shape}: kernel_ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.6f}")
+          f"{plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by})")
     return report
+
+
+def sign_table(torch, d: int, key: int, dev):
+    """The (d,) ±1 signs of one key (the library yardsticks' operand)."""
+    from repro_torch.kernels import ref as _ref
+
+    return _ref.hash_signs_ref(torch.arange(d, device=dev), key)
+
+
+def phase_stream_kernels(torch):
+    """K2, K4, K5 and the single forms K3s, K4s, K5s against their plain
+    versions on the card: the main paths' shapes, ragged shapes (d not a
+    multiple of k or of the tile, Ie not a multiple of 8, B = 1)."""
+    from repro_torch.kernels import coded_encode as enc
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import majority_vote as mv
+    from repro_torch.kernels import sketch as sk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *shape: torch.randn(*shape, generator=gen,     # noqa: E731
+                                      device=dev)
+    report = {}
+    k, key = 256, 0x9E3779B9
+
+    # -- K2: fused step ---------------------------------------------------
+    def k2_check(B, Ie, d, dtype):
+        rows = rand(Ie, d)
+        if dtype == "bf16":
+            rows = rows.to(torch.bfloat16)
+        W, cw = rand(B, d), rand(B, Ie) * 0.01
+        cw[0] = 0.0                                  # a dead trial's row
+        W0 = W.clone()
+        want = fs.fused_step_plain(rows, W0, cw, key)
+        got = fs.fused_step_cuda(rows, W, cw, key)
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in zip(got, want)]
+        ok = (rel_err(got[0], want[0]) <= 1e-5
+              and rel_err(got[1], want[1]) <= 1e-5
+              and close(got[2], want[2], 2e-5, 1e-3)
+              and bool(torch.equal(got[0][0], W0[0])))
+        print(f"K2 fused_step {dtype} (B={B}, Ie={Ie}, d={d}): max|kernel-"
+              f"plain| W' {errs[0]:.3e} resid {errs[1]:.3e} sk {errs[2]:.3e}"
+              f" (tolerance: 1e-5 of max|.| for W' and resid, rtol 2e-5 + "
+              f"atol 1e-3 for sk; zero cw row keeps W bitwise)")
+        check(ok, f"K2 {dtype} disagrees at {(B, Ie, d)}")
+        return max(errs), rows, W, cw
+
+    B2, Ie2, d2 = FUSED_CHUNK, FUSED_SWEEP["n_data"] + 2, FUSED_SWEEP["d"]
+    for shape in ((1, 3, 300), (70, 13, 70001), (5, 258, 2000)):
+        for dtype in ("f32", "bf16"):
+            k2_check(*shape, dtype)
+    k2_check(B2, Ie2, d2, "bf16")
+    err2, rows, W, cw = k2_check(B2, Ie2, d2, "f32")
+    ms = median_ms(torch, lambda: fs.fused_step_cuda(rows, W, cw, key))
+    plain_ms = median_ms(torch, lambda: fs.fused_step_plain(rows, W, cw, key))
+    rows_bf = rows.to(torch.bfloat16)
+    ms_bf = median_ms(torch, lambda: fs.fused_step_cuda(rows_bf, W, cw, key))
+    b_ms, b_by = bound(Ie2 * d2 * 4 + 2 * B2 * d2 * 4 + 2 * B2 * Ie2 * 4
+                       + Ie2 * k * 4, 4 * B2 * Ie2 * d2 + Ie2 * d2,
+                       F32_OPS_S)
+    report["fused_step"] = entry(
+        "fused_step", "fused_step.cu", "src/repro/kernels/fused_step.py:50",
+        err2, ms, plain_ms, b_ms, b_by, None)
+    print(f"K2 fused_step (B={B2}, Ie={Ie2}, d=2^20): kernel_ms={ms:.4f} "
+          f"(bf16 rows: {ms_bf:.4f}) plain_ms={plain_ms:.4f} bound_ms="
+          f"{b_ms:.4f} ({b_by}); library: none (no single PyTorch call "
+          f"fuses the update, the residual and the sketch)")
+    del rows, rows_bf, W, cw
+
+    # -- K4 and K4s: CountSketch -------------------------------------------
+    def k4_check(B, d):
+        g = rand(B, d)
+        got, want = sk.sketch_batched_cuda(g, key), \
+            sk.sketch_batched_plain(g, key)
+        torch.cuda.synchronize()
+        print(f"K4 sketch_batched (B={B}, d={d}): max|kernel-plain| = "
+              f"{max_err(got, want):.3e} (tolerance: rtol 2e-5 + atol 1e-3)")
+        check(close(got, want, 2e-5, 1e-3), f"K4 disagrees at {(B, d)}")
+        return max_err(got, want), g
+
+    for shape in ((1, 255), (9, 70001),
+                  (PER_PROBLEM["problems"] * PER_PROBLEM["n_data"] + 2,
+                   PER_PROBLEM["d"])):
+        k4_check(*shape)
+    B4, d4 = FUSED_SWEEP["n_data"] + 2, FUSED_SWEEP["d"]
+    err4, g = k4_check(B4, d4)
+    ms = median_ms(torch, lambda: sk.sketch_batched_cuda(g, key))
+    plain_ms = median_ms(torch, lambda: sk.sketch_batched_plain(g, key))
+    signs = sign_table(torch, d4, key, dev).reshape(-1, k)
+    g3 = g.reshape(B4, -1, k)
+    library_ms = median_ms(torch, lambda: torch.einsum("bmk,mk->bk", g3,
+                                                       signs))
+    b_ms, b_by = bound(B4 * d4 * 4 + B4 * k * 4, B4 * d4, F32_ADDS_S)
+    report["sketch_batched"] = entry(
+        "sketch_batched", "sketch.cu", "src/repro/kernels/sketch.py:77",
+        err4, ms, plain_ms, b_ms, b_by, library_ms)
+    print(f"K4 sketch_batched (B={B4}, d=2^20): kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms={library_ms:.4f} (einsum over a sign "
+          f"table) bound_ms={b_ms:.4f} ({b_by})")
+    gp = rand(PER_PROBLEM["problems"] * PER_PROBLEM["n_data"] + 2,
+              PER_PROBLEM["d"])
+    ms_pp = median_ms(torch, lambda: sk.sketch_batched_cuda(gp, key))
+    print(f"K4 sketch_batched (B={gp.shape[0]}, d=2^20, the per-problem "
+          f"rows): kernel_ms={ms_pp:.4f} bound_ms="
+          f"{gp.numel() * 4 / HBM_BYTES_S * 1e3:.4f} (bytes)")
+    del g, g3, gp
+
+    d4s = 1_000_000                      # bench_kernels.py's single sketch
+    x = rand(d4s)
+    got, want = sk.sketch_cuda(x, 7), sk.sketch_plain(x, 7)
+    err = max_err(got, want)
+    print(f"K4s sketch (d={d4s}): max|kernel-plain| = {err:.3e}")
+    check(close(got, want, 2e-5, 1e-3), "K4s disagrees")
+    for d_r in (255, 70001):
+        xr = rand(d_r)
+        check(close(sk.sketch_cuda(xr, 7), sk.sketch_plain(xr, 7), 2e-5,
+                    1e-3), f"K4s disagrees at d={d_r}")
+    ms = median_ms(torch, lambda: sk.sketch_cuda(x, 7), reps=50)
+    plain_ms = median_ms(torch, lambda: sk.sketch_plain(x, 7), reps=50)
+    xs_ = torch.nn.functional.pad(x, (0, (-d4s) % k)).reshape(-1, k)
+    signs = sign_table(torch, xs_.numel(), 7, dev).reshape(-1, k)
+    library_ms = median_ms(torch, lambda: torch.einsum("mk,mk->k", xs_,
+                                                       signs), reps=50)
+    b_ms, b_by = bound(d4s * 4 + k * 4, d4s, F32_ADDS_S)
+    report["sketch"] = entry("sketch", "sketch.cu",
+                             "src/repro/kernels/sketch.py:25", err, ms,
+                             plain_ms, b_ms, b_by, library_ms)
+    print(f"K4s sketch: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    del x, xs_, signs
+
+    # -- K5 and K5s: linear encode -----------------------------------------
+    def k5_check(B, n_sym, m, d):
+        c, g = rand(B, n_sym, m), rand(B, m, d)
+        got = enc.coded_encode_batched_cuda(c, g)
+        want = enc.coded_encode_batched_plain(c, g)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        print(f"K5 coded_encode_batched (B={B}, n_sym={n_sym}, m={m}, "
+              f"d={d}): max|kernel-plain| = {err:.3e} (tolerance 1e-5 of "
+              f"max|plain|)")
+        check(rel_err(got, want) <= 1e-5, f"K5 disagrees at {(B, n_sym, m, d)}")
+        return err, c, g
+
+    for shape in ((1, 3, 5, 255), (2, 9, 7, 70001)):
+        k5_check(*shape)
+    B5, m5, d5 = PER_PROBLEM["B"], PER_PROBLEM["n_data"], PER_PROBLEM["d"]
+    err5, c, g = k5_check(B5, 1, m5, d5)
+    ms = median_ms(torch, lambda: enc.coded_encode_batched_cuda(c, g))
+    plain_ms = median_ms(torch, lambda: enc.coded_encode_batched_plain(c, g))
+    library_ms = median_ms(torch, lambda: torch.bmm(c, g))
+    b_ms, b_by = bound(B5 * m5 * d5 * 4 + B5 * m5 * 4 + B5 * d5 * 4,
+                       2 * B5 * m5 * d5, F32_OPS_S)
+    report["coded_encode_batched"] = entry(
+        "coded_encode_batched", "coded_encode.cu",
+        "src/repro/kernels/coded_encode.py:51", err5, ms, plain_ms, b_ms,
+        b_by, library_ms)
+    print(f"K5 coded_encode_batched (8,1,64)@(8,64,2^20): kernel_ms={ms:.4f}"
+          f" plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (bmm) "
+          f"bound_ms={b_ms:.4f} ({b_by})")
+    del c, g
+
+    C, G = rand(4, 4), rand(4, 200_000)  # bench_kernels.py's single encode
+    got, want = enc.coded_encode_cuda(C, G), enc.coded_encode_plain(C, G)
+    err = max_err(got, want)
+    check(rel_err(got, want) <= 1e-5, "K5s disagrees")
+    check(rel_err(enc.coded_encode_cuda(C[:3, :3], G[:3, :70001]),
+                  enc.coded_encode_plain(C[:3, :3], G[:3, :70001])) <= 1e-5,
+          "K5s disagrees at a ragged shape")
+    ms = median_ms(torch, lambda: enc.coded_encode_cuda(C, G), reps=50)
+    plain_ms = median_ms(torch, lambda: enc.coded_encode_plain(C, G), reps=50)
+    library_ms = median_ms(torch, lambda: C @ G, reps=50)
+    b_ms, b_by = bound(2 * 4 * 200_000 * 4 + 16 * 4, 2 * 4 * 4 * 200_000,
+                       F32_OPS_S)
+    report["coded_encode"] = entry(
+        "coded_encode", "coded_encode.cu",
+        "src/repro/kernels/coded_encode.py:21", err, ms, plain_ms, b_ms, b_by,
+        library_ms)
+    print(f"K5s coded_encode (4,4)@(4,2e5): max|kernel-plain| = {err:.3e}; "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+
+    # -- K3s: single pairwise relmax ---------------------------------------
+    R3, d3 = 7, 100_000                  # bench_kernels.py's single vote
+    x = rand(R3, d3)
+    x[1] = x[0]
+    got, want = mv.pairwise_relmax_cuda(x), mv.pairwise_relmax_plain(x)
+    err = max_err(got, want)
+    check(close(got, want, 1e-6, 0.0) and float(got[0, 1]) == 0.0,
+          "K3s disagrees")
+    check(close(mv.pairwise_relmax_cuda(x[:3, :255]),
+                mv.pairwise_relmax_plain(x[:3, :255]), 1e-6, 0.0),
+          "K3s disagrees at a ragged shape")
+    ms = median_ms(torch, lambda: mv.pairwise_relmax_cuda(x), reps=50)
+    plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_plain(x), reps=50)
+    b_ms, b_by = bound(R3 * d3 * 4 + R3 * R3 * 4, R3 * R3 * d3, F32_OPS_S)
+    report["pairwise_relmax"] = entry(
+        "pairwise_relmax", "majority_vote.cu",
+        "src/repro/kernels/majority_vote.py:30", err, ms, plain_ms, b_ms,
+        b_by, None)
+    print(f"K3s pairwise_relmax (R={R3}, d={d3}): max|kernel-plain| = "
+          f"{err:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+          f"{b_ms:.5f} ({b_by})")
+    return report
+
+
+def counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before; return
+    its result and the counts read just after."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    return out, ops.launch_counts()
+
+
+def require_launched(launches, names, path):
+    print(f"{path} launches: {launches}")
+    for name in names:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {path} path")
 
 
 def gram_sweep_specs(TrialSpec, B, T, n_data, d):
@@ -241,34 +497,9 @@ def w_close(a, b) -> tuple[float, float]:
     return float(np.abs(Wa - Wb).max()), 1e-4 * (1 + float(np.abs(Wb).max()))
 
 
-def phase_main_path(torch):
+def check_honest(specs, res) -> None:
     import numpy as np
 
-    import repro_torch
-    from repro_torch.kernels import ops
-
-    specs = gram_sweep_specs(repro_torch.TrialSpec, **GRAM_SWEEP)
-    repro_torch.run_batch(specs)                       # warm-up
-    ops.reset_launch_counts()
-    runs = [repro_torch.run_batch(specs)]
-    launches = ops.launch_counts()
-    runs += [repro_torch.run_batch(specs) for _ in range(2)]
-    res = runs[0]
-    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
-    check(torch.get_float32_matmul_precision() == "highest",
-          "float32 matmul precision is not 'highest'")
-    print(res.plan.explain())
-    check(res.plan.data_plane == "gram", "main path is not the gram plane")
-    check(res.plan.schedule_mode == "vector", "schedule is not 'vector'")
-    print(f"main path launches: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-
-    W = np.stack([r.w for r in res])
-    L = np.array([r.losses for r in res])
-    check(W.shape == (GRAM_SWEEP["B"], GRAM_SWEEP["d"]), f"W shape {W.shape}")
-    check(bool(np.isfinite(W).all() and np.isfinite(L).all()),
-          "non-finite W or losses")
     for s, r in zip(specs, res):
         honest_hit = set(r.identify_step) - set(s.byz)
         check(not honest_hit, f"{s.label}: honest workers {honest_hit} "
@@ -277,39 +508,266 @@ def phase_main_path(torch):
             [w for w in range(s.n) if w not in s.byz]].any(),
             f"{s.label}: an honest worker was eliminated")
 
-    plain = repro_torch.run_batch(specs, kernel_impl="torch")
+
+def check_vs_plain(label, res, specs, **kw) -> float:
+    """The same run with the plain versions on the card: control exact,
+    W within 1e-4*(1+max|W|)."""
+    import repro_torch
+
+    plain = repro_torch.run_batch(specs, kernel_impl="torch", **kw)
     check(same_control(res, plain),
-          "control quantities differ between kernels and plain versions")
+          f"{label}: control differs between kernels and plain versions")
     err, tol = w_close(res, plain)
-    print(f"main path W: max|kernels-plain| = {err:.3e} (tolerance "
+    print(f"{label} W: max|kernels-plain| = {err:.3e} (tolerance "
           f"1e-4*(1+max|W|) = {tol:.3e})")
-    check(err <= tol, "W differs between kernels and plain versions")
+    check(err <= tol, f"{label}: W differs between kernels and plain "
+                      f"versions")
+    return err
 
-    # a small input whose gradient descent contracts (lr below 2/L), so
-    # the tolerance is not dominated by a growing iterate
-    small = [repro_torch.TrialSpec(byz=(2, 5), attack="drift", q=0.3,
-                                   steps=40, seed=s, n_data=64, d=4096,
-                                   lr=16.0 / 4096) for s in range(4)]
-    on_card = repro_torch.run_batch(small)
-    on_cpu = repro_torch.run_batch(small, device="cpu")
-    check(same_control(on_card, on_cpu), "small input: card vs CPU control")
-    err_s, tol_s = w_close(on_card, on_cpu)
-    print(f"small input (B=4, T=40, d=4096) card vs CPU: max|dW| = "
-          f"{err_s:.3e} (tolerance {tol_s:.3e})")
-    check(err_s <= tol_s, "small input: card vs CPU W")
 
-    phases = {k: statistics.median(r.phase_s[k] for r in runs)
-              for k in runs[0].phase_s}
-    wall = statistics.median(r.elapsed_s for r in runs)
-    ident = int(res.schedule.arrays["identify"].sum())
-    print(f"main path warm wall (median of 3): {wall:.4f} s; phases (s): "
+def run_path(label, run, expect, reps: int = 3):
+    """Warm-up, then ``reps`` runs; the first timed run is counted.
+    Returns (first result, its launch counts, the timing summary)."""
+    import statistics
+
+    run()                                              # warm-up
+    res, launches = counted(run)
+    times = [(res.elapsed_s, res.phase_s)]
+    for _ in range(reps - 1):
+        r = run()
+        times.append((r.elapsed_s, r.phase_s))
+        del r
+    require_launched(launches, expect, label)
+    print(res.plan.explain())
+    wall = statistics.median(t[0] for t in times)
+    phases = {k: statistics.median(t[1][k] for t in times)
+              for k in times[0][1]}
+    print(f"{label} warm wall (median of {reps}): {wall:.4f} s; phases (s): "
           + ", ".join(f"{k}={v:.4f}" for k, v in phases.items()))
-    print(f"identify rounds: {ident}; detect flags: "
+    return res, launches, dict(wall_s=wall, phases_s=phases)
+
+
+def phase_gram(torch):
+    import numpy as np
+
+    import repro_torch
+
+    specs = gram_sweep_specs(repro_torch.TrialSpec, **GRAM_SWEEP)
+    res, launches, info = run_path(
+        "gram_sweep", lambda: repro_torch.run_batch(specs),
+        ("gram_factors", "pairwise_relmax_batched"))
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul precision is not 'highest'")
+    check(res.plan.data_plane == "gram", "gram_sweep is not the gram plane")
+    check(res.plan.schedule_mode == "vector", "schedule is not 'vector'")
+    W = np.stack([r.w for r in res])
+    L = np.array([r.losses for r in res])
+    check(W.shape == (GRAM_SWEEP["B"], GRAM_SWEEP["d"]), f"W shape {W.shape}")
+    check(bool(np.isfinite(W).all() and np.isfinite(L).all()),
+          "non-finite W or losses")
+    del W
+    check_honest(specs, res)
+    info["w_err_vs_plain"] = check_vs_plain("gram_sweep", res, specs)
+    info["identify_rounds"] = int(res.schedule.arrays["identify"].sum())
+    print(f"identify rounds: {info['identify_rounds']}; detect flags: "
           f"{int(res.detect_flags.sum())}; efficiency (mean): "
           f"{statistics.mean(r.efficiency for r in res):.6f}")
-    return launches, dict(wall_s=wall, phases_s=phases,
-                          identify_rounds=ident, w_err_vs_plain=err,
-                          w_err_small_vs_cpu=err_s)
+    return launches, info
+
+
+def fused_sweep_specs(TrialSpec, B, T, n_data, d, problems=0):
+    return [TrialSpec(byz=(2, 5), attack="drift", q=0.2, steps=T, seed=s,
+                      n_data=n_data, d=d,
+                      problem_seed=s % problems if problems else 0,
+                      label=f"fused_sweep/s{s}") for s in range(B)]
+
+
+def per_trial_close(a, b) -> float:
+    """max over trials of max|a.w - b.w| / (1 + max|b.w|), the measure
+    of bench_protocol.py:340-344."""
+    import numpy as np
+
+    return max(float(np.abs(ra.w - rb.w).max())
+               / (1.0 + float(np.abs(rb.w).max())) for ra, rb in zip(a, b))
+
+
+def phase_stream(torch):
+    """fused_sweep through the fused plane (K2) and the unfused scan
+    (K4), bf16 rows once, and the per-trial-problem run (K4, K5)."""
+    import numpy as np
+
+    import repro_torch
+
+    TS = repro_torch.TrialSpec
+    specs = fused_sweep_specs(TS, **FUSED_SWEEP)
+    out, launches = {}, {}
+    fu, launches["fused"], out["fused"] = run_path(
+        "fused_sweep fused=True",
+        lambda: repro_torch.run_batch(specs, fused=True), ("fused_step",))
+    check(fu.plan.fused and fu.plan.chunk_trials == FUSED_CHUNK,
+          f"fused_sweep plan: fused={fu.plan.fused}, chunk="
+          f"{fu.plan.chunk_trials}")
+    W = np.stack([r.w for r in fu])
+    check(W.shape == (FUSED_SWEEP["B"], FUSED_SWEEP["d"])
+          and bool(np.isfinite(W).all()), "fused_sweep W shape or values")
+    del W
+    check_honest(specs, fu)
+    out["fused"]["w_err_vs_plain"] = check_vs_plain(
+        "fused_sweep fused=True", fu, specs, fused=True)
+
+    un, launches["unfused"], out["unfused"] = run_path(
+        "fused_sweep fused=False",
+        lambda: repro_torch.run_batch(specs, fused=False), ("sketch_batched",))
+    check(not un.plan.fused and un.plan.data_plane == "stream",
+          "fused=False did not run the unfused stream scan")
+    check_honest(specs, un)
+    out["unfused"]["w_err_vs_plain"] = check_vs_plain(
+        "fused_sweep fused=False", un, specs, fused=False)
+    check(same_control(fu, un), "fused and unfused control differ")
+    err = per_trial_close(fu, un)
+    print(f"fused vs unfused: max over trials of max|dW|/(1+max|W|) = "
+          f"{err:.3e} (tolerance 1e-4); detect flags "
+          f"{int(fu.detect_flags.sum())}, identify rounds "
+          f"{int(fu.schedule.arrays['identify'].sum())}")
+    check(err <= 1e-4, "fused and unfused W differ")
+    out["fused_vs_unfused"] = err
+    del un
+
+    # the default lr diverges here (max|W| ~ 1e8 after 3 steps), which
+    # makes the 1e-4*(1+max|W|) check loose: hold both planes against the
+    # plain versions per trial once more at a contractive lr
+    c_specs = [dataclasses.replace(s, lr=s.n_data / (4.0 * s.d))
+               for s in specs]
+    held = {}
+    for plane, kernel in (("fused", "fused_step"), ("unfused",
+                                                     "sketch_batched")):
+        label = f"fused_sweep contractive {plane}"
+        kw = dict(fused=plane == "fused")
+        res, launches[f"contractive_{plane}"] = counted(
+            lambda: repro_torch.run_batch(c_specs, **kw))
+        require_launched(launches[f"contractive_{plane}"], (kernel,), label)
+        plain = repro_torch.run_batch(c_specs, kernel_impl="torch", **kw)
+        check(same_control(res, plain),
+              f"{label}: control differs between kernels and plain versions")
+        err = per_trial_close(res, plain)
+        del plain
+        print(f"{label} (lr = n_data/(4d)) W: max over trials of "
+              f"max|kernels-plain|/(1+max|W|) = {err:.3e} (tolerance 1e-4); "
+              f"max|W| = {max(float(np.abs(r.w).max()) for r in res):.3e}")
+        check(err <= 1e-4, f"{label}: W differs between kernels and plain "
+                           f"versions")
+        out[f"contractive_{plane}_w_err_vs_plain"] = err
+        held[plane] = res
+    err = per_trial_close(held["fused"], held["unfused"])
+    print(f"contractive fused vs unfused: max over trials of "
+          f"max|dW|/(1+max|W|) = {err:.3e} (tolerance 1e-4)")
+    check(same_control(held["fused"], held["unfused"]) and err <= 1e-4,
+          "contractive fused and unfused runs differ")
+    out["contractive_fused_vs_unfused"] = err
+    del held, res
+
+    bf, launches["bf16"] = counted(
+        lambda: repro_torch.run_batch(specs, fused=True, stream_dtype="bf16"))
+    require_launched(launches["bf16"], ("fused_step",), "bf16 fused_sweep")
+    check(bf.plan.stream_dtype == "bf16" and same_control(bf, fu),
+          "bf16 run: plan or control differs from the f32 run")
+    err = per_trial_close(bf, fu)
+    print(f"bf16 rows vs f32 (fused_sweep): max over trials of "
+          f"max|dW|/(1+max|W|) = {err:.3e} (tolerance 3e-2); wall "
+          f"{bf.elapsed_s:.4f} s, phases (s): "
+          + ", ".join(f"{k}={v:.4f}" for k, v in bf.phase_s.items()))
+    check(err <= 3e-2, "bf16 W too far from the f32 run")
+    out["bf16"] = dict(wall_s=bf.elapsed_s, phases_s=bf.phase_s,
+                       w_rel_err_vs_f32=err)
+    del bf, fu
+
+    pp_specs = fused_sweep_specs(TS, **PER_PROBLEM)
+    pp, launches["per_problem"] = counted(
+        lambda: repro_torch.run_batch(pp_specs))
+    require_launched(launches["per_problem"],
+                     ("sketch_batched", "coded_encode_batched"),
+                     "per-problem")
+    print(pp.plan.explain())
+    check(not pp.plan.shared_problem and not pp.plan.fused,
+          "per-problem run did not take the per-trial-problem plan")
+    check_honest(pp_specs, pp)
+    print(f"per-problem wall (one run): {pp.elapsed_s:.4f} s; phases (s): "
+          + ", ".join(f"{k}={v:.4f}" for k, v in pp.phase_s.items()))
+    out["per_problem"] = dict(wall_s=pp.elapsed_s, phases_s=pp.phase_s)
+    out["per_problem"]["w_err_vs_plain"] = check_vs_plain(
+        "per-problem", pp, pp_specs)
+    return launches, out
+
+
+def phase_single_path(torch):
+    """The single-vector ops through their public entry points, at the
+    reference kernel bench's shapes (benchmarks/bench_kernels.py:53-65):
+    no engine path calls them."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g = torch.randn(1_000_000, generator=gen, device=dev)
+    reps = g[None, :100_000].repeat(7, 1)
+    reps[1] *= -3.0
+    C = torch.randn(4, 4, generator=gen, device=dev)
+    G = torch.randn(4, 200_000, generator=gen, device=dev)
+
+    def run(impl=None):
+        out = (ops.sketch(g, 7, impl=impl), ops.vote(reps, impl=impl),
+               ops.coded_encode(C, G, impl=impl))
+        torch.cuda.synchronize()
+        return out
+
+    (s_k, v_k, e_k), launches = counted(run)
+    require_launched(launches, ("sketch", "pairwise_relmax", "coded_encode"),
+                     "single-vector ops")
+    s_p, v_p, e_p = run("torch")
+    check(close(s_k, s_p, 2e-5, 1e-3) and rel_err(e_k, e_p) <= 1e-5,
+          "single-vector ops disagree with their plain versions")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(v_k, v_p))
+          and bool(v_k[2]) and v_k[1].tolist() == [i == 1 for i in range(7)],
+          "ops.vote did not single out the tampered replica")
+    return launches
+
+
+def phase_small_vs_cpu(torch):
+    """Small contractive inputs on the card against the CPU run of the
+    plain versions: gram, fused, unfused, per-problem, a filter batch."""
+    import repro_torch
+
+    TS = repro_torch.TrialSpec
+    base = dict(byz=(2, 5), attack="drift", n_data=64)
+    small = [TS(**base, q=0.3, steps=40, seed=s, d=4096, lr=16.0 / 4096)
+             for s in range(4)]
+    modes = [("none", 0.2), ("filter:median", 0.2), ("filter:krum", 0.2),
+             ("draco", None), ("deterministic", None), ("randomized", 0.2)]
+    d_f = 1 << 16
+    filt = [TS(**base, mode=m, q=q, steps=12, seed=s, d=d_f,
+               lr=64.0 / (4 * d_f)) for m, q in modes for s in range(3)]
+    cases = {
+        "gram": (small, {}),
+        "fused": (small, dict(fused=True)),
+        "unfused": (small, dict(fused=False)),
+        "per_problem": ([dataclasses.replace(s, problem_seed=s.seed % 2)
+                         for s in small], {}),
+        "filters": (filt, {}),
+    }
+    errs = {}
+    for name, (specs, kw) in cases.items():
+        on_card = repro_torch.run_batch(specs, **kw)
+        on_cpu = repro_torch.run_batch(specs, device="cpu", **kw)
+        check(on_card.plan == dataclasses.replace(
+            on_cpu.plan, kernel_impl="cuda"), f"{name}: card vs CPU plan")
+        check(same_control(on_card, on_cpu), f"{name}: card vs CPU control")
+        err, tol = w_close(on_card, on_cpu)
+        print(f"small {name} ({on_card.plan.data_plane}, fused="
+              f"{on_card.plan.fused}, B={len(specs)}) card vs CPU: "
+              f"max|dW| = {err:.3e} (tolerance {tol:.3e})")
+        check(err <= tol, f"{name}: card vs CPU W")
+        errs[name] = err
+    return errs
 
 
 def main() -> int:
@@ -330,9 +788,18 @@ def main() -> int:
     t0 = time.perf_counter()
     card_line, name, build_s = phase_card(torch)
     kernels = phase_kernels(torch)
-    launches, main_path = phase_main_path(torch)
-    for key, n in launches.items():
-        kernels[key]["launches"] = n
+    kernels.update(phase_stream_kernels(torch))
+    launches = {}
+    launches["gram_sweep"], gram = phase_gram(torch)
+    stream_launches, stream = phase_stream(torch)
+    launches.update(stream_launches)
+    launches["single_vector_ops"] = phase_single_path(torch)
+    small = phase_small_vs_cpu(torch)
+    # each kernel's launches summed over the counted path runs
+    for key, kv in kernels.items():
+        kv["launches"] = sum(run.get(key, 0) for run in launches.values())
+    main_path = dict(gram_sweep=gram, **stream, launches=launches,
+                     small_vs_cpu_w_err=small)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -47,20 +47,43 @@ def gates_from_xs(xs_np: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return {k: xs_np[k] for k in GATE_KEYS}
 
 
+def extended_rows(problem_rows, noisevec: np.ndarray) -> np.ndarray:
+    """The extended data matrix (P*n_data + 2, d) f32: every distinct
+    problem's data rows stacked in problem-index order, a ones row and
+    the noise row, so the affine attacks' bias terms ride along as two
+    extra coefficient columns (``engine_jax.py:437-442``)."""
+    n_data, d = problem_rows[0].shape
+    rows = np.empty((len(problem_rows) * n_data + 2, d), np.float32)
+    for p, A in enumerate(problem_rows):
+        rows[p * n_data:(p + 1) * n_data] = A
+    rows[-2] = 1.0
+    rows[-1] = noisevec
+    return rows
+
+
 def problem_operands(rows_np: np.ndarray, y_np: np.ndarray, device):
-    """The extended rows (Ie, d) and y (n_data,) -> f32 tensors on
-    ``device`` (the per-trial stat dict goes through ``to_device``)."""
+    """The extended rows (Ie, d), or a chunk's per-trial data rows
+    (B, n_data, d), and y (n_data,) or (B, n_data) -> f32 tensors on
+    ``device``: the step core's operands as the tests hand them over
+    from the reference (the engine keeps its problems on the device)."""
     rows = to_device(np.asarray(rows_np, np.float32), device)
     y = to_device(np.asarray(y_np, np.float32), device)
     return rows, y
 
 
-def sketch_tables(sk_rows, n_data: int, device) -> dict[str, torch.Tensor]:
-    """(T, Ie, k) per-step sketch tables of the extended rows (numpy or a
-    tensor) -> the step core's {"SA": (T, n_data, k), "sk_one": (T, k),
-    "sk_noise": (T, k)} on ``device``."""
+def sketch_tables(sk_rows, n_data: int, device,
+                  n_problems: int | None = None) -> dict[str, torch.Tensor]:
+    """(T, P*n_data + 2, k) per-step sketch tables of the extended rows
+    (numpy or a tensor) -> the step core's {"SA", "sk_one": (T, k),
+    "sk_noise": (T, k)} on ``device``.  "SA" is (T, n_data, k) for the
+    one shared problem (``n_problems`` None), else (T, P, n_data, k),
+    which the stream plane gathers per trial by problem index
+    (``engine_jax.py:500``)."""
     sk = sk_rows if isinstance(sk_rows, torch.Tensor) \
         else torch.from_numpy(np.ascontiguousarray(sk_rows, np.float32))
     sk = sk.to(device)
-    return {"SA": sk[:, :n_data], "sk_one": sk[:, n_data],
-            "sk_noise": sk[:, n_data + 1]}
+    T, _, k = sk.shape
+    SA = sk[:, :(n_problems or 1) * n_data]
+    if n_problems is not None:
+        SA = SA.reshape(T, n_problems, n_data, k)
+    return {"SA": SA, "sk_one": sk[:, -2], "sk_noise": sk[:, -1]}

@@ -1,23 +1,31 @@
 """The port's engine facade: B protocol trials on the card.
 
 Port of ``repro.core.engine_jax.run_batch_jax`` (``engine_jax.py:130-608``)
-for the path this slice covers:
+under host control:
 
  * a host control plane — ``build_schedule`` runs the vectorized
    control-only replay (``engine.replay_control_fast``) into dense
    (T, B, ...) schedule arrays, bitwise the reference's;
- * the gram data plane on the device — the extended rows R are staged
-   once, the per-step CountSketch tables come from the hand-written
-   gram kernel (``ops.gram_factors``), G = R R^T is formed in f32 per
-   64K-column chunk and summed in f64, the step loop carries (B, Ie)
-   coefficients (``engineplan.stepcore``) and the post-scan contraction
-   materializes W_T = W_0 - C_T R.
+ * the data plane the reference's planner picks, on the device:
+   - **gram**: the extended rows R are staged once, the per-step
+     CountSketch tables come from the gram kernel (``ops.gram_factors``),
+     G = R R^T is formed in f32 per 64K-column chunk and summed in f64,
+     the loop carries (B, Ie) coefficients and one contraction after it
+     materializes W_T = W_0 - C_T R;
+   - **fused**: the extended rows (f32 or bf16, ``stream_dtype``) are
+     staged once and every step is one pass of the fused kernel
+     (``ops.fused_step``);
+   - **stream** (the unfused scan, the fused plane's parity oracle, and
+     the only plane for per-trial problems and filter baselines): the T
+     per-step sketch tables of the stacked problems' extended rows are
+     pre-sketched before the loop (``ops.batched_sketch``), and trials
+     that do not share a problem aggregate through
+     ``ops.batched_coded_encode``.
 
 The plan is resolved first (``engineplan.plan.resolve_plan``, the
-reference's pure planner), so a request outside the slice — another
-schedule mode, the stream or fused plane, filters, non-shared problems,
-telemetry, bf16 storage — raises ``NotImplementedError`` naming the
-path the reference would take and the later slice that ports it.
+reference's pure planner).  Schedule modes other than "vector" and
+telemetry raise ``NotImplementedError`` naming the later slice that
+ports them.
 
 Parity contract, as the reference's: control quantities (schedules,
 detect flags, identified sets, q-traces, efficiency) exact; iterates
@@ -87,29 +95,19 @@ def resolve_device(device) -> torch.device:
 
 
 def require_slice(plan: planlib.ExecutionPlan) -> None:
-    """Raise ``NotImplementedError`` for a plan this slice does not run,
-    naming the reference's path and the later slice that ports it."""
+    """Raise ``NotImplementedError`` for a plan the port does not run
+    yet, naming the reference's path and the slice that ports it."""
     if plan.schedule_mode != "vector":
         where = ("the device control plane (ROADMAP M6)"
                  if plan.schedule_mode == "device"
                  else "the numpy engine's host replay (ROADMAP M10)")
         raise NotImplementedError(
             f'schedule mode "{plan.schedule_mode}" is ported with {where}; '
-            f'this slice runs schedule="vector" (value-independent trials)')
+            f'the port runs schedule="vector" (value-independent trials)')
     if plan.telemetry:
         raise NotImplementedError(
             "telemetry=True (protocol counters in the scan carry) is ported "
             "with the chunk pipeline and telemetry slice (ROADMAP M5)")
-    if plan.stream_dtype != "f32":
-        raise NotImplementedError(
-            f'stream_dtype="{plan.stream_dtype}" stores the fused plane\'s '
-            f"rows; the stream planes are ported in ROADMAP M4")
-    if plan.steps > 0 and plan.data_plane != "gram":
-        path = "fused megakernel" if plan.fused else "unfused stream scan"
-        raise NotImplementedError(
-            f"the reference would run the {path} here (not gram: "
-            f"{plan.data_plane_reason}); the stream planes are ported in "
-            f"ROADMAP M4")
 
 
 def gram_matrix(rows: torch.Tensor, chunk: int = GRAM_CHUNK) -> torch.Tensor:
@@ -138,13 +136,28 @@ def _zero_step_results(specs, sched, plan, t_start) -> BatchResult:
                        detect_flags=np.zeros((0, len(specs)), bool))
 
 
+def _problems(specs):
+    """The distinct problems of the batch in first-seen order, and each
+    trial's problem index (``engine_jax.py:341-349``)."""
+    problems: dict[tuple, tuple] = {}
+    for s in specs:
+        key = (s.problem_seed, s.n_data, s.d)
+        if key not in problems:
+            problems[key] = make_problem(n_data=s.n_data, d=s.d,
+                                         seed=s.problem_seed)
+    pkeys = list(problems)
+    pid = np.array([pkeys.index((s.problem_seed, s.n_data, s.d))
+                    for s in specs], np.int32)
+    return problems, pkeys, pid
+
+
 def run_batch(specs, *, device=None, schedule: str = "auto",
               data_plane: str | None = None,
               chunk_trials: int | None = None,
               kernel_impl: str | None = None,
               fused: bool | None = None, stream_dtype: str = "f32",
               telemetry: bool = False) -> BatchResult:
-    """Run B protocol trials with the gram data plane on ``device``.
+    """Run B protocol trials on ``device``.
 
     device: None (the CUDA device; raises without one) | "cpu" | any
         torch device.  On a CUDA device the kernels are the hand-written
@@ -153,14 +166,15 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         on a CUDA device runs the plain versions there (a comparison
         run; never chosen automatically).
     schedule, data_plane, chunk_trials, fused, stream_dtype, telemetry:
-        as the reference's ``run_batch(..., backend="jax")``; values
-        outside this slice raise ``NotImplementedError``.
+        as the reference's ``run_batch(..., backend="jax")``; schedule
+        modes other than "vector" and ``telemetry=True`` raise
+        ``NotImplementedError``.
 
     Returns a ``BatchResult`` whose ``results[b]`` carry ``w``,
     ``losses``, ``q_trace``, ``identify_step``, ``efficiency`` and
-    ``state``, plus ``plan``, ``schedule``, ``detect_flags`` (T, B) and
-    ``phase_s`` (wall seconds per phase: host_replay, problem_setup,
-    precompute, scan, post_scan).
+    ``state``, plus ``plan``, ``schedule``, ``detect_flags`` (T, B),
+    ``fused_used`` and ``phase_s`` (wall seconds per phase: host_replay,
+    problem_setup, precompute, scan, post_scan).
     """
     t_start = time.perf_counter()
     specs = [s if isinstance(s, TrialSpec) else TrialSpec(**s) for s in specs]
@@ -186,12 +200,13 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
     if plan.steps == 0:
         return _zero_step_results(specs, sched, plan, t_start)
     T = len(sched.arrays["live"])
+    use_gram = plan.data_plane == "gram"
+    shared = plan.shared_problem
 
-    # -- the shared problem, staged once (gram plans are shared-problem)
-    s0 = specs[0]
-    A_np, y64, w_true = make_problem(n_data=s0.n_data, d=s0.d,
-                                     seed=s0.problem_seed)
-    n_data, d = A_np.shape
+    # -- the problems: one shared, or each trial's own (engine_jax.py:341)
+    problems, pkeys, pid_np = _problems(specs)
+    n_data, d = problems[pkeys[0]][0].shape
+    w_true = [problems[(s.problem_seed, s.n_data, s.d)][2] for s in specs]
     abn = np.array([planlib.AFFINE_ATTACKS[s.attack] for s in specs],
                    np.float32)
     noisevec = (np.random.default_rng(0).normal(size=d).astype(np.float32)
@@ -199,35 +214,60 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
     stat_np = dict(
         lr=np.array([s.lr for s in specs], np.float32),
         alpha=abn[:, 0].copy(), beta=abn[:, 1].copy(), nu=abn[:, 2].copy(),
+        fcode=np.array([planlib.FILTER_CODES.get(planlib.filter_name(s), -1)
+                        for s in specs], np.int32),
+        farr=np.array([max(1, s.f) for s in specs], np.int32),
     )
     xs_np = carry.xs_from_schedule(sched.arrays)
-    rows_np = np.empty((n_data + 2, d), np.float32)
-    rows_np[:n_data] = A_np
-    rows_np[-2] = 1.0
-    rows_np[-1] = noisevec
-    del A_np
+    P = len(pkeys)
+    rows_np = carry.extended_rows([problems[key][0] for key in pkeys],
+                                  noisevec)
+    # y (n_data,) of the shared problem, or (P, n_data) of every problem
+    # (a chunk gathers its trials' rows and targets by pid on the device)
+    y_np = np.stack([problems[key][1] for key in pkeys]).astype(np.float32)
+    if shared:
+        y_np = y_np[0]
+    del problems
     # per-step sketch keys; the uint32 product wraps mod 2^32
     keys_t = np.uint32(0x9E3779B9) * (np.arange(T, dtype=np.uint32) + 1)
-    rows_dev, y_dev = carry.problem_operands(rows_np, y64, device)
+    rows_dev = carry.to_device(rows_np, device)
+    del rows_np
+    y_dev = carry.to_device(y_np, device)
     clock.mark("problem_setup")
 
-    # -- gram precompute: the step sketch tables (kernel) and G
-    _, _, sk_rows = ops.gram_factors(rows_dev, None, keys_t,
-                                     impl=kernel_impl, with_gram=False)
-    A_dev = {"rows": rows_dev, "G": gram_matrix(rows_dev)}
-    com_dev = carry.sketch_tables(sk_rows, n_data, device)
+    noise_dev = None
+    if use_gram:
+        # the step sketch tables (kernel) and G, once
+        _, _, sk_rows = ops.gram_factors(rows_dev, None, keys_t,
+                                         impl=kernel_impl, with_gram=False)
+        A_dev = {"rows": rows_dev, "G": gram_matrix(rows_dev)}
+        com_dev = carry.sketch_tables(sk_rows, n_data, device)
+    elif plan.fused:
+        # the kernel sketches the rows in its pass: no pre-sketch
+        A_dev = (rows_dev.to(torch.bfloat16) if plan.stream_dtype == "bf16"
+                 else rows_dev)
+        com_dev = {"keys": keys_t}
+    else:
+        # the unfused plane's T hoisted pre-sketches (engine_jax.py:495)
+        sk_rows = torch.stack([ops.batched_sketch(rows_dev, int(keys_t[t]),
+                                                  impl=kernel_impl)
+                               for t in range(T)])
+        com_dev = carry.sketch_tables(sk_rows, n_data, device, n_problems=P)
+        A_dev = (rows_dev[:n_data] if shared
+                 else rows_dev[:P * n_data].view(P, n_data, d))
+        noise_dev = rows_dev[-1]
     clock.mark("precompute")
 
     W, losses, det = run_chunks(
         plan, B=B, T=T, d=d, device=device, A_dev=A_dev, y_dev=y_dev,
         com_dev=com_dev, stat_np=stat_np, xs_np=xs_np, impl=kernel_impl,
-        clock=clock)
+        clock=clock, noise_dev=noise_dev, pid_np=pid_np)
 
     results = []
     for b, (s, ctrl) in enumerate(zip(specs, sched.control.results)):
         results.append(SimResult(
             w=W[b],
-            w_true=w_true,
+            w_true=w_true[b],
             state=ctrl.state,
             losses=losses[:s.steps, b].tolist(),
             q_trace=ctrl.q_trace,
@@ -235,4 +275,4 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         ))
     return BatchResult(specs, results, time.perf_counter() - t_start,
                        plan=plan, schedule=sched, detect_flags=det,
-                       phase_s=clock.seconds)
+                       fused_used=plan.fused, phase_s=clock.seconds)

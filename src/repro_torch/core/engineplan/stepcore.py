@@ -1,15 +1,27 @@
-"""The protocol step loop on the gram data plane under host control.
+"""The protocol step loop under host control, on every data plane.
 
-Port of ``repro.core.engineplan.stepcore.step_core`` for ``gram=True,
-control="host"`` (``stepcore.py:71-245`` and ``:415-587``).  Every
-iterate is ``W_t = W_0 - C_t @ R`` over the extended rows R (data rows,
-ones row, noise row), so the loop carries only the (B, Ie) coefficients
-C_t: residual symbols are ``S_0 - C_t @ G`` with G = R R^T precomputed,
-detection symbols come from the per-step sketch tables by linearity,
-honest replicas are copies and every attack is affine, so the whole
-"shard gradients -> tamper -> aggregate/vote" pipeline folds into
-coefficient rows.  d is touched once, after the loop: ``W_T = W_0 -
-C_T @ R``.
+Port of ``repro.core.engineplan.stepcore.step_core`` for
+``control="host"`` (``stepcore.py:71-245`` and ``:415-587``).  Honest
+replicas are copies and every attack is affine, so the whole "shard
+gradients -> tamper -> aggregate/vote" pipeline folds into per-row
+residual coefficients; detection symbols come from sketch tables of the
+data rows by linearity.  Three planes share that epilogue:
+
+ * **gram** (``gram=True``): the loop carries only the (B, Ie)
+   coefficients C_t of ``W_t = W_0 - C_t @ R`` over the extended rows R
+   (data rows, ones row, noise row); residual symbols are
+   ``S_0 - C_t @ G`` with G = R R^T precomputed, and d is touched once,
+   after the loop.
+ * **fused** (``fused=True``): the carry is (W, pending cw); each step
+   is one pass of the fused kernel (``ops.fused_step``: apply cw, take
+   the residual and the step's sketch table), and one contraction after
+   the loop applies the last pending update.
+ * **stream** (neither): the carry is the (B, d) iterate; residuals and
+   updates are contractions with the data (per trial through
+   ``ops.batched_coded_encode`` when trials do not share a problem), the
+   sketch tables are the hoisted per-step pre-sketches, and the
+   gradient-filter baselines (``has_filter``) run on the materialized
+   (B, n, d) gradient stack.
 
 The scan is a Python loop over T.  The vote gates (``vote1``,
 ``identify``) are branched on from their host numpy copies, so the loop
@@ -40,47 +52,137 @@ def shard_mask(shard, group, m, n_data: int):
     return mask.to(torch.float32), rows
 
 
-def scan(A, y, cw0, stat, xs, com, *, gates, impl):
-    """Run the T protocol steps in coefficient space.
+def apply_affine(g, tam, alpha, beta, nu, noisevec, has_bias: bool):
+    """Masked affine Byzantine attacks on a (B, n, d) gradient stack."""
+    tam3 = tam[:, :, None]
+    out = torch.where(tam3, alpha[:, None, None] * g, g)
+    if has_bias:
+        add = beta[:, None, None] + nu[:, None, None] * noisevec[None, None]
+        out = out + torch.where(tam3, add, 0.0)
+    return out
 
-    A = {"rows": (Ie, d), "G": (Ie, Ie)}; y (n_data,); cw0 (B, Ie) the
-    starting symbols S_0 = W_0 R^T; stat {"lr", "alpha", "beta", "nu"}
-    (B,) f32; xs the (T, B, ...) schedule tensors; com the sketch tables
-    {"SA": (T, n_data, k), "sk_one": (T, k), "sk_noise": (T, k)};
-    gates the host (T, B) bool arrays "vote1" and "identify".
-    Returns (C_T (B, Ie), losses (T, B) f32, det (T, B) bool)."""
+
+def masked_median(g, act):
+    """Coordinate-wise median over each trial's active workers."""
+    B = g.shape[0]
+    x = torch.where(act[:, :, None], g, torch.inf)
+    x = torch.sort(x, dim=1).values
+    cnt = act.sum(dim=1)
+    lo = torch.clamp((cnt - 1) // 2, min=0)
+    hi = torch.clamp(cnt // 2, min=0)
+    rows = torch.arange(B, device=g.device)
+    return 0.5 * (x[rows, lo] + x[rows, hi])
+
+
+def masked_krum(g, act, f):
+    """KRUM (m=1) over each trial's active workers, inactive rows masked
+    out of distances, scores and the argmin.  The pairwise distances are
+    the reference's ``((g_i - g_j)^2).sum(-1)``, one first worker i at a
+    time so that no (B, n, n, d) difference is held at once."""
+    B, n, _ = g.shape
+    d2 = torch.stack([((g[:, i:i + 1, :] - g) ** 2).sum(dim=-1)
+                      for i in range(n)], dim=1)              # (B, n, n)
+    pair_ok = act[:, :, None] & act[:, None, :]
+    d2 = torch.where(pair_ok, d2, 1e30) \
+        + torch.eye(n, device=g.device) * 1e30
+    cnt = act.sum(dim=1)
+    kth = torch.clamp(cnt - f - 2, 1, n)
+    s = torch.sort(d2, dim=2).values
+    csum = torch.cumsum(s, dim=2)
+    rows = torch.arange(B, device=g.device)
+    scores = csum[rows[:, None], torch.arange(n, device=g.device)[None, :],
+                  torch.clamp(kth - 1, max=n - 1)[:, None]]      # (B, n)
+    scores = torch.where(act, scores, torch.inf)
+    best = torch.argmin(scores, dim=1)
+    return g[rows, best]
+
+
+def masked_mean(g, act):
+    cnt = torch.clamp(act.sum(dim=1), min=1)
+    return (g * act[:, :, None]).sum(dim=1) / cnt[:, None]
+
+
+def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
+         impl, fused: bool = False, gram: bool = False, shared: bool = True,
+         has_filter: bool = False, has_bias: bool = True):
+    """Run the T protocol steps.  Returns (carry, losses (T, B) f32,
+    det (T, B) bool); ``finish`` turns the carry into W_T.
+
+    A: gram {"rows": (Ie, d), "G": (Ie, Ie)}; fused the extended rows
+    (Ie, d) f32|bf16; stream the data (n_data, d) when ``shared``, else
+    the chunk's (B, n_data, d).  y (n_data,) or (B, n_data).  W0 (B, d)
+    the starting iterate (fused: overwritten on the CUDA route); cw0
+    (B, Ie): fused the pending coefficients (zero: the pipelined
+    prologue), gram the starting symbols S_0 = W_0 R^T.  stat {"lr",
+    "alpha", "beta", "nu", "fcode", "farr"} (B,); xs the (T, B, ...)
+    schedule tensors; com fused {"keys": (T,) uint32 numpy}, gram
+    {"SA": (T, n_data, k), "sk_one", "sk_noise"}, stream {"SA":
+    (T, P, n_data, k), "sk_one", "sk_noise"} gathered by ``pid`` (B,);
+    noisevec (d,) for the stream plane; gates the host (T, B) bool
+    arrays "vote1" and "identify"."""
     n_data = y.shape[-1]
-    B, Ie = cw0.shape
-    dev = cw0.device
+    B = xs["live"].shape[1]
+    dev = y.device
     lr, alpha, beta, nu = stat["lr"], stat["alpha"], stat["beta"], stat["nu"]
-    Gn = A["G"][:, :n_data]            # symbol columns the loop reads
-    S0n = cw0[:, :n_data]
-    zpad = torch.zeros((B, Ie - n_data - 2), device=dev)
+    # the coefficient planes carry per-row residual coefficients instead
+    # of (B, d) update values, so they share the tuple-valued epilogue
+    coeff = fused or gram
+    if gram:
+        Ie = A["rows"].shape[0]
+        Gn = A["G"][:, :n_data]            # symbol columns the loop reads
+        S0n = cw0[:, :n_data]
+    elif fused:
+        Ie = A.shape[0]
+    if coeff:
+        zpad = torch.zeros((B, Ie - n_data - 2), device=dev)
+
+    def contract(cr):
+        """(B, I) row weights -> the (B, d) update value."""
+        if shared:
+            return torch.einsum("bi,id->bd", cr, A)
+        return ops.batched_coded_encode(cr[:, None, :], A, impl=impl)[:, 0]
 
     def agg(agg_coeff, tam, mask, cr_base):
-        """(B, n) aggregation coefficients -> the update's coefficient row
-        (B, I) and its two bias coefficients (ones row, noise row), the
-        affine attacks folded in: sum_w coeff_w * attack_w(g_w)."""
+        """(B, n) aggregation coefficients -> the update, the affine
+        attacks folded in: sum_w coeff_w * attack_w(g_w).  The
+        coefficient planes return the update's coefficient row (B, I)
+        and its two bias coefficients (ones row, noise row); the stream
+        plane the (B, d) update value."""
         aeff = torch.where(tam, alpha[:, None], 1.0) * agg_coeff
         row = torch.einsum("bw,bwi->bi", aeff, mask) * cr_base
         tw = agg_coeff * tam
-        return row, (tw * beta[:, None]).sum(dim=1), \
-            (tw * nu[:, None]).sum(dim=1)
+        if coeff:
+            return row, (tw * beta[:, None]).sum(dim=1), \
+                (tw * nu[:, None]).sum(dim=1)
+        upd = contract(row)
+        if has_bias:
+            upd = upd + (tw * beta[:, None]).sum(dim=1)[:, None] \
+                + (tw * nu[:, None]).sum(dim=1)[:, None] * noisevec[None]
+        return upd
 
     def symbols(mask, cr_base, tam, SA_b, sk_one, sk_noise):
         """Per-worker detection symbols: the worker's coefficient row
-        times the step's sketch table, attacks applied affinely.  One
-        einsum for all workers, so replicas with identical rows get
-        bitwise identical symbols."""
+        times the step's sketch table ((I, k) on the coefficient planes,
+        the gathered (B, I, k) on the stream plane), attacks applied
+        affinely.  One einsum for all workers, so replicas with
+        identical rows get bitwise identical symbols."""
         C = mask * cr_base[:, None, :]
-        skw = torch.einsum("bwi,ik->bwk", C, SA_b)
-        add = beta[:, None, None] * sk_one[None, None] \
-            + nu[:, None, None] * sk_noise[None, None]
+        if coeff:
+            skw = torch.einsum("bwi,ik->bwk", C, SA_b)
+        else:
+            skw = torch.einsum("bwi,bik->bwk", C, SA_b)
+        if coeff or has_bias:
+            add = beta[:, None, None] * sk_one[None, None] \
+                + nu[:, None, None] * sk_noise[None, None]
+        else:
+            add = 0.0
         return torch.where(tam[:, :, None],
                            alpha[:, None, None] * skw + add, skw)
 
     def acc(u, v):
-        return (u[0] + v[0], u[1] + v[1], u[2] + v[2])
+        if coeff:
+            return (u[0] + v[0], u[1] + v[1], u[2] + v[2])
+        return u + v
 
     def fold_coeff(upd, live):
         """(row, b1, b2) -> the (B, Ie) coefficient increment with lr and
@@ -101,19 +203,38 @@ def scan(A, y, cw0, stat, xs, com, *, gates, impl):
             skt = symbols(mask, cr, tam, *step)
         gv = torch.where(gate[:, None], group, -1)
         wc, _ = ops.batched_vote(skt, gv, tau=TAU_VOTE, impl=impl)
-        coeff = torch.where(gate[:, None],
-                            wc / torch.clamp(m, min=1)[:, None], 0.0)
-        return agg(coeff, tam, mask, cr)
+        coeff_w = torch.where(gate[:, None],
+                              wc / torch.clamp(m, min=1)[:, None], 0.0)
+        return agg(coeff_w, tam, mask, cr)
 
     T = xs["live"].shape[0]
     losses = torch.empty((T, B), dtype=torch.float32, device=dev)
     det = torch.empty((T, B), dtype=torch.bool, device=dev)
-    C = torch.zeros_like(cw0)
+    if fused:
+        W, cw = W0, cw0
+    elif gram:
+        C = torch.zeros_like(cw0)
+    else:
+        W = W0
     for t in range(T):
         x = {k: v[t] for k, v in xs.items()}
-        step = (com["SA"][t], com["sk_one"][t], com["sk_noise"][t])
-        # no d-sized work: residual symbols of W_t from the Gram factors
-        resid = S0n - C @ Gn - y[None, :]
+        if fused:
+            # one pass over d: apply cw_{t-1}, take resid_t and the
+            # step's sketch table (the pipelined prologue)
+            W, resid_e, sk = ops.fused_step(A, W, cw, int(com["keys"][t]),
+                                            impl=impl)
+            resid = resid_e[:, :n_data] - y[None, :]
+            step = (sk[:n_data], sk[n_data], sk[n_data + 1])
+        elif gram:
+            # no d-sized work: residual symbols from the Gram factors
+            resid = S0n - C @ Gn - y[None, :]
+            step = (com["SA"][t], com["sk_one"][t], com["sk_noise"][t])
+        else:
+            if shared:
+                resid = torch.einsum("id,bd->bi", A, W) - y[None, :]
+            else:
+                resid = torch.einsum("bid,bd->bi", A, W) - y
+            step = (com["SA"][t][pid], com["sk_one"][t], com["sk_noise"][t])
         losses[t] = (resid * resid).mean(dim=1)
 
         mask1, rows1 = shard_mask(x["shard1"], x["group1"], x["m1"], n_data)
@@ -131,17 +252,55 @@ def scan(A, y, cw0, stat, xs, com, *, gates, impl):
         if gates["identify"][t].any():
             upd = acc(upd, vote_part(resid, step, x["shard2"], x["group2"],
                                      x["m2"], x["tam2"], x["identify"]))
-        C = C + fold_coeff(upd, x["live"])
-    return C, losses, det
+
+        if has_filter:
+            # the gradient-filter baselines need the real (B, n, d) stack
+            Cw = mask1 * cr1[:, None, :]
+            if shared:
+                g1 = torch.einsum("bwi,id->bwd", Cw, A)
+            else:
+                g1 = torch.einsum("bwi,bid->bwd", Cw, A)
+            gt1 = apply_affine(g1, x["tam1"], alpha, beta, nu, noisevec,
+                               has_bias)
+            del g1
+            act = x["active"] & x["live"][:, None]
+            fcode = stat["fcode"]
+            fupd = torch.where((fcode == 1)[:, None], masked_median(gt1, act),
+                               masked_mean(gt1, act))
+            fupd = torch.where((fcode == 2)[:, None],
+                               masked_krum(gt1, act, stat["farr"]), fupd)
+            upd = torch.where((fcode >= 0)[:, None], fupd, upd)
+
+        if fused:
+            cw = fold_coeff(upd, x["live"])
+        elif gram:
+            C = C + fold_coeff(upd, x["live"])
+        else:
+            W = torch.where(x["live"][:, None], W - lr[:, None] * upd, W)
+    carry = (W, cw) if fused else (C if gram else W)
+    return carry, losses, det
 
 
-def post_scan(W0, C, rows):
-    """The only d-sized work of the run: W_T = W_0 - C_T @ R."""
-    return W0 - C @ rows
+def finish(A, W0, carry, *, fused: bool = False, gram: bool = False):
+    """The carry -> W_T.  Gram: the only d-sized work of the run,
+    W_T = W_0 - C_T @ R; fused: the last step's pending update,
+    W - cw @ rows; stream: the carry is W_T."""
+    if gram:
+        return W0 - carry @ A["rows"]
+    if fused:
+        W, cw = carry
+        return W - cw @ A.to(torch.float32)
+    return carry
 
 
-def step_core(A, y, W0, cw0, stat, xs, com, *, gates, impl):
-    """The whole gram-plane run under host control: ``scan`` then
-    ``post_scan``.  Returns (W_T (B, d), losses (T, B), det (T, B))."""
-    C, losses, det = scan(A, y, cw0, stat, xs, com, gates=gates, impl=impl)
-    return post_scan(W0, C, A["rows"]), losses, det
+def step_core(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *,
+              gates, impl, fused: bool = False, gram: bool = False,
+              shared: bool = True, has_filter: bool = False,
+              has_bias: bool = True):
+    """A whole run under host control: ``scan`` then ``finish``.
+    Returns (W_T (B, d), losses (T, B), det (T, B))."""
+    carry, losses, det = scan(
+        A, y, W0, cw0, stat, xs, com, noisevec, pid, gates=gates, impl=impl,
+        fused=fused, gram=gram, shared=shared, has_filter=has_filter,
+        has_bias=has_bias)
+    return finish(A, W0, carry, fused=fused, gram=gram), losses, det

@@ -93,6 +93,27 @@ def build_all() -> dict[str, float]:
     return took
 
 
+def check_status(err_string, status: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (``err_string`` is
+    the library's ``*_error_string``)."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} "
+                           f"({err_string(status).decode()})")
+
+
+def require_cuda_tensor(x, name: str, ndim: int, dtypes) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of ``ndim``
+    dimensions and one of ``dtypes``: what a kernel's pointer takes."""
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor for the CUDA kernel")
+    if x.dtype not in dtypes or x.dim() != ndim:
+        raise TypeError(f"{name} must be a {ndim}-D tensor of "
+                        f"{[str(t) for t in dtypes]}, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:

@@ -30,13 +30,16 @@
 // G and S0 are not on the engine's path (the engine forms G on the host
 // side in f64-summed chunks and starts from W0 = 0); they run in a
 // separate launch only when asked: each block reduces a 16 x 16 output
-// tile over one span of columns in f32, and a second kernel sums the
-// spans in f64 in a fixed order (no atomics).
+// tile over one span of columns in f32, and a second kernel
+// (span_sum.cuh) sums the spans in f64 in a fixed order (no atomics).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math: the hash compare is exact).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sign_hash.cuh"
+#include "span_sum.cuh"
 
 namespace {
 
@@ -46,14 +49,6 @@ constexpr int TPT = 2;        // keys per thread
 constexpr int KB = TL * TPT;  // keys per block
 constexpr int IT = 16;        // rows of R per block
 constexpr int SPT = 4;        // slabs staged per shared-memory tile
-
-__device__ __forceinline__ float hash_sign(uint32_t pos, uint32_t key) {
-  uint32_t h = pos * 2654435761u + key;
-  h ^= h >> 16;
-  h *= 2246822519u;
-  h ^= h >> 13;
-  return (h & 1u) ? 1.0f : -1.0f;
-}
 
 __global__ void __launch_bounds__(CW * TL)
 sketch_tables_kernel(const float* __restrict__ rows, int Ie, long long d,
@@ -152,17 +147,6 @@ rowdot_partial_kernel(const float* __restrict__ X, int nx,
   if (a < nx && b < ny) part[((long long)blockIdx.z * nx + a) * ny + b] = acc;
 }
 
-// out[e] = sum_z part[z, e], summed in f64 in the order z = 0, 1, ...
-__global__ void reduce_spans_kernel(const float* __restrict__ part,
-                                    int nsplit, int n,
-                                    float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  double s = 0.0;
-  for (int z = 0; z < nsplit; ++z) s += (double)part[(long long)z * n + e];
-  out[e] = (float)s;
-}
-
 }  // namespace
 
 extern "C" {
@@ -191,9 +175,7 @@ int gram_rowdot(const float* X, int nx, const float* Y, int ny, long long d,
   rowdot_partial_kernel<<<grid, block, 0, s>>>(X, nx, Y, ny, d, span, part);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const int n = nx * ny;
-  reduce_spans_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, nsplit, n, out);
-  return (int)cudaGetLastError();
+  return launch_span_sum(part, nsplit, (long long)nx * ny, out, s);
 }
 
 const char* gram_error_string(int err) {

@@ -5,7 +5,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/majority_vote.py:63
 // (_agree_kernel_batched, reached from pairwise_relmax_batched at :79
-// through the pl.pallas_call at :91).
+// through the pl.pallas_call at :91), and at B = 1 the single form
+// src/repro/kernels/majority_vote.py:30 (_agree_kernel, from
+// pairwise_relmax at :46 through :53).
 //
 // What bounds it on the H100.  At the engine's main-path shape
 // (B = 32 trials, R = 8 workers, d = k = 256 sketch symbols) the input

@@ -27,7 +27,7 @@ DEFAULT_K = 256
 # f64 across spans)
 ROWDOT_SPAN = 8192
 
-LAUNCHES = 0     # wrapper calls that launched the CUDA kernels
+LAUNCHES = {"gram_factors": 0}   # wrapper calls that launched the kernels
 
 
 def _keys_u32(keys) -> np.ndarray:
@@ -71,19 +71,7 @@ def _lib():
 
 
 def _check(lib, status: int, what: str) -> None:
-    if status != 0:
-        msg = lib.gram_error_string(status).decode()
-        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
-
-
-def _require_f32_cuda(x: torch.Tensor, name: str, ndim: int) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor for the CUDA kernel")
-    if x.dtype != torch.float32 or x.dim() != ndim:
-        raise TypeError(f"{name} must be a {ndim}-D float32 tensor, got "
-                        f"{x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    _build.check_status(lib.gram_error_string, status, what)
 
 
 def _rowdot(lib, X: torch.Tensor, Y: torch.Tensor, stream: int) -> torch.Tensor:
@@ -106,11 +94,10 @@ def gram_factors_cuda(rows: torch.Tensor, W0: torch.Tensor | None, keys,
     one launch for all T sketch tables, plus the G/S0 product kernel
     when ``with_gram``.  Outputs are allocated here; the kernels run on
     PyTorch's current stream and nothing synchronizes."""
-    global LAUNCHES
-    _require_f32_cuda(rows, "rows", 2)
+    _build.require_cuda_tensor(rows, "rows", 2, (torch.float32,))
     Ie, d = rows.shape
     if W0 is not None:
-        _require_f32_cuda(W0, "W0", 2)
+        _build.require_cuda_tensor(W0, "W0", 2, (torch.float32,))
         if W0.shape[1] != d or W0.device != rows.device:
             raise ValueError(f"W0 {tuple(W0.shape)} does not match rows "
                              f"{tuple(rows.shape)}")
@@ -136,5 +123,5 @@ def gram_factors_cuda(rows: torch.Tensor, W0: torch.Tensor | None, keys,
             S0 = _rowdot(lib, W0, rows, stream)
         launched = launched or Ie > 0
     if launched:
-        LAUNCHES += 1
+        LAUNCHES["gram_factors"] += 1
     return G, S0, SK

@@ -1,12 +1,13 @@
-"""Batched pairwise replica agreement: the hand-written Hopper kernel and
-its plain PyTorch version.
+"""Pairwise replica agreement: the hand-written Hopper kernel and its
+plain PyTorch versions.
 
 ``(B, R, d) -> (B, R, R)`` with rel[b, i, j] = max_t |x_i - x_j| /
 (1 + min(|x_i|, |x_j|)); a vote counts replicas i and j as agreeing iff
-rel <= tau.  The CUDA kernel lives in ``csrc/majority_vote.cu``, whose
-header note says which TPU kernel it replaces
-(src/repro/kernels/majority_vote.py:63), what bounds it on the H100 and
-what its design does about it.
+rel <= tau.  The single form ``(R, d) -> (R, R)`` is the same kernel at
+B = 1.  The CUDA kernel lives in ``csrc/majority_vote.cu``, whose header
+note says which TPU kernels it replaces
+(src/repro/kernels/majority_vote.py:63 and :30), what bounds it on the
+H100 and what its design does about it.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = 0     # wrapper calls that launched the CUDA kernel
+# wrapper calls that launched the CUDA kernel, per form
+LAUNCHES = {"pairwise_relmax_batched": 0, "pairwise_relmax": 0}
 
 
 def pairwise_relmax_batched_plain(replicas: torch.Tensor) -> torch.Tensor:
@@ -49,16 +51,8 @@ def _lib():
     return lib
 
 
-def pairwise_relmax_batched_cuda(replicas: torch.Tensor) -> torch.Tensor:
-    """The hand-written kernel (``csrc/majority_vote.cu``) on a CUDA
-    tensor; runs on PyTorch's current stream, no synchronization."""
-    global LAUNCHES
-    if not replicas.is_cuda:
-        raise ValueError("replicas must be a CUDA tensor for the CUDA kernel")
-    if replicas.dtype != torch.float32 or replicas.dim() != 3:
-        raise TypeError(f"replicas must be a 3-D float32 tensor, got "
-                        f"{replicas.dtype} {tuple(replicas.shape)}")
-    x = replicas.contiguous()
+def _relmax_cuda(x: torch.Tensor, form: str) -> torch.Tensor:
+    _build.require_cuda_tensor(x, "replicas", 3, (torch.float32,))
     B, R, d = x.shape
     lib = _lib()
     if R > lib.relmax_max_replicas():
@@ -67,11 +61,29 @@ def pairwise_relmax_batched_cuda(replicas: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((B, R, R), dtype=torch.float32, device=x.device)
     if B == 0 or R == 0 or d == 0:
         return out
-    status = lib.relmax_batched(
+    _build.check_status(lib.relmax_error_string, lib.relmax_batched(
         x.data_ptr(), B, R, d, out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if status != 0:
-        msg = lib.relmax_error_string(status).decode()
-        raise RuntimeError(f"relmax_batched: CUDA error {status} ({msg})")
-    LAUNCHES += 1
+        torch.cuda.current_stream(x.device).cuda_stream), "relmax_batched")
+    LAUNCHES[form] += 1
     return out
+
+
+def pairwise_relmax_batched_cuda(replicas: torch.Tensor) -> torch.Tensor:
+    """The hand-written kernel (``csrc/majority_vote.cu``) on a CUDA
+    tensor; runs on PyTorch's current stream, no synchronization."""
+    return _relmax_cuda(replicas.contiguous() if replicas.is_cuda
+                        else replicas, "pairwise_relmax_batched")
+
+
+def pairwise_relmax_plain(replicas: torch.Tensor) -> torch.Tensor:
+    """The plain single form: (R, d) -> (R, R)."""
+    return pairwise_relmax_batched_plain(replicas[None])[0]
+
+
+def pairwise_relmax_cuda(replicas: torch.Tensor) -> torch.Tensor:
+    """The single form (R, d) -> (R, R): the batched kernel at B = 1."""
+    if replicas.dim() != 2:
+        raise TypeError(f"replicas must be 2-D (R, d), got "
+                        f"{tuple(replicas.shape)}")
+    x = replicas.contiguous() if replicas.is_cuda else replicas
+    return _relmax_cuda(x[None], "pairwise_relmax")[0]

@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import coded_encode as _enc
+from repro_torch.kernels import fused_step as _fs
 from repro_torch.kernels import gram as _gm
 from repro_torch.kernels import majority_vote as _mv
+from repro_torch.kernels import sketch as _sk
 
 IMPLS = ("cuda", "torch")
 
@@ -35,15 +38,22 @@ def resolve_impl(impl: str | None, device) -> str:
     return impl
 
 
+_KERNEL_MODULES = (_gm, _mv, _fs, _sk, _enc)
+
+
 def launch_counts() -> dict[str, int]:
-    """{kernel: wrapper calls that launched it} since the last reset."""
-    return {"gram_factors": _gm.LAUNCHES,
-            "pairwise_relmax_batched": _mv.LAUNCHES}
+    """{kernel: wrapper calls that launched it} since the last reset;
+    one entry per kernel form (batched and single count apart)."""
+    out: dict[str, int] = {}
+    for mod in _KERNEL_MODULES:
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def reset_launch_counts() -> None:
-    _gm.LAUNCHES = 0
-    _mv.LAUNCHES = 0
+    for mod in _KERNEL_MODULES:
+        for key in mod.LAUNCHES:
+            mod.LAUNCHES[key] = 0
 
 
 def gram_factors(rows: torch.Tensor, W0: torch.Tensor | None, keys, *,
@@ -63,6 +73,29 @@ def batched_pairwise_relmax(replicas: torch.Tensor, *,
     if resolve_impl(impl, replicas.device) == "cuda":
         return _mv.pairwise_relmax_batched_cuda(replicas.to(torch.float32))
     return _mv.pairwise_relmax_batched_plain(replicas)
+
+
+def pairwise_relmax(replicas: torch.Tensor, *,
+                    impl: str | None = None) -> torch.Tensor:
+    """(R, d) -> (R, R) relative max-difference matrix (K3 at B = 1)."""
+    if resolve_impl(impl, replicas.device) == "cuda":
+        return _mv.pairwise_relmax_cuda(replicas.to(torch.float32))
+    return _mv.pairwise_relmax_plain(replicas)
+
+
+def vote(replicas: torch.Tensor, tau: float = 1e-5, *,
+         impl: str | None = None):
+    """Majority vote over R replicas (R, d): (value (d,), faulty (R,)
+    bool, has_majority () bool) — the reference's ``ops.vote``
+    (``repro/kernels/ops.py:117-132``) with the pairwise compare on
+    ``pairwise_relmax``."""
+    R = replicas.shape[0]
+    rel = pairwise_relmax(replicas.to(torch.float32), impl=impl)
+    agree = rel <= tau
+    is_major = agree.sum(dim=1) > (R // 2)
+    has_majority = is_major.any()
+    winner = torch.argmax(is_major.to(torch.int8))
+    return replicas[winner], ~agree[winner] & has_majority, has_majority
 
 
 def batched_vote(replicas: torch.Tensor, group_of_worker: torch.Tensor,
@@ -92,3 +125,49 @@ def batched_vote(replicas: torch.Tensor, group_of_worker: torch.Tensor,
         agree, 2, first.clamp(max=n - 1)[:, :, None])[:, :, 0]
     faulty = valid & ~is_winner_row & (first < n)
     return winner_coeff, faulty
+
+
+def batched_sketch(flat_g: torch.Tensor, key_scalar, k: int = 256, *,
+                   impl: str | None = None) -> torch.Tensor:
+    """(B, d) -> (B, k) CountSketches under one shared key."""
+    if resolve_impl(impl, flat_g.device) == "cuda":
+        return _sk.sketch_batched_cuda(flat_g.to(torch.float32), key_scalar, k)
+    return _sk.sketch_batched_plain(flat_g, key_scalar, k)
+
+
+def sketch(flat_g: torch.Tensor, key_scalar, k: int = 256, *,
+           impl: str | None = None) -> torch.Tensor:
+    """(d,) -> (k,) CountSketch (K4 at B = 1)."""
+    if resolve_impl(impl, flat_g.device) == "cuda":
+        return _sk.sketch_cuda(flat_g.to(torch.float32), key_scalar, k)
+    return _sk.sketch_plain(flat_g, key_scalar, k)
+
+
+def batched_coded_encode(coeffs: torch.Tensor, grads: torch.Tensor, *,
+                         impl: str | None = None) -> torch.Tensor:
+    """(B, n_sym, m) @ (B, m, d) -> (B, n_sym, d) f32 per-trial encode."""
+    if resolve_impl(impl, grads.device) == "cuda":
+        return _enc.coded_encode_batched_cuda(coeffs.to(torch.float32),
+                                              grads.to(torch.float32))
+    return _enc.coded_encode_batched_plain(coeffs, grads)
+
+
+def coded_encode(coeffs: torch.Tensor, grads: torch.Tensor, *,
+                 impl: str | None = None) -> torch.Tensor:
+    """(n_sym, m) @ (m, d) -> (n_sym, d) f32 (K5 at B = 1)."""
+    if resolve_impl(impl, grads.device) == "cuda":
+        return _enc.coded_encode_cuda(coeffs.to(torch.float32),
+                                      grads.to(torch.float32))
+    return _enc.coded_encode_plain(coeffs, grads)
+
+
+def fused_step(rows: torch.Tensor, W: torch.Tensor, cw: torch.Tensor,
+               key_scalar, *, k: int = 256, impl: str | None = None):
+    """One fused protocol-step pass over the data plane: (rows (Ie, d)
+    f32|bf16, W (B, d) f32, cw (B, Ie) f32, key) -> (W - cw @ rows,
+    (W - cw @ rows) @ rows^T, CountSketch_k(rows)).  The CUDA route
+    overwrites W with W' (see :mod:`repro_torch.kernels.fused_step`)."""
+    if resolve_impl(impl, W.device) == "cuda":
+        return _fs.fused_step_cuda(rows, W, cw.to(torch.float32), key_scalar,
+                                   k)
+    return _fs.fused_step_plain(rows, W, cw, key_scalar, k)

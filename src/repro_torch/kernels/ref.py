@@ -78,6 +78,31 @@ def batched_pairwise_maxdiff_ref(replicas: torch.Tensor) -> torch.Tensor:
     return rel.amax(dim=-1)
 
 
+def coded_encode_ref(coeffs: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
+    """coeffs (n_sym, m) @ grads (m, d) -> symbols (n_sym, d), f32."""
+    return torch.einsum("sm,md->sd", coeffs.to(torch.float32),
+                        grads.to(torch.float32))
+
+
+def batched_coded_encode_ref(coeffs: torch.Tensor,
+                             grads: torch.Tensor) -> torch.Tensor:
+    """(B, n_sym, m) @ (B, m, d) -> (B, n_sym, d), f32."""
+    return torch.einsum("bsm,bmd->bsd", coeffs.to(torch.float32),
+                        grads.to(torch.float32))
+
+
+def fused_step_ref(rows: torch.Tensor, W: torch.Tensor, cw: torch.Tensor,
+                   key_scalar, k: int = 256):
+    """Composed oracle of the fused step, from the single-op oracles:
+    W' = W - coded_encode(cw, rows); resid = W' @ rows^T (the same
+    contraction, transposed); sk = per-row CountSketch of the rows."""
+    rows32 = rows.to(torch.float32)
+    W_new = W.to(torch.float32) - coded_encode_ref(cw, rows32)
+    resid = coded_encode_ref(W_new, rows32.T)
+    sk = batched_sketch_ref(rows32, key_scalar, k)
+    return W_new, resid, sk
+
+
 def gram_factors_ref(rows: torch.Tensor, W0: torch.Tensor | None,
                      keys: torch.Tensor, k: int = 256):
     """Composed oracle of the gram precompute: G = rows @ rows^T,

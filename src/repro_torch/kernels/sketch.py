@@ -1,0 +1,88 @@
+"""CountSketch of flat vectors: the hand-written Hopper kernel and its
+plain PyTorch versions.
+
+``sketch_batched(g (B, d), key) -> (B, k)``: out[b, c] = sum over
+columns p = c (mod k) of sign(p, key) * g[b, p], one shared key for all
+rows (``ref.batched_sketch_ref``).  ``sketch(g (d,), key) -> (k,)`` is
+the same kernel at B = 1 (``ref.sketch_ref``).  The CUDA kernel lives
+in ``csrc/sketch.cu``, whose header note says which TPU kernels it
+replaces (src/repro/kernels/sketch.py:77 and :25), what bounds it on
+the H100 and what its design does about it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+DEFAULT_K = 256
+
+# wrapper calls that launched the CUDA kernel, per form
+LAUNCHES = {"sketch_batched": 0, "sketch": 0}
+
+
+def sketch_batched_plain(flat_g: torch.Tensor, key_scalar,
+                         k: int = DEFAULT_K) -> torch.Tensor:
+    return _ref.batched_sketch_ref(flat_g, key_scalar, k)
+
+
+def sketch_plain(flat_g: torch.Tensor, key_scalar,
+                 k: int = DEFAULT_K) -> torch.Tensor:
+    return _ref.sketch_ref(flat_g, key_scalar, k)
+
+
+def _lib():
+    lib = _build.load("sketch")
+    if not getattr(lib, "_typed", False):
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.sketch_num_spans.argtypes = [i, ll, i]
+        lib.sketch_num_spans.restype = i
+        lib.sketch_batched.argtypes = [vp, i, ll, i, ctypes.c_uint32, vp,
+                                       vp, vp]
+        lib.sketch_batched.restype = i
+        lib.sketch_error_string.argtypes = [i]
+        lib.sketch_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _sketch_cuda(g: torch.Tensor, key_scalar, k: int,
+                 form: str) -> torch.Tensor:
+    _build.require_cuda_tensor(g, "flat_g", 2, (torch.float32,))
+    if k < 1:
+        raise ValueError(f"sketch width k must be >= 1, got {k}")
+    B, d = g.shape
+    out = torch.empty((B, k), dtype=torch.float32, device=g.device)
+    if B == 0:
+        return out
+    lib = _lib()
+    part = torch.empty((lib.sketch_num_spans(B, d, k), B, k),
+                       dtype=torch.float32, device=g.device)
+    _build.check_status(lib.sketch_error_string, lib.sketch_batched(
+        g.data_ptr(), B, d, k, int(key_scalar) & 0xFFFFFFFF, part.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream),
+        "sketch_batched")
+    LAUNCHES[form] += 1
+    return out
+
+
+def _contig(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous() if x.is_cuda else x
+
+
+def sketch_batched_cuda(flat_g: torch.Tensor, key_scalar,
+                        k: int = DEFAULT_K) -> torch.Tensor:
+    """The hand-written kernel on a CUDA tensor (B, d) f32; runs on
+    PyTorch's current stream, no synchronization."""
+    return _sketch_cuda(_contig(flat_g), key_scalar, k, "sketch_batched")
+
+
+def sketch_cuda(flat_g: torch.Tensor, key_scalar,
+                k: int = DEFAULT_K) -> torch.Tensor:
+    """The single form (d,) -> (k,): the batched kernel at B = 1."""
+    if flat_g.dim() != 1:
+        raise TypeError(f"flat_g must be 1-D (d,), got {tuple(flat_g.shape)}")
+    return _sketch_cuda(_contig(flat_g)[None], key_scalar, k, "sketch")[0]

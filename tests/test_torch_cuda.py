@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.kernels import gram, majority_vote, ops
+from repro_torch.kernels import (coded_encode, fused_step, gram,
+                                  majority_vote, ops, sketch)
 
 pytestmark = pytest.mark.cuda
 
@@ -55,14 +56,155 @@ def test_relmax_kernel_matches_plain(cuda, shape):
     assert bool((got[:, 0, 1] == 0).all())
 
 
+def _randn(dev, *shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+# (B, Ie, d): ragged d (not a multiple of k or of the 32-column tile),
+# Ie not a multiple of 8, B = 1, B past one 64-trial block, the
+# fused_sweep chunk width, and the default problem's Ie = 258
+FUSED_SHAPES = [(1, 3, 300), (3, 10, 70001), (70, 13, 1000),
+                (64, 66, 4096), (5, 258, 2000)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,Ie,d", FUSED_SHAPES)
+def test_fused_step_kernel_matches_plain(cuda, dtype, B, Ie, d):
+    rows = _randn(cuda, Ie, d, seed=B + Ie + d)
+    if dtype == "bf16":
+        rows = rows.to(torch.bfloat16)
+    W = _randn(cuda, B, d, seed=1)
+    cw = _randn(cuda, B, Ie, seed=2) * 0.1
+    cw[0] = 0.0                               # a dead trial's zero row
+    W_in = W.clone()
+    want = fused_step.fused_step_plain(rows, W_in, cw, 1234)
+    before = ops.launch_counts()["fused_step"]
+    got = fused_step.fused_step_cuda(rows, W, cw, 1234)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_step"] == before + 1
+    assert got[0].data_ptr() == W.data_ptr()  # W' is written over W
+    assert torch.equal(got[0][0], W_in[0])   # zero row: W bitwise kept
+    assert _rel_err(got[0], want[0]) <= 1e-5
+    assert _rel_err(got[1], want[1]) <= 1e-5
+    torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("B,d", [(66, 70001), (1, 255), (9, 4096),
+                                 (258, 3000)])
+def test_sketch_kernel_matches_plain(cuda, B, d):
+    g = _randn(cuda, B, d, seed=B + d)
+    got = sketch.sketch_batched_cuda(g, 0x9E3779B9)
+    want = sketch.sketch_batched_plain(g, 0x9E3779B9)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-3)
+    one = sketch.sketch_cuda(g[-1], 77)
+    torch.testing.assert_close(one, sketch.sketch_plain(g[-1], 77),
+                               rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("B,n_sym,m,d", [(8, 1, 64, 70001), (1, 3, 5, 255),
+                                         (2, 9, 7, 1000)])
+def test_encode_kernel_matches_plain(cuda, B, n_sym, m, d):
+    c = _randn(cuda, B, n_sym, m, seed=m)
+    g = _randn(cuda, B, m, d, seed=d)
+    got = coded_encode.coded_encode_batched_cuda(c, g)
+    want = coded_encode.coded_encode_batched_plain(c, g)
+    assert _rel_err(got, want) <= 1e-5
+    one = coded_encode.coded_encode_cuda(c[0], g[0])
+    assert _rel_err(one, coded_encode.coded_encode_plain(c[0], g[0])) <= 1e-5
+
+
+# (form, call on an empty input): each returns without launching its
+# kernel, so its launch count must not move
+EMPTY_CALLS = {
+    "sketch_batched": lambda z: sketch.sketch_batched_cuda(z(0, 300), 5),
+    "coded_encode_batched/B": lambda z: coded_encode.coded_encode_batched_cuda(
+        z(0, 1, 4), z(0, 4, 300)),
+    "coded_encode_batched/d": lambda z: coded_encode.coded_encode_batched_cuda(
+        z(2, 1, 4), z(2, 4, 0)),
+    "coded_encode/n_sym": lambda z: coded_encode.coded_encode_cuda(
+        z(0, 4), z(4, 300)),
+    "pairwise_relmax_batched/B": lambda z:
+        majority_vote.pairwise_relmax_batched_cuda(z(0, 3, 300)),
+    "pairwise_relmax_batched/d": lambda z:
+        majority_vote.pairwise_relmax_batched_cuda(z(2, 3, 0)),
+    "pairwise_relmax/R": lambda z: majority_vote.pairwise_relmax_cuda(z(0, 300)),
+    "fused_step/Ie": lambda z: fused_step.fused_step_cuda(
+        z(0, 300), z(2, 300), z(2, 0), 5),
+}
+
+
+@pytest.mark.parametrize("case", list(EMPTY_CALLS))
+def test_empty_input_launches_nothing(cuda, case):
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=cuda)
+
+    before = ops.launch_counts()
+    out = EMPTY_CALLS[case](z)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
+    for t in (out if isinstance(out, tuple) else (out,)):
+        assert not bool(t.any())
+
+
+def test_relmax_single_and_vote_match_plain(cuda):
+    x = _randn(cuda, 5, 70001, seed=3)
+    x[1] = x[0]
+    x[3] = x[0]
+    got = majority_vote.pairwise_relmax_cuda(x)
+    torch.testing.assert_close(got, majority_vote.pairwise_relmax_plain(x),
+                               rtol=1e-6, atol=0)
+    v_k = ops.vote(x, tau=1e-9)
+    v_p = ops.vote(x, tau=1e-9, impl="torch")
+    for a, b in zip(v_k, v_p):
+        assert torch.equal(a, b)
+
+
 def test_run_batch_on_card_matches_cpu(cuda):
+    """The gram plane on the card against the CPU."""
     specs = [repro_torch.TrialSpec(byz=(2, 5), attack="drift", q=0.3,
                                    steps=40, seed=s, n_data=64, d=4096,
                                    lr=16.0 / 4096) for s in range(4)]
     ops.reset_launch_counts()
     card = repro_torch.run_batch(specs)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert counts["gram_factors"] > 0 and \
+        counts["pairwise_relmax_batched"] > 0, counts
     cpu = repro_torch.run_batch(specs, device="cpu")
+    np.testing.assert_array_equal(card.detect_flags, cpu.detect_flags)
+    for a, b in zip(card, cpu):
+        assert a.identify_step == b.identify_step
+        assert a.q_trace == b.q_trace
+        np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-4)
+
+
+# name: (run_batch knobs, problems over the trials, kernels the run must
+# launch)
+STREAM_RUNS = {
+    "fused": (dict(fused=True), 1, ("fused_step",)),
+    "unfused": (dict(fused=False), 1, ("sketch_batched",)),
+    "per_problem": (dict(fused=False), 2,
+                    ("sketch_batched", "coded_encode_batched")),
+    "bf16": (dict(fused=True, stream_dtype="bf16"), 1, ("fused_step",)),
+}
+
+
+@pytest.mark.parametrize("name", list(STREAM_RUNS))
+def test_stream_planes_on_card_match_cpu(cuda, name):
+    kw, problems, kernels = STREAM_RUNS[name]
+    specs = [repro_torch.TrialSpec(
+        byz=(2, 5), attack="drift", q=0.3, steps=12, seed=s, n_data=64,
+        d=4096, lr=16.0 / 4096, problem_seed=s % problems)
+        for s in range(4)]
+    ops.reset_launch_counts()
+    card = repro_torch.run_batch(specs, **kw)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in kernels), counts
+    cpu = repro_torch.run_batch(specs, device="cpu", **kw)
     np.testing.assert_array_equal(card.detect_flags, cpu.detect_flags)
     for a, b in zip(card, cpu):
         assert a.identify_step == b.identify_step
