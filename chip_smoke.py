@@ -11,7 +11,10 @@ Phases, in order; any failed check exits nonzero:
 2. each kernel against its plain PyTorch version on the card, at the
    engine's main-path shapes and at ragged shapes, with times (CUDA
    events, median after warm-up) beside the card's bound and, where one
-   PyTorch call computes the same function, that call's time;
+   PyTorch call computes the same function, that call's time; K6 (flash
+   attention) at the llama3.2-1b prefill shape, gemma3-1b's local and
+   global layers, small f32 and bf16 ragged shapes, and one timing at
+   the prefill_32k sequence length, beside SDPA's time;
 3. the main paths, each driven through ``repro_torch.run_batch`` with
    the launch counts set to 0 just before and read just after, checked
    against the same run with the plain versions
@@ -29,6 +32,15 @@ Phases, in order; any failed check exits nonzero:
      K4s, K3s, K5s;
    and small inputs on the card against the CPU run (gram, fused,
    unfused, per-problem, a filter batch);
+   - serving: llama3.2-1b at full width, random init, through
+     ``ServeEngine.generate`` (B = 4, a 4096-token prompt, 32 greedy
+     tokens, audits with q_audit = 0.25): K6 in each of the 16 prefill
+     layers, K4s twice per audit; the audit count and no failure; the
+     same run with the plain versions (prefill logits, and each step's
+     logits while the tokens agree, within 3e-2*(1+max|logits|); tokens
+     under the margin rule); a tampered
+     replica caught; reduced llama3.2-1b and gemma3-1b in f32 on the
+     card against the CPU;
 4. a ``{"kernels": [...]}`` line;
 5. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -770,6 +782,284 @@ def phase_small_vs_cpu(torch):
     return errs
 
 
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_OPS_S = 989e12
+
+# K6 at the serving path's shapes: (label, B, S, H, K, hd, window), bf16,
+# causal; the llama3.2-1b prefill first (its row in the kernels line)
+ATTN_SHAPES = [
+    ("llama3.2-1b prefill", 4, 4096, 32, 8, 64, None),
+    ("gemma3-1b local layer", 1, 4096, 4, 1, 256, 512),
+    ("gemma3-1b global layer", 1, 4096, 4, 1, 256, None),
+]
+# SHAPES["prefill_32k"]'s sequence length at B = 1 (configs/base.py:217)
+ATTN_LONG = ("prefill_32k length", 1, 32768, 32, 8, 64, None)
+# small f32 / bf16 shapes: (B, Sq, Sk, H, K, hd, causal, window)
+ATTN_RAGGED = [
+    (2, 100, 100, 4, 2, 16, True, None),
+    (1, 64, 192, 6, 6, 32, True, None),
+    (2, 130, 130, 4, 1, 64, True, 48),
+    (1, 97, 97, 8, 4, 64, False, None),
+    (1, 100, 60, 4, 2, 32, True, None),
+    (1, 33, 1500, 4, 2, 128, True, None),
+    (1, 200, 200, 4, 1, 256, True, 64),
+]
+# the serving cell: llama3.2-1b at full width, prompt cut from
+# SHAPES["prefill_32k"] (32768 x 32) to 4096 x 4
+SERVE = dict(arch="llama3.2-1b", B=4, S=4096, steps=32, q_audit=0.25,
+             seed=0)
+
+
+def attn_pairs(Sq, Sk, causal, window) -> int:
+    """Unmasked (query, key) pairs of one (batch, head)."""
+    import numpy as np
+
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Sk - 1, i + Sk - Sq) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, i + Sk - Sq - window + 1) if window else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attn_bound(B, Sq, Sk, H, K, hd, causal, window, itemsize):
+    """K6's bound: q, k, v read once and o written once against the bf16
+    tensor-core peak for 4 B H hd (unmasked pairs) operations."""
+    bytes_ = (2 * B * Sq * H * hd + 2 * B * Sk * K * hd) * itemsize
+    return bound(bytes_, 4 * B * H * hd * attn_pairs(Sq, Sk, causal, window),
+                 BF16_OPS_S)
+
+
+def phase_attention_kernel(torch):
+    """K6 against its plain version on the card, at the serving path's
+    shapes and at small ragged ones, with its time beside the plain
+    version's and SDPA's (a yardstick the port never calls)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def qkv(B, Sq, Sk, H, K, hd, dtype):
+        return [torch.randn(*s, generator=gen, device=dev).to(dtype)
+                for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd))]
+
+    def sdpa(q, k, v, window):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            return lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        # the same masks as an explicit one (kv expanded beforehand)
+        S = q.shape[1]
+        i = torch.arange(S, device=dev)
+        keep = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        G = q.shape[2] // k.shape[2]
+        kt = kt.repeat_interleave(G, dim=1)
+        vt = vt.repeat_interleave(G, dim=1)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=keep)
+
+    rows = {}
+    for shape in ATTN_RAGGED:
+        B, Sq, Sk, H, K, hd, causal, window = shape
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q, k, v = qkv(B, Sq, Sk, H, K, hd, dtype)
+            got = fa.flash_attention_cuda(q, k, v, causal, window)
+            want = fa.flash_attention_plain(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            err = max_err(got.float(), want.float())
+            print(f"K6 ragged {shape} {str(dtype)[6:]}: max|kernel-plain| = "
+                  f"{err:.3e} (tolerance {tol} abs + rel)")
+            check(close(got.float(), want.float(), tol, tol),
+                  f"K6 disagrees at {shape} {dtype}")
+    for label, B, S, H, K, hd, window in ATTN_SHAPES:
+        q, k, v = qkv(B, S, S, H, K, hd, torch.bfloat16)
+        got = fa.flash_attention_cuda(q, k, v, True, window)
+        want = fa.flash_attention_plain(q, k, v, True, window)
+        torch.cuda.synchronize()
+        err = max_err(got.float(), want.float())
+        check(close(got.float(), want.float(), 2e-2, 2e-2),
+              f"K6 disagrees at the {label} shape")
+        again = fa.flash_attention_cuda(q, k, v, True, window)
+        check(bool(torch.equal(got, again)), f"K6 rerun differs ({label})")
+        del got, want, again
+        ms = median_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, True, window))
+        plain_ms = median_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, True, window), reps=3, warm=1)
+        library_ms = median_ms(torch, sdpa(q, k, v, window))
+        b_ms, b_by = attn_bound(B, S, S, H, K, hd, True, window, 2)
+        rows[label] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+        print(f"K6 {label} (B={B}, S={S}, H={H}, K={K}, hd={hd}, window="
+              f"{window}) bf16: max|kernel-plain| = {err:.3e} (tolerance "
+              f"2e-2 abs + rel), rerun bitwise equal; kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}); {b_ms / ms:.1%} of bound")
+        del q, k, v
+    label, B, S, H, K, hd, window = ATTN_LONG
+    q, k, v = qkv(B, S, S, H, K, hd, torch.bfloat16)
+    ms = median_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, True,
+                                                          window), reps=3)
+    library_ms = median_ms(torch, sdpa(q, k, v, window), reps=3)
+    b_ms, b_by = attn_bound(B, S, S, H, K, hd, True, window, 2)
+    rows[label] = dict(ms=ms, library_ms=library_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+    print(f"K6 {label} (B={B}, S={S}, H={H}, K={K}, hd={hd}) bf16, one "
+          f"timing: kernel_ms={ms:.4f} sdpa_ms={library_ms:.4f} bound_ms="
+          f"{b_ms:.4f} ({b_by}); {b_ms / ms:.1%} of bound")
+    del q, k, v
+    main = rows[ATTN_SHAPES[0][0]]
+    report = {"flash_attention": entry(
+        "flash_attention", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:33", main["err"], main["ms"],
+        main["plain_ms"], main["bound_ms"], main["bound_by"],
+        main["library_ms"])}
+    return report, rows
+
+
+def logits_tol(logits, rel: float) -> float:
+    return rel * (1.0 + float(logits.abs().max()))
+
+
+def phase_serving(torch, k6_ms: float):
+    """llama3.2-1b served at full width through ServeEngine.generate,
+    against the same run with the plain versions; the tampered replica;
+    reduced llama3.2-1b and gemma3-1b on the card against the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import detection
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine, token_agreement
+    from repro_torch.serving.engine import sketches_agree
+
+    cfg = get_config(SERVE["arch"])
+    B, S, steps = SERVE["B"], SERVE["S"], SERVE["steps"]
+    t0 = time.perf_counter()
+    params = M.init(cfg, SERVE["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               size=(B, S))
+    # warm-up (cuBLAS handles, the kernel libraries): a short run
+    ServeEngine(cfg, params).generate(prompt[:, :256], 2)
+
+    def serve(impl=None):
+        eng = ServeEngine(cfg, params, q_audit=SERVE["q_audit"],
+                          seed=SERVE["seed"], impl=impl, record_logits=True)
+        return eng, eng.generate(prompt, steps)
+
+    (eng, out), launches = counted(serve)
+    print(f"serving {cfg.name} (B={B}, S={S}, {steps} tokens, q_audit="
+          f"{SERVE['q_audit']}) launches: {launches}")
+    coins = np.random.default_rng(SERVE["seed"]).random(steps)
+    want_audits = int((coins < SERVE["q_audit"]).sum())
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"K6 launched {launches['flash_attention']} times in one prefill, "
+          f"want {cfg.num_layers}")
+    check(launches["sketch"] == 2 * eng.audits,
+          f"K4s launched {launches['sketch']} times for {eng.audits} audits")
+    check(eng.audits == want_audits and eng.audit_failures == 0,
+          f"audits {eng.audits} (want {want_audits}), failures "
+          f"{eng.audit_failures}")
+    check(tuple(out.shape) == (B, steps) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()), "bad token array")
+    check(all(bool(torch.isfinite(lg).all()) for lg in eng.logits),
+          "non-finite logits")
+    prefill_s, audit_s = eng.phase_s["prefill"], eng.phase_s["audit"]
+    decode_s = eng.phase_s["decode"] + audit_s        # every step
+    plain_steps = steps - eng.audits
+    k6_share = cfg.num_layers * k6_ms / (prefill_s * 1e3)
+    print(f"model init {init_s:.4f} s; prefill {prefill_s:.4f} s; decode "
+          f"{decode_s:.4f} s = {decode_s / steps * 1e3:.4f} ms per step, "
+          f"{B * steps / decode_s:.1f} tokens/s (unaudited steps "
+          f"{eng.phase_s['decode'] / max(1, plain_steps) * 1e3:.4f} ms each, "
+          f"audited {audit_s / max(1, eng.audits) * 1e3:.4f} ms each); K6 "
+          f"{cfg.num_layers} x {k6_ms:.4f} ms = {k6_share:.1%} of the "
+          f"prefill; audits {eng.audits} (coins under {SERVE['q_audit']}: "
+          f"{want_audits}), failures {eng.audit_failures}")
+
+    eng_p, out_p = serve("torch")
+    check(eng_p.audits == eng.audits and eng_p.audit_failures == 0,
+          "plain run: audits differ")
+    tol = logits_tol(eng_p.logits[0], 3e-2)
+    prefill_err = max_err(eng.logits[0], eng_p.logits[0])
+    compared, agreed = token_agreement(eng_p.logits, out_p, out, tol)
+    # how far each row's tokens run equal from the start; while they do,
+    # that row's logits are held to the same tolerance
+    lead = [next((i for i in range(steps) if out[r, i] != out_p[r, i]),
+                 steps) for r in range(B)]
+    step_err = max(max_err(eng.logits[i][r], eng_p.logits[i][r])
+                   for r in range(B) for i in range(lead[r] + 1)
+                   if i < steps)
+    print(f"kernels vs plain: prefill last-token logits max|d| = "
+          f"{prefill_err:.3e} (tolerance {tol:.3e}); greedy tokens compared "
+          f"under the margin rule {compared}, agreed {agreed} of "
+          f"{B * steps}; each row's tokens equal for its first {lead} "
+          f"steps, its logits there max|d| = {step_err:.3e}; plain "
+          f"prefill {eng_p.phase_s['prefill']:.4f} s")
+    check(prefill_err <= tol,
+          "prefill logits differ between kernels and plain")
+    check(step_err <= tol, "decode logits differ between kernels and plain "
+                           "while the tokens agree")
+    check(agreed == compared, "greedy tokens differ between kernels and plain")
+    del eng_p, out_p
+
+    # a Byzantine replica (examples/serve_audit.py): final-norm scale[0] x 3
+    scale = params["final_norm"]["scale"].clone()
+    scale[0] *= 3.0
+    bad = dict(params, final_norm={"scale": scale})
+    ks = detection.key_scalar_for_seed(7)
+
+    def sketch_of(p):
+        lg, _ = M.decode_step(p, prompt[:, 0], 0, M.allocate_cache(
+            cfg, B, 16, M.params_device(p)), cfg)
+        return detection.hash_sign_sketch(lg.reshape(-1), ks)
+
+    honest = sketch_of(params)
+    caught = not sketches_agree(honest, sketch_of(bad))
+    print(f"tampered replica caught by the audit sketch: {caught}")
+    check(caught and sketches_agree(honest, sketch_of(params)),
+          "the audit did not single out the tampered replica")
+    del params, bad
+
+    small = {}
+    for arch in ("llama3.2-1b", "gemma3-1b"):
+        rc = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        rp = M.init(rc, 0, device="cpu")
+        rprompt = np.random.default_rng(1).integers(0, rc.vocab_size,
+                                                    size=(2, 40))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            e = ServeEngine(rc, rp, q_audit=0.5, seed=0, device=dev,
+                            record_logits=True)
+            runs[dev] = (e, e.generate(rprompt, 8))
+        (ec, oc), (eg, og) = runs["cpu"], runs["cuda"]
+        og = og.cpu()
+        tol = logits_tol(torch.stack(ec.logits), 1e-4)
+        # logits at every step whose earlier tokens agree
+        err = max(max_err(eg.logits[i].cpu(), ec.logits[i])
+                  for i in range(8) if torch.equal(og[:, :i], oc[:, :i]))
+        n_cmp, n_agr = token_agreement(ec.logits, oc, og, tol)
+        print(f"small {rc.name} f32 card vs CPU: logits max|d| = {err:.3e} "
+              f"(tolerance {tol:.3e}); tokens compared {n_cmp}, agreed "
+              f"{n_agr}; audits {eg.audits} / {ec.audits}")
+        check(n_agr == n_cmp and n_cmp > 0 and
+              eg.audits == ec.audits and eg.audit_failures == 0,
+              f"{rc.name}: card vs CPU tokens or audits differ")
+        check(err <= tol, f"{rc.name}: card vs CPU logits differ")
+        small[rc.name] = dict(logits_err=err, compared=n_cmp, agreed=n_agr)
+    return launches, dict(
+        init_s=init_s, prefill_s=prefill_s, decode_s=decode_s,
+        audit_s=audit_s, leading_equal_tokens_vs_plain=lead,
+        step_logits_err_vs_plain=step_err,
+        decode_ms_per_step=decode_s / steps * 1e3,
+        tokens_per_s=B * steps / decode_s, k6_share_of_prefill=k6_share,
+        audits=eng.audits, audit_failures=eng.audit_failures,
+        prefill_logits_err_vs_plain=prefill_err, tokens_compared=compared,
+        tokens_agreed=agreed, small_vs_cpu=small)
+
+
 def main() -> int:
     import torch
 
@@ -789,17 +1079,22 @@ def main() -> int:
     card_line, name, build_s = phase_card(torch)
     kernels = phase_kernels(torch)
     kernels.update(phase_stream_kernels(torch))
+    k6_report, attention = phase_attention_kernel(torch)
+    kernels.update(k6_report)
     launches = {}
     launches["gram_sweep"], gram = phase_gram(torch)
     stream_launches, stream = phase_stream(torch)
     launches.update(stream_launches)
     launches["single_vector_ops"] = phase_single_path(torch)
     small = phase_small_vs_cpu(torch)
+    launches["serving"], serving = phase_serving(
+        torch, kernels["flash_attention"]["ms"])
     # each kernel's launches summed over the counted path runs
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for run in launches.values())
     main_path = dict(gram_sweep=gram, **stream, launches=launches,
-                     small_vs_cpu_w_err=small)
+                     small_vs_cpu_w_err=small, serving=serving,
+                     attention=attention)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -10,6 +10,8 @@
                  unfused plane's per-step pre-sketch
   coded_encode   linear encode (batched and single): the per-problem
                  plane's aggregation
+  flash_attention  GQA attention forward with causal / window masks:
+                 every prefill layer of the served models
 
 CUDA sources are in ``csrc/``, built by ``_build`` at first use;
 ``ops`` dispatches by device; ``ref`` holds the plain oracles.

@@ -1,0 +1,107 @@
+"""GQA flash-attention forward: the hand-written Hopper kernel (K6) and
+its plain PyTorch version.
+
+``flash_attention(q (B, Sq, H, hd), k, v (B, Sk, K, hd)) -> (B, Sq, H,
+hd)`` with K | H, causal (queries aligned to the end of the keys), an
+optional sliding window, f32 or bf16 in and q's dtype out, every sum in
+f32.  The plain version is ``ref.flash_attention_ref``, the port of the
+reference's ``blockwise_attention``.  The CUDA kernel lives in
+``csrc/flash_attention.cu``, whose header note says which TPU kernel it
+replaces (src/repro/kernels/flash_attention.py:33), what bounds it on
+the H100 and what its design does about it.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+# wrapper calls that launched the CUDA kernel
+LAUNCHES = {"flash_attention": 0}
+
+
+def check_window(window) -> None:
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    check_window(window)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    if not getattr(lib, "_typed", False):
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i,
+                                            i, ll, ll, ll, ll, ll, ll, ll, ll,
+                                            ll, ctypes.c_float, i, i, vp]
+        lib.flash_attention_fwd.restype = i
+        lib.flash_error_string.argtypes = [i]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _readable(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel reads it: unit stride on hd and, for bf16, 16-byte
+    pieces (strides in multiples of 8, an aligned start); else a copy."""
+    vec = 8 if x.dtype == torch.bfloat16 else 1
+    if x.stride(-1) == 1 and all(s % vec == 0 for s in x.stride()[:3]) \
+            and x.data_ptr() % 16 == 0:
+        return x
+    return x.contiguous()
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """The hand-written kernel on CUDA tensors; runs on PyTorch's current
+    stream, no synchronization.  q, k and v may be strided views."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor for the CUDA "
+                             f"kernel")
+        if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} must be a 4-D float32 or bfloat16 "
+                            f"tensor, got {x.dtype} {tuple(x.shape)}")
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if k.dtype != q.dtype or v.dtype != q.dtype or v.shape != k.shape \
+            or k.shape[0] != B or k.shape[3] != hd or k.device != q.device \
+            or v.device != q.device or K == 0 or H % K:
+        raise ValueError(f"q {q.dtype} {tuple(q.shape)}, k {k.dtype} "
+                         f"{tuple(k.shape)} and v {v.dtype} "
+                         f"{tuple(v.shape)} do not match (k, v: (B, Sk, K, "
+                         f"hd) with K | H, q's dtype and device)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes hd in {HEAD_DIMS}, got {hd}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash kernel takes B, H <= 65535, got {B}, {H}")
+    check_window(window)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if Sk == 0:
+        return out.zero_()
+    q, k, v = _readable(q), _readable(k), _readable(v)
+    scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
+    lib = _lib()
+    _build.check_status(lib.flash_error_string, lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, Sq, Sk, H, K, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale,
+        int(bool(causal)), -1 if window is None else int(window),
+        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import coded_encode as _enc
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_step as _fs
 from repro_torch.kernels import gram as _gm
 from repro_torch.kernels import majority_vote as _mv
@@ -38,7 +39,7 @@ def resolve_impl(impl: str | None, device) -> str:
     return impl
 
 
-_KERNEL_MODULES = (_gm, _mv, _fs, _sk, _enc)
+_KERNEL_MODULES = (_gm, _mv, _fs, _sk, _enc, _fa)
 
 
 def launch_counts() -> dict[str, int]:
@@ -171,3 +172,15 @@ def fused_step(rows: torch.Tensor, W: torch.Tensor, cw: torch.Tensor,
         return _fs.fused_step_cuda(rows, W, cw.to(torch.float32), key_scalar,
                                    k)
     return _fs.fused_step_plain(rows, W, cw, key_scalar, k)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None,
+                    impl: str | None = None) -> torch.Tensor:
+    """GQA attention forward (K6): q (B, Sq, H, hd), k / v (B, Sk, K, hd)
+    with K | H -> (B, Sq, H, hd) in q's dtype; causal with the queries
+    aligned to the end of the keys, optional sliding ``window``."""
+    if resolve_impl(impl, q.device) == "cuda":
+        return _fa.flash_attention_cuda(q, k, v, causal, window, scale)
+    return _fa.flash_attention_plain(q, k, v, causal, window, scale)

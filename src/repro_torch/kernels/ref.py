@@ -9,6 +9,8 @@ step with ``& 0xFFFFFFFF``; each 32-bit multiply is split into two
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -118,3 +120,99 @@ def gram_factors_ref(rows: torch.Tensor, W0: torch.Tensor | None,
         SK = torch.stack([batched_sketch_ref(rows32, int(key), k)
                           for key in keys.tolist()])
     return G, S0, SK
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (causal / windowed), GQA
+# ---------------------------------------------------------------------------
+
+# the reference's mask sentinel; finite, so a row with no visible key
+# stays finite (-inf would give NaN)
+NEG_INF = -1e30
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, window: int | None = None,
+            scale: float | None = None) -> torch.Tensor:
+    """Naive full-matrix attention.  q (B,Sq,H,hd); k/v (B,Sk,K,hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    qg = q.reshape(B, Sq, K, G, hd).to(torch.float32)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg,
+                          k.to(torch.float32)) * scale
+    keep = _keep(torch.arange(Sq, device=q.device)[:, None],
+                 torch.arange(Sk, device=q.device)[None, :], Sq, Sk, causal,
+                 window)
+    logits = torch.where(keep, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bkgqh", p, v.to(torch.float32))
+    return o.reshape(B, K * G, Sq, hd).transpose(1, 2).to(q.dtype)
+
+
+def _keep(qpos, kpos, Sq: int, Sk: int, causal: bool, window: int | None):
+    """True where query qpos attends key kpos; queries align to the END
+    of the keys (offset Sk - Sq: prefill continuation)."""
+    keep = kpos < Sk
+    if causal:
+        keep = keep & (kpos <= qpos + (Sk - Sq))
+    if window is not None:
+        keep = keep & (kpos > qpos + (Sk - Sq) - window)
+    return keep
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None, q_block: int = 1024,
+                        kv_block: int = 1024) -> torch.Tensor:
+    """Blockwise online-softmax attention: the plain version of K6.
+
+    Port of ``repro.models.attention.blockwise_attention`` (what the
+    reference's prefill runs): query blocks in a Python loop, each
+    visiting only the kv blocks its causal / window range needs; the
+    running (m, l, acc) start at (-inf, 0, 0), masked logits take the
+    finite sentinel -1e30, the result is acc / max(l, 1e-30).  Keys past
+    Sk (the zero padding to a kv_block multiple) are masked too.  All in
+    f32; the output has q's dtype.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = (1.0 / math.sqrt(hd)) if scale is None else scale
+    if B == 0 or Sq == 0 or Sk == 0 or H == 0:
+        return torch.zeros_like(q)
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Sk)
+    pad = (-Sk) % kv_block
+    k32 = torch.nn.functional.pad(k.to(torch.float32), (0, 0, 0, 0, 0, pad))
+    v32 = torch.nn.functional.pad(v.to(torch.float32), (0, 0, 0, 0, 0, pad))
+    offs = Sk - Sq
+    outs = []
+    for q0 in range(0, Sq, q_block):
+        qs = min(q_block, Sq - q0)
+        qg = q[:, q0:q0 + qs].reshape(B, qs, K, G, hd).to(torch.float32)
+        hi_pos = q0 + qs - 1 + offs if causal else Sk - 1
+        hi_pos = min(max(hi_pos, 0), Sk - 1)
+        lo_pos = max(0, q0 + offs - window + 1) if window is not None else 0
+        m = torch.full((B, K, G, qs), -math.inf, device=q.device)
+        l = torch.zeros((B, K, G, qs), device=q.device)
+        acc = torch.zeros((B, K, G, qs, hd), device=q.device)
+        qpos = torch.arange(q0, q0 + qs, device=q.device)[:, None]
+        for kb in range(lo_pos // kv_block, hi_pos // kv_block + 1):
+            k0 = kb * kv_block
+            kpos = torch.arange(k0, k0 + kv_block, device=q.device)[None, :]
+            logits = torch.einsum("bqkgh,bskh->bkgqs", qg,
+                                  k32[:, k0:k0 + kv_block]) * scale
+            logits = torch.where(_keep(qpos, kpos, Sq, Sk, causal, window),
+                                 logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p, v32[:, k0:k0 + kv_block])
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(o.reshape(B, H, qs, hd).transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]

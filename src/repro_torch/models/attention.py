@@ -1,0 +1,95 @@
+"""Attention: GQA with optional qk-norm and sliding-window (local)
+masks; full-sequence (prefill) attention through K6 and single-token
+decode against a KV cache.
+
+Port of ``repro.models.attention``.  ``blockwise_attention`` is the
+reference's flash-style prefill attention; here it is
+``ops.flash_attention``: on a CUDA tensor the hand-written kernel K6,
+on a CPU tensor (or with ``impl="torch"``) its plain version, the port
+of the reference's blockwise loop.  ``decode_attention`` stays plain
+PyTorch, as the reference computes it outside any kernel.
+``shard_heads_for_tp`` is the identity on one device and is not ported.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, l2norm
+
+
+def project_q(params, x: torch.Tensor, cfg, positions=None,
+              rope: bool = True) -> torch.Tensor:
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = l2norm(q) * params["q_norm"].to(q.dtype)
+    if rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def project_kv(params, x: torch.Tensor, cfg, positions=None,
+               rope: bool = True):
+    B, S, _ = x.shape
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (x @ params["wk"]).reshape(B, S, K, hd)
+    v = (x @ params["wv"]).reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        k = l2norm(k) * params["k_norm"].to(k.dtype)
+    if rope and positions is not None:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def output_proj(params, o: torch.Tensor) -> torch.Tensor:
+    B, S = o.shape[:2]
+    return o.reshape(B, S, -1) @ params["wo"]
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        window: int | None = None, scale: float | None = None,
+                        impl: str | None = None) -> torch.Tensor:
+    """Flash-style attention.  q: (B,Sq,H,hd), k/v: (B,Sk,K,hd) with K|H."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale, impl=impl)
+
+
+def decode_attention(q1: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, *, valid_len: int,
+                     window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-token attention against a KV cache.
+
+    q1: (B,1,H,hd); cache_k/v: (B,S,K,hd) with the new token's k/v already
+    written at position ``valid_len - 1``.  Only the visible keys are read
+    (positions < valid_len and, with a window, > valid_len - 1 - window):
+    the reference masks the rest to -1e30, whose softmax weight is exactly
+    0.  The reference's rounding is kept: logits in f32 from the operands
+    (an f32 copy of the visible cache, exact for bf16), p cast to the
+    cache's dtype before P.V with f32 sums.
+    """
+    B, _, H, hd = q1.shape
+    K = cache_k.shape[2]
+    G = H // K
+    scale = (1.0 / math.sqrt(hd)) if scale is None else scale
+    lo = max(0, valid_len - window) if window is not None else 0
+    ck = cache_k[:, lo:valid_len].to(torch.float32)
+    cv = cache_v[:, lo:valid_len]
+    qg = q1.reshape(B, K, G, hd).to(torch.float32)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, ck) * scale
+    p = torch.softmax(logits, dim=-1).to(cv.dtype)
+    o = torch.einsum("bkgs,bskh->bkgh", p.to(torch.float32),
+                     cv.to(torch.float32))
+    return o.reshape(B, 1, H, hd).to(q1.dtype)
+
+
+def update_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> None:
+    """Write the new tokens' k/v (B, T, K*hd) at positions pos.. in place
+    (the reference's functional ``dynamic_update_slice``)."""
+    T = k_new.shape[1]
+    cache_k[:, pos:pos + T] = k_new
+    cache_v[:, pos:pos + T] = v_new

@@ -1,0 +1,93 @@
+"""Core layers: norms, rotary embeddings, embeddings, SwiGLU MLP, init.
+
+Port of ``repro.models.layers``: pure functions over explicit parameter
+dictionaries, with the reference's precision rules — norms, rotary
+angles and the SiLU in f32, cast back to the input's dtype; logits in
+f32 from an f32 copy of the tied table.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init_weight(shape, dtype, gen: torch.Generator, device) -> torch.Tensor:
+    """The reference's ``materialize`` for a matrix: truncated normal on
+    [-2, 2] times 1/sqrt(fan_in), fan_in = shape[-2], drawn in f32."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    w *= 1.0 / math.sqrt(max(1, shape[-2]))
+    return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    x32 = x32 * torch.rsqrt(var + eps)
+    return (x32 * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Scale-free RMS normalization (qk-norm without learned scale)."""
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+    half = x.shape[-1] // 2
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    return params["tokens"].to(dtype_of(cfg))[tokens]
+
+
+def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits in f32: x and the (tied) table both cast to f32."""
+    w = params["tokens"].T if cfg.tie_embeddings else params["head"]
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    g = x @ params["gate"]
+    u = x @ params["up"]
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    return h @ params["down"]

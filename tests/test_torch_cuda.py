@@ -12,8 +12,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.kernels import (coded_encode, fused_step, gram,
-                                  majority_vote, ops, sketch)
+from repro_torch.kernels import (coded_encode, flash_attention, fused_step,
+                                  gram, majority_vote, ops, sketch)
 
 pytestmark = pytest.mark.cuda
 
@@ -135,6 +135,12 @@ EMPTY_CALLS = {
     "pairwise_relmax/R": lambda z: majority_vote.pairwise_relmax_cuda(z(0, 300)),
     "fused_step/Ie": lambda z: fused_step.fused_step_cuda(
         z(0, 300), z(2, 300), z(2, 0), 5),
+    "flash_attention/B": lambda z: flash_attention.flash_attention_cuda(
+        z(0, 5, 4, 16), z(0, 5, 2, 16), z(0, 5, 2, 16)),
+    "flash_attention/Sq": lambda z: flash_attention.flash_attention_cuda(
+        z(2, 0, 4, 16), z(2, 5, 2, 16), z(2, 5, 2, 16)),
+    "flash_attention/Sk": lambda z: flash_attention.flash_attention_cuda(
+        z(2, 5, 4, 16), z(2, 0, 2, 16), z(2, 0, 2, 16)),
 }
 
 
@@ -210,3 +216,106 @@ def test_stream_planes_on_card_match_cpu(cuda, name):
         assert a.identify_step == b.identify_step
         assert a.q_trace == b.q_trace
         np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-4)
+
+
+# (B, Sq, Sk, H, K, hd, causal, window): ragged lengths, hd 16-256, GQA
+# and MQA, windows, queries past the keys (Sk <= 1024, where the plain
+# version averages every value for a row with no visible key, as K6
+# does), several 1024-key blocks of the plain version
+FLASH_SHAPES = [
+    (1, 1, 1, 1, 1, 16, True, None),
+    (2, 100, 100, 4, 2, 16, True, None),
+    (1, 64, 192, 6, 6, 32, True, None),
+    (2, 130, 130, 4, 1, 64, True, 48),
+    (1, 97, 97, 8, 4, 64, False, None),
+    (1, 100, 60, 4, 2, 32, True, None),
+    (1, 100, 60, 4, 2, 32, True, 8),
+    (1, 257, 300, 4, 1, 128, True, 100),
+    (1, 200, 200, 4, 1, 256, True, 64),
+    (1, 200, 200, 4, 1, 256, False, None),
+    (2, 1100, 1100, 2, 1, 64, True, None),
+    (1, 33, 1500, 4, 2, 64, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_kernel_matches_plain(cuda, dtype, shape):
+    """K6 against its plain version: f32 within 2e-5, bf16 within 2e-2
+    (P is rounded to bf16 for P.V), both abs + rel."""
+    B, Sq, Sk, H, K, hd, causal, window = shape
+    dt, tol = ((torch.float32, 2e-5) if dtype == "f32"
+               else (torch.bfloat16, 2e-2))
+    q = _randn(cuda, B, Sq, H, hd, seed=Sq).to(dt)
+    k = _randn(cuda, B, Sk, K, hd, seed=Sk + 1).to(dt)
+    v = _randn(cuda, B, Sk, K, hd, seed=Sk + 2).to(dt)
+    before = ops.launch_counts()["flash_attention"]
+    got = flash_attention.flash_attention_cuda(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = flash_attention.flash_attention_plain(q, k, v, causal, window)
+    assert got.dtype == dt and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k, v as views into fused projections (head and sequence strides
+    of a wider row) give what contiguous copies give, bitwise."""
+    qkv = _randn(cuda, 2, 77, 8, 64, seed=5).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = flash_attention.flash_attention_cuda(q, k, v, True, None)
+    want = flash_attention.flash_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), True, None)
+    assert torch.equal(got, want)
+
+
+def _small(name, dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name).reduced(), dtype=dtype)
+
+
+def test_prefill_is_bitwise_reproducible(cuda):
+    """The same bf16 prefill twice: logits and cache bitwise equal (the
+    audit replays steps and compares)."""
+    from repro_torch.models import model as M
+
+    cfg = _small("gemma3-1b", "bfloat16")
+    params = M.init(cfg, 0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 300)))
+    a_logits, a_cache = M.prefill(params, {"tokens": tokens}, cfg, 310)
+    b_logits, b_cache = M.prefill(params, {"tokens": tokens}, cfg, 310)
+    assert torch.equal(a_logits, b_logits)
+    assert all(torch.equal(a_cache[n], b_cache[n]) for n in ("k", "v"))
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "gemma3-1b", "qwen3-4b"])
+def test_serving_on_card_matches_cpu(cuda, name):
+    """Reduced configs in f32: ServeEngine on the card against the CPU;
+    K6 in every prefill layer; logits within 1e-4 (1 + max|.|), tokens
+    under the margin rule, the same audits."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine, token_agreement
+
+    cfg = _small(name)
+    params = M.init(cfg, 0, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               size=(2, 40))
+    cpu = ServeEngine(cfg, params, q_audit=0.5, seed=0, device="cpu",
+                      record_logits=True)
+    want = cpu.generate(prompt, 8)
+    card = ServeEngine(cfg, params, q_audit=0.5, seed=0, record_logits=True)
+    ops.reset_launch_counts()
+    got = card.generate(prompt, 8).cpu()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers
+    assert counts["sketch"] == 2 * card.audits
+    assert (card.audits, card.audit_failures) == (cpu.audits, 0)
+    tol = 1e-4 * (1 + float(torch.stack(cpu.logits).abs().max()))
+    compared, agreed = token_agreement(cpu.logits, want, got, tol)
+    assert compared > 0 and agreed == compared
+    torch.testing.assert_close(card.logits[0].cpu(), cpu.logits[0], rtol=0,
+                               atol=tol)

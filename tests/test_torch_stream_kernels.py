@@ -211,4 +211,4 @@ def test_stream_dispatch_contract_on_cpu():
     assert set(before) == {
         "gram_factors", "pairwise_relmax_batched", "pairwise_relmax",
         "fused_step", "sketch_batched", "sketch", "coded_encode_batched",
-        "coded_encode"}
+        "coded_encode", "flash_attention"}
