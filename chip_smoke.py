@@ -10,9 +10,12 @@ Phases, in order; any failed check exits nonzero:
 1. the card: name and power limit, a build of every CUDA source;
 2. each kernel against its plain PyTorch version on the card, at the
    engine's main-path shapes and at ragged shapes, with times (CUDA
-   events, median after warm-up) beside the card's bound and, where one
-   PyTorch call computes the same function, that call's time; K6 (flash
-   attention) at the llama3.2-1b prefill shape, gemma3-1b's local and
+   events, median after warm-up; the single forms K3s, K4s, K5s and
+   their yardsticks over 50 back-to-back calls, divided by 50) beside
+   the card's bound and, where one PyTorch call computes the same
+   function, that call's time; for K5s and K6 also the kernel's device
+   time from ``torch.profiler``; K6 (flash attention) at the
+   llama3.2-1b and qwen3-4b prefill shapes, gemma3-1b's local and
    global layers, small f32 and bf16 ragged shapes, and one timing at
    the prefill_32k sequence length, beside SDPA's time;
 3. the main paths, each driven through ``repro_torch.run_batch`` with
@@ -86,8 +89,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def median_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+def median_ms(torch, fn, reps: int = 10, warm: int = 2,
+              launches: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings, after warm-up, of
+    ``launches`` back-to-back calls of ``fn`` divided by ``launches``
+    (for a small kernel the host's time between two events is more than
+    one launch's device time: the guides' rule is many launches)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -96,11 +103,35 @@ def median_ms(torch, fn, reps: int = 10, warm: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls: int = 20):
+    """The card's kernel time per call of ``fn`` from ``torch.profiler``
+    (every CUDA kernel in the window, summed, over ``calls``); None if the
+    profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return us / 1e3 / calls if us > 0 else None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def max_err(a, b) -> float:
@@ -378,12 +409,12 @@ def phase_stream_kernels(torch):
         xr = rand(d_r)
         check(close(sk.sketch_cuda(xr, 7), sk.sketch_plain(xr, 7), 2e-5,
                     1e-3), f"K4s disagrees at d={d_r}")
-    ms = median_ms(torch, lambda: sk.sketch_cuda(x, 7), reps=50)
-    plain_ms = median_ms(torch, lambda: sk.sketch_plain(x, 7), reps=50)
+    ms = median_ms(torch, lambda: sk.sketch_cuda(x, 7), launches=50)
+    plain_ms = median_ms(torch, lambda: sk.sketch_plain(x, 7), launches=50)
     xs_ = torch.nn.functional.pad(x, (0, (-d4s) % k)).reshape(-1, k)
     signs = sign_table(torch, xs_.numel(), 7, dev).reshape(-1, k)
     library_ms = median_ms(torch, lambda: torch.einsum("mk,mk->k", xs_,
-                                                       signs), reps=50)
+                                                       signs), launches=50)
     b_ms, b_by = bound(d4s * 4 + k * 4, d4s, F32_ADDS_S)
     report["sketch"] = entry("sketch", "sketch.cu",
                              "src/repro/kernels/sketch.py:25", err, ms,
@@ -430,18 +461,30 @@ def phase_stream_kernels(torch):
     check(rel_err(enc.coded_encode_cuda(C[:3, :3], G[:3, :70001]),
                   enc.coded_encode_plain(C[:3, :3], G[:3, :70001])) <= 1e-5,
           "K5s disagrees at a ragged shape")
-    ms = median_ms(torch, lambda: enc.coded_encode_cuda(C, G), reps=50)
-    plain_ms = median_ms(torch, lambda: enc.coded_encode_plain(C, G), reps=50)
-    library_ms = median_ms(torch, lambda: C @ G, reps=50)
+    G_r = rand(4, 200_001)               # rows not 16-byte aligned
+    check(rel_err(enc.coded_encode_cuda(C, G_r),
+                  enc.coded_encode_plain(C, G_r)) <= 1e-5,
+          "K5s disagrees at d = 200001")
+    del G_r
+    ms = median_ms(torch, lambda: enc.coded_encode_cuda(C, G), launches=50)
+    plain_ms = median_ms(torch, lambda: enc.coded_encode_plain(C, G),
+                         launches=50)
+    library_ms = median_ms(torch, lambda: C @ G, launches=50)
+    dev_ms = device_ms(torch, lambda: enc.coded_encode_cuda(C, G))
+    lib_dev_ms = device_ms(torch, lambda: C @ G)
     b_ms, b_by = bound(2 * 4 * 200_000 * 4 + 16 * 4, 2 * 4 * 4 * 200_000,
                        F32_OPS_S)
     report["coded_encode"] = entry(
         "coded_encode", "coded_encode.cu",
         "src/repro/kernels/coded_encode.py:21", err, ms, plain_ms, b_ms, b_by,
         library_ms)
+    report["coded_encode"].update(device_ms=dev_ms,
+                                  library_device_ms=lib_dev_ms)
     print(f"K5s coded_encode (4,4)@(4,2e5): max|kernel-plain| = {err:.3e}; "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+          f"call ms (50 calls / 50): kernel {ms:.4f}, plain {plain_ms:.4f}, "
+          f"C @ G {library_ms:.4f}; device ms (profiler): kernel "
+          f"{fmt_ms(dev_ms)}, C @ G {fmt_ms(lib_dev_ms)}; bound_ms="
+          f"{b_ms:.5f} ({b_by})")
 
     # -- K3s: single pairwise relmax ---------------------------------------
     R3, d3 = 7, 100_000                  # bench_kernels.py's single vote
@@ -454,8 +497,9 @@ def phase_stream_kernels(torch):
     check(close(mv.pairwise_relmax_cuda(x[:3, :255]),
                 mv.pairwise_relmax_plain(x[:3, :255]), 1e-6, 0.0),
           "K3s disagrees at a ragged shape")
-    ms = median_ms(torch, lambda: mv.pairwise_relmax_cuda(x), reps=50)
-    plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_plain(x), reps=50)
+    ms = median_ms(torch, lambda: mv.pairwise_relmax_cuda(x), launches=50)
+    plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_plain(x),
+                         launches=50)
     b_ms, b_by = bound(R3 * d3 * 4 + R3 * R3 * 4, R3 * R3 * d3, F32_OPS_S)
     report["pairwise_relmax"] = entry(
         "pairwise_relmax", "majority_vote.cu",
@@ -789,6 +833,7 @@ BF16_OPS_S = 989e12
 # causal; the llama3.2-1b prefill first (its row in the kernels line)
 ATTN_SHAPES = [
     ("llama3.2-1b prefill", 4, 4096, 32, 8, 64, None),
+    ("qwen3-4b prefill", 4, 4096, 32, 8, 128, None),
     ("gemma3-1b local layer", 1, 4096, 4, 1, 256, 512),
     ("gemma3-1b global layer", 1, 4096, 4, 1, 256, None),
 ]
@@ -882,19 +927,23 @@ def phase_attention_kernel(torch):
         check(bool(torch.equal(got, again)), f"K6 rerun differs ({label})")
         del got, want, again
         ms = median_ms(torch, lambda: fa.flash_attention_cuda(
-            q, k, v, True, window))
+            q, k, v, True, window), reps=5, launches=5)
         plain_ms = median_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, True, window), reps=3, warm=1)
-        library_ms = median_ms(torch, sdpa(q, k, v, window))
+        library_ms = median_ms(torch, sdpa(q, k, v, window), reps=5,
+                               launches=5)
+        dev_ms = device_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, True, window), calls=5)
         b_ms, b_by = attn_bound(B, S, S, H, K, hd, True, window, 2)
-        rows[label] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=b_ms,
-                           bound_by=b_by)
+        rows[label] = dict(err=err, ms=ms, device_ms=dev_ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=b_ms, bound_by=b_by)
         print(f"K6 {label} (B={B}, S={S}, H={H}, K={K}, hd={hd}, window="
               f"{window}) bf16: max|kernel-plain| = {err:.3e} (tolerance "
               f"2e-2 abs + rel), rerun bitwise equal; kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}); {b_ms / ms:.1%} of bound")
+              f"(device, profiler: {fmt_ms(dev_ms)}) plain_ms="
+              f"{plain_ms:.4f} sdpa_ms={library_ms:.4f} bound_ms="
+              f"{b_ms:.4f} ({b_by}); {b_ms / ms:.1%} of bound")
         del q, k, v
     label, B, S, H, K, hd, window = ATTN_LONG
     q, k, v = qkv(B, S, S, H, K, hd, torch.bfloat16)

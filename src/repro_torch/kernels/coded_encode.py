@@ -44,54 +44,57 @@ def _lib():
         lib.encode_max_m.restype = i
         lib.encode_error_string.argtypes = [i]
         lib.encode_error_string.restype = ctypes.c_char_p
+        lib.max_m = lib.encode_max_m()     # asked once, at load
         lib._typed = True
     return lib
 
 
-def _encode_cuda(c: torch.Tensor, g: torch.Tensor,
+def _ok(x: torch.Tensor, ndim: int) -> bool:
+    return x.is_cuda and x.dtype == torch.float32 and x.dim() == ndim \
+        and x.is_contiguous()
+
+
+def _encode_cuda(c: torch.Tensor, g: torch.Tensor, ndim: int,
                  form: str) -> torch.Tensor:
-    _build.require_cuda_tensor(c, "coeffs", 3, (torch.float32,))
-    _build.require_cuda_tensor(g, "grads", 3, (torch.float32,))
-    B, n_sym, m = c.shape
-    if g.shape[:2] != (B, m) or g.device != c.device:
-        raise ValueError(f"coeffs {tuple(c.shape)} and grads "
-                         f"{tuple(g.shape)} do not match")
-    d = g.shape[2]
+    """c (B, n_sym, m), g (B, m, d); or, ndim = 2, the single form's
+    (n_sym, m) and (m, d) read as B = 1.  The host work per call is kept
+    to the checks that raise: the single form's launch costs less."""
+    if not (_ok(c, ndim) and _ok(g, ndim)):
+        _build.require_cuda_tensor(c, "coeffs", ndim, (torch.float32,))
+        _build.require_cuda_tensor(g, "grads", ndim, (torch.float32,))
+    cs, gs = c.shape, g.shape
+    if cs[:-2] != gs[:-2] or cs[-1] != gs[-2] \
+            or c.get_device() != g.get_device():
+        raise ValueError(f"coeffs {tuple(cs)} and grads {tuple(gs)} do "
+                         f"not match")
+    B, n_sym, m, d = (cs[0] if ndim == 3 else 1), cs[-2], cs[-1], gs[-1]
     lib = _lib()
-    if m > lib.encode_max_m():
-        raise ValueError(f"encode kernel takes m <= {lib.encode_max_m()}, "
-                         f"got {m}")
+    if m > lib.max_m:
+        raise ValueError(f"encode kernel takes m <= {lib.max_m}, got {m}")
     if B > 65535:
         raise ValueError(f"encode kernel takes B <= 65535, got {B}")
+    out = c.new_empty((*cs[:-1], d))
     if B == 0 or n_sym == 0 or d == 0:
-        return torch.zeros((B, n_sym, d), dtype=torch.float32,
-                           device=c.device)
-    out = torch.empty((B, n_sym, d), dtype=torch.float32, device=c.device)
-    _build.check_status(lib.encode_error_string, lib.coded_encode_batched(
+        return out
+    status = lib.coded_encode_batched(
         c.data_ptr(), g.data_ptr(), B, n_sym, m, d, out.data_ptr(),
-        torch.cuda.current_stream(c.device).cuda_stream),
-        "coded_encode_batched")
+        _build.raw_stream(c.get_device()))
+    if status:
+        _build.check_status(lib.encode_error_string, status, form)
     LAUNCHES[form] += 1
     return out
-
-
-def _contig(x: torch.Tensor) -> torch.Tensor:
-    return x.contiguous() if x.is_cuda else x
 
 
 def coded_encode_batched_cuda(coeffs: torch.Tensor,
                               grads: torch.Tensor) -> torch.Tensor:
     """The hand-written kernel on CUDA tensors; runs on PyTorch's
     current stream, no synchronization."""
-    return _encode_cuda(_contig(coeffs), _contig(grads),
+    return _encode_cuda(coeffs.contiguous(), grads.contiguous(), 3,
                         "coded_encode_batched")
 
 
 def coded_encode_cuda(coeffs: torch.Tensor,
                       grads: torch.Tensor) -> torch.Tensor:
     """The single form (n_sym, m) @ (m, d): the batched kernel at B = 1."""
-    if coeffs.dim() != 2 or grads.dim() != 2:
-        raise TypeError(f"coeffs and grads must be 2-D, got "
-                        f"{tuple(coeffs.shape)} and {tuple(grads.shape)}")
-    return _encode_cuda(_contig(coeffs)[None], _contig(grads)[None],
-                        "coded_encode")[0]
+    return _encode_cuda(coeffs.contiguous(), grads.contiguous(), 2,
+                        "coded_encode")

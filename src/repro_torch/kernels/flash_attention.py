@@ -21,6 +21,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# bf16 at these head dims runs the Hopper body, which may ask for scratch
+HOPPER_HEAD_DIMS = (64, 128, 256)
 
 # wrapper calls that launched the CUDA kernel
 LAUNCHES = {"flash_attention": 0}
@@ -45,8 +47,13 @@ def _lib():
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i,
                                             i, ll, ll, ll, ll, ll, ll, ll, ll,
-                                            ll, ctypes.c_float, i, i, vp]
+                                            ll, ctypes.c_float, i, i, vp, vp,
+                                            vp]
         lib.flash_attention_fwd.restype = i
+        pll = ctypes.POINTER(ll)
+        lib.flash_attention_plan.argtypes = [i, i, i, i, i, i, i, i, i, pll,
+                                             pll]
+        lib.flash_attention_plan.restype = i
         lib.flash_error_string.argtypes = [i]
         lib.flash_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -54,10 +61,12 @@ def _lib():
 
 
 def _readable(x: torch.Tensor) -> torch.Tensor:
-    """x as the kernel reads it: unit stride on hd and, for bf16, 16-byte
-    pieces (strides in multiples of 8, an aligned start); else a copy."""
+    """x as the kernel reads it: unit stride on hd and, for bf16, what a
+    TMA map takes (positive strides in multiples of 8 elements, a
+    16-byte-aligned start); else a copy."""
     vec = 8 if x.dtype == torch.bfloat16 else 1
-    if x.stride(-1) == 1 and all(s % vec == 0 for s in x.stride()[:3]) \
+    if x.stride(-1) == 1 and all(s % vec == 0 and s > 0
+                                 for s in x.stride()[:3]) \
             and x.data_ptr() % 16 == 0:
         return x
     return x.contiguous()
@@ -96,12 +105,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out.zero_()
     q, k, v = _readable(q), _readable(k), _readable(v)
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
+    bf16, win = int(q.dtype == torch.bfloat16), \
+        -1 if window is None else int(window)
     lib = _lib()
+    # scratch of the balanced small grids: the chunks' partial results
+    # and a zeroed count per query tile
+    n_part, n_count = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    if bf16 and hd in HOPPER_HEAD_DIMS:
+        _build.check_status(lib.flash_error_string, lib.flash_attention_plan(
+            bf16, B, Sq, Sk, H, K, hd, int(bool(causal)), win,
+            ctypes.byref(n_part), ctypes.byref(n_count)), "flash_attention")
+    part = counts = None
+    if n_part.value:
+        part = torch.empty(n_part.value, dtype=torch.float32,
+                           device=q.device)
+        counts = torch.zeros(n_count.value, dtype=torch.int32,
+                             device=q.device)
     _build.check_status(lib.flash_error_string, lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, Sq, Sk, H, K, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale,
-        int(bool(causal)), -1 if window is None else int(window),
-        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bf16, B,
+        Sq, Sk, H, K, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        scale, int(bool(causal)), win,
+        None if part is None else part.data_ptr(),
+        None if counts is None else counts.data_ptr(),
+        _build.raw_stream(q.get_device())), "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

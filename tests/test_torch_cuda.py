@@ -235,6 +235,17 @@ FLASH_SHAPES = [
     (1, 200, 200, 4, 1, 256, False, None),
     (2, 1100, 1100, 2, 1, 64, True, None),
     (1, 33, 1500, 4, 2, 64, True, None),
+    # the Hopper bf16 body (hd 64, 128, 256): more key tiles than ring
+    # stages with Sq not a multiple of the 128-query tile; GQA with a
+    # window edge inside a tile; B * H of 1 to 4 (the balancing path);
+    # non-causal with Sq != Sk
+    (1, 1000, 1000, 4, 2, 64, True, None),
+    (1, 300, 700, 2, 1, 256, True, None),
+    (2, 333, 333, 8, 2, 128, True, 100),
+    (1, 400, 400, 4, 2, 256, True, 150),
+    (1, 1500, 1500, 1, 1, 64, True, None),
+    (1, 2048, 2048, 2, 1, 256, True, None),
+    (2, 200, 520, 4, 4, 64, False, None),
 ]
 
 
@@ -267,6 +278,27 @@ def test_flash_kernel_reads_strided_views(cuda):
     want = flash_attention.flash_attention_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(), True, None)
     assert torch.equal(got, want)
+
+
+def test_flash_kernel_reruns_bitwise_at_gemma3_global(cuda):
+    """Two launches at the gemma3-1b global layer's shape (1, 4096, 4,
+    1, 256), bf16 causal: bitwise equal (no float atomics)."""
+    q = _randn(cuda, 1, 4096, 4, 256, seed=11).to(torch.bfloat16)
+    k = _randn(cuda, 1, 4096, 1, 256, seed=12).to(torch.bfloat16)
+    v = _randn(cuda, 1, 4096, 1, 256, seed=13).to(torch.bfloat16)
+    a = flash_attention.flash_attention_cuda(q, k, v, True, None)
+    b = flash_attention.flash_attention_cuda(q, k, v, True, None)
+    assert torch.equal(a, b)
+
+
+def test_encode_single_ragged_d(cuda):
+    """K5s at (4, 4) @ (4, 200001): d not a multiple of 4, so the last
+    column takes the scalar tail."""
+    c = _randn(cuda, 4, 4, seed=21)
+    g = _randn(cuda, 4, 200001, seed=22)
+    got = coded_encode.coded_encode_cuda(c, g)
+    assert got.shape == (4, 200001)
+    assert _rel_err(got, coded_encode.coded_encode_plain(c, g)) <= 1e-5
 
 
 def _small(name, dtype="float32"):
