@@ -123,29 +123,6 @@ def require_cuda_tensor(x, name: str, ndim: int, dtypes) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def load_variant(name: str, defines: tuple[str, ...]) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` built with extra ``-D`` macros (a timing build;
-    nothing on the main path loads one), into its own library."""
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(" ".join(defines).encode()).hexdigest()[:8]
-    path = BUILD_DIR / f"{name}-{_digest(src)}-{tag}.so"
-    with _lock:
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
-                 "-o", str(tmp), str(src)], capture_output=True, text=True)
-            (BUILD_DIR / f"{name}-{tag}.log").write_text(proc.stdout +
-                                                        proc.stderr)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for {name} {defines}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, path)
-        return ctypes.CDLL(str(path))
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:

@@ -21,13 +21,16 @@
 // What the design does about it.  Each thread owns 4 adjacent output
 // columns p (one 16-byte vector) when every row of g and out starts on a
 // 16-byte boundary (d a multiple of 4, aligned pointers), else one
-// column: the block's coefficients (SG symbols x m) sit in shared memory
-// and are read as broadcasts, g streams through once with each warp
-// reading 512 (or 128) contiguous bytes per row, and the m loads of a
-// column are independent, so the unrolled loop keeps several in flight
-// while the FMAs chain in registers.  SG, the symbols per block, is the
-// smallest of 1, 2, 4, 8 that holds n_sym (so the single form's 4
-// symbols fill their accumulators); blocks tile (d, B, n_sym / SG).
+// column (a scalar tail would not rescue a d that is not a multiple of
+// 4: row j then starts j * d floats in, so no 4 columns are 16-byte
+// aligned in every row): the block's coefficients (SG symbols x m) sit
+// in shared memory and are read as broadcasts, g streams through once
+// with each warp reading 512 (or 128) contiguous bytes per row, and the
+// m loads of a column are independent, so the unrolled loop keeps
+// several in flight while the FMAs chain in registers.  SG, the
+// symbols per block, is the smallest of 1, 2, 4, 8 that holds n_sym (so
+// the single form's 4 symbols fill their accumulators); blocks tile (d,
+// B, n_sym / SG).
 // Each output is written by one thread with one FMA chain in the order
 // j = 0..m-1: no atomics, bit-reproducible, and the vector and scalar
 // bodies give the same bits.

@@ -55,11 +55,12 @@
 //   SM, each chunk parks its (m, l, acc) in scratch, and the last of
 //   them to finish (an integer count) combines them in chunk order: no
 //   float atomics, so reruns stay bitwise equal.
-//   What holds it back now (scripts/k6_stages.py on the H100): at hd 64
-//   the softmax's per-logit work (ex2 alone runs at 16 a clock per SM)
-//   costs about as much as the two products, and each warpgroup runs
-//   them in turn; the two consumer warpgroups overlap them only through
-//   the warp schedulers' interleaving.
+//   What holds it back now (the design's stages timed one by one on the
+//   H100 80GB HBM3 at 700 W, PERF.md § 6): at hd 64 the softmax's
+//   per-logit work (ex2 alone runs at 16 a clock per SM) costs about as
+//   much as the two products, and each warpgroup runs them in turn; the
+//   consumer warpgroups overlap them only through the warp schedulers'
+//   interleaving.
 // - bf16 at hd 16 and 32 (the reduced configs and the tests only):
 //   flash_bf16_kernel, 4 warps and 64 x 64 tiles on mma.sync m16n8k16
 //   with ldmatrix, loads through registers.
@@ -76,9 +77,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math: the f32 body's expf and the
 // divisions are IEEE).  cuTensorMapEncodeTiled is reached through
-// cudaGetDriverEntryPoint, so no -lcuda.  -DFLASH_STAGES adds
-// flash_attention_stage, which runs the intermediate designs for
-// timing (scripts/k6_stages.py).
+// cudaGetDriverEntryPoint, so no -lcuda.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -434,20 +433,13 @@ constexpr int f32_smem() {
          4;
 }
 
-#ifdef FLASH_STAGES
-constexpr bool kStages = true;
-#else
-constexpr bool kStages = false;
-#endif
-
 template <int HD>
 cudaError_t launch(const Params& p, int bf16, cudaStream_t stream) {
   // the dynamic shared memory cap is raised once per instantiation
   static bool raised[2] = {false, false};
   if (bf16) {
-    // hd >= 64 runs flash_hopper_kernel; this body there only as the
-    // first of the timed stages
-    if constexpr (HD > 32 && !kStages) {
+    // bf16 at hd >= 64 runs flash_hopper_kernel
+    if constexpr (HD > 32) {
       return cudaErrorInvalidValue;
     } else {
       const int smem = bf16_smem<HD>();
@@ -504,7 +496,6 @@ struct HParams {
   float scale;                       // softmax scale
   float scale_log2;                  // scale * log2(e)
   int causal, window;
-  int heavy_first;                   // 1: items heaviest first over all heads
   // balancing (cap > 0): a query tile's key range is cut into chunks of
   // at most `cap` key tiles; each chunk's block parks its (m, l, acc) in
   // `part`, and the last of them to finish (an integer count in
@@ -570,29 +561,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr >> 4) & 0x3FFF) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// shared address of the 8 bf16 at (row r, column c) of a 128-byte-swizzled
-// tile of `rows` rows stored as 64-column blocks (the TMA layout)
-__device__ __forceinline__ uint32_t swz(uint32_t base, int rows, int r,
-                                        int c) {
-  return base + (uint32_t)((c >> 6) * rows * 128 + r * 128 +
-                           ((((c & 63) >> 3) ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void ldsm_x4_a(uint32_t r[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans_a(uint32_t r[4],
-                                                uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -803,18 +771,17 @@ __device__ __forceinline__ bool tile_visible(const HParams& p, int r0, int k0,
 // (s[4 j + e]: row row_a + 8 (e >> 1), key k0 + 8 j + 2 t4 + (e & 1)),
 // in place: P, rounded to bf16, leaves as packed pairs in s[4 j] (row
 // row_a) and s[4 j + 2] (row row_a + 8), read back by unpack_p; l sums
-// the rounded values; alpha is what O must be scaled by.  FAST: logits
-// in the log2 domain (scale * log2(e) folded into one FMA on the
-// unmasked path, ex2); else the first design's arithmetic (a multiply,
-// the mask and an IEEE expf on every logit).  MASK: the tile crosses the
+// the rounded values; alpha is what O must be scaled by.  Logits live in
+// the log2 domain: scale * log2(e) is folded into one FMA in the
+// exponent of ex2 on the unmasked path.  MASK: the tile crosses the
 // causal diagonal, the window's lower edge or Sk.
-template <int BK, bool FAST, bool MASK>
+template <int BK, bool MASK>
 __device__ __forceinline__ void softmax_tile(const HParams& p,
                                              float (&s)[BK / 2], float m[2],
                                              float l[2], float (&alpha)[2],
                                              int row_a, int k0, int t4) {
-  constexpr bool RAW = FAST && !MASK;  // s stays unscaled
-  const float sc = FAST ? p.scale_log2 : p.scale;
+  constexpr bool RAW = !MASK;          // s stays unscaled
+  const float sc = p.scale_log2;
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j)
@@ -842,7 +809,7 @@ __device__ __forceinline__ void softmax_tile(const HParams& p,
     mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
     // max(s) * c == max(s * c) for c > 0: the raw maximum, scaled once
     const float m_new = fmaxf(m[hr], RAW ? mx[hr] * sc : mx[hr]);
-    alpha[hr] = FAST ? ex2(m[hr] - m_new) : expf(m[hr] - m_new);
+    alpha[hr] = ex2(m[hr] - m_new);
     m[hr] = m_new;
   }
   float ls[2] = {0.0f, 0.0f};
@@ -852,8 +819,7 @@ __device__ __forceinline__ void softmax_tile(const HParams& p,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float mm = m[e >> 1];
-      e4[e] = RAW ? ex2(fmaf(s[4 * j + e], sc, -mm))
-                  : (FAST ? ex2(s[4 * j + e] - mm) : expf(s[4 * j + e] - mm));
+      e4[e] = RAW ? ex2(fmaf(s[4 * j + e], sc, -mm)) : ex2(s[4 * j + e] - mm);
     }
     s[4 * j] = __uint_as_float(pack_bf16(e4[0], e4[1], &ls[0]));
     s[4 * j + 2] = __uint_as_float(pack_bf16(e4[2], e4[3], &ls[1]));
@@ -865,16 +831,16 @@ __device__ __forceinline__ void softmax_tile(const HParams& p,
 // The softmax of one tile, unmasked where every row of the warpgroup
 // sees the whole tile.  Not between a wgmma's issue and its wait: ptxas
 // serializes wgmma around a divergent branch there.
-template <int BK, bool FAST>
+template <int BK>
 __device__ __forceinline__ void softmax_any(const HParams& p,
                                             float (&s)[BK / 2], float m[2],
                                             float l[2], float (&alpha)[2],
                                             int r0, int row_a, int k0,
                                             int t4) {
-  if (FAST && tile_visible(p, r0, k0, BK))
-    softmax_tile<BK, FAST, false>(p, s, m, l, alpha, row_a, k0, t4);
+  if (tile_visible(p, r0, k0, BK))
+    softmax_tile<BK, false>(p, s, m, l, alpha, row_a, k0, t4);
   else
-    softmax_tile<BK, FAST, true>(p, s, m, l, alpha, row_a, k0, t4);
+    softmax_tile<BK, true>(p, s, m, l, alpha, row_a, k0, t4);
 }
 
 // P from softmax_tile's packed pairs to wgmma's register A layout
@@ -930,8 +896,8 @@ __host__ __device__ __forceinline__ int chunks_of(const HParams& p, int qt,
   return p.cap > 0 ? (*hi - *lo + p.cap) / p.cap : 1;
 }
 
-// block `item` -> its work.  Items run heaviest first over all heads,
-// or (heavy_first = 0) per head, heaviest first.
+// block `item` -> its work: per head, the heaviest causal tiles first
+// (with chunks: the tiles heaviest first, each over every head).
 template <int BK>
 __device__ __forceinline__ Item item_of(const HParams& p, int item) {
   const int BH = p.B * p.H;
@@ -949,14 +915,8 @@ __device__ __forceinline__ Item item_of(const HParams& p, int item) {
     it.c = rem % it.nc;
     it.slot0 = item - it.c;
   } else {
-    int qi;
-    if (p.heavy_first) {
-      hb = item % BH;
-      qi = item / BH;
-    } else {
-      qi = item % p.nq;
-      hb = item / p.nq;
-    }
+    const int qi = item % p.nq;
+    hb = item / p.nq;
     it.qt = p.causal ? p.nq - 1 - qi : qi;
     it.nc = chunks_of<BK>(p, it.qt, &lo, &hi);
     it.c = 0;
@@ -1065,7 +1025,7 @@ __device__ __forceinline__ uint32_t ring_bar(uint32_t bars, int kind,
   return bars + 8u * (1 + kind * ST + st);
 }
 
-template <int HD, int BK, int ST, int NC, bool WG, bool FAST>
+template <int HD, int BK, int ST, int NC>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
 flash_hopper_kernel(const __grid_constant__ HParams p) {
   constexpr int CB = HD / 64;                       // 64-column blocks
@@ -1134,7 +1094,7 @@ flash_hopper_kernel(const __grid_constant__ HParams p) {
     const int cw = (threadIdx.x >> 7) - 1;         // consumer 0 .. NC-1
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t4 = lane & 3, lm = lane >> 3, lr = lane & 7;
+    const int g = lane >> 2, t4 = lane & 3;
     const int r0 = q0 + cw * 64;                   // this warpgroup's rows
     const int row_a = r0 + warp * 16 + g;          // and row_a + 8
     const uint32_t qa = sQ + cw * 64 * 128;
@@ -1155,60 +1115,24 @@ flash_hopper_kernel(const __grid_constant__ HParams p) {
       const uint32_t kb = sK + st * KV_BYTES, vb = sV + st * KV_BYTES;
       float s[BK / 2], alpha[2];
       mbar_wait(full_k(st), ph);
-      if (WG) {
-        wgmma_fence();
-        issue_s<HD, BK, BQ>(s, qa, kb);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-      } else {
-#pragma unroll
-        for (int i2 = 0; i2 < BK / 2; ++i2) s[i2] = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          uint32_t a[4];
-          ldsm_x4_a(a, swz(sQ, BQ,
-                           cw * 64 + warp * 16 + (lm & 1) * 8 + lr,
-                           kk * 16 + (lm >> 1) * 8));
-#pragma unroll
-          for (int j = 0; j < BK / 8; j += 2) {
-            uint32_t bf[4];
-            ldsm_x4_a(bf, swz(kb, BK, (j + (lm >> 1)) * 8 + lr,
-                              kk * 16 + (lm & 1) * 8));
-            mma_bf16(&s[4 * j], a, bf[0], bf[1]);
-            mma_bf16(&s[4 * j + 4], a, bf[2], bf[3]);
-          }
-        }
-      }
+      wgmma_fence();
+      issue_s<HD, BK, BQ>(s, qa, kb);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
       release(free_k(st));
 
       uint32_t pa[BK / 8][2];
-      softmax_any<BK, FAST>(p, s, m, l, alpha, r0, row_a, t * BK, t4);
+      softmax_any<BK>(p, s, m, l, alpha, r0, row_a, t * BK, t4);
       unpack_p<BK>(s, pa);
       rescale<HD>(o, alpha);
 
       mbar_wait(full_v(st), ph);
-      if (WG) {
-        wgmma_fence();
-        issue_pv<HD, BK>(o, pa, vb);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(o);
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1],
-                                 pa[2 * kk + 1][0], pa[2 * kk + 1][1]};
-#pragma unroll
-          for (int n = 0; n < HD / 8; n += 2) {
-            uint32_t bf[4];
-            ldsm_x4_trans_a(bf, swz(vb, BK, kk * 16 + (lm & 1) * 8 + lr,
-                                    (n + (lm >> 1)) * 8));
-            mma_bf16(&o[4 * n], a, bf[0], bf[1]);
-            mma_bf16(&o[4 * n + 4], a, bf[2], bf[3]);
-          }
-        }
-      }
+      wgmma_fence();
+      issue_pv<HD, BK>(o, pa, vb);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
       release(free_v(st));
     }
 
@@ -1241,37 +1165,41 @@ flash_hopper_kernel(const __grid_constant__ HParams p) {
   }
 }
 
+// key tile rows, ring stages, consumer warpgroups: three at hd 64 (more
+// warps to interleave the softmax with the products), two at hd 128 and
+// 256 (their O takes the registers)
 template <int HD>
-struct HopperShape;                  // key tile rows, ring stages
+struct HopperShape;
 template <>
 struct HopperShape<64> {
-  static constexpr int BK = 128, ST = 4;
+  static constexpr int BK = 128, ST = 4, NC = 3;
 };
 template <>
 struct HopperShape<128> {
-  static constexpr int BK = 128, ST = 2;
+  static constexpr int BK = 128, ST = 2, NC = 2;
 };
 template <>
 struct HopperShape<256> {
-  static constexpr int BK = 64, ST = 2;
+  static constexpr int BK = 64, ST = 2, NC = 2;
 };
 
-template <int HD, int NC, bool WG, bool FAST>
+template <int HD>
 cudaError_t launch_hopper(const HParams& hp, int items,
                           cudaStream_t stream) {
-  constexpr int BK = HopperShape<HD>::BK, ST = HopperShape<HD>::ST;
+  constexpr int BK = HopperShape<HD>::BK, ST = HopperShape<HD>::ST,
+                NC = HopperShape<HD>::NC;
   constexpr int smem = 1024 + 64 * NC * HD * 2 + 2 * ST * BK * HD * 2 +
                        8 * (1 + 4 * ST);
   static_assert(smem <= 232448, "shared memory");
   static bool raised = false;
   if (!raised) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_hopper_kernel<HD, BK, ST, NC, WG, FAST>,
+        flash_hopper_kernel<HD, BK, ST, NC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     raised = true;
   }
-  flash_hopper_kernel<HD, BK, ST, NC, WG, FAST>
+  flash_hopper_kernel<HD, BK, ST, NC>
       <<<(unsigned)items, 128 * (NC + 1), smem, stream>>>(hp);
   return cudaGetLastError();
 }
@@ -1331,6 +1259,13 @@ int hopper_bk(int hd) {
                      : HopperShape<256>::BK;
 }
 
+// query rows a block: 64 a consumer warpgroup
+int hopper_bq(int hd) {
+  return 64 * (hd == 64    ? HopperShape<64>::NC
+               : hd == 128 ? HopperShape<128>::NC
+                           : HopperShape<256>::NC);
+}
+
 int sm_count() {
   static int sms[64] = {0};
   int dev = 0;
@@ -1347,8 +1282,8 @@ int sm_count() {
 // the key ranges into chunks of at most `cap` tiles, `cap` the even
 // share of all tiles per SM (at least 4); sets hp->cap and returns the
 // number of blocks.
-int hopper_plan(const Params& p, int hd, int bq, int balance,
-                HParams* hp) {
+int hopper_plan(const Params& p, int hd, HParams* hp) {
+  const int bq = hopper_bq(hd);
   hp->B = p.B; hp->Sq = p.Sq; hp->Sk = p.Sk; hp->H = p.H; hp->G = p.G;
   hp->bq = bq;
   hp->nq = (p.Sq + bq - 1) / bq;
@@ -1356,7 +1291,7 @@ int hopper_plan(const Params& p, int hd, int bq, int balance,
   hp->cap = 0;
   const int bk = hopper_bk(hd), BH = p.B * p.H, sms = sm_count();
   const long long items0 = (long long)hp->nq * BH;
-  if (!balance || items0 >= sms) return (int)items0;
+  if (items0 >= sms) return (int)items0;
   long long total = 0;
   for (int qt = 0; qt < hp->nq; ++qt) {
     int lo, hi;
@@ -1378,13 +1313,9 @@ int hopper_plan(const Params& p, int hd, int bq, int balance,
   return (int)items;
 }
 
-// consumer warpgroups a block: 3 at hd 64 when `nc64` asks for it
-int hopper_nc(int hd, int nc64) { return hd == 64 ? nc64 : 2; }
-
-cudaError_t hopper_params(const Params& p, int K, int hd, int nc,
-                          int heavy_first, int balance, void* part,
+cudaError_t hopper_params(const Params& p, int K, int hd, void* part,
                           void* counters, HParams* hp, int* items) {
-  *items = hopper_plan(p, hd, 64 * nc, balance, hp);
+  *items = hopper_plan(p, hd, hp);
   if (hp->cap > 0 && (part == nullptr || counters == nullptr))
     return cudaErrorInvalidValue;
   const int bk = hopper_bk(hd);
@@ -1397,30 +1328,21 @@ cudaError_t hopper_params(const Params& p, int K, int hd, int nc,
   hp->o = static_cast<__nv_bfloat16*>(p.o);
   hp->scale = p.scale;
   hp->scale_log2 = p.scale * 1.4426950408889634f;
-  hp->heavy_first = heavy_first;
   hp->part = static_cast<float*>(part);
   hp->counters = static_cast<int*>(counters);
   return e;
 }
 
-template <bool WG, bool FAST>
-cudaError_t run_hopper(const Params& p, int K, int hd, int nc64,
-                       int heavy_first, int balance, void* part,
+cudaError_t run_hopper(const Params& p, int K, int hd, void* part,
                        void* counters, cudaStream_t stream) {
   HParams hp;
   int items = 0;
-  const int nc = hopper_nc(hd, nc64);
-  const cudaError_t e = hopper_params(p, K, hd, nc, heavy_first, balance,
-                                      part, counters, &hp, &items);
+  const cudaError_t e = hopper_params(p, K, hd, part, counters, &hp, &items);
   if (e != cudaSuccess) return e;
   switch (hd) {
-    case 64:
-      return nc == 3 ? launch_hopper<64, 3, WG, FAST>(hp, items, stream)
-                     : launch_hopper<64, 2, WG, FAST>(hp, items, stream);
-    case 128:
-      return launch_hopper<128, 2, WG, FAST>(hp, items, stream);
-    case 256:
-      return launch_hopper<256, 2, WG, FAST>(hp, items, stream);
+    case 64: return launch_hopper<64>(hp, items, stream);
+    case 128: return launch_hopper<128>(hp, items, stream);
+    case 256: return launch_hopper<256>(hp, items, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1451,9 +1373,6 @@ bool bad_shape(int B, int Sq, int Sk, int H, int K) {
 
 bool hopper_hd(int hd) { return hd == 64 || hd == 128 || hd == 256; }
 
-// consumer warpgroups at hd 64 in the shipped kernel
-constexpr int kNc64 = 3;
-
 }  // namespace
 
 extern "C" {
@@ -1472,10 +1391,9 @@ int flash_attention_plan(int bf16, int B, int Sq, int Sk, int H, int K,
                                H, K, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1.0f, causal,
                                window);
   HParams hp;
-  const int bq = 64 * hopper_nc(hd, kNc64);
-  const int items = hopper_plan(p, hd, bq, 1, &hp);
+  const int items = hopper_plan(p, hd, &hp);
   if (hp.cap > 0) {
-    *part = items * slot_size(hd, 2 * bq);
+    *part = items * slot_size(hd, 2 * hp.bq);
     *counters = (long long)hp.nq * B * H;
   }
   return 0;
@@ -1501,8 +1419,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                ks, kh, vb, vs, vh, scale, causal, window);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16 && hopper_hd(hd))
-    return (int)run_hopper<true, true>(p, K, hd, kNc64, 0, 1, part,
-                                       counters, st);
+    return (int)run_hopper(p, K, hd, part, counters, st);
   switch (hd) {
     case 16: return (int)launch<16>(p, bf16, st);
     case 32: return (int)launch<32>(p, bf16, st);
@@ -1512,55 +1429,6 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-#ifdef FLASH_STAGES
-// The intermediate designs, for timing each step of the redesign (bf16,
-// hd 64, 128, 256): 0 the mma.sync body with loads through registers;
-// 1 the TMA ring on an mma.sync body; 2 then wgmma for both products;
-// 3 then the log2-domain softmax with the unmasked / masked split; 4
-// then the balancing of grids that do not fill the card;
-// 5 stage 4 with the blocks ordered heaviest first across all heads
-// (not shipped: no faster); 6 stage 4 with three consumer warpgroups
-// (192 query rows) at hd 64 (what flash_attention_fwd runs).
-int flash_attention_stage(int stage, const void* q, const void* k,
-                          const void* v, void* o, int B, int Sq, int Sk,
-                          int H, int K, int hd, long long qb, long long qs,
-                          long long qh, long long kb, long long ks,
-                          long long kh, long long vb, long long vs,
-                          long long vh, float scale, int causal, int window,
-                          void* part, void* counters, void* stream) {
-  if (bad_shape(B, Sq, Sk, H, K) || !hopper_hd(hd))
-    return (int)cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, B, Sq, Sk, H, K, qb, qs, qh, kb,
-                               ks, kh, vb, vs, vh, scale, causal, window);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (stage) {
-    case 0:
-      return (int)(hd == 64    ? launch<64>(p, 1, st)
-                   : hd == 128 ? launch<128>(p, 1, st)
-                               : launch<256>(p, 1, st));
-    case 1:
-      return (int)run_hopper<false, false>(p, K, hd, 2, 0, 0, part,
-                                           counters, st);
-    case 2:
-      return (int)run_hopper<true, false>(p, K, hd, 2, 0, 0, part,
-                                          counters, st);
-    case 3:
-      return (int)run_hopper<true, true>(p, K, hd, 2, 0, 0, part, counters,
-                                         st);
-    case 4:
-      return (int)run_hopper<true, true>(p, K, hd, 2, 0, 1, part, counters,
-                                         st);
-    case 5:
-      return (int)run_hopper<true, true>(p, K, hd, 2, 1, 1, part, counters,
-                                         st);
-    case 6:
-      return (int)run_hopper<true, true>(p, K, hd, 3, 0, 1, part, counters,
-                                         st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-#endif
 
 const char* flash_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));

@@ -65,6 +65,18 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
+def _tile_rel_err(got, want, rows=64):
+    """The largest ||got - want|| / ||want|| over blocks of ``rows``
+    query rows of (B, S, H, hd) outputs: a limit scaled to the data."""
+    d, w = got.float() - want.float(), want.float()
+    worst = 0.0
+    for r0 in range(0, got.shape[1], rows):
+        den = float(w[:, r0:r0 + rows].norm())
+        num = float(d[:, r0:r0 + rows].norm())
+        worst = max(worst, num / den if den > 0 else num)
+    return worst
+
+
 # (B, Ie, d): ragged d (not a multiple of k or of the 32-column tile),
 # Ie not a multiple of 8, B = 1, B past one 64-trial block, the
 # fused_sweep chunk width, and the default problem's Ie = 258
@@ -253,10 +265,13 @@ FLASH_SHAPES = [
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
 def test_flash_kernel_matches_plain(cuda, dtype, shape):
     """K6 against its plain version: f32 within 2e-5, bf16 within 2e-2
-    (P is rounded to bf16 for P.V), both abs + rel."""
+    (P is rounded to bf16 for P.V), both abs + rel; and every block of 64
+    query rows within 1e-5 (f32) or 1e-2 (bf16) relative to its norm,
+    which the elementwise bound alone does not hold where the outputs
+    are small (late causal rows)."""
     B, Sq, Sk, H, K, hd, causal, window = shape
-    dt, tol = ((torch.float32, 2e-5) if dtype == "f32"
-               else (torch.bfloat16, 2e-2))
+    dt, tol, tile_tol = ((torch.float32, 2e-5, 1e-5) if dtype == "f32"
+                         else (torch.bfloat16, 2e-2, 1e-2))
     q = _randn(cuda, B, Sq, H, hd, seed=Sq).to(dt)
     k = _randn(cuda, B, Sk, K, hd, seed=Sk + 1).to(dt)
     v = _randn(cuda, B, Sk, K, hd, seed=Sk + 2).to(dt)
@@ -267,6 +282,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape):
     want = flash_attention.flash_attention_plain(q, k, v, causal, window)
     assert got.dtype == dt and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _tile_rel_err(got, want) <= tile_tol
 
 
 def test_flash_kernel_reads_strided_views(cuda):
@@ -292,8 +308,9 @@ def test_flash_kernel_reruns_bitwise_at_gemma3_global(cuda):
 
 
 def test_encode_single_ragged_d(cuda):
-    """K5s at (4, 4) @ (4, 200001): d not a multiple of 4, so the last
-    column takes the scalar tail."""
+    """K5s at (4, 4) @ (4, 200001): d not a multiple of 4, so rows after
+    the first do not start on a 16-byte boundary and the whole launch
+    takes the scalar (one column a thread) body."""
     c = _randn(cuda, 4, 4, seed=21)
     g = _randn(cuda, 4, 200001, seed=22)
     got = coded_encode.coded_encode_cuda(c, g)
