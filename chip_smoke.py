@@ -10,11 +10,12 @@ Phases, in order; any failed check exits nonzero:
 1. the card: name and power limit, a build of every CUDA source;
 2. each kernel against its plain PyTorch version on the card, at the
    engine's main-path shapes and at ragged shapes, with times (CUDA
-   events, median after warm-up; the single forms K3s, K4s, K5s and
+   events, median after warm-up; K3, the single forms K3s, K4s, K5s and
    their yardsticks over 50 back-to-back calls, divided by 50) beside
    the card's bound and, where one PyTorch call computes the same
-   function, that call's time; for K5s and K6 also the kernel's device
-   time from ``torch.profiler`` (its own kernel, by name); K6 (flash
+   function, that call's time; for K2, K3, K3s, K5s and K6 also the
+   kernel's device time from ``torch.profiler`` (its own kernel, by
+   name); K2's reruns bitwise equal at the main shape; K6 (flash
    attention) at the llama3.2-1b and qwen3-4b prefill shapes, gemma3-1b's
    local and global layers, small f32 and bf16 ragged shapes (each held
    elementwise and, with a limit scaled to the data, per block of 64
@@ -295,10 +296,14 @@ def phase_kernels(torch):
         check(bool((rk[:, 0, 1] == 0).all()), "K3 planted pair not 0")
         if shape == main_shape:
             x_main, err_main = x, err
+    # 50 back-to-back calls an event pair: one call's device time is
+    # less than the host's call
     ms = median_ms(torch, lambda: mv.pairwise_relmax_batched_cuda(x_main),
-                   reps=50)
+                   reps=20, launches=50)
     plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_batched_plain(
-        x_main), reps=50)
+        x_main), reps=20, launches=50)
+    dev_ms = device_ms(torch, lambda: mv.pairwise_relmax_batched_cuda(
+        x_main), "relmax_kernel", calls=50)
     B, R, dd = main_shape
     # one f32 division per element and pair
     b_ms, b_by = bound(B * R * dd * 4 + B * R * R * 4, B * R * R * dd,
@@ -307,8 +312,10 @@ def phase_kernels(torch):
         "pairwise_relmax_batched", "majority_vote.cu",
         "src/repro/kernels/majority_vote.py:63", err_main, ms, plain_ms,
         b_ms, b_by, None)
-    print(f"K3 relmax {main_shape}: kernel_ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} bound_ms={b_ms:.6f} ({b_by})")
+    report["pairwise_relmax_batched"]["device_ms"] = dev_ms
+    print(f"K3 relmax {main_shape}: call ms (50 calls / 50): kernel "
+          f"{ms:.4f}, plain {plain_ms:.4f}; device ms (profiler): "
+          f"relmax_kernel {fmt_ms(dev_ms)}; bound_ms={b_ms:.6f} ({b_by})")
     return report
 
 
@@ -364,20 +371,34 @@ def phase_stream_kernels(torch):
             k2_check(*shape, dtype)
     k2_check(B2, Ie2, d2, "bf16")
     err2, rows, W, cw = k2_check(B2, Ie2, d2, "f32")
+    runs = [fs.fused_step_cuda(rows, W.clone(), cw, key) for _ in range(2)]
+    check(all(bool(torch.equal(a, b)) for a, b in zip(*runs)),
+          "K2 reruns differ at the main shape")
+    del runs
     ms = median_ms(torch, lambda: fs.fused_step_cuda(rows, W, cw, key))
     plain_ms = median_ms(torch, lambda: fs.fused_step_plain(rows, W, cw, key))
     rows_bf = rows.to(torch.bfloat16)
     ms_bf = median_ms(torch, lambda: fs.fused_step_cuda(rows_bf, W, cw, key))
+    dev_k2 = {}                          # the kernel and its span sum
+    for label, r in (("f32", rows), ("bf16", rows_bf)):
+        for kern in ("fused_step_kernel", "span_sum_kernel"):
+            dev_k2[f"{label} {kern}"] = device_ms(
+                torch, lambda: fs.fused_step_cuda(r, W, cw, key), kern,
+                calls=10)
     b_ms, b_by = bound(Ie2 * d2 * 4 + 2 * B2 * d2 * 4 + 2 * B2 * Ie2 * 4
                        + Ie2 * k * 4, 4 * B2 * Ie2 * d2 + Ie2 * d2,
                        F32_OPS_S)
     report["fused_step"] = entry(
         "fused_step", "fused_step.cu", "src/repro/kernels/fused_step.py:50",
         err2, ms, plain_ms, b_ms, b_by, None)
+    report["fused_step"].update(bf16_ms=ms_bf, device_ms=dev_k2)
     print(f"K2 fused_step (B={B2}, Ie={Ie2}, d=2^20): kernel_ms={ms:.4f} "
           f"(bf16 rows: {ms_bf:.4f}) plain_ms={plain_ms:.4f} bound_ms="
-          f"{b_ms:.4f} ({b_by}); library: none (no single PyTorch call "
-          f"fuses the update, the residual and the sketch)")
+          f"{b_ms:.4f} ({b_by}), {b_ms / ms:.1%} of bound (bf16 rows "
+          f"{b_ms / ms_bf:.1%}); device ms (profiler): "
+          + ", ".join(f"{k} {fmt_ms(v)}" for k, v in dev_k2.items())
+          + "; library: none (no single PyTorch call fuses the update, the "
+          "residual and the sketch)")
     del rows, rows_bf, W, cw
 
     # -- K4 and K4s: CountSketch -------------------------------------------
@@ -520,14 +541,18 @@ def phase_stream_kernels(torch):
     ms = median_ms(torch, lambda: mv.pairwise_relmax_cuda(x), launches=50)
     plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_plain(x),
                          launches=50)
+    dev_ms = device_ms(torch, lambda: mv.pairwise_relmax_cuda(x),
+                       "relmax_kernel", calls=50)
     b_ms, b_by = bound(R3 * d3 * 4 + R3 * R3 * 4, R3 * R3 * d3, F32_OPS_S)
     report["pairwise_relmax"] = entry(
         "pairwise_relmax", "majority_vote.cu",
         "src/repro/kernels/majority_vote.py:30", err, ms, plain_ms, b_ms,
         b_by, None)
+    report["pairwise_relmax"]["device_ms"] = dev_ms
     print(f"K3s pairwise_relmax (R={R3}, d={d3}): max|kernel-plain| = "
-          f"{err:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-          f"{b_ms:.5f} ({b_by})")
+          f"{err:.3e}; call ms (50 calls / 50): kernel {ms:.4f}, plain "
+          f"{plain_ms:.4f}; device ms (profiler): relmax_kernel "
+          f"{fmt_ms(dev_ms)}; bound_ms={b_ms:.5f} ({b_by})")
     return report
 
 

@@ -84,6 +84,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm_count.cuh"
+
 namespace {
 
 constexpr float NEG_BIG = -1e30f;   // the reference's mask sentinel
@@ -1264,17 +1266,6 @@ int hopper_bq(int hd) {
   return 64 * (hd == 64    ? HopperShape<64>::NC
                : hd == 128 ? HopperShape<128>::NC
                            : HopperShape<256>::NC);
-}
-
-int sm_count() {
-  static int sms[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (sms[dev] == 0 &&
-      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                             dev) != cudaSuccess)
-    sms[dev] = 132;
-  return sms[dev];
 }
 
 // The shape part of the parameters, and the balancing plan: when the

@@ -69,23 +69,21 @@ def fused_step_cuda(rows: torch.Tensor, W: torch.Tensor, cw: torch.Tensor,
         raise ValueError(f"the fused kernel takes a sketch width k that is "
                          f"a positive multiple of 32, got {k}")
     lib = _lib()
-    nspan = lib.fused_step_num_spans(B, Ie, d, k)
-    if nspan == 0:
-        raise ValueError(f"the fused kernel's shared-memory tiles do not "
-                         f"fit Ie = {Ie} extended rows")
     dev = rows.device
     resid = torch.empty((B, Ie), dtype=torch.float32, device=dev)
     sk = torch.empty((Ie, k), dtype=torch.float32, device=dev)
-    if Ie == 0:
-        return W, resid.zero_(), sk
+    if Ie == 0 or d == 0:
+        return W, resid.zero_(), sk.zero_()
+    nspan = lib.fused_step_num_spans(B, Ie, d, k)
     part_r = torch.empty((nspan, B, Ie), dtype=torch.float32, device=dev)
     part_sk = torch.empty((nspan, Ie, k), dtype=torch.float32, device=dev)
     fn = lib.fused_step_bf16 if rows.dtype == torch.bfloat16 \
         else lib.fused_step_f32
-    _build.check_status(lib.fused_step_error_string, fn(
-        rows.data_ptr(), Ie, d, W.data_ptr(), cw.data_ptr(), B, k,
-        int(key_scalar) & 0xFFFFFFFF, part_r.data_ptr(), part_sk.data_ptr(),
-        resid.data_ptr(), sk.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "fused_step")
+    status = fn(rows.data_ptr(), Ie, d, W.data_ptr(), cw.data_ptr(), B, k,
+                int(key_scalar) & 0xFFFFFFFF, part_r.data_ptr(),
+                part_sk.data_ptr(), resid.data_ptr(), sk.data_ptr(),
+                _build.raw_stream(rows.get_device()))
+    if status:
+        _build.check_status(lib.fused_step_error_string, status, "fused_step")
     LAUNCHES["fused_step"] += 1
     return W, resid, sk

@@ -47,23 +47,31 @@ def _lib():
         lib.relmax_error_string.restype = ctypes.c_char_p
         lib.relmax_max_replicas.argtypes = []
         lib.relmax_max_replicas.restype = i
+        lib.max_r = lib.relmax_max_replicas()   # asked once, at load
         lib._typed = True
     return lib
 
 
 def _relmax_cuda(x: torch.Tensor, form: str) -> torch.Tensor:
-    _build.require_cuda_tensor(x, "replicas", 3, (torch.float32,))
+    """x (B, R, d) f32 on the card -> (B, R, R).  The host work per call
+    is kept to the checks that raise: the vote's launch costs less."""
+    if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 3
+            and x.is_contiguous()):
+        _build.require_cuda_tensor(x, "replicas", 3, (torch.float32,))
     B, R, d = x.shape
     lib = _lib()
-    if R > lib.relmax_max_replicas():
-        raise ValueError(f"relmax kernel takes at most "
-                         f"{lib.relmax_max_replicas()} replicas, got {R}")
-    out = torch.zeros((B, R, R), dtype=torch.float32, device=x.device)
+    if R > lib.max_r:
+        raise ValueError(f"relmax kernel takes at most {lib.max_r} "
+                         f"replicas, got {R}")
+    if B > 65535:
+        raise ValueError(f"relmax kernel takes B <= 65535, got {B}")
     if B == 0 or R == 0 or d == 0:
-        return out
-    _build.check_status(lib.relmax_error_string, lib.relmax_batched(
-        x.data_ptr(), B, R, d, out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream), "relmax_batched")
+        return x.new_zeros((B, R, R))
+    out = x.new_empty((B, R, R))
+    status = lib.relmax_batched(x.data_ptr(), B, R, d, out.data_ptr(),
+                                _build.raw_stream(x.get_device()))
+    if status:
+        _build.check_status(lib.relmax_error_string, status, form)
     LAUNCHES[form] += 1
     return out
 

@@ -77,11 +77,14 @@ def _tile_rel_err(got, want, rows=64):
     return worst
 
 
-# (B, Ie, d): ragged d (not a multiple of k or of the 32-column tile),
-# Ie not a multiple of 8, B = 1, B past one 64-trial block, the
-# fused_sweep chunk width, and the default problem's Ie = 258
+# (B, Ie, d): ragged d (not a multiple of k or of the 64-column tile),
+# Ie not a multiple of 8 or of the 72-row block, B = 1, B past one
+# 64-trial block, the fused_sweep chunk width, the default problem's
+# Ie = 258 (four row blocks), two row blocks with B past one block, and
+# many spans of many tiles each (more tiles than the ring has stages)
 FUSED_SHAPES = [(1, 3, 300), (3, 10, 70001), (70, 13, 1000),
-                (64, 66, 4096), (5, 258, 2000)]
+                (64, 66, 4096), (5, 258, 2000), (66, 73, 9001),
+                (64, 66, 270000), (2, 145, 5000)]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -104,6 +107,34 @@ def test_fused_step_kernel_matches_plain(cuda, dtype, B, Ie, d):
     assert _rel_err(got[0], want[0]) <= 1e-5
     assert _rel_err(got[1], want[1]) <= 1e-5
     torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("k", [32, 96])
+def test_fused_step_kernel_takes_k_multiple_of_32(cuda, k):
+    """Sketch widths that are not a multiple of the 64-column tile."""
+    rows = _randn(cuda, 11, 3001, seed=k)
+    W = _randn(cuda, 3, 3001, seed=1)
+    cw = _randn(cuda, 3, 11, seed=2) * 0.1
+    want = fused_step.fused_step_plain(rows, W.clone(), cw, 99, k)
+    got = fused_step.fused_step_cuda(rows, W, cw, 99, k)
+    assert _rel_err(got[0], want[0]) <= 1e-5
+    assert _rel_err(got[1], want[1]) <= 1e-5
+    torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,Ie,d", [(64, 66, 65536), (5, 258, 2000)])
+def test_fused_step_kernel_reruns_bitwise(cuda, dtype, B, Ie, d):
+    rows = _randn(cuda, Ie, d, seed=4)
+    if dtype == "bf16":
+        rows = rows.to(torch.bfloat16)
+    W = _randn(cuda, B, d, seed=5)
+    cw = _randn(cuda, B, Ie, seed=6) * 0.1
+    outs = [fused_step.fused_step_cuda(rows, W.clone(), cw, 77)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B,d", [(66, 70001), (1, 255), (9, 4096),
@@ -180,6 +211,72 @@ def test_relmax_single_and_vote_match_plain(cuda):
     v_p = ops.vote(x, tau=1e-9, impl="torch")
     for a, b in zip(v_k, v_p):
         assert torch.equal(a, b)
+
+
+def _planted(dev, B, R, d, seed):
+    x = _randn(dev, B, R, d, seed=seed)
+    x[:, 1] = x[:, 0]                         # an agreeing pair
+    return x
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 3000), (1, 7, 100000),
+                                   (32, 8, 256)])
+def test_relmax_kernel_propagates_nan_and_inf(cuda, shape):
+    B, R, d = shape
+    x = _planted(cuda, B, R, d, seed=d)
+    x[0, 0, 3] = float("nan")
+    x[0, 2, d // 2] = float("inf")
+    x[B - 1, R - 1, d - 1] = -float("inf")
+    x[B - 1, R - 2, d - 1] = -float("inf")    # -inf against -inf: NaN
+    before = ops.launch_counts()["pairwise_relmax_batched"]
+    got = majority_vote.pairwise_relmax_batched_cuda(x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pairwise_relmax_batched"] == before + 1
+    want = majority_vote.pairwise_relmax_batched_plain(x)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0, equal_nan=True)
+    assert bool(got[0, 0].isnan().all()) and bool(got[0, :, 0].isnan().all())
+    assert bool(got[B - 1, R - 1, R - 2].isnan())
+
+
+# (B, R, d): the engine's vote (one block a trial), the single form's
+# many chunks a trial, R = relmax_max_replicas() in one and many chunks,
+# R past one 8-row tile with a ragged last tile
+RELMAX_SHAPES = [(32, 8, 256), (1, 7, 100000), (2, 96, 300), (1, 96, 40000),
+                 (3, 13, 5000), (4, 17, 511)]
+
+
+@pytest.mark.parametrize("shape", RELMAX_SHAPES)
+def test_relmax_kernel_symmetric_and_exact(cuda, shape):
+    B, R, d = shape
+    assert R <= majority_vote._lib().max_r
+    x = _planted(cuda, B, R, d, seed=R + d)
+    got = majority_vote.pairwise_relmax_batched_cuda(x)
+    want = majority_vote.pairwise_relmax_batched_plain(x)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert torch.equal(got, got.transpose(1, 2))          # bitwise
+    assert bool((torch.diagonal(got, dim1=1, dim2=2) == 0).all())
+    assert bool((got[:, 0, 1] == 0).all())
+    again = majority_vote.pairwise_relmax_batched_cuda(x)
+    assert torch.equal(got, again)
+
+
+def test_relmax_kernel_max_replicas(cuda):
+    assert majority_vote._lib().max_r == 96
+    with pytest.raises(ValueError):
+        majority_vote.pairwise_relmax_batched_cuda(
+            torch.zeros((1, 97, 10), device=cuda))
+
+
+@pytest.mark.parametrize("R,d", [(7, 100000), (3, 255)])
+def test_relmax_single_form(cuda, R, d):
+    x = _randn(cuda, R, d, seed=R)
+    x[1] = x[0]
+    before = ops.launch_counts()["pairwise_relmax"]
+    got = majority_vote.pairwise_relmax_cuda(x)
+    assert ops.launch_counts()["pairwise_relmax"] == before + 1
+    torch.testing.assert_close(got, majority_vote.pairwise_relmax_plain(x),
+                               rtol=1e-6, atol=0)
+    assert torch.equal(got, got.T) and float(got[0, 1]) == 0.0
 
 
 def test_run_batch_on_card_matches_cpu(cuda):
