@@ -13,9 +13,13 @@ Phases, in order; any failed check exits nonzero:
    events, median after warm-up; K3, the single forms K3s, K4s, K5s and
    their yardsticks over 50 back-to-back calls, divided by 50) beside
    the card's bound and, where one PyTorch call computes the same
-   function, that call's time; for K2, K3, K3s, K5s and K6 also the
+   function, that call's time; for K1, K2, K3, K3s, K5s and K6 also the
    kernel's device time from ``torch.profiler`` (its own kernel, by
-   name); K2's reruns bitwise equal at the main shape; K6 (flash
+   name), for K4s every kernel of the call, with one profiler window
+   showing one launch per call; K1's, K2's and K4s's reruns bitwise
+   equal; K1 (the sketch tables on the tensor cores: its SASS counted
+   for HGMMA / HMMA) also at ragged (Ie, d, T, k) with k = 96 and 512, one key,
+   one row, d < k; K4s at d = 1, 255, 256, 257, 513024; K6 (flash
    attention) at the llama3.2-1b and qwen3-4b prefill shapes, gemma3-1b's
    local and global layers, small f32 and bf16 ragged shapes (each held
    elementwise and, with a limit scaled to the data, per block of 64
@@ -44,7 +48,9 @@ Phases, in order; any failed check exits nonzero:
      layers, K4s twice per audit; the audit count and no failure; the
      same run with the plain versions (prefill logits, and each step's
      logits while the tokens agree, within 3e-2*(1+max|logits|); tokens
-     under the margin rule); a tampered
+     under the margin rule); the plain versions fed the kernel run's
+     tokens (teacher-forced), every step's logits of every row (128 of
+     128) within the same tolerance; a tampered
      replica caught; reduced llama3.2-1b and gemma3-1b in f32 on the
      card against the CPU;
 4. a ``{"kernels": [...]}`` line;
@@ -71,6 +77,8 @@ SRC = ROOT / "src"
 HBM_BYTES_S = 3.35e12
 F32_ADDS_S = 67e12 / 2
 F32_OPS_S = 67e12
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_OPS_S = 989e12
 
 GRAM_SWEEP = dict(B=32, T=120, n_data=64, d=1 << 20)
 # benchmarks/bench_protocol.py:304-331 with its default knobs; the plan
@@ -81,6 +89,13 @@ FUSED_CHUNK = 64
 # the reference's host-staged (B, n_data, d) f32 data is 2 GiB (the port
 # gathers each chunk's rows on the card by problem index)
 PER_PROBLEM = dict(B=8, T=3, n_data=64, d=1 << 20, problems=4)
+# K1's sketch tables at ragged shapes (Ie, d, T, k): k = 96 and 512, one
+# key, one row, d < k, more keys (128) and rows (72) than one block takes
+K1_RAGGED = [(5, 70001, 3, 96), (7, 30001, 130, 512), (66, 5000, 1, 256),
+             (1, 9000, 4, 256), (4, 100, 3, 256), (80, 3001, 2, 256)]
+# K4s's single vectors: the edges of one slab, and the serving audit's
+# 4 x 128256 logits
+K4S_D = [1, 255, 256, 257, 513_024]
 
 
 def fail(msg: str) -> None:
@@ -131,8 +146,57 @@ def device_ms(torch, fn, kernel: str | None, calls: int = 20):
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if getattr(e, "device_type", None) == DeviceType.CUDA
+             and e.name != "Activity Buffer Request"    # the profiler's own
              and (kernel is None or kernel in e.name))
     return us / 1e3 / calls if us > 0 else None
+
+
+def sass_counts(name: str, kernel: str) -> dict:
+    """Tensor-core and FMA instructions in ``kernel``'s SASS, from
+    ``cuobjdump -sass`` of the built library ``name``."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-400:]}")
+    import re
+
+    counts, inside = {"HMMA": 0, "HGMMA": 0, "FFMA": 0}, False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line) if inside else None
+        if m:
+            ops = [t for t in m.group(1).split() if not t.startswith("@")]
+            op = ops[0].split(".")[0] if ops else ""
+            if op in counts:
+                counts[op] += 1
+    return counts
+
+
+def kernel_names(torch, fn, calls: int = 50) -> dict:
+    """{kernel name: launches} of the CUDA kernels ``calls`` calls of
+    ``fn`` run, from one ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA and \
+                e.name != "Activity Buffer Request":   # the profiler's own
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
 
 
 def fmt_ms(x) -> str:
@@ -231,9 +295,16 @@ def phase_kernels(torch):
     _, _, sk_p = gm.gram_factors_plain(rows, None, keys, with_gram=False)
     torch.cuda.synchronize()
     err_sk = max_err(sk_k, sk_p)
+    worst = float(((sk_k - sk_p).abs() / (1e-3 + 2e-5 * sk_p.abs())).max())
     print(f"K1 gram SK (T={T}, Ie={Ie}, d=2^20): max|kernel-plain| = "
-          f"{err_sk:.3e} (tolerance: atol 1e-3 + rtol 2e-5)")
+          f"{err_sk:.3e} (tolerance: atol 1e-3 + rtol 2e-5; the worst "
+          f"element at {worst:.3f} of its tolerance)")
     check(close(sk_k, sk_p, 2e-5, 1e-3), "K1 sketch tables disagree")
+    again = gm.gram_factors_cuda(rows, None, keys, with_gram=False)[2]
+    check(bool(torch.equal(sk_k, again)), "K1 reruns differ at the main "
+                                          "shape")
+    print("K1 gram SK: rerun bitwise equal at the main shape")
+    del again
     G_k, _, _ = gm.gram_factors_cuda(rows, None, keys[:1])
     G_p, _, _ = gm.gram_factors_plain(rows, None, keys[:1])
     err_g = max_err(G_k, G_p) / float(G_p.abs().max())
@@ -254,9 +325,23 @@ def phase_kernels(torch):
             print(f"K1 ragged (Ie={Ie_r}, d={d_r}, T={T_r}, W0 ({B_r}, d)) "
                   f"{nm}: err {err:.3e}")
             check(ok, f"K1 ragged {nm} disagrees")
+    # the sketch tables alone at ragged shapes: other k, one key, one row,
+    # d < k, more keys and rows than one block takes
+    for (Ie_r, d_r, T_r, k_r) in K1_RAGGED:
+        keys_r = np.uint32(0x9E3779B9) * (np.arange(T_r, dtype=np.uint32) + 1)
+        R_r = rows_of(Ie_r, d_r)
+        a = gm.gram_factors_cuda(R_r, None, keys_r, k_r, with_gram=False)[2]
+        b = gm.gram_factors_plain(R_r, None, keys_r, k_r, with_gram=False)[2]
+        torch.cuda.synchronize()
+        print(f"K1 ragged SK (Ie={Ie_r}, d={d_r}, T={T_r}, k={k_r}): err "
+              f"{max_err(a, b):.3e}")
+        check(close(a, b, 2e-5, 1e-3), f"K1 ragged SK disagrees at "
+                                       f"{(Ie_r, d_r, T_r, k_r)}")
 
-    ms = median_ms(torch, lambda: gm.gram_factors_cuda(rows, None, keys,
-                                                       with_gram=False))
+    call = lambda: gm.gram_factors_cuda(rows, None, keys,   # noqa: E731
+                                        with_gram=False)
+    ms = median_ms(torch, call)
+    dev_ms = device_ms(torch, call, "sketch_tables_kernel", calls=10)
     plain_ms = median_ms(torch, lambda: gm.gram_factors_plain(
         rows, None, keys, with_gram=False), reps=10, warm=1)
     # library yardstick: one einsum over a precomputed sign table (the
@@ -270,14 +355,28 @@ def phase_kernels(torch):
     library_ms = median_ms(torch, lambda: torch.einsum("imb,tmb->tib",
                                                         g3, signs))
     del signs, g3
-    # signed f32 adds: T * Ie * d
-    b_ms, b_by = bound(Ie * d * 4 + T * 4 + T * Ie * k * 4, T * Ie * d,
-                       F32_ADDS_S)
+    # R read once and SK written once, against three bf16 tensor-core
+    # passes of 2 T Ie d operations; the CUDA-core bound of the f32
+    # kernel it replaced (T Ie d signed adds at 33.5e12 a second) beside it
+    b_ms, b_by = bound(Ie * d * 4 + T * 4 + T * Ie * k * 4,
+                       3 * 2 * T * Ie * d, BF16_OPS_S)
+    core_ms = T * Ie * d / F32_ADDS_S * 1e3
     report["gram_factors"] = entry(
         "gram_factors", "gram.cu", "src/repro/kernels/gram.py:45", err_sk,
         ms, plain_ms, b_ms, b_by, library_ms)
-    print(f"K1 gram SK: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    report["gram_factors"].update(device_ms=dev_ms,
+                                  cuda_core_bound_ms=core_ms,
+                                  sass=sass_counts("gram",
+                                                   "sketch_tables_kernel"))
+    check(report["gram_factors"]["sass"]["HGMMA"]
+          + report["gram_factors"]["sass"]["HMMA"] > 0,
+          "K1's sketch tables run no tensor-core instruction")
+    print(f"K1 gram SK: kernel_ms={ms:.4f} (sketch_tables_kernel, profiler: "
+          f"{fmt_ms(dev_ms)}) plain_ms={plain_ms:.4f} library_ms="
+          f"{library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}), {b_ms / ms:.1%} "
+          f"of bound; the f32 CUDA-core bound {core_ms:.4f} "
+          f"({core_ms / ms:.1%}); SASS of sketch_tables_kernel: "
+          f"{report['gram_factors']['sass']}")
     del rows, sk_k, sk_p
 
     # -- K3: batched pairwise relmax ----------------------------------------
@@ -443,13 +542,34 @@ def phase_stream_kernels(torch):
     x = rand(d4s)
     got, want = sk.sketch_cuda(x, 7), sk.sketch_plain(x, 7)
     err = max_err(got, want)
-    print(f"K4s sketch (d={d4s}): max|kernel-plain| = {err:.3e}")
+    print(f"K4s sketch (d={d4s}): max|kernel-plain| = {err:.3e} "
+          f"(tolerance: rtol 2e-5 + atol 1e-3)")
     check(close(got, want, 2e-5, 1e-3), "K4s disagrees")
-    for d_r in (255, 70001):
+    check(bool(torch.equal(got, sk.sketch_cuda(x, 7))),
+          "K4s reruns differ at d = 1e6")
+    for d_r in (*K4S_D, 70001):
         xr = rand(d_r)
-        check(close(sk.sketch_cuda(xr, 7), sk.sketch_plain(xr, 7), 2e-5,
-                    1e-3), f"K4s disagrees at d={d_r}")
-    ms = median_ms(torch, lambda: sk.sketch_cuda(x, 7), launches=50)
+        a_r, b_r = sk.sketch_cuda(xr, 7), sk.sketch_plain(xr, 7)
+        check(close(a_r, b_r, 2e-5, 1e-3), f"K4s disagrees at d={d_r}")
+        check(bool(torch.equal(a_r, sk.sketch_cuda(xr, 7))),
+              f"K4s reruns differ at d={d_r}")
+        print(f"K4s sketch (d={d_r}): max|kernel-plain| = "
+              f"{max_err(a_r, b_r):.3e}; rerun bitwise equal")
+    # one profiler window of 50 calls: the kernels each call launches
+    names = kernel_names(torch, lambda: sk.sketch_cuda(x, 7), calls=50)
+    print(f"K4s sketch: kernels launched in 50 calls: {names}")
+    check(sum(names.values()) == 50 and all("sketch_single_kernel" in n
+                                            for n in names),
+          "K4s is not one launch per call")
+    k4s = {}
+    x_audit = rand(K4S_D[-1])
+    for label, v in (("d=1e6", x), (f"d={K4S_D[-1]}", x_audit)):
+        fn = lambda: sk.sketch_cuda(v, 7)          # noqa: E731
+        k4s[label] = dict(
+            ms=median_ms(torch, fn, launches=50),
+            device_ms=device_ms(torch, fn, None, calls=50),
+            bound_ms=bound(v.numel() * 4 + k * 4, v.numel(), F32_ADDS_S)[0])
+    ms, dev_ms = k4s["d=1e6"]["ms"], k4s["d=1e6"]["device_ms"]
     plain_ms = median_ms(torch, lambda: sk.sketch_plain(x, 7), launches=50)
     xs_ = torch.nn.functional.pad(x, (0, (-d4s) % k)).reshape(-1, k)
     signs = sign_table(torch, xs_.numel(), 7, dev).reshape(-1, k)
@@ -459,9 +579,15 @@ def phase_stream_kernels(torch):
     report["sketch"] = entry("sketch", "sketch.cu",
                              "src/repro/kernels/sketch.py:25", err, ms,
                              plain_ms, b_ms, b_by, library_ms)
-    print(f"K4s sketch: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
-    del x, xs_, signs
+    report["sketch"].update(device_ms=dev_ms, shapes=k4s)
+    print(f"K4s sketch: call ms (50 calls / 50) at d=1e6: kernel {ms:.4f}, "
+          f"plain {plain_ms:.4f}, einsum {library_ms:.4f}; device ms "
+          f"(profiler, every kernel of the call) {fmt_ms(dev_ms)}; bound_ms="
+          f"{b_ms:.5f} ({b_by}); at d={K4S_D[-1]} (the serving audit): call "
+          f"{k4s[f'd={K4S_D[-1]}']['ms']:.4f}, device "
+          f"{fmt_ms(k4s[f'd={K4S_D[-1]}']['device_ms'])}")
+    check(ms < library_ms, "K4s is slower than its einsum at d = 1e6")
+    del x, xs_, signs, x_audit
 
     # -- K5 and K5s: linear encode -----------------------------------------
     def k5_check(B, n_sym, m, d):
@@ -871,9 +997,6 @@ def phase_small_vs_cpu(torch):
     return errs
 
 
-# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
-BF16_OPS_S = 989e12
-
 # K6 at the serving path's shapes: (label, B, S, H, K, hd, window), bf16,
 # causal; the llama3.2-1b prefill first (its row in the kernels line)
 ATTN_SHAPES = [
@@ -1029,6 +1152,35 @@ def logits_tol(logits, rel: float) -> float:
     return rel * (1.0 + float(logits.abs().max()))
 
 
+def teacher_forced_logits(cfg, params, prompt, out, coins):
+    """The plain versions fed a run's greedy tokens ``out`` (B, steps):
+    yields, per step, the (B, V) logits that step's token was chosen from
+    (the prompt's last-token logits, then each decode step's), the run's
+    audited steps replayed as audits with the same keys (``coins``: the
+    run's audit coins).  So every step of every row can be held against
+    the run, whether or not the two runs' greedy choices would part."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import audit_decode
+
+    B, S = prompt.shape
+    steps = out.shape[1]
+    tokens = torch.as_tensor(prompt, device=out.device)
+    lg, cache = M.prefill(params, {"tokens": tokens}, cfg,
+                          cache_len=S + steps, impl="torch")
+    yield lg
+    for i in range(steps - 1):
+        if coins[i] < SERVE["q_audit"]:
+            lg, cache, ok = audit_decode(params, out[:, i], S + i, cache, cfg,
+                                         key=SERVE["seed"] + 1000 + i,
+                                         impl="torch")
+            check(ok, f"teacher-forced plain run: audit at step {i} failed")
+        else:
+            lg, cache = M.decode_step(params, out[:, i], S + i, cache, cfg)
+        yield lg
+
+
 def phase_serving(torch, k6_ms: float):
     """llama3.2-1b served at full width through ServeEngine.generate,
     against the same run with the plain versions; the tampered replica;
@@ -1113,6 +1265,22 @@ def phase_serving(torch, k6_ms: float):
     check(agreed == compared, "greedy tokens differ between kernels and plain")
     del eng_p, out_p
 
+    forced_err, forced_held, forced_worst = 0.0, 0, 0.0
+    for i, lg in enumerate(teacher_forced_logits(cfg, params, prompt, out,
+                                                 coins)):
+        for r in range(B):
+            e = max_err(eng.logits[i][r], lg[r])
+            t = logits_tol(lg[r], 3e-2)
+            forced_err = max(forced_err, e)
+            forced_worst = max(forced_worst, e / t)
+            forced_held += int(e <= t)
+    print(f"kernels vs plain, teacher-forced (the kernel run's tokens fed "
+          f"to the plain versions): {forced_held} of {B * steps} step-rows "
+          f"within 3e-2*(1+max|logits|), max|d| = {forced_err:.3e} (worst "
+          f"{forced_worst:.3f} of its tolerance)")
+    check(forced_held == B * steps, "teacher-forced decode logits differ "
+                                    "between kernels and plain")
+
     # a Byzantine replica (examples/serve_audit.py): final-norm scale[0] x 3
     scale = params["final_norm"]["scale"].clone()
     scale[0] *= 3.0
@@ -1165,6 +1333,7 @@ def phase_serving(torch, k6_ms: float):
         tokens_per_s=B * steps / decode_s, k6_share_of_prefill=k6_share,
         audits=eng.audits, audit_failures=eng.audit_failures,
         prefill_logits_err_vs_plain=prefill_err, tokens_compared=compared,
+        forced_step_rows_held=forced_held, forced_logits_err=forced_err,
         tokens_agreed=agreed, small_vs_cpu=small)
 
 

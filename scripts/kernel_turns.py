@@ -1,26 +1,35 @@
 #!/usr/bin/env python3
-"""Time this checkout's K2 (fused step), K3 and K3s (pairwise relmax)
-kernels against the same kernels built from another source directory,
-in turns on one card.
+"""Time this checkout's kernels against the same kernels built from
+another source directory, in turns on one card.
 
-    python3 scripts/kernel_turns.py --other DIR [--pairs 5]
+    python3 scripts/kernel_turns.py --other DIR [--pairs 5] [--cases ...]
 
-DIR holds the other version's ``fused_step.cu`` and ``majority_vote.cu``
-with the headers they include, for example a parent commit's
-``src/repro_torch/kernels/csrc`` unpacked with ``git archive``.  Both
-versions must have this checkout's C interface.  The other version's
-relmax output is zero-filled before its launch, as its wrapper did when
-the kernel merged every chunk with atomicMax; this checkout's kernel
-needs no fill.  Both versions are called through the same Python code
-here, so the call times differ by the kernels and their launches alone.
+DIR holds the other version's ``fused_step.cu``, ``majority_vote.cu``,
+``gram.cu`` and ``sketch.cu`` with the headers they include, for example
+a parent commit's ``src/repro_torch/kernels/csrc`` unpacked with ``git
+archive``.  Both versions must have this checkout's C interfaces for
+K1, K2, K3 and K4 (``gram_sketch_tables``, ``fused_step_*``,
+``relmax_batched``, ``sketch_batched``).  The other version's relmax
+output is zero-filled before its launch, as its wrapper did when the
+kernel merged every chunk with atomicMax.  K4s (the single CountSketch)
+is this checkout's wrapper ``sketch.sketch_cuda`` against the other
+version's ``sketch_batched`` at B = 1 with its span scratch, called as
+that version's wrapper did (a size query, two allocations, the current
+stream).  The other cases call both versions through the same Python
+code, so their call times differ by the kernels and their launches.
 
-Shapes: K2 at the fused_sweep chunk (64 trials, 66 rows, d = 2^20), f32
-and bf16 rows; K3 at the engine's vote (32, 8, 256); K3s at the single
-vote (7, 1e5).  Each pair runs the two versions in turns (other, this;
-then this, other; ...), each measurement the median of CUDA-event
-timings (K2: one call an event pair; K3, K3s: 50 back-to-back calls an
-event pair) and the profiler's device time of the kernel by name.  The
-result goes to ``chiprun_out/kernel_turns.json``.
+Cases and shapes: K1 (the gram sketch tables) at gram_sweep's (66 rows,
+d = 2^20, T = 120, k = 256); K2 at the fused_sweep chunk (64 trials, 66
+rows, d = 2^20), f32 and bf16 rows; K3 at the engine's vote (32, 8,
+256); K3s at the single vote (7, 1e5); K4 at the unfused plane's (66,
+2^20); K4s at the bench's d = 1e6 and the serving audit's 4 x 128256.
+Each pair runs the two versions in turns (other, this; then this,
+other; ...), each measurement the median of CUDA-event timings (K1, K2,
+K4: one call an event pair; K3, K3s, K4s: 50 back-to-back calls an
+event pair) and the profiler's device time (K1, K2, K3, K3s: the kernel
+by name; K4, K4s: every kernel of the call, and once each kernel by
+name).  The result goes to
+``chiprun_out/kernel_turns.json``.
 """
 from __future__ import annotations
 
@@ -38,6 +47,9 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
+SOURCES = ("fused_step", "majority_vote", "gram", "sketch")
+
+
 def build_other(src: Path, out: Path) -> dict[str, ctypes.CDLL]:
     from repro_torch.kernels import _build
 
@@ -50,8 +62,8 @@ def build_other(src: Path, out: Path) -> dict[str, ctypes.CDLL]:
                        capture_output=True)
         return name, ctypes.CDLL(str(lib))
 
-    with ThreadPoolExecutor(2) as ex:
-        return dict(ex.map(one, ("fused_step", "majority_vote")))
+    with ThreadPoolExecutor(len(SOURCES)) as ex:
+        return dict(ex.map(one, SOURCES))
 
 
 def typed(libs: dict[str, ctypes.CDLL]) -> dict[str, ctypes.CDLL]:
@@ -65,6 +77,13 @@ def typed(libs: dict[str, ctypes.CDLL]) -> dict[str, ctypes.CDLL]:
         fn.restype = i
     mv.relmax_batched.argtypes = [vp, i, i, ll, vp, vp]
     mv.relmax_batched.restype = i
+    gm, sk = libs["gram"], libs["sketch"]
+    gm.gram_sketch_tables.argtypes = [vp, i, ll, vp, i, i, vp, vp]
+    gm.gram_sketch_tables.restype = i
+    sk.sketch_num_spans.argtypes = [i, ll, i]
+    sk.sketch_num_spans.restype = i
+    sk.sketch_batched.argtypes = [vp, i, ll, i, ctypes.c_uint32, vp, vp, vp]
+    sk.sketch_batched.restype = i
     return libs
 
 
@@ -72,12 +91,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--pairs", type=int, default=5)
+    ap.add_argument("--cases", nargs="*", default=None,
+                    help="case names to run (default: all)")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     import chip_smoke as cs
     from repro_torch.kernels import _build
+    from repro_torch.kernels import sketch as sketch_mod
 
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
@@ -88,8 +111,7 @@ def main() -> int:
     card = smi.stdout.strip()
     print(card)
     _build.build_all()
-    libs = {"this": typed({n: _build.load(n) for n in ("fused_step",
-                                                        "majority_vote")}),
+    libs = {"this": typed({n: _build.load(n) for n in SOURCES}),
             "other": typed(build_other(args.other.resolve(),
                                        ROOT / "build" / "other_kernels"))}
     dev = torch.device("cuda")
@@ -123,12 +145,70 @@ def main() -> int:
             raise RuntimeError(f"relmax_batched: CUDA error {st}")
         return out
 
+    def k1_call(lib, rows, keys, sk_out):
+        Ie, d = rows.shape
+        st = lib["gram"].gram_sketch_tables(
+            rows.data_ptr(), Ie, d, keys.data_ptr(), keys.numel(), 256,
+            sk_out.data_ptr(), stream)
+        if st:
+            raise RuntimeError(f"gram_sketch_tables: CUDA error {st}")
+        return sk_out
+
+    def k4_call(lib, g):
+        """sketch_batched as the wrappers call it: size query, partials
+        and output allocated per call, the current stream."""
+        sk = lib["sketch"]
+        B, d = g.shape
+        out = torch.empty((B, 256), device=dev)
+        part = torch.empty((sk.sketch_num_spans(B, d, 256), B, 256),
+                           device=dev)
+        st = sk.sketch_batched(g.data_ptr(), B, d, 256, 0x9E3779B9,
+                               part.data_ptr(), out.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+        if st:
+            raise RuntimeError(f"sketch_batched: CUDA error {st}")
+        return out
+
+    def k4s_call(v, x):
+        if v == "this":
+            return sketch_mod.sketch_cuda(x, 7)
+        # the other version's wrapper: its batched kernel at B = 1
+        _build.require_cuda_tensor(x[None], "flat_g", 2, (torch.float32,))
+        sk = libs["other"]["sketch"]
+        d = x.shape[0]
+        out = torch.empty((1, 256), device=x.device)
+        part = torch.empty((sk.sketch_num_spans(1, d, 256), 1, 256),
+                           device=x.device)
+        st = sk.sketch_batched(x.data_ptr(), 1, d, 256, 7, part.data_ptr(),
+                               out.data_ptr(),
+                               torch.cuda.current_stream(x.device).cuda_stream)
+        if st:
+            raise RuntimeError(f"sketch_batched: CUDA error {st}")
+        return out[0]
+
     rows = torch.randn(66, 1 << 20, generator=gen, device=dev)
     rows_bf = rows.to(torch.bfloat16)
     W = torch.randn(64, 1 << 20, generator=gen, device=dev)
     cw = torch.randn(64, 66, generator=gen, device=dev) * 0.01
     x3 = torch.randn(32, 8, 256, generator=gen, device=dev)
     x3s = torch.randn(1, 7, 100_000, generator=gen, device=dev)
+    keys1 = torch.from_numpy((np.uint32(0x9E3779B9) * (np.arange(
+        120, dtype=np.uint32) + 1)).view(np.int32)).to(dev)
+    sk1 = {v: torch.empty((120, 66, 256), device=dev) for v in libs}
+    x4s = {"K4s d=1e6": torch.randn(1_000_000, generator=gen, device=dev),
+           "K4s d=513024": torch.randn(513_024, generator=gen, device=dev)}
+
+    a = k1_call(libs["this"], rows, keys1, sk1["this"])
+    b = k1_call(libs["other"], rows, keys1, sk1["other"])
+    torch.cuda.synchronize()
+    print(f"K1: this vs other max|dSK| {cs.max_err(a, b):.3e}")
+    a, b = k4_call(libs["this"], rows), k4_call(libs["other"], rows)
+    torch.cuda.synchronize()
+    print(f"K4: this vs other bitwise equal: {torch.equal(a, b)}")
+    for label, x in x4s.items():
+        a, b = k4s_call("this", x), k4s_call("other", x)
+        torch.cuda.synchronize()
+        print(f"{label}: this vs other max|d| {cs.max_err(a, b):.3e}")
 
     # agreement of the two versions before any timing
     for label, x in (("K3", x3), ("K3s", x3s)):
@@ -144,6 +224,11 @@ def main() -> int:
               f"{cs.max_err(a[2], b[2]):.3e}")
 
     cases = {
+        "K1": (lambda v: lambda: k1_call(libs[v], rows, keys1, sk1[v]),
+               "sketch_tables_kernel", 1),
+        "K4": (lambda v: lambda: k4_call(libs[v], rows), None, 1),
+        **{label: ((lambda x: lambda v: lambda: k4s_call(v, x))(x), None, 50)
+           for label, x in x4s.items()},
         "K2 f32": (lambda v: lambda: k2_call(libs[v], rows, W, cw),
                    "fused_step_kernel", 1),
         "K2 bf16": (lambda v: lambda: k2_call(libs[v], rows_bf, W, cw),
@@ -153,8 +238,38 @@ def main() -> int:
         "K3s": (lambda v: lambda: k3_call(libs[v], x3s, v == "other"),
                 "relmax_kernel", 50),
     }
+    if args.cases:
+        cases = {c: v for c, v in cases.items() if c in args.cases}
+    def by_name(fn, calls):
+        """{kernel: ms per call} of every kernel ``calls`` calls of
+        ``fn`` launch, from one profiler window."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us: dict = {}
+        for e in prof.events():
+            if getattr(e, "device_type", None) == DeviceType.CUDA and \
+                    e.name != "Activity Buffer Request":
+                us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+        return {k: v / 1e3 / calls for k, v in us.items()}
+
     res = {c: {"other": {"call_ms": [], "device_ms": []},
                "this": {"call_ms": [], "device_ms": []}} for c in cases}
+    # where the device time of a call is every kernel's, each kernel's
+    kernels = {c: {v: by_name(make(v), 50 if n > 1 else 10)
+                   for v in ("other", "this")}
+               for c, (make, kname, n) in cases.items() if kname is None}
+    for c, kv in kernels.items():
+        for v, named in kv.items():
+            print(f"{c} {v}: device ms by kernel: " + "; ".join(
+                f"{k} {t:.4f}" for k, t in named.items()))
     for p in range(args.pairs):
         order = ("other", "this") if p % 2 == 0 else ("this", "other")
         for c, (make, kname, launches) in cases.items():
@@ -181,7 +296,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "kernel_turns.json").write_text(json.dumps(dict(
         card=card, pairs=args.pairs, order="other,this then this,other",
-        cases=summary), indent=1))
+        cases=summary, device_ms_by_kernel=kernels), indent=1))
     return 0
 
 

@@ -1,13 +1,13 @@
-"""CountSketch of flat vectors: the hand-written Hopper kernel and its
+"""CountSketch of flat vectors: the hand-written Hopper kernels and their
 plain PyTorch versions.
 
 ``sketch_batched(g (B, d), key) -> (B, k)``: out[b, c] = sum over
 columns p = c (mod k) of sign(p, key) * g[b, p], one shared key for all
 rows (``ref.batched_sketch_ref``).  ``sketch(g (d,), key) -> (k,)`` is
-the same kernel at B = 1 (``ref.sketch_ref``).  The CUDA kernel lives
-in ``csrc/sketch.cu``, whose header note says which TPU kernels it
-replaces (src/repro/kernels/sketch.py:77 and :25), what bounds it on
-the H100 and what its design does about it.
+the single form (``ref.sketch_ref``), one launch of its own kernel.  The
+CUDA kernels live in ``csrc/sketch.cu``, whose header note says which
+TPU kernels they replace (src/repro/kernels/sketch.py:77 and :25), what
+bounds them on the H100 and what their design does about it.
 """
 from __future__ import annotations
 
@@ -22,6 +22,10 @@ DEFAULT_K = 256
 
 # wrapper calls that launched the CUDA kernel, per form
 LAUNCHES = {"sketch_batched": 0, "sketch": 0}
+
+# the single form's partials and ticket, per (device, stream, k): calls on
+# one stream run in order, so they can share them; two streams never do
+_SINGLE_WS: dict = {}
 
 
 def sketch_batched_plain(flat_g: torch.Tensor, key_scalar,
@@ -43,14 +47,26 @@ def _lib():
         lib.sketch_batched.argtypes = [vp, i, ll, i, ctypes.c_uint32, vp,
                                        vp, vp]
         lib.sketch_batched.restype = i
+        lib.sketch_single_max_blocks.argtypes = []
+        lib.sketch_single_max_blocks.restype = i
+        lib.sketch_single.argtypes = [vp, ll, i, ctypes.c_uint32, vp, vp, vp,
+                                      vp]
+        lib.sketch_single.restype = i
         lib.sketch_error_string.argtypes = [i]
         lib.sketch_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def _sketch_cuda(g: torch.Tensor, key_scalar, k: int,
-                 form: str) -> torch.Tensor:
+def _contig(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous() if x.is_cuda else x
+
+
+def sketch_batched_cuda(flat_g: torch.Tensor, key_scalar,
+                        k: int = DEFAULT_K) -> torch.Tensor:
+    """The hand-written kernel on a CUDA tensor (B, d) f32; runs on
+    PyTorch's current stream, no synchronization."""
+    g = _contig(flat_g)
     _build.require_cuda_tensor(g, "flat_g", 2, (torch.float32,))
     if k < 1:
         raise ValueError(f"sketch width k must be >= 1, got {k}")
@@ -65,24 +81,39 @@ def _sketch_cuda(g: torch.Tensor, key_scalar, k: int,
         g.data_ptr(), B, d, k, int(key_scalar) & 0xFFFFFFFF, part.data_ptr(),
         out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream),
         "sketch_batched")
-    LAUNCHES[form] += 1
+    LAUNCHES["sketch_batched"] += 1
     return out
 
 
-def _contig(x: torch.Tensor) -> torch.Tensor:
-    return x.contiguous() if x.is_cuda else x
-
-
-def sketch_batched_cuda(flat_g: torch.Tensor, key_scalar,
-                        k: int = DEFAULT_K) -> torch.Tensor:
-    """The hand-written kernel on a CUDA tensor (B, d) f32; runs on
-    PyTorch's current stream, no synchronization."""
-    return _sketch_cuda(_contig(flat_g), key_scalar, k, "sketch_batched")
+def _single_workspace(lib, device: torch.device, stream: int, k: int):
+    key = (device.index, stream, k)
+    ws = _SINGLE_WS.get(key)
+    if ws is None:
+        kp = -(-k // 4) * 4
+        ws = _SINGLE_WS[key] = (
+            torch.empty((lib.sketch_single_max_blocks(), kp),
+                        dtype=torch.float32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+    return ws
 
 
 def sketch_cuda(flat_g: torch.Tensor, key_scalar,
                 k: int = DEFAULT_K) -> torch.Tensor:
-    """The single form (d,) -> (k,): the batched kernel at B = 1."""
+    """The single form (d,) -> (k,) on a CUDA tensor: one launch of
+    ``sketch_single`` on PyTorch's current stream, no synchronization."""
     if flat_g.dim() != 1:
         raise TypeError(f"flat_g must be 1-D (d,), got {tuple(flat_g.shape)}")
-    return _sketch_cuda(_contig(flat_g)[None], key_scalar, k, "sketch")[0]
+    g = _contig(flat_g)
+    _build.require_cuda_tensor(g, "flat_g", 1, (torch.float32,))
+    if k < 1:
+        raise ValueError(f"sketch width k must be >= 1, got {k}")
+    lib = _lib()
+    stream = _build.raw_stream(g.device.index)
+    part, ticket = _single_workspace(lib, g.device, stream, k)
+    out = torch.empty(k, dtype=torch.float32, device=g.device)
+    _build.check_status(lib.sketch_error_string, lib.sketch_single(
+        g.data_ptr(), g.shape[0], k, int(key_scalar) & 0xFFFFFFFF,
+        part.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream),
+        "sketch_single")
+    LAUNCHES["sketch"] += 1
+    return out

@@ -45,6 +45,65 @@ def test_gram_kernel_matches_plain(cuda, Ie, d, T, B):
     torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=1e-3)
 
 
+# (Ie, d, T, k): other k, one key, one row, d < k, a ragged edge in
+# every dimension, more keys (128) and rows (72) than one block takes
+GRAM_SK_SHAPES = [(5, 70001, 3, 96), (7, 30001, 130, 512), (66, 5000, 1, 256),
+                  (1, 9000, 4, 256), (4, 100, 3, 256), (80, 3001, 2, 256),
+                  (3, 1000, 2, 7), (2, 500, 3, 1)]
+
+
+@pytest.mark.parametrize("Ie,d,T,k", GRAM_SK_SHAPES)
+def test_gram_sketch_tables_ragged(cuda, Ie, d, T, k):
+    """The tensor-core sketch tables against the plain einsum: bf16 signs
+    times three exact bf16 pieces of R, so f32 tolerances hold."""
+    rng = np.random.default_rng(Ie * d + k)
+    rows = torch.from_numpy(rng.normal(size=(Ie, d)).astype(np.float32)
+                            ).to(cuda)
+    got = gram.gram_factors_cuda(rows, None, _keys(T), k, with_gram=False)[2]
+    want = gram.gram_factors_plain(rows, None, _keys(T), k, with_gram=False)[2]
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-3)
+
+
+def test_gram_sketch_tables_rerun_bitwise(cuda):
+    rng = np.random.default_rng(7)
+    rows = torch.from_numpy(rng.normal(size=(66, 65536)).astype(np.float32)
+                            ).to(cuda)
+    runs = [gram.gram_factors_cuda(rows, None, _keys(120),
+                                   with_gram=False)[2] for _ in range(2)]
+    assert torch.equal(*runs)
+    want = gram.gram_factors_plain(rows, None, _keys(120), with_gram=False)[2]
+    torch.testing.assert_close(runs[0], want, rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("d", [1, 255, 257, 70001, 513024])
+def test_sketch_single_matches_plain_and_reruns(cuda, d):
+    g = _randn(cuda, d, seed=d)
+    got = sketch.sketch_cuda(g, 0x9E3779B9)
+    torch.testing.assert_close(got, sketch.sketch_plain(g, 0x9E3779B9),
+                               rtol=2e-5, atol=1e-3)
+    assert torch.equal(got, sketch.sketch_cuda(g, 0x9E3779B9))
+    odd = _randn(cuda, d + 1, seed=d)[1:]          # not 16-byte aligned
+    torch.testing.assert_close(sketch.sketch_cuda(odd, 5),
+                               sketch.sketch_plain(odd, 5),
+                               rtol=2e-5, atol=1e-3)
+
+
+def test_sketch_single_on_two_streams(cuda):
+    """Calls alternating between two streams, each stream's calls queued
+    back to back: each stream has its own ticket and partials."""
+    xs = [_randn(cuda, 513024, seed=s) for s in range(6)]
+    want = [sketch.sketch_plain(x, 11) for x in xs]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    got = []
+    for i, x in enumerate(xs):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(sketch.sketch_cuda(x, 11))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("shape", [(32, 8, 256), (32, 5, 65536), (7, 3, 70001)])
 def test_relmax_kernel_matches_plain(cuda, shape):
     rng = np.random.default_rng(sum(shape))
