@@ -37,6 +37,16 @@ Phases, in order; any failed check exits nonzero:
      again at a contractive lr with W held against the plain versions
      per trial; and once more with bf16 rows, against the f32 run;
    - per-trial problems (B = 8, 4 problems, T = 3, d = 2^20): K4, K5;
+   - each of those five engine paths once more with ``telemetry=True``:
+     W, losses and detect flags bitwise those of the run without, the
+     protocol counters equal to those of the plain versions' run on the
+     card and six of them to their sums over the recorded schedule; the
+     counter totals, the efficiency report (``obs.report``) and the
+     summed ``pipeline.stage`` / ``pipeline.dispatch`` /
+     ``pipeline.drain`` span times beside post_scan printed; one
+     ``obs.trace.profile_trace`` window around a fused run, whose Chrome
+     trace (``chiprun_out/profile/``) must parse and name K2's kernel
+     once per launch;
    - the single-vector ops (``ops.sketch``, ``ops.vote``,
      ``ops.coded_encode``) at the reference kernel bench's shapes:
      K4s, K3s, K5s;
@@ -50,7 +60,8 @@ Phases, in order; any failed check exits nonzero:
      logits while the tokens agree, within 3e-2*(1+max|logits|); tokens
      under the margin rule); the plain versions fed the kernel run's
      tokens (teacher-forced), every step's logits of every row (128 of
-     128) within the same tolerance; a tampered
+     128) within the same tolerance; one ``serve.audit_decode`` span and
+     one ``serve.audits`` increment per audit; a tampered
      replica caught; reduced llama3.2-1b and gemma3-1b in f32 on the
      card against the CPU;
 4. a ``{"kernels": [...]}`` line;
@@ -752,6 +763,107 @@ def check_vs_plain(label, res, specs, **kw) -> float:
     return err
 
 
+def bitwise(a, b) -> bool:
+    """Equal bit for bit (NaNs included)."""
+    import numpy as np
+
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        (a.view(np.uint8) == b.view(np.uint8)).all())
+
+
+def schedule_sums(arr) -> dict:
+    """Six of the counters as sums over the recorded (T, B, ...) schedule
+    arrays, as the reference's test_counters_match_recorded_schedule
+    checks them."""
+    live, checks = arr["live"], arr["checks"]
+    vote1, identify = arr["vote1"], arr["identify"]
+    return {"steps": live.sum(0), "checks": checks.sum(0),
+            "redundant_steps": (checks | vote1).sum(0),
+            "identify_rounds": identify.sum(0),
+            "vote_rounds": (identify | vote1).sum(0),
+            "tamper_events": arr["tam1"].sum(axis=(0, 2))
+            + arr["tam2"].sum(axis=(0, 2))}
+
+
+def check_telemetry(label, off, run) -> dict:
+    """``run(**kw)`` (a path's ``run_batch`` call) once more with
+    ``telemetry=True``: W, losses and detect flags bitwise those of
+    ``off``, the run without; the counters equal to those of the same
+    run with the plain versions on the card, and six of them to their
+    sums over the recorded schedule.  Prints the counter totals, the
+    efficiency report and the pipeline's span times."""
+    import numpy as np
+
+    from repro_torch.obs import report
+    from repro_torch.obs import trace as obtrace
+    from repro_torch.obs.telemetry import TEL_KEYS
+
+    obtrace.clear()
+    on = run(telemetry=True)
+    spans = {}
+    for e in obtrace.spans():
+        if e["name"].startswith("pipeline."):
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur_ns"] / 1e9
+    check(off.telemetry is None and on.telemetry is not None,
+          f"{label}: telemetry missing or unasked")
+    check(bitwise(on.detect_flags, off.detect_flags)
+          and all(bitwise(a.w, b.w)
+                  and bitwise(np.asarray(a.losses), np.asarray(b.losses))
+                  for a, b in zip(on, off)),
+          f"{label}: telemetry=True changed W, losses or detect flags")
+    plain = run(telemetry=True, kernel_impl="torch")
+    for k in TEL_KEYS:
+        check(np.array_equal(on.telemetry.counters[k],
+                             plain.telemetry.counters[k]),
+              f"{label}: counter {k} differs between kernels and plain "
+              f"versions")
+    del plain
+    for k, v in schedule_sums(on.schedule.arrays).items():
+        check(np.array_equal(on.telemetry.counters[k], v),
+              f"{label}: counter {k} is not its sum over the schedule")
+    totals = on.telemetry.totals()
+    print(f"{label} telemetry=True: W, losses and detect flags bitwise "
+          f"those of the run without; counters equal to the plain "
+          f"versions' and to the schedule sums; totals {totals}")
+    print(report.render_report(on))
+    print(f"{label} pipeline spans (s, summed over chunks): "
+          + ", ".join(f"{k}={v:.4f}" for k, v in sorted(spans.items()))
+          + f"; post_scan {on.phase_s['post_scan']:.4f}, scan "
+          f"{on.phase_s['scan']:.4f}, wall {on.elapsed_s:.4f}")
+    return dict(totals=totals, report=report.efficiency_rows(on),
+                spans_s=spans, phases_s=on.phase_s, wall_s=on.elapsed_s)
+
+
+def profile_fused(specs) -> dict:
+    """A ``profile_trace`` window around one fused_sweep run: its Chrome
+    trace must parse and name K2's kernel, once per launch."""
+    import shutil
+
+    import repro_torch
+    from repro_torch.obs import trace as obtrace
+
+    pdir, label = ROOT / "chiprun_out" / "profile", "fused_sweep_fused"
+    shutil.rmtree(pdir / label, ignore_errors=True)
+    with obtrace.profile_trace(label, profile_dir=str(pdir)):
+        _, launches = counted(lambda: repro_torch.run_batch(specs, fused=True))
+    files = sorted((pdir / label).glob("*.pt.trace.json"))
+    check(len(files) == 1, f"profile_trace wrote {len(files)} Chrome traces")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    k2 = [e["name"] for e in events
+          if "fused_step_kernel" in str(e.get("name", ""))
+          and e.get("cat") == "kernel"]
+    print(f"profile_trace window around fused_sweep fused=True: "
+          f"{files[0].relative_to(ROOT)} ({files[0].stat().st_size} bytes, "
+          f"{len(events)} events); K2 as {k2[0] if k2 else None!r}, "
+          f"{len(k2)} kernel events for {launches['fused_step']} launches")
+    check(len(k2) == launches["fused_step"] > 0,
+          "the profile_trace Chrome trace does not name K2's kernel once "
+          "per launch")
+    return dict(trace=str(files[0].relative_to(ROOT)), events=len(events),
+                k2_kernel=k2[0], k2_events=len(k2))
+
+
 def run_path(label, run, expect, reps: int = 3):
     """Warm-up, then ``reps`` runs; the first timed run is counted.
     Returns (first result, its launch counts, the timing summary)."""
@@ -780,9 +892,12 @@ def phase_gram(torch):
     import repro_torch
 
     specs = gram_sweep_specs(repro_torch.TrialSpec, **GRAM_SWEEP)
+
+    def run(**kw):
+        return repro_torch.run_batch(specs, **kw)
+
     res, launches, info = run_path(
-        "gram_sweep", lambda: repro_torch.run_batch(specs),
-        ("gram_factors", "pairwise_relmax_batched"))
+        "gram_sweep", run, ("gram_factors", "pairwise_relmax_batched"))
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
     check(torch.get_float32_matmul_precision() == "highest",
           "float32 matmul precision is not 'highest'")
@@ -796,6 +911,7 @@ def phase_gram(torch):
     del W
     check_honest(specs, res)
     info["w_err_vs_plain"] = check_vs_plain("gram_sweep", res, specs)
+    info["telemetry"] = check_telemetry("gram_sweep", res, run)
     info["identify_rounds"] = int(res.schedule.arrays["identify"].sum())
     print(f"identify rounds: {info['identify_rounds']}; detect flags: "
           f"{int(res.detect_flags.sum())}; efficiency (mean): "
@@ -829,9 +945,12 @@ def phase_stream(torch):
     TS = repro_torch.TrialSpec
     specs = fused_sweep_specs(TS, **FUSED_SWEEP)
     out, launches = {}, {}
+
+    def run(**kw):
+        return repro_torch.run_batch(specs, **kw)
+
     fu, launches["fused"], out["fused"] = run_path(
-        "fused_sweep fused=True",
-        lambda: repro_torch.run_batch(specs, fused=True), ("fused_step",))
+        "fused_sweep fused=True", lambda: run(fused=True), ("fused_step",))
     check(fu.plan.fused and fu.plan.chunk_trials == FUSED_CHUNK,
           f"fused_sweep plan: fused={fu.plan.fused}, chunk="
           f"{fu.plan.chunk_trials}")
@@ -842,15 +961,20 @@ def phase_stream(torch):
     check_honest(specs, fu)
     out["fused"]["w_err_vs_plain"] = check_vs_plain(
         "fused_sweep fused=True", fu, specs, fused=True)
+    out["fused"]["telemetry"] = check_telemetry(
+        "fused_sweep fused=True", fu, lambda **kw: run(fused=True, **kw))
+    out["fused"]["profile"] = profile_fused(specs)
 
     un, launches["unfused"], out["unfused"] = run_path(
-        "fused_sweep fused=False",
-        lambda: repro_torch.run_batch(specs, fused=False), ("sketch_batched",))
+        "fused_sweep fused=False", lambda: run(fused=False),
+        ("sketch_batched",))
     check(not un.plan.fused and un.plan.data_plane == "stream",
           "fused=False did not run the unfused stream scan")
     check_honest(specs, un)
     out["unfused"]["w_err_vs_plain"] = check_vs_plain(
         "fused_sweep fused=False", un, specs, fused=False)
+    out["unfused"]["telemetry"] = check_telemetry(
+        "fused_sweep fused=False", un, lambda **kw: run(fused=False, **kw))
     check(same_control(fu, un), "fused and unfused control differ")
     err = per_trial_close(fu, un)
     print(f"fused vs unfused: max over trials of max|dW|/(1+max|W|) = "
@@ -894,8 +1018,10 @@ def phase_stream(torch):
     out["contractive_fused_vs_unfused"] = err
     del held, res
 
-    bf, launches["bf16"] = counted(
-        lambda: repro_torch.run_batch(specs, fused=True, stream_dtype="bf16"))
+    def run_bf16(**kw):
+        return run(fused=True, stream_dtype="bf16", **kw)
+
+    bf, launches["bf16"] = counted(run_bf16)
     require_launched(launches["bf16"], ("fused_step",), "bf16 fused_sweep")
     check(bf.plan.stream_dtype == "bf16" and same_control(bf, fu),
           "bf16 run: plan or control differs from the f32 run")
@@ -906,12 +1032,17 @@ def phase_stream(torch):
           + ", ".join(f"{k}={v:.4f}" for k, v in bf.phase_s.items()))
     check(err <= 3e-2, "bf16 W too far from the f32 run")
     out["bf16"] = dict(wall_s=bf.elapsed_s, phases_s=bf.phase_s,
-                       w_rel_err_vs_f32=err)
+                       w_rel_err_vs_f32=err,
+                       telemetry=check_telemetry("fused_sweep bf16", bf,
+                                                 run_bf16))
     del bf, fu
 
     pp_specs = fused_sweep_specs(TS, **PER_PROBLEM)
-    pp, launches["per_problem"] = counted(
-        lambda: repro_torch.run_batch(pp_specs))
+
+    def run_pp(**kw):
+        return repro_torch.run_batch(pp_specs, **kw)
+
+    pp, launches["per_problem"] = counted(run_pp)
     require_launched(launches["per_problem"],
                      ("sketch_batched", "coded_encode_batched"),
                      "per-problem")
@@ -924,6 +1055,8 @@ def phase_stream(torch):
     out["per_problem"] = dict(wall_s=pp.elapsed_s, phases_s=pp.phase_s)
     out["per_problem"]["w_err_vs_plain"] = check_vs_plain(
         "per-problem", pp, pp_specs)
+    out["per_problem"]["telemetry"] = check_telemetry("per-problem", pp,
+                                                      run_pp)
     return launches, out
 
 
@@ -1190,6 +1323,8 @@ def phase_serving(torch, k6_ms: float):
     from repro_torch.configs import get_config
     from repro_torch.core import detection
     from repro_torch.models import model as M
+    from repro_torch.obs import metrics as obmetrics
+    from repro_torch.obs import trace as obtrace
     from repro_torch.serving import ServeEngine, token_agreement
     from repro_torch.serving.engine import sketches_agree
 
@@ -1209,9 +1344,24 @@ def phase_serving(torch, k6_ms: float):
                           seed=SERVE["seed"], impl=impl, record_logits=True)
         return eng, eng.generate(prompt, steps)
 
+    def serve_counters():
+        return (obmetrics.counter("serve.audits").value,
+                obmetrics.counter("serve.audit_failures").value)
+
+    obtrace.clear()
+    before = serve_counters()
     (eng, out), launches = counted(serve)
+    n_spans = sum(e["name"] == "serve.audit_decode" for e in obtrace.spans())
+    audits_inc, failures_inc = (a - b for a, b in zip(serve_counters(),
+                                                      before))
     print(f"serving {cfg.name} (B={B}, S={S}, {steps} tokens, q_audit="
           f"{SERVE['q_audit']}) launches: {launches}")
+    print(f"serve.audit_decode spans {n_spans}, engine audits {eng.audits}; "
+          f"counters serve.audits +{audits_inc}, serve.audit_failures "
+          f"+{failures_inc}")
+    check(n_spans == audits_inc == eng.audits
+          and failures_inc == eng.audit_failures,
+          "serving spans or counters disagree with the engine's audits")
     coins = np.random.default_rng(SERVE["seed"]).random(steps)
     want_audits = int((coins < SERVE["q_audit"]).sum())
     check(launches["flash_attention"] == cfg.num_layers,
@@ -1332,6 +1482,7 @@ def phase_serving(torch, k6_ms: float):
         decode_ms_per_step=decode_s / steps * 1e3,
         tokens_per_s=B * steps / decode_s, k6_share_of_prefill=k6_share,
         audits=eng.audits, audit_failures=eng.audit_failures,
+        audit_spans=n_spans, audit_counter_increments=audits_inc,
         prefill_logits_err_vs_plain=prefill_err, tokens_compared=compared,
         forced_step_rows_held=forced_held, forced_logits_err=forced_err,
         tokens_agreed=agreed, small_vs_cpu=small)

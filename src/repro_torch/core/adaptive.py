@@ -1,9 +1,11 @@
-"""Adaptive fault-check probability (paper §4.3, eqs. 4–5), scalar form.
+"""Adaptive fault-check probability (paper §4.3, eqs. 2–5), scalar form.
 
 Port of the host half of ``repro.core.adaptive``: the float64 closed
 form ``q_star`` and ``lam_from_loss`` that ``ProtocolState``'s check
-probability calls.  The vectorized in-scan forms belong to the device
-control plane, which a later slice ports.
+probability calls, and the eq-2 / eq-3 bounds the efficiency report
+(``obs.report``) sets the observed overhead against.  The vectorized
+in-scan forms belong to the device control plane, which a later slice
+ports.
 
     q_t* = λ b² / ((1-λ) a² + λ b²),  clipped to [0, 1],
 
@@ -12,6 +14,18 @@ with a = 2f_t/(2f_t+1), b = 1-(1-p)^{f_t} and λ_t = 1 - exp(-ℓ_t).
 from __future__ import annotations
 
 import math
+
+
+def com_eff(q: float, f_t: int) -> float:
+    """Expected computation efficiency lower bound (paper eq. 2)."""
+    if f_t <= 0:
+        return 1.0
+    return (2 * f_t * (1 - q) + 1) / (2 * f_t + 1)
+
+
+def prob_faulty_update(q: float, f_t: int, p: float) -> float:
+    """Probability of a faulty parameter update (paper eq. 3)."""
+    return (1 - (1 - p) ** f_t) * (1 - q)
 
 
 def lam_from_loss(loss: float) -> float:

@@ -33,6 +33,7 @@ from repro_torch.core.engineplan.plan import (
     value_independent_control,
 )
 from repro_torch.core.randomized import BFTConfig, ProtocolState, decide_generator
+from repro_torch.obs.telemetry import Telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,7 +269,7 @@ class BatchResult:
     results: list                # list[SimResult]
     elapsed_s: float = 0.0
     plan: "ExecutionPlan | None" = None
-    telemetry: None = None       # protocol counters: a later slice
+    telemetry: "Telemetry | None" = None   # run_batch(telemetry=True)
     schedule: object = None      # engine_torch.Schedule
     detect_flags: "np.ndarray | None" = None   # (T, B) bool
     device_trace: None = None    # device control plane: a later slice

@@ -23,9 +23,16 @@ under host control:
      ``ops.batched_coded_encode``.
 
 The plan is resolved first (``engineplan.plan.resolve_plan``, the
-reference's pure planner).  Schedule modes other than "vector" and
-telemetry raise ``NotImplementedError`` naming the later slice that
-ports them.
+reference's pure planner).  Schedule modes other than "vector" raise
+``NotImplementedError`` naming the later slice that ports them.  The
+chunks stream through ``engineplan.pipeline.run_chunks``; with
+``telemetry=True`` the step loop adds up the protocol counters, returned
+as ``BatchResult.telemetry`` (``obs.telemetry.Telemetry``).  The facade
+emits the reference's spans (``engine.build_schedule``,
+``engine.resolve_plan``, ``engine.scan``) and counters
+(``engine.batches``, ``engine.trials``,
+``engine.plan.<data plane>.<control>``, ``engine.telemetry.steps``)
+through ``repro_torch.obs``.
 
 Parity contract, as the reference's: control quantities (schedules,
 detect flags, identified sets, q-traces, efficiency) exact; iterates
@@ -50,6 +57,9 @@ from repro_torch.core.engineplan import plan as planlib
 from repro_torch.core.engineplan.pipeline import PhaseClock, run_chunks
 from repro_torch.core.simulation import SimResult, make_problem
 from repro_torch.kernels import ops
+from repro_torch.obs import metrics as obmetrics
+from repro_torch.obs import trace as obtrace
+from repro_torch.obs.telemetry import Telemetry, zero_counts
 
 GRAM_CHUNK = 1 << 16          # columns per f32 product when forming G
 
@@ -104,10 +114,6 @@ def require_slice(plan: planlib.ExecutionPlan) -> None:
         raise NotImplementedError(
             f'schedule mode "{plan.schedule_mode}" is ported with {where}; '
             f'the port runs schedule="vector" (value-independent trials)')
-    if plan.telemetry:
-        raise NotImplementedError(
-            "telemetry=True (protocol counters in the scan carry) is ported "
-            "with the chunk pipeline and telemetry slice (ROADMAP M5)")
 
 
 def gram_matrix(rows: torch.Tensor, chunk: int = GRAM_CHUNK) -> torch.Tensor:
@@ -122,8 +128,19 @@ def gram_matrix(rows: torch.Tensor, chunk: int = GRAM_CHUNK) -> torch.Tensor:
     return G64.to(torch.float32)
 
 
-def _zero_step_results(specs, sched, plan, t_start) -> BatchResult:
-    """steps == 0 everywhere: nothing to scan; every iterate is W_0 = 0."""
+def _telemetry(counts, specs, results, telemetry: bool):
+    """The batch's ``Telemetry`` (q summaries from the control plane's
+    q-traces), or None when it was not asked for."""
+    if not telemetry:
+        return None
+    return Telemetry.from_counts(counts, specs=specs,
+                                 q_traces=[r.q_trace for r in results])
+
+
+def _zero_step_results(specs, sched, plan, t_start,
+                       telemetry: bool) -> BatchResult:
+    """steps == 0 everywhere: nothing to scan; every iterate is W_0 = 0
+    and every counter 0."""
     results = []
     for s, ctrl in zip(specs, sched.control.results):
         _, _, w_true = make_problem(n_data=s.n_data, d=s.d,
@@ -131,9 +148,11 @@ def _zero_step_results(specs, sched, plan, t_start) -> BatchResult:
         results.append(SimResult(
             w=np.zeros(s.d), w_true=w_true, state=ctrl.state, losses=[],
             q_trace=ctrl.q_trace, identify_step=ctrl.identify_step))
-    return BatchResult(specs, results, time.perf_counter() - t_start,
-                       plan=plan, schedule=sched,
-                       detect_flags=np.zeros((0, len(specs)), bool))
+    return BatchResult(
+        specs, results, time.perf_counter() - t_start, plan=plan,
+        telemetry=_telemetry(zero_counts(len(specs)), specs, results,
+                             telemetry),
+        schedule=sched, detect_flags=np.zeros((0, len(specs)), bool))
 
 
 def _problems(specs):
@@ -167,38 +186,49 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         run; never chosen automatically).
     schedule, data_plane, chunk_trials, fused, stream_dtype, telemetry:
         as the reference's ``run_batch(..., backend="jax")``; schedule
-        modes other than "vector" and ``telemetry=True`` raise
-        ``NotImplementedError``.
+        modes other than "vector" raise ``NotImplementedError``.
+        ``telemetry=True`` adds up the protocol counters in the step
+        loop; the primary outputs are bitwise those of the run without.
 
     Returns a ``BatchResult`` whose ``results[b]`` carry ``w``,
     ``losses``, ``q_trace``, ``identify_step``, ``efficiency`` and
     ``state``, plus ``plan``, ``schedule``, ``detect_flags`` (T, B),
+    ``telemetry`` (a ``Telemetry``, or None without ``telemetry=True``),
     ``fused_used`` and ``phase_s`` (wall seconds per phase: host_replay,
-    problem_setup, precompute, scan, post_scan).
+    problem_setup, precompute, scan, post_scan; the scan's from CUDA
+    events at chunk boundaries on the card, post_scan the rest of the
+    chunk pipeline).
     """
     t_start = time.perf_counter()
     specs = [s if isinstance(s, TrialSpec) else TrialSpec(**s) for s in specs]
     if not specs:
-        return BatchResult([], [], 0.0)
+        return BatchResult([], [], 0.0, telemetry=_telemetry(
+            zero_counts(0), specs, [], telemetry))
     device = resolve_device(device)
     kernel_impl = ops.resolve_impl(kernel_impl, device)
     if device.type == "cuda":
         # TF32 would break the 1e-4 value contract on resid and W_T
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-    plan = planlib.resolve_plan(
-        specs, schedule=schedule, fused=fused, chunk_trials=chunk_trials,
-        stream_dtype=stream_dtype, kernel_impl=kernel_impl,
-        data_plane=data_plane, telemetry=telemetry)
-    planlib.warn_on_fallback(plan)
-    require_slice(plan)
     B = len(specs)
+    with obtrace.span("engine.resolve_plan", B=B):
+        plan = planlib.resolve_plan(
+            specs, schedule=schedule, fused=fused, chunk_trials=chunk_trials,
+            stream_dtype=stream_dtype, kernel_impl=kernel_impl,
+            data_plane=data_plane, telemetry=telemetry)
+        planlib.warn_on_fallback(plan)
+    require_slice(plan)
     clock = PhaseClock(device)
 
-    sched = build_schedule(specs, schedule)
+    with obtrace.span("engine.build_schedule", mode=plan.schedule_mode,
+                      B=B):
+        sched = build_schedule(specs, schedule)
     clock.mark("host_replay")
     if plan.steps == 0:
-        return _zero_step_results(specs, sched, plan, t_start)
+        return _zero_step_results(specs, sched, plan, t_start, telemetry)
+    obmetrics.counter("engine.batches").inc()
+    obmetrics.counter("engine.trials").inc(B)
+    obmetrics.counter(f"engine.plan.{plan.data_plane}.{plan.control}").inc()
     T = len(sched.arrays["live"])
     use_gram = plan.data_plane == "gram"
     shared = plan.shared_problem
@@ -219,6 +249,12 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         farr=np.array([max(1, s.f) for s in specs], np.int32),
     )
     xs_np = carry.xs_from_schedule(sched.arrays)
+    if telemetry:
+        # the byz_active_steps counter needs the Byzantine mask
+        byz = np.zeros(xs_np["active"].shape[1:], bool)
+        for b, s in enumerate(specs):
+            byz[b, list(s.byz)] = True
+        stat_np["byz"] = byz
     P = len(pkeys)
     rows_np = carry.extended_rows([problems[key][0] for key in pkeys],
                                   noisevec)
@@ -258,10 +294,13 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         noise_dev = rows_dev[-1]
     clock.mark("precompute")
 
-    W, losses, det = run_chunks(
-        plan, B=B, T=T, d=d, device=device, A_dev=A_dev, y_dev=y_dev,
-        com_dev=com_dev, stat_np=stat_np, xs_np=xs_np, impl=kernel_impl,
-        clock=clock, noise_dev=noise_dev, pid_np=pid_np)
+    with obtrace.span("engine.scan", B=B, T=T, data_plane=plan.data_plane,
+                      control=plan.control):
+        W, losses, det, counts = run_chunks(
+            plan, B=B, T=T, d=d, device=device, A_dev=A_dev, y_dev=y_dev,
+            com_dev=com_dev, stat_np=stat_np, xs_np=xs_np,
+            impl=kernel_impl, clock=clock, noise_dev=noise_dev,
+            pid_np=pid_np, telemetry=telemetry)
 
     results = []
     for b, (s, ctrl) in enumerate(zip(specs, sched.control.results)):
@@ -273,6 +312,11 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
             q_trace=ctrl.q_trace,
             identify_step=ctrl.identify_step,
         ))
+    tel = _telemetry(counts, specs, results, telemetry)
+    if tel is not None:
+        obmetrics.counter("engine.telemetry.steps").inc(
+            tel.totals()["steps"])
     return BatchResult(specs, results, time.perf_counter() - t_start,
-                       plan=plan, schedule=sched, detect_flags=det,
-                       fused_used=plan.fused, phase_s=clock.seconds)
+                       plan=plan, telemetry=tel, schedule=sched,
+                       detect_flags=det, fused_used=plan.fused,
+                       phase_s=clock.seconds)

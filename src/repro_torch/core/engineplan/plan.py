@@ -11,8 +11,8 @@ reference; they are duck-typed over any object with TrialSpec's fields.
 from __future__ import annotations
 
 import dataclasses
-import threading
-import warnings
+
+from repro_torch.obs import oblog
 
 # affine attack table: g' = alpha * g + beta * 1 + nu * noisevec, where
 # noisevec is ATTACKS["noise"]'s fixed default_rng(0) draw
@@ -48,29 +48,6 @@ class PlanFallbackWarning(UserWarning):
 class FusedFallbackWarning(PlanFallbackWarning):
     """``fused=True`` demotions (subclass kept for the reference's
     warning filters)."""
-
-
-_warn_lock = threading.Lock()
-_warned: set = set()
-
-
-def warn_once(message: str, category: type[Warning], *, key,
-              stacklevel: int = 2) -> bool:
-    """Emit ``warnings.warn(message, category)`` the first time ``key`` is
-    seen in the process; later calls with the same key stay silent.
-    Returns True when the warning was emitted."""
-    with _warn_lock:
-        if key in _warned:
-            return False
-        _warned.add(key)
-    warnings.warn(message, category, stacklevel=stacklevel + 1)
-    return True
-
-
-def reset_warn_once() -> None:
-    """Forget every seen key (test isolation hook)."""
-    with _warn_lock:
-        _warned.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -430,10 +407,12 @@ def resolve_plan(specs, *, schedule: str = "auto",
 def warn_on_fallback(plan: ExecutionPlan, stacklevel: int = 3) -> None:
     """Emit a :class:`PlanFallbackWarning` (once per distinct reason)
     when an explicitly requested path was demoted.  Zero-step batches
-    never warn — there is no scan at all."""
+    never warn — there is no scan at all.  Routed through
+    :func:`repro_torch.obs.oblog.warn_once`; tests re-arm it with
+    ``oblog.reset_warn_once()``."""
     if plan.data_plane_requested == "gram" \
             and plan.data_plane != "gram" and plan.steps > 0:
-        warn_once(
+        oblog.warn_once(
             f'data_plane="gram" requested but the plan fell back to the '
             f"stream scan: {plan.data_plane_reason} "
             f"(see BatchResult.plan.explain())",
@@ -441,7 +420,7 @@ def warn_on_fallback(plan: ExecutionPlan, stacklevel: int = 3) -> None:
             key=("gram_fallback", plan.data_plane_reason),
             stacklevel=stacklevel)
     if plan.fused_requested is True and not plan.fused and plan.steps > 0:
-        warn_once(
+        oblog.warn_once(
             f"fused=True requested but the plan fell back to the "
             f"unfused scan: {plan.fallback_reason} "
             f"(see BatchResult.plan.explain())",

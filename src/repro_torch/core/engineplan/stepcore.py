@@ -25,7 +25,10 @@ data rows by linearity.  Three planes share that epilogue:
 
 The scan is a Python loop over T.  The vote gates (``vote1``,
 ``identify``) are branched on from their host numpy copies, so the loop
-never waits on the device.
+never waits on the device.  With ``telemetry`` the loop also adds up the
+protocol counters (``obs.telemetry.TEL_KEYS``) as (B,) int32 tensors on
+the scan's device, exactly as the reference's scan carry does
+(``stepcore.py:533-556``).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.core.detection import detect_groups_batched
 from repro_torch.kernels import ops
+from repro_torch.obs.telemetry import TEL_KEYS
 
 TAU_VOTE = 1e-9       # matches majority_vote_np(tau=1e-9) in the engines
 TAU_DETECT = 1e-9     # the engines' absolute replica compare
@@ -102,11 +106,33 @@ def masked_mean(g, act):
     return (g * act[:, :, None]).sum(dim=1) / cnt[:, None]
 
 
+def count_step(tel, x, det, elim, byz) -> None:
+    """Add one step to the (B,) int32 counters in place.  The schedule
+    already masks every event array by liveness, so the counters are
+    straight masked sums of the host recorder's arrays; ``elim`` is the
+    identify vote's eliminations, None when no trial voted."""
+    i32 = torch.int32
+    tel["steps"] += x["live"].to(i32)
+    tel["checks"] += x["checks"].to(i32)
+    tel["redundant_steps"] += (x["checks"] | x["vote1"]).to(i32)
+    tel["detects"] += det.to(i32)
+    tel["identify_rounds"] += x["identify"].to(i32)
+    tel["vote_rounds"] += (x["identify"] | x["vote1"]).to(i32)
+    if elim is not None:
+        tel["eliminations"] += elim
+    tel["tamper_events"] += (x["tam1"].sum(dim=1, dtype=i32)
+                             + x["tam2"].sum(dim=1, dtype=i32))
+    tel["byz_active_steps"] += (byz & x["active"] & x["live"][:, None]).sum(
+        dim=1, dtype=i32)
+
+
 def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
          impl, fused: bool = False, gram: bool = False, shared: bool = True,
-         has_filter: bool = False, has_bias: bool = True):
+         has_filter: bool = False, has_bias: bool = True,
+         telemetry: bool = False):
     """Run the T protocol steps.  Returns (carry, losses (T, B) f32,
-    det (T, B) bool); ``finish`` turns the carry into W_T.
+    det (T, B) bool), and with ``telemetry`` the counters {key: (B,)
+    int32} as a fourth item; ``finish`` turns the carry into W_T.
 
     A: gram {"rows": (Ie, d), "G": (Ie, Ie)}; fused the extended rows
     (Ie, d) f32|bf16; stream the data (n_data, d) when ``shared``, else
@@ -119,7 +145,8 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
     {"SA": (T, n_data, k), "sk_one", "sk_noise"}, stream {"SA":
     (T, P, n_data, k), "sk_one", "sk_noise"} gathered by ``pid`` (B,);
     noisevec (d,) for the stream plane; gates the host (T, B) bool
-    arrays "vote1" and "identify"."""
+    arrays "vote1" and "identify".  ``telemetry`` needs stat["byz"], the
+    (B, n) Byzantine mask."""
     n_data = y.shape[-1]
     B = xs["live"].shape[1]
     dev = y.device
@@ -193,19 +220,26 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
                          dim=1) * scale[:, None]
 
     def vote_part(resid, step, shard, group, m, tam, gate, skt=None,
-                  mask=None, cr=None):
+                  mask=None, cr=None, count_elim=False):
         """A majority-vote round (draco's every step, or an identify
         round) folded into an update; the caller skips it when the
-        host gate is empty."""
+        host gate is empty.  ``count_elim`` also returns the (B,) int32
+        eliminations: the vote's outvoted workers (the host schedule
+        applied them when it built later steps; here they are only
+        counted)."""
         if skt is None:
             mask, rows_ = shard_mask(shard, group, m, n_data)
             cr = resid * (2.0 / rows_)[:, None]
             skt = symbols(mask, cr, tam, *step)
         gv = torch.where(gate[:, None], group, -1)
-        wc, _ = ops.batched_vote(skt, gv, tau=TAU_VOTE, impl=impl)
+        wc, faulty = ops.batched_vote(skt, gv, tau=TAU_VOTE, impl=impl)
         coeff_w = torch.where(gate[:, None],
                               wc / torch.clamp(m, min=1)[:, None], 0.0)
-        return agg(coeff_w, tam, mask, cr)
+        out = agg(coeff_w, tam, mask, cr)
+        if not count_elim:
+            return out
+        return out, (gate[:, None] & faulty & (gv >= 0)).sum(
+            dim=1, dtype=torch.int32)
 
     T = xs["live"].shape[0]
     losses = torch.empty((T, B), dtype=torch.float32, device=dev)
@@ -216,6 +250,9 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
         C = torch.zeros_like(cw0)
     else:
         W = W0
+    if telemetry:
+        tel = {k: torch.zeros(B, dtype=torch.int32, device=dev)
+               for k in TEL_KEYS}
     for t in range(T):
         x = {k: v[t] for k, v in xs.items()}
         if fused:
@@ -249,9 +286,13 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
             upd = acc(upd, vote_part(resid, step, x["shard1"], x["group1"],
                                      x["m1"], x["tam1"], x["vote1"],
                                      skt=skt1, mask=mask1, cr=cr1))
+        elim = None
         if gates["identify"][t].any():
-            upd = acc(upd, vote_part(resid, step, x["shard2"], x["group2"],
-                                     x["m2"], x["tam2"], x["identify"]))
+            upd2 = vote_part(resid, step, x["shard2"], x["group2"], x["m2"],
+                             x["tam2"], x["identify"], count_elim=telemetry)
+            if telemetry:
+                upd2, elim = upd2
+            upd = acc(upd, upd2)
 
         if has_filter:
             # the gradient-filter baselines need the real (B, n, d) stack
@@ -277,7 +318,11 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
             C = C + fold_coeff(upd, x["live"])
         else:
             W = torch.where(x["live"][:, None], W - lr[:, None] * upd, W)
+        if telemetry:
+            count_step(tel, x, det[t], elim, stat["byz"])
     carry = (W, cw) if fused else (C if gram else W)
+    if telemetry:
+        return carry, losses, det, tel
     return carry, losses, det
 
 

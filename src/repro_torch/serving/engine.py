@@ -7,9 +7,10 @@ card): a Byzantine or silently corrupting serving replica is caught
 almost surely over time, by the randomized-check argument of §4.2.
 ``ServeEngine.generate`` audits each step with probability ``q_audit``,
 drawing its coins from ``np.random.default_rng(seed)`` and keying step
-i's sketch by seed + 1000 + i, as the reference does.  The reference's
-obs spans and counters (``serve.audit_decode``, ``serve.audits``,
-``serve.audit_failures``) wait for ROADMAP M7.
+i's sketch by seed + 1000 + i, as the reference does, and emits the
+reference's span ``serve.audit_decode`` (with ``step``) around each
+audit and its counters ``serve.audits`` and ``serve.audit_failures``
+through ``repro_torch.obs``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import torch
 from repro_torch.core import detection
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
+from repro_torch.obs import metrics as obmetrics
+from repro_torch.obs import trace as obtrace
 
 
 def serve_step(params, token, pos: int, cache, cfg):
@@ -113,12 +116,16 @@ class ServeEngine:
             if self.q_audit and self._rng.random() < self.q_audit:
                 _sync(self.device)
                 ta = time.perf_counter()
-                logits, cache, ok = audit_decode(
-                    self.params, tok, pos, cache, self.cfg,
-                    key=self.seed + 1000 + i, impl=self.impl)
+                with obtrace.span("serve.audit_decode", step=i):
+                    logits, cache, ok = audit_decode(
+                        self.params, tok, pos, cache, self.cfg,
+                        key=self.seed + 1000 + i, impl=self.impl)
                 audit_s += time.perf_counter() - ta   # ok waited for it
                 self.audits += 1
                 self.audit_failures += int(not ok)
+                obmetrics.counter("serve.audits").inc()
+                if not ok:
+                    obmetrics.counter("serve.audit_failures").inc()
             else:
                 logits, cache = M.decode_step(self.params, tok, pos, cache,
                                               self.cfg)

@@ -16,6 +16,7 @@ from repro.core.engineplan import plan as jplan
 from repro_torch.core import engine as tengine
 from repro_torch.core.engine_torch import build_schedule as tbuild_schedule
 from repro_torch.core.engineplan import plan as tplan
+from repro_torch.obs import oblog as toblog
 
 _EV = (dict(step=6, kind="crash", workers=(1,)),
        dict(step=15, kind="recover", workers=(1,)))
@@ -193,9 +194,9 @@ def test_warn_on_fallback_once_per_reason():
     specs = _specs(tengine, PLAN_SPECS["filter"])
     plan = tplan.resolve_plan(specs, data_plane="gram")
     assert plan.data_plane == "stream"
-    tplan.reset_warn_once()
+    toblog.reset_warn_once()
     with pytest.warns(tplan.PlanFallbackWarning, match="gram"):
         tplan.warn_on_fallback(plan)
-    assert not tplan.warn_once("again", tplan.PlanFallbackWarning,
-                               key=("gram_fallback", plan.data_plane_reason))
-    tplan.reset_warn_once()
+    assert not toblog.warn_once("again", tplan.PlanFallbackWarning,
+                                key=("gram_fallback", plan.data_plane_reason))
+    toblog.reset_warn_once()

@@ -386,6 +386,75 @@ def test_stream_planes_on_card_match_cpu(cuda, name):
         np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-4)
 
 
+# name: (run_batch knobs, problems over the trials, filter baselines)
+TEL_PLANES = {
+    "gram": (dict(), 1, False),
+    "fused": (dict(fused=True), 1, False),
+    "unfused": (dict(fused=False), 1, False),
+    "bf16": (dict(fused=True, stream_dtype="bf16"), 1, False),
+    "per_problem": (dict(), 2, False),
+    "filter": (dict(), 1, True),
+}
+
+
+def _tel_specs(name, B=6):
+    """Drift / noise, draco and deterministic trials (identify rounds with
+    eliminations), at a contractive lr."""
+    _, problems, filt = TEL_PLANES[name]
+    modes = [("randomized", 0.3), ("draco", None), ("deterministic", None),
+             ("randomized", 0.5)]
+    if filt:
+        modes[2] = ("filter:median", 0.3)
+    return [repro_torch.TrialSpec(
+        byz=(2, 5), attack=("drift", "noise")[s % 2], q=modes[s % 4][1],
+        mode=modes[s % 4][0], steps=12, seed=s, n_data=64, d=4096,
+        lr=16.0 / 4096, problem_seed=s % problems) for s in range(B)]
+
+
+@pytest.mark.parametrize("name", list(TEL_PLANES))
+def test_telemetry_on_card_is_output_neutral_and_matches_cpu(cuda, name):
+    """telemetry=True on the card: W, losses and detect flags bitwise those
+    of the run without; the counters those of the CPU run."""
+    from repro_torch.obs.telemetry import TEL_KEYS
+
+    kw = TEL_PLANES[name][0]
+    specs = _tel_specs(name)
+    on = repro_torch.run_batch(specs, telemetry=True, **kw)
+    off = repro_torch.run_batch(specs, **kw)
+    assert on.plan.kernel_impl == "cuda" and off.telemetry is None
+    np.testing.assert_array_equal(on.detect_flags, off.detect_flags)
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a.w, b.w)
+        assert a.losses == b.losses
+    cpu = repro_torch.run_batch(specs, device="cpu", telemetry=True, **kw)
+    for k in TEL_KEYS:
+        np.testing.assert_array_equal(on.telemetry.counters[k],
+                                      cpu.telemetry.counters[k], err_msg=k)
+    assert on.telemetry.totals()["eliminations"] > 0
+
+
+@pytest.mark.parametrize("name", ["gram", "fused", "unfused", "per_problem"])
+def test_chunked_pipeline_on_card(cuda, name):
+    """7 trials in chunks of 3 (the last one padded) against one chunk on
+    the card: counters and detect flags equal, W and losses within the
+    reference's chunking tolerance (rtol 1e-5, atol 1e-6)."""
+    from repro_torch.obs.telemetry import TEL_KEYS
+
+    kw = TEL_PLANES[name][0]
+    specs = _tel_specs(name, B=7)
+    one = repro_torch.run_batch(specs, telemetry=True, **kw)
+    three = repro_torch.run_batch(specs, telemetry=True, chunk_trials=3,
+                                  **kw)
+    assert one.plan.chunk_trials >= 7 and three.plan.chunk_trials == 3
+    np.testing.assert_array_equal(three.detect_flags, one.detect_flags)
+    for k in TEL_KEYS:
+        np.testing.assert_array_equal(three.telemetry.counters[k],
+                                      one.telemetry.counters[k], err_msg=k)
+    for a, b in zip(three, one):
+        np.testing.assert_allclose(a.w, b.w, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(a.losses, b.losses, rtol=1e-5, atol=1e-6)
+
+
 # (B, Sq, Sk, H, K, hd, causal, window): ragged lengths, hd 16-256, GQA
 # and MQA, windows, queries past the keys (Sk <= 1024, where the plain
 # version averages every value for a row with no visible key, as K6

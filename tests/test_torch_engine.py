@@ -238,7 +238,6 @@ OUT_OF_SLICE = {
     "value_dependent": ([dict(_VI, attack="sign_flip")],
                         dict(data_plane="gram")),
     "adaptive_q": ([dict(_VI, q=None)], dict(data_plane="gram")),
-    "telemetry": ([_VI], dict(data_plane="gram", telemetry=True)),
 }
 
 

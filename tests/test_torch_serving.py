@@ -305,3 +305,56 @@ def test_init_draws_the_reference_distributions():
         assert abs(float(w.std()) / (0.880 * sigma) - 1.0) < 0.03
     assert bool((p["layers"][3]["mixer"]["q_norm"] == 1).all())
     assert len(p["layers"]) == len(layer_kinds(cfg)) == 12
+
+
+def test_generate_emits_audit_spans_and_counters(monkeypatch):
+    """Reduced llama3.2-1b at q_audit 1.0: one ``serve.audit_decode`` span
+    (with its step) and one ``serve.audits`` increment per step, the
+    spans the reference's engine emits for the same run; a replica whose
+    replay disagrees (its second decode of each step scaled) counts one
+    ``serve.audit_failures`` per step."""
+    from repro.obs import trace as jtrace
+    from repro_torch.obs import metrics as tmetrics
+    from repro_torch.obs import trace as ttrace
+
+    name = "llama3.2-1b"
+    jparams, tparams, prompt = _setup(name)
+
+    def audit_steps(tracer):
+        return [e["args"]["step"] for e in tracer.spans()
+                if e["name"] == "serve.audit_decode"]
+
+    def counts():
+        return (tmetrics.counter("serve.audits").value,
+                tmetrics.counter("serve.audit_failures").value)
+
+    jtrace.clear()
+    JServeEngine(_jcfg(name), jparams, q_audit=1.0, seed=0).generate(
+        jnp.asarray(prompt), STEPS)
+    assert audit_steps(jtrace) == list(range(STEPS))
+
+    ttrace.clear()
+    before = counts()
+    eng = ServeEngine(_cfg(name), tparams, q_audit=1.0, seed=0, device="cpu")
+    honest = eng.generate(prompt, STEPS)
+    assert audit_steps(ttrace) == audit_steps(jtrace)
+    assert (eng.audits, eng.audit_failures) == (STEPS, 0)
+    assert counts() == (before[0] + STEPS, before[1])
+
+    decode, calls = M.decode_step, []
+
+    def replay_disagrees(*args, **kwargs):
+        logits, cache = decode(*args, **kwargs)
+        calls.append(None)
+        return (logits * 1.5 if len(calls) % 2 == 0 else logits), cache
+
+    monkeypatch.setattr(M, "decode_step", replay_disagrees)
+    ttrace.clear()
+    before = counts()
+    bad = ServeEngine(_cfg(name), tparams, q_audit=1.0, seed=0, device="cpu")
+    out = bad.generate(prompt, STEPS)
+    assert torch.equal(out, honest)          # the first decode is served
+    assert len(calls) == 2 * STEPS
+    assert audit_steps(ttrace) == list(range(STEPS))
+    assert (bad.audits, bad.audit_failures) == (STEPS, STEPS)
+    assert counts() == (before[0] + STEPS, before[1] + STEPS)
