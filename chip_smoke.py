@@ -37,6 +37,16 @@ Phases, in order; any failed check exits nonzero:
      again at a contractive lr with W held against the plain versions
      per trial; and once more with bf16 rows, against the f32 run;
    - per-trial problems (B = 8, 4 problems, T = 3, d = 2^20): K4, K5;
+   - the device control plane (``schedule="device"``): the reference's
+     adaptive_sweep (B = 256, T = 24, d = 2^13, adaptive q*_t,
+     sign_flip) on the stream plane (K4, K3), and its trials at
+     d = 2^20 on the stream plane and on the gram plane (K1, K3), each
+     held against the plain versions (the decision trace, identify
+     steps, kappa, meters and counters exact), once with
+     ``telemetry=True``, and the two stream paths once in a profiler
+     window (kernels a step, the card's busy share in the step loop); a
+     contractive variant held per trial; B = 8, d = 4096 on the card
+     against the CPU;
    - each of those five engine paths once more with ``telemetry=True``:
      W, losses and detect flags bitwise those of the run without, the
      protocol counters equal to those of the plain versions' run on the
@@ -96,6 +106,11 @@ GRAM_SWEEP = dict(B=32, T=120, n_data=64, d=1 << 20)
 # cuts it into chunks of 64 trials
 FUSED_SWEEP = dict(B=256, T=3, n_data=64, d=1 << 20)
 FUSED_CHUNK = 64
+# benchmarks/bench_protocol.py:627-652 (adaptive_sweep) with its default
+# knobs: adaptive q*_t, sign_flip, the device control plane; the same
+# trials once more at the production d of gram_sweep and fused_sweep
+ADAPTIVE_SWEEP = dict(B=256, T=24, n_data=64, d=1 << 13)
+ADAPTIVE_D_FULL = 1 << 20
 # per-trial problems: fused_sweep's trials over 4 problems; B = 8, where
 # the reference's host-staged (B, n_data, d) f32 data is 2 GiB (the port
 # gathers each chunk's rows on the card by problem index)
@@ -786,13 +801,14 @@ def schedule_sums(arr) -> dict:
             + arr["tam2"].sum(axis=(0, 2))}
 
 
-def check_telemetry(label, off, run) -> dict:
+def check_telemetry(label, off, run, plain=None) -> dict:
     """``run(**kw)`` (a path's ``run_batch`` call) once more with
     ``telemetry=True``: W, losses and detect flags bitwise those of
     ``off``, the run without; the counters equal to those of the same
-    run with the plain versions on the card, and six of them to their
-    sums over the recorded schedule.  Prints the counter totals, the
-    efficiency report and the pipeline's span times."""
+    run with the plain versions on the card (``plain``, or run here),
+    and six of them to their sums over the recorded schedule.  Prints
+    the counter totals, the efficiency report and the pipeline's span
+    times."""
     import numpy as np
 
     from repro_torch.obs import report
@@ -812,7 +828,8 @@ def check_telemetry(label, off, run) -> dict:
                   and bitwise(np.asarray(a.losses), np.asarray(b.losses))
                   for a, b in zip(on, off)),
           f"{label}: telemetry=True changed W, losses or detect flags")
-    plain = run(telemetry=True, kernel_impl="torch")
+    if plain is None:
+        plain = run(telemetry=True, kernel_impl="torch")
     for k in TEL_KEYS:
         check(np.array_equal(on.telemetry.counters[k],
                              plain.telemetry.counters[k]),
@@ -1057,6 +1074,194 @@ def phase_stream(torch):
         "per-problem", pp, pp_specs)
     out["per_problem"]["telemetry"] = check_telemetry("per-problem", pp,
                                                       run_pp)
+    return launches, out
+
+
+def adaptive_sweep_specs(TrialSpec, B, T, n_data, d, lr=None):
+    kw = {} if lr is None else dict(lr=lr)
+    return [TrialSpec(byz=(2, 5), attack="sign_flip", q=None, steps=T,
+                      seed=s, n_data=n_data, d=d, label=f"adaptive_sweep/s{s}",
+                      **kw) for s in range(B)]
+
+
+def same_trace(a, b, q_exact: bool = True) -> bool:
+    """The device plane's decisions: the trace's check, detect and
+    faulty2, identify steps, kappa and meters equal; q equal, or within
+    rtol 1e-5 / atol 1e-6 (another card's or host's f32 loss)."""
+    import numpy as np
+
+    ta, tb = a.device_trace, b.device_trace
+    if not all(np.array_equal(ta[k], tb[k])
+               for k in ("check", "detect", "faulty2")):
+        return False
+    if q_exact:
+        q_ok = np.array_equal(ta["q"], tb["q"])
+    else:
+        q_ok = np.allclose(ta["q"], tb["q"], rtol=1e-5, atol=1e-6)
+    return q_ok and all(
+        ra.identify_step == rb.identify_step
+        and ra.state.kappa == rb.state.kappa
+        and ra.efficiency == rb.efficiency
+        and ra.state.meter.history == rb.state.meter.history
+        for ra, rb in zip(a, b))
+
+
+def profile_device(label, specs, kw) -> dict:
+    """A ``profile_trace`` window around one device-control run: the
+    kernels' device time over the scan's (the card's busy share inside
+    the step loop, both under the profiler), and the kernels and launch
+    calls a step.  The trace is parsed and removed."""
+    import shutil
+
+    import repro_torch
+    from repro_torch.obs import trace as obtrace
+
+    pdir = ROOT / "chiprun_out" / "profile"
+    name = "device_" + "".join(c if c.isalnum() else "_" for c in label)
+    shutil.rmtree(pdir / name, ignore_errors=True)
+    with obtrace.profile_trace(name, profile_dir=str(pdir)):
+        res = repro_torch.run_batch(specs, schedule="device", **kw)
+    files = sorted((pdir / name).glob("*.pt.trace.json"))
+    check(len(files) == 1, f"profile_trace wrote {len(files)} Chrome traces")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    shutil.rmtree(pdir / name)
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    launch_calls = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                       and "LaunchKernel" in str(e.get("name", "")))
+    steps = res.plan.steps * -(-len(specs) // res.plan.chunk_trials)
+    kernel_s = sum(e["dur"] for e in kern) / 1e6
+    scan_s = res.phase_s["scan"]
+    out = dict(kernel_events=len(kern), launch_calls=launch_calls,
+               kernels_per_step=len(kern) / steps,
+               kernel_s=kernel_s, scan_s=scan_s,
+               busy_share=kernel_s / scan_s,
+               scan_ms_per_step=1e3 * scan_s / steps)
+    print(f"{label} under the profiler: {len(kern)} kernels "
+          f"({out['kernels_per_step']:.1f} a step, {launch_calls} launch "
+          f"calls), kernel time {kernel_s:.4f} s of scan {scan_s:.4f} s: "
+          f"busy share {out['busy_share']:.3f}; "
+          f"{out['scan_ms_per_step']:.3f} ms a step")
+    return out
+
+
+def phase_device_control(torch):
+    """The device control plane (``schedule="device"``): adaptive_sweep
+    as the reference defines it (B = 256, T = 24, d = 2^13, lr 0.05),
+    then its trials at d = 2^20 on the stream plane and on the gram plane
+    (lr = n_data/d, gram_sweep's: lr 0.05 overflows float32 there within
+    the 24 steps), each against the plain versions on the card; a
+    contractive variant held per trial; small inputs against the CPU."""
+    import numpy as np
+
+    import repro_torch
+
+    TS = repro_torch.TrialSpec
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    cell = ADAPTIVE_SWEEP
+    # (label, specs, knobs, kernels, timed runs, profiled): the phase
+    # stays near a minute with two timed runs and no profiler window on
+    # the d = 2^20 gram path
+    full = adaptive_sweep_specs(TS, **dict(cell, d=ADAPTIVE_D_FULL),
+                                lr=cell["n_data"] / ADAPTIVE_D_FULL)
+    paths = [
+        ("adaptive_sweep", adaptive_sweep_specs(TS, **cell), {},
+         ("sketch_batched", "pairwise_relmax_batched"), 3, True),
+        ("adaptive_sweep d=2^20 stream", full, {},
+         ("sketch_batched", "pairwise_relmax_batched"), 2, True),
+        ("adaptive_sweep d=2^20 gram", full, dict(data_plane="gram"),
+         ("gram_factors", "pairwise_relmax_batched"), 2, False),
+    ]
+    for label, specs, kw, kernels, reps, profiled in paths:
+        def run(**more):
+            return repro_torch.run_batch(specs, schedule="device", **kw,
+                                         **more)
+
+        res, launches[label], info = run_path(label, run, kernels, reps)
+        plane = "gram" if kw else "stream"
+        check(res.plan.control == "device" and res.schedule.mode == "device"
+              and res.plan.data_plane == plane,
+              f"{label}: plan {res.plan.control}/{res.plan.data_plane}")
+        W = np.stack([r.w for r in res])
+        check(W.shape == (len(specs), specs[0].d)
+              and bool(np.isfinite(W).all()), f"{label}: W shape or values")
+        del W
+        check_honest(specs, res)
+        # one plain run serves both comparisons: telemetry is
+        # output-neutral, which check_telemetry holds for the kernels
+        plain = run(kernel_impl="torch", telemetry=True)
+        check(same_trace(res, plain) and same_control(res, plain),
+              f"{label}: the trace differs between kernels and plain "
+              f"versions")
+        err, tol = w_close(res, plain)
+        print(f"{label} W: max|kernels-plain| = {err:.3e} (tolerance "
+              f"1e-4*(1+max|W|) = {tol:.3e})")
+        check(err <= tol, f"{label}: W differs between kernels and plain "
+                          f"versions")
+        info["w_err_vs_plain"] = err
+        info["telemetry"] = check_telemetry(label, res, run, plain)
+        del plain
+        info["checks"] = int(res.device_trace["check"].sum())
+        info["detects"] = int(res.device_trace["detect"].sum())
+        info["eliminations"] = int(res.device_trace["faulty2"].sum())
+        info["identified_by_step"] = sorted(
+            {s for r in res for s in r.identify_step.values()})
+        if profiled:
+            info["profile"] = profile_device(label, specs, kw)
+        print(f"{label}: {info['checks']} checks, {info['detects']} "
+              f"detects, {info['eliminations']} eliminations; identify "
+              f"steps {info['identified_by_step']}; efficiency (mean) "
+              f"{statistics.mean(r.efficiency for r in res):.6f}")
+        out[label] = info
+        del res
+
+    # the cell's lr 0.05 makes W grow ~14x a step at d = 2^13 (the
+    # reference's own losses overflow float32 by step 23): hold the
+    # values per trial once more at a contractive lr
+    c_specs = adaptive_sweep_specs(TS, **cell,
+                                   lr=cell["n_data"] / (4.0 * cell["d"]))
+    res, launches["adaptive_sweep contractive"] = counted(
+        lambda: repro_torch.run_batch(c_specs, schedule="device"))
+    require_launched(launches["adaptive_sweep contractive"],
+                     ("sketch_batched", "pairwise_relmax_batched"),
+                     "adaptive_sweep contractive")
+    plain = repro_torch.run_batch(c_specs, schedule="device",
+                                  kernel_impl="torch")
+    check(same_trace(res, plain), "adaptive_sweep contractive: the trace "
+                                  "differs between kernels and plain versions")
+    err = per_trial_close(res, plain)
+    L = np.array([r.losses for r in res])
+    print(f"adaptive_sweep contractive (lr = n_data/(4d)) W: max over "
+          f"trials of max|kernels-plain|/(1+max|W|) = {err:.3e} (tolerance "
+          f"1e-4); losses finite: {bool(np.isfinite(L).all())}; "
+          f"{int(res.device_trace['detect'].sum())} detects")
+    check(err <= 1e-4 and bool(np.isfinite(L).all()),
+          "adaptive_sweep contractive: W differs between kernels and plain "
+          "versions, or a loss is not finite")
+    check_honest(c_specs, res)
+    out["contractive_w_err_vs_plain"] = err
+    del res, plain
+
+    # small inputs on the card against the CPU: B = 8, d = 4096
+    small = {}
+    for lr_name, lr in (("cell lr", None), ("contractive lr", 64.0 / 16384)):
+        for plane, kw in (("stream", {}), ("gram", dict(data_plane="gram"))):
+            specs = adaptive_sweep_specs(TS, B=8, T=cell["T"], n_data=64,
+                                         d=4096, lr=lr)
+            on_card = repro_torch.run_batch(specs, schedule="device", **kw)
+            on_cpu = repro_torch.run_batch(specs, schedule="device",
+                                           device="cpu", **kw)
+            label = f"small {plane}, {lr_name}"
+            check(same_trace(on_card, on_cpu, q_exact=False),
+                  f"{label}: card vs CPU trace")
+            err, tol = w_close(on_card, on_cpu)
+            print(f"{label} (B=8, d=4096) card vs CPU: same trace; "
+                  f"max|dW| = {err:.3e} (tolerance {tol:.3e})")
+            check(err <= tol, f"{label}: card vs CPU W")
+            small[label] = err
+    out["small_vs_cpu_w_err"] = small
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase_device_control: {out['phase_s']:.1f} s")
     return launches, out
 
 
@@ -1513,6 +1718,8 @@ def main() -> int:
     launches["gram_sweep"], gram = phase_gram(torch)
     stream_launches, stream = phase_stream(torch)
     launches.update(stream_launches)
+    device_launches, device_ctl = phase_device_control(torch)
+    launches.update(device_launches)
     launches["single_vector_ops"] = phase_single_path(torch)
     small = phase_small_vs_cpu(torch)
     launches["serving"], serving = phase_serving(
@@ -1520,7 +1727,8 @@ def main() -> int:
     # each kernel's launches summed over the counted path runs
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for run in launches.values())
-    main_path = dict(gram_sweep=gram, **stream, launches=launches,
+    main_path = dict(gram_sweep=gram, **stream, device_control=device_ctl,
+                     launches=launches,
                      small_vs_cpu_w_err=small, serving=serving,
                      attention=attention)
     order = ("name", "route", "source", "replaces", "launches",

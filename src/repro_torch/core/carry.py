@@ -12,6 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import rngstream
+from repro_torch.core.engineplan.plan import is_adaptive
+
 # schedule array -> dtype the step core reads it in (as engine_jax.py
 # stages its scan xs)
 XS_DTYPES = {
@@ -29,6 +32,43 @@ GATE_KEYS = ("vote1", "identify")
 def xs_from_schedule(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """``Schedule.arrays`` (T, B, ...) -> the step core's numpy xs dict."""
     return {k: np.asarray(arrays[k]).astype(dt) for k, dt in XS_DTYPES.items()}
+
+
+# the device control plane's q codes (engine_jax.py:388-391)
+QCODES = {"none": 0, "deterministic": 1, "randomized": 2}
+QCODE_ADAPTIVE = 3
+
+
+def device_statics(specs, n_max: int) -> dict[str, np.ndarray]:
+    """The device control plane's per-trial statics (``engine_jax.py:
+    373-401``): "p", "qfix" (f32); "qcode" (0 none, 1 deterministic,
+    2 randomized, 3 adaptive), "f0", "onset", "steps" (int32); "byz",
+    "act0" (B, n_max) bool; and the six stream key words "dk0", "dk1",
+    "tk0", "tk1", "pk0", "pk1" (``rngstream.key_for`` of the DECIDE,
+    TAMPER and PERM tags) as int64."""
+    B = len(specs)
+    byz = np.zeros((B, n_max), bool)
+    act0 = np.zeros((B, n_max), bool)
+    keys = {k: np.zeros(B, np.int64)
+            for k in ("dk0", "dk1", "tk0", "tk1", "pk0", "pk1")}
+    for b, s in enumerate(specs):
+        act0[b, :s.n] = True
+        byz[b, list(s.byz)] = True
+        for pre, tag in (("d", rngstream.DECIDE), ("t", rngstream.TAMPER),
+                         ("p", rngstream.PERM)):
+            k0, k1 = rngstream.key_for(s.seed, tag)
+            keys[pre + "k0"][b] = k0
+            keys[pre + "k1"][b] = k1
+    return dict(
+        p=np.array([s.p_tamper for s in specs], np.float32),
+        qfix=np.array([0.0 if s.q is None else float(s.q) for s in specs],
+                      np.float32),
+        qcode=np.array([QCODE_ADAPTIVE if is_adaptive(s) else QCODES[s.mode]
+                        for s in specs], np.int32),
+        f0=np.array([s.f for s in specs], np.int32),
+        onset=np.array([s.onset for s in specs], np.int32),
+        steps=np.array([s.steps for s in specs], np.int32),
+        byz=byz, act0=act0, **keys)
 
 
 def to_device(tree, device):

@@ -10,9 +10,12 @@ assignment permutations) in the identical order, so the recorded
 schedule arrays and the control results — efficiency meters, identify
 steps, q-traces, active/identified sets — are bitwise the reference's.
 
-Only the host RNG contract (``rng="host"``) is ported here; the
-counter-RNG streams of ``rng="device"``, the numpy data-plane engine
-and ``SCENARIOS`` belong to later slices.
+Both stream contracts are ported: the host's numpy generators
+(``rng="host"``) and the counter-RNG streams of ``rng="device"``
+(``core.rngstream``), under which ``replay_control_from_trace``
+rebuilds the whole control plane from the device control plane's
+decision trace.  The numpy data-plane engine and ``SCENARIOS`` belong
+to a later slice.
 """
 from __future__ import annotations
 
@@ -27,8 +30,10 @@ from repro_torch.core.assignment import (
     BatchedAssignment,
     fast_assignment_batched,
 )
+from repro_torch.core import rngstream
 from repro_torch.core.engineplan.plan import (
     ExecutionPlan,
+    device_schedulable,
     spec_display_names,
     value_independent_control,
 )
@@ -259,6 +264,57 @@ class _TamperStreams:
                 if ui < self.p[b]]
 
 
+def _install_device_streams(specs, trials) -> rngstream.StepClock:
+    """Swap every trial's permutation generator for the counter-indexed
+    ``CounterPermuter`` (the PERM stream) and return the shared step
+    clock the replay advances once per iteration."""
+    clock = rngstream.StepClock()
+    for s, tr in zip(specs, trials):
+        tr.st.rng = rngstream.CounterPermuter(
+            rngstream.perm_keys(s.seed, s.steps, s.n), clock)
+    return clock
+
+
+class _DeviceTamperStreams(_TamperStreams):
+    """``rng="device"`` tamper decisions: a worker's coin at (t, phase)
+    is the TAMPER stream's pure function of (seed, t, phase, w), compared
+    in float32 against p as the device does, and never depends on which
+    other workers are active."""
+
+    def __init__(self, specs, trials):
+        B = len(specs)
+        self.p32 = np.array([s.p_tamper for s in specs], np.float32)
+        self.onset = np.array([s.onset for s in specs])
+        self.u = [rngstream.tamper_uniforms(s.seed, s.steps, s.n)
+                  if s.byz else None for s in specs]
+        self.trials = trials
+        self.specs = specs
+        self.nb = np.zeros(B, np.int64)
+        self.wid = np.zeros((B, 1), np.int64)
+        self.refresh()
+
+    def phase1_hits(self, t: int, live: np.ndarray):
+        elig = live & (self.nb > 0) & (t >= self.onset)
+        if not elig.any():
+            return None
+        hb, hw = [], []
+        for b in np.flatnonzero(elig):
+            w = self.wid[b, : self.nb[b]]
+            hit = w[self.u[b][t, 0, w] < self.p32[b]]
+            if hit.size:
+                hb.append(np.full(hit.size, b, np.int64))
+                hw.append(hit)
+        if not hb:
+            return None
+        return np.concatenate(hb), np.concatenate(hw)
+
+    def phase2_hits(self, b: int, t: int) -> list[int]:
+        if t < self.onset[b] or not self.nb[b]:
+            return []
+        w = self.wid[b, : self.nb[b]]
+        return [int(x) for x in w[self.u[b][t, 1, w] < self.p32[b]]]
+
+
 @dataclasses.dataclass
 class BatchResult:
     """Results of one engine pass, in spec order, with the device run's
@@ -272,7 +328,7 @@ class BatchResult:
     telemetry: "Telemetry | None" = None   # run_batch(telemetry=True)
     schedule: object = None      # engine_torch.Schedule
     detect_flags: "np.ndarray | None" = None   # (T, B) bool
-    device_trace: None = None    # device control plane: a later slice
+    device_trace: "dict | None" = None  # schedule="device": the decisions
     fused_used: bool = False
     phase_s: "dict[str, float] | None" = None  # wall seconds per phase
 
@@ -307,6 +363,37 @@ class ScheduleRecorder:
         self.steps.append(arrays)
 
 
+def _control_results(specs, trials, used_acc, comp_acc, check_acc,
+                     ident_acc, eff_hist, q_trace_mat,
+                     t_start: float) -> BatchResult:
+    """The replays' control results (no float quantities): each trial's
+    meters, q-trace, identify steps and final state."""
+    from repro_torch.core.simulation import SimResult
+
+    empty = np.zeros(0)
+    results = []
+    for b, s in enumerate(specs):
+        tr, st = trials[b], trials[b].st
+        st.step = s.steps
+        meter = st.meter
+        meter.used = int(used_acc[b])
+        meter.computed = int(comp_acc[b])
+        meter.iterations = s.steps
+        meter.check_iterations = int(check_acc[b])
+        meter.identify_iterations = int(ident_acc[b])
+        meter.history = eff_hist[b, :s.steps].tolist()
+        st.last_q = float(q_trace_mat[b, s.steps - 1]) if s.steps else 0.0
+        results.append(SimResult(
+            w=empty,
+            w_true=empty,
+            state=st,
+            losses=[],
+            q_trace=q_trace_mat[b, :s.steps].tolist(),
+            identify_step=tr.ident_step,
+        ))
+    return BatchResult(specs, results, time.perf_counter() - t_start)
+
+
 def replay_control_fast(specs: list[TrialSpec],
                         recorder: "ScheduleRecorder | None" = None,
                         *, rng: str = "host") -> BatchResult:
@@ -315,11 +402,13 @@ def replay_control_fast(specs: list[TrialSpec],
     Detection is decided analytically: a replica group mismatches iff
     it mixes tampered and honest workers (affine attacks act
     identically on identical shard copies), and the majority vote flags
-    the group's minority side.  Results carry control quantities only:
-    ``w``/``w_true`` are empty and ``losses`` is ``[]``.
+    the group's minority side.  ``rng="device"`` draws the decide,
+    tamper and permutation variates from the counter-RNG streams
+    (``core.rngstream``) in place of the numpy generators, with the
+    fixed q compared in float32 as the device compares it.  Results
+    carry control quantities only: ``w``/``w_true`` are empty and
+    ``losses`` is ``[]``.
     """
-    from repro_torch.core.simulation import SimResult
-
     t_start = time.perf_counter()
     specs = [s if isinstance(s, TrialSpec) else TrialSpec(**s) for s in specs]
     bad = [not value_independent_control(s) for s in specs]
@@ -327,12 +416,14 @@ def replay_control_fast(specs: list[TrialSpec],
         raise ValueError(
             "control-only replay invalid for value-dependent trials: "
             f"{spec_display_names(specs, bad)}")
-    if rng == "device":
-        raise NotImplementedError(
-            'rng="device" (counter-RNG streams) belongs to the device '
-            "control-plane slice of the port (ROADMAP M6)")
-    if rng != "host":
+    if rng not in ("host", "device"):
         raise ValueError(f"unknown rng stream contract {rng!r}")
+    device_rng = rng == "device"
+    if device_rng:
+        bad = [not device_schedulable(s) for s in specs]
+        if any(bad):
+            raise ValueError("device RNG streams undefined for trials: "
+                             f"{spec_display_names(specs, bad)}")
     B = len(specs)
     if B == 0:
         return BatchResult([], [], 0.0)
@@ -346,7 +437,9 @@ def replay_control_fast(specs: list[TrialSpec],
     bstate = BatchedProtocolState(cfgs)
     n_max = bstate.n_max
     trials = [_Trial(s, bstate.trial(b)) for b, s in enumerate(specs)]
-    streams = _TamperStreams(specs, trials)
+    clock = _install_device_streams(specs, trials) if device_rng else None
+    streams = (_DeviceTamperStreams if device_rng
+               else _TamperStreams)(specs, trials)
     for tr in trials:
         tr.act_idx = np.flatnonzero(tr.st.active)
 
@@ -361,9 +454,13 @@ def replay_control_fast(specs: list[TrialSpec],
     u_mat = np.zeros((B, T_max))
     for b, s in enumerate(specs):
         if is_vec[b] and s.steps:
-            u_mat[b, :s.steps] = bstate.trial(b).decide_rng.random(s.steps)
+            u_mat[b, :s.steps] = (
+                rngstream.decide_uniforms(s.seed, s.steps) if device_rng
+                else bstate.trial(b).decide_rng.random(s.steps))
     q_eff = np.array([_q_fixed(s, s.f) if is_vec[b] else 0.0
                       for b, s in enumerate(specs)])
+    if device_rng:          # the device compares in f32
+        q_eff = q_eff.astype(np.float32).astype(np.float64)
     vec_idx = np.flatnonzero(is_vec)
     selective_idx = np.flatnonzero(is_selective)
     filter_trials = np.flatnonzero(
@@ -423,6 +520,8 @@ def replay_control_fast(specs: list[TrialSpec],
             live_all = bool(live.all())
 
         rec_sh2 = rec_gr2 = rec_m2 = rec_tam2 = None   # allocated on use
+        if clock is not None:
+            clock.t = t
 
         for b in has_events:
             if live[b]:
@@ -569,6 +668,8 @@ def replay_control_fast(specs: list[TrialSpec],
                     dirty_trials.append(b)
                     if is_vec[b]:
                         q_eff[b] = _q_fixed(s, int(f_t_arr[b]))
+                        if device_rng:
+                            q_eff[b] = np.float32(q_eff[b])
                 agg_weight[b] = 0.0
             else:
                 st.on_clean_check(tr.mem1.ravel())
@@ -601,26 +702,205 @@ def replay_control_fast(specs: list[TrialSpec],
         ident_acc += identified_t
         eff_hist[:, t] = used_t / np.maximum(1, comp_t)
 
-    # -- materialize control results (no float quantities)
-    empty = np.zeros(0)
-    results = []
-    for b, s in enumerate(specs):
-        tr, st = trials[b], trials[b].st
-        st.step = s.steps
-        meter = st.meter
-        meter.used = int(used_acc[b])
-        meter.computed = int(comp_acc[b])
-        meter.iterations = s.steps
-        meter.check_iterations = int(check_acc[b])
-        meter.identify_iterations = int(ident_acc[b])
-        meter.history = eff_hist[b, :s.steps].tolist()
-        st.last_q = float(q_trace_mat[b, s.steps - 1]) if s.steps else 0.0
-        results.append(SimResult(
-            w=empty,
-            w_true=empty,
-            state=st,
-            losses=[],
-            q_trace=q_trace_mat[b, :s.steps].tolist(),
-            identify_step=tr.ident_step,
-        ))
-    return BatchResult(specs, results, time.perf_counter() - t_start)
+    return _control_results(specs, trials, used_acc, comp_acc, check_acc,
+                            ident_acc, eff_hist, q_trace_mat, t_start)
+
+
+def replay_control_from_trace(specs: list[TrialSpec | dict], trace: dict,
+                              recorder: "ScheduleRecorder | None" = None,
+                              ) -> BatchResult:
+    """Rebuild the full control plane from a device decision trace.
+
+    ``trace`` is the device control plane's per-step record under the
+    ``rng="device"`` streams: ``q`` (T, B) float, the q*_t each trial
+    compared against; ``check`` (T, B) bool, the checks that fired;
+    ``detect`` (T, B) bool, the checks whose replicas mismatched;
+    ``faulty2`` (T, B, n) bool, the workers the identify vote flagged.
+    Everything else (replica-group permutations, tamper bits, shard
+    assignments, efficiency meters, eliminations) is a pure function of
+    (seed, t, phase, worker) through the counter streams, so the replay
+    recomputes it exactly without a data plane.  Value-dependent trials
+    are fine here: their value-dependent decisions arrive in the trace.
+    Results carry control quantities only (``w``/``w_true`` empty,
+    ``losses == []``); the engine grafts the device's values on.
+    """
+    t_start = time.perf_counter()
+    specs = [s if isinstance(s, TrialSpec) else TrialSpec(**s) for s in specs]
+    bad = [not device_schedulable(s) for s in specs]
+    if any(bad):
+        raise ValueError("device RNG streams undefined for trials: "
+                         f"{spec_display_names(specs, bad)}")
+    B = len(specs)
+    if B == 0:
+        return BatchResult([], [], 0.0)
+
+    cfgs = [BFTConfig(n=s.n, f=s.f, mode=s.mode, q=s.q, p_assumed=s.p_tamper,
+                      selective=s.selective, seed=s.seed) for s in specs]
+    bstate = BatchedProtocolState(cfgs)
+    n_max = bstate.n_max
+    trials = [_Trial(s, bstate.trial(b)) for b, s in enumerate(specs)]
+    clock = _install_device_streams(specs, trials)
+    streams = _DeviceTamperStreams(specs, trials)
+    for tr in trials:
+        tr.act_idx = np.flatnonzero(tr.st.active)
+
+    steps_arr = np.array([s.steps for s in specs])
+    T_max = int(steps_arr.max())
+
+    tr_q = np.asarray(trace["q"], np.float64)
+    tr_check = np.asarray(trace["check"], bool)
+    tr_detect = np.asarray(trace["detect"], bool)
+    tr_faulty2 = np.asarray(trace["faulty2"], bool)
+    want = {"q": (T_max, B), "check": (T_max, B), "detect": (T_max, B),
+            "faulty2": (T_max, B, n_max)}
+    for name, arr in (("q", tr_q), ("check", tr_check),
+                      ("detect", tr_detect), ("faulty2", tr_faulty2)):
+        if arr.shape != want[name]:
+            raise ValueError(f"trace[{name!r}] has shape {arr.shape}, "
+                             f"expected {want[name]}")
+
+    used_acc = np.zeros(B, np.int64)
+    comp_acc = np.zeros(B, np.int64)
+    check_acc = np.zeros(B, np.int64)
+    ident_acc = np.zeros(B, np.int64)
+    eff_hist = np.zeros((B, T_max))
+    q_trace_mat = np.zeros((B, T_max))
+
+    f_t_arr = np.array([s.f for s in specs])
+    uniform_steps = bool((steps_arr == T_max).all())
+
+    fast_cache = fast_assignment_batched(bstate.active)
+    n_active = bstate.active.sum(axis=1)
+    dirty_trials: list[int] = []
+    live_const = np.ones(B, bool)
+
+    zero_sh2 = np.zeros((B, n_max), np.int32)
+    zero_gr2 = np.full((B, n_max), -1, np.int32)
+    zero_m2 = np.ones(B, np.int64)
+    zero_tam = np.zeros((B, n_max), bool)
+    for a in (zero_sh2, zero_gr2, zero_m2, zero_tam):
+        a.setflags(write=False)
+
+    for t in range(T_max):
+        if uniform_steps:
+            live, live_all = live_const, True
+        else:
+            live = steps_arr > t
+            live_all = bool(live.all())
+
+        rec_sh2 = rec_gr2 = rec_m2 = rec_tam2 = None   # allocated on use
+        clock.t = t
+
+        if dirty_trials:
+            fast_cache = fast_assignment_batched(
+                bstate.active | ~live[:, None])
+            n_active = (bstate.active & live[:, None]).sum(axis=1)
+            streams.refresh(only=dirty_trials)
+            for b in dirty_trials:
+                trials[b].act_idx = np.flatnonzero(trials[b].st.active)
+            dirty_trials = []
+
+        # -- decisions come from the trace
+        checks = tr_check[t] & live
+        q_trace_mat[:, t] = np.where(live, tr_q[t], 0.0)
+
+        # -- phase-1 assignments (copy-on-write over the fast layout)
+        check_idx = np.flatnonzero(checks)
+        if check_idx.size:
+            batch_a = BatchedAssignment(
+                fast_cache.shard_of_worker.copy(),
+                fast_cache.group_of_worker.copy(),
+                fast_cache.weight.copy(),
+                fast_cache.num_shards.copy(),
+            )
+            for b in check_idx:
+                tr = trials[b]
+                r1 = max(1, int(f_t_arr[b])) + 1
+                m1, mem = _grouped_rows_into(batch_a, b, tr.act_idx, r1,
+                                             tr.st.rng)
+                tr.m1, tr.r1, tr.mem1 = m1, r1, mem
+        else:
+            batch_a = fast_cache
+
+        if live_all:
+            group_all = batch_a.group_of_worker
+        else:
+            group_all = np.where(live[:, None], batch_a.group_of_worker, -1)
+        shard_all = batch_a.shard_of_worker
+        m_all = batch_a.num_shards
+
+        # -- tamper bits (phase 1)
+        hits = streams.phase1_hits(t, live)
+        if hits is None:
+            tam1 = zero_tam
+        else:
+            tam1 = np.zeros((B, n_max), bool)
+            tam1[hits[0], hits[1]] = True
+
+        is_fast = np.ones(B, bool)
+        is_fast[check_idx] = False
+        fast_live = is_fast if live_all else (is_fast & live)
+        used_t = np.where(fast_live, m_all, 0)
+        comp_t = np.where(fast_live, n_active, 0)
+        identified_t = tr_detect[t] & checks
+        agg_weight = np.where(fast_live[:, None], batch_a.weight,
+                              np.float32(0.0))
+
+        for b in check_idx:
+            tr, st, s = trials[b], trials[b].st, specs[b]
+            used_t[b] = tr.m1
+            comp_t[b] = tr.m1 * tr.r1
+            if identified_t[b]:
+                ai, mem_i = _grouped_rows(s.n, tr.act_idx,
+                                          2 * max(1, int(f_t_arr[b])) + 1,
+                                          st.rng)
+                tam = streams.phase2_hits(b, t)
+                if recorder is not None:
+                    if rec_sh2 is None:
+                        rec_sh2 = zero_sh2.copy()
+                        rec_gr2 = zero_gr2.copy()
+                        rec_m2 = zero_m2.copy()
+                        rec_tam2 = zero_tam.copy()
+                    k = len(ai.shard_of_worker)
+                    rec_sh2[b, :k] = ai.shard_of_worker
+                    rec_gr2[b, :k] = ai.group_of_worker
+                    rec_m2[b] = ai.num_shards
+                    if tam:
+                        rec_tam2[b, tam] = True
+                used_t[b] += ai.num_shards
+                comp_t[b] += ai.num_shards * ai.replication
+                newly = np.flatnonzero(tr_faulty2[t, b])
+                if newly.size:
+                    st.on_identified(newly)
+                    for w_id in newly:
+                        tr.ident_step[int(w_id)] = t
+                    f_t_arr[b] = max(0, s.f - st.kappa)
+                    dirty_trials.append(b)
+                agg_weight[b] = 0.0
+            else:
+                st.on_clean_check(tr.mem1.ravel())
+                agg_weight[b] = batch_a.weight[b]
+
+        if recorder is not None:
+            recorder.on_step(
+                live=live, checks=checks,
+                vote1=np.zeros(B, bool),
+                shard1=shard_all, group1=group_all,
+                m1=np.asarray(m_all, np.int64),
+                aggw=agg_weight, tam1=tam1,
+                identify=identified_t,
+                shard2=zero_sh2 if rec_sh2 is None else rec_sh2,
+                group2=zero_gr2 if rec_gr2 is None else rec_gr2,
+                m2=zero_m2 if rec_m2 is None else rec_m2,
+                tam2=zero_tam if rec_tam2 is None else rec_tam2,
+                active=bstate.active.copy(),
+            )
+
+        used_acc += used_t
+        comp_acc += comp_t
+        check_acc += checks
+        ident_acc += identified_t
+        eff_hist[:, t] = used_t / np.maximum(1, comp_t)
+
+    return _control_results(specs, trials, used_acc, comp_acc, check_acc,
+                            ident_acc, eff_hist, q_trace_mat, t_start)

@@ -1,11 +1,18 @@
 """The port's engine facade: B protocol trials on the card.
 
-Port of ``repro.core.engine_jax.run_batch_jax`` (``engine_jax.py:130-608``)
-under host control:
+Port of ``repro.core.engine_jax.run_batch_jax`` (``engine_jax.py:130-608``):
 
- * a host control plane — ``build_schedule`` runs the vectorized
-   control-only replay (``engine.replay_control_fast``) into dense
-   (T, B, ...) schedule arrays, bitwise the reference's;
+ * a control plane, on the host or on the device:
+   - host ("vector"): ``build_schedule`` runs the vectorized
+     control-only replay (``engine.replay_control_fast``) into dense
+     (T, B, ...) schedule arrays, bitwise the reference's;
+   - device (``schedule="device"``): the step loop makes every decision
+     itself (``stepcore.device_scan``: q*_t from the loss, the threefry
+     coins, the masked regroup, detection, the identify vote) and the
+     host rebuilds the schedule and the control results from its
+     decision trace (``engine.replay_control_from_trace``), the only
+     mode that runs value-dependent trials (adaptive q*_t, sign_flip,
+     scale);
  * the data plane the reference's planner picks, on the device:
    - **gram**: the extended rows R are staged once, the per-step
      CountSketch tables come from the gram kernel (``ops.gram_factors``),
@@ -23,8 +30,10 @@ under host control:
      ``ops.batched_coded_encode``.
 
 The plan is resolved first (``engineplan.plan.resolve_plan``, the
-reference's pure planner).  Schedule modes other than "vector" raise
-``NotImplementedError`` naming the later slice that ports them.  The
+reference's pure planner).  The "oracle" and "proxy" schedules (and
+"auto" on value-dependent trials, which resolves to "oracle" as in the
+reference) raise ``NotImplementedError`` naming the later slice that
+ports them.  The
 chunks stream through ``engineplan.pipeline.run_chunks``; with
 ``telemetry=True`` the step loop adds up the protocol counters, returned
 as ``BatchResult.telemetry`` (``obs.telemetry.Telemetry``).  The facade
@@ -52,6 +61,7 @@ from repro_torch.core.engine import (
     ScheduleRecorder,
     TrialSpec,
     replay_control_fast,
+    replay_control_from_trace,
 )
 from repro_torch.core.engineplan import plan as planlib
 from repro_torch.core.engineplan.pipeline import PhaseClock, run_chunks
@@ -107,13 +117,23 @@ def resolve_device(device) -> torch.device:
 def require_slice(plan: planlib.ExecutionPlan) -> None:
     """Raise ``NotImplementedError`` for a plan the port does not run
     yet, naming the reference's path and the slice that ports it."""
-    if plan.schedule_mode != "vector":
-        where = ("the device control plane (ROADMAP M6)"
-                 if plan.schedule_mode == "device"
-                 else "the numpy engine's host replay (ROADMAP M10)")
+    if plan.schedule_mode not in ("vector", "device"):
         raise NotImplementedError(
-            f'schedule mode "{plan.schedule_mode}" is ported with {where}; '
-            f'the port runs schedule="vector" (value-independent trials)')
+            f'schedule mode "{plan.schedule_mode}" is ported with the numpy '
+            f"engine's host replay (ROADMAP M10); the port runs "
+            f'schedule="vector" (value-independent trials) and '
+            f'schedule="device" (every device-schedulable trial)')
+
+
+def device_schedule(specs, trace: dict) -> Schedule:
+    """The control plane rebuilt from the device plane's decision trace
+    {"q", "check", "detect", "faulty2"}: schedule arrays and control
+    results (``engine_jax.py:569-580``)."""
+    rec = ScheduleRecorder()
+    control = replay_control_from_trace(specs, trace, rec)
+    keys = rec.steps[0].keys() if rec.steps else ()
+    arrays = {k: np.stack([st[k] for st in rec.steps]) for k in keys}
+    return Schedule(arrays, control, True, "device")
 
 
 def gram_matrix(rows: torch.Tensor, chunk: int = GRAM_CHUNK) -> torch.Tensor:
@@ -137,8 +157,8 @@ def _telemetry(counts, specs, results, telemetry: bool):
                                  q_traces=[r.q_trace for r in results])
 
 
-def _zero_step_results(specs, sched, plan, t_start,
-                       telemetry: bool) -> BatchResult:
+def _zero_step_results(specs, sched, plan, t_start, telemetry: bool,
+                       trace: dict | None) -> BatchResult:
     """steps == 0 everywhere: nothing to scan; every iterate is W_0 = 0
     and every counter 0."""
     results = []
@@ -152,7 +172,8 @@ def _zero_step_results(specs, sched, plan, t_start,
         specs, results, time.perf_counter() - t_start, plan=plan,
         telemetry=_telemetry(zero_counts(len(specs)), specs, results,
                              telemetry),
-        schedule=sched, detect_flags=np.zeros((0, len(specs)), bool))
+        schedule=sched, detect_flags=np.zeros((0, len(specs)), bool),
+        device_trace=trace)
 
 
 def _problems(specs):
@@ -185,19 +206,26 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         on a CUDA device runs the plain versions there (a comparison
         run; never chosen automatically).
     schedule, data_plane, chunk_trials, fused, stream_dtype, telemetry:
-        as the reference's ``run_batch(..., backend="jax")``; schedule
-        modes other than "vector" raise ``NotImplementedError``.
-        ``telemetry=True`` adds up the protocol counters in the step
-        loop; the primary outputs are bitwise those of the run without.
+        as the reference's ``run_batch(..., backend="jax")``; "vector"
+        and "device" run, "oracle" and "proxy" raise
+        ``NotImplementedError`` (as does "auto" on value-dependent
+        trials, which resolves to "oracle").  "device" uses the
+        counter-RNG streams (``rng="device"``), so its schedule is not
+        the host streams' one.  ``telemetry=True`` adds up the protocol
+        counters in the step loop; the primary outputs are bitwise those
+        of the run without.
 
     Returns a ``BatchResult`` whose ``results[b]`` carry ``w``,
     ``losses``, ``q_trace``, ``identify_step``, ``efficiency`` and
     ``state``, plus ``plan``, ``schedule``, ``detect_flags`` (T, B),
     ``telemetry`` (a ``Telemetry``, or None without ``telemetry=True``),
+    ``device_trace`` (under "device": the decision trace {"q", "check",
+    "detect", "faulty2"} the control plane was rebuilt from; else None),
     ``fused_used`` and ``phase_s`` (wall seconds per phase: host_replay,
     problem_setup, precompute, scan, post_scan; the scan's from CUDA
     events at chunk boundaries on the card, post_scan the rest of the
-    chunk pipeline).
+    chunk pipeline; under "device" host_replay is the replay from the
+    trace, after the scan).
     """
     t_start = time.perf_counter()
     specs = [s if isinstance(s, TrialSpec) else TrialSpec(**s) for s in specs]
@@ -219,17 +247,29 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         planlib.warn_on_fallback(plan)
     require_slice(plan)
     clock = PhaseClock(device)
+    device_ctl = plan.control == "device"
+    n_max = max(s.n for s in specs)
 
-    with obtrace.span("engine.build_schedule", mode=plan.schedule_mode,
-                      B=B):
-        sched = build_schedule(specs, schedule)
+    T = plan.steps
+    sched = None            # under "device" the step loop decides
+    if not device_ctl:
+        with obtrace.span("engine.build_schedule", mode=plan.schedule_mode,
+                          B=B):
+            sched = build_schedule(specs, schedule)
     clock.mark("host_replay")
-    if plan.steps == 0:
-        return _zero_step_results(specs, sched, plan, t_start, telemetry)
+    if T == 0:
+        trace = None
+        if device_ctl:
+            trace = dict(q=np.zeros((0, B), np.float32),
+                         check=np.zeros((0, B), bool),
+                         detect=np.zeros((0, B), bool),
+                         faulty2=np.zeros((0, B, n_max), bool))
+            sched = device_schedule(specs, trace)
+        return _zero_step_results(specs, sched, plan, t_start, telemetry,
+                                  trace)
     obmetrics.counter("engine.batches").inc()
     obmetrics.counter("engine.trials").inc(B)
     obmetrics.counter(f"engine.plan.{plan.data_plane}.{plan.control}").inc()
-    T = len(sched.arrays["live"])
     use_gram = plan.data_plane == "gram"
     shared = plan.shared_problem
 
@@ -244,17 +284,23 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
     stat_np = dict(
         lr=np.array([s.lr for s in specs], np.float32),
         alpha=abn[:, 0].copy(), beta=abn[:, 1].copy(), nu=abn[:, 2].copy(),
-        fcode=np.array([planlib.FILTER_CODES.get(planlib.filter_name(s), -1)
-                        for s in specs], np.int32),
-        farr=np.array([max(1, s.f) for s in specs], np.int32),
     )
-    xs_np = carry.xs_from_schedule(sched.arrays)
-    if telemetry:
-        # the byz_active_steps counter needs the Byzantine mask
-        byz = np.zeros(xs_np["active"].shape[1:], bool)
-        for b, s in enumerate(specs):
-            byz[b, list(s.byz)] = True
-        stat_np["byz"] = byz
+    if device_ctl:
+        stat_np.update(carry.device_statics(specs, n_max))
+        xs_np = None
+    else:
+        stat_np.update(
+            fcode=np.array([planlib.FILTER_CODES.get(planlib.filter_name(s),
+                                                     -1) for s in specs],
+                           np.int32),
+            farr=np.array([max(1, s.f) for s in specs], np.int32))
+        xs_np = carry.xs_from_schedule(sched.arrays)
+        if telemetry:
+            # the byz_active_steps counter needs the Byzantine mask
+            byz = np.zeros(xs_np["active"].shape[1:], bool)
+            for b, s in enumerate(specs):
+                byz[b, list(s.byz)] = True
+            stat_np["byz"] = byz
     P = len(pkeys)
     rows_np = carry.extended_rows([problems[key][0] for key in pkeys],
                                   noisevec)
@@ -296,11 +342,17 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
 
     with obtrace.span("engine.scan", B=B, T=T, data_plane=plan.data_plane,
                       control=plan.control):
-        W, losses, det, counts = run_chunks(
+        W, losses, det, counts, trace = run_chunks(
             plan, B=B, T=T, d=d, device=device, A_dev=A_dev, y_dev=y_dev,
             com_dev=com_dev, stat_np=stat_np, xs_np=xs_np,
             impl=kernel_impl, clock=clock, noise_dev=noise_dev,
             pid_np=pid_np, telemetry=telemetry)
+    if device_ctl:
+        # the whole host control plane from the decision trace: exact,
+        # the streams are counter-indexed (engine_jax.py:569-580)
+        trace["detect"] = det.copy()
+        sched = device_schedule(specs, trace)
+        clock.mark("host_replay")
 
     results = []
     for b, (s, ctrl) in enumerate(zip(specs, sched.control.results)):
@@ -318,5 +370,5 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
             tel.totals()["steps"])
     return BatchResult(specs, results, time.perf_counter() - t_start,
                        plan=plan, telemetry=tel, schedule=sched,
-                       detect_flags=det, fused_used=plan.fused,
-                       phase_s=clock.seconds)
+                       detect_flags=det, device_trace=trace,
+                       fused_used=plan.fused, phase_s=clock.seconds)

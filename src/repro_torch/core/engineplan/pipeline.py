@@ -31,6 +31,12 @@ buffer donation:
   ``W`` (the values are exact: f32 -> f64 is lossless, as the
   reference's ``np.asarray(W, np.float64)``).
 
+Under the device control plane (``plan.control == "device"``) a chunk
+stages only its statics (no schedule) and runs ``stepcore.device_scan``,
+and its decision trace (q, check, faulty2) comes back beside the losses
+and detect flags through the same copy stream and pinned buffers
+(``pipeline.py:115-132`` and ``:153-157`` of the reference).
+
 The spans ``pipeline.stage``, ``pipeline.dispatch`` and
 ``pipeline.drain`` (each with ``lo`` and ``hi``) are the reference's.
 """
@@ -151,15 +157,19 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
     rows; stream, shared: the data rows), or, when trials do not share a
     problem, every problem's data rows (P, n_data, d) and targets
     (P, n_data), which each chunk gathers by its slice of ``pid_np``
-    (B,).  Returns (W (B, d) f64, losses (T, B) f64, det (T, B) bool,
-    counters {key: (B,) int64} or None) as numpy arrays; the scan's time
-    goes to ``clock`` as "scan", the rest of the pipeline's as
+    (B,).  ``xs_np`` is None under the device control plane.  Returns
+    (W (B, d) f64, losses (T, B) f64, det (T, B) bool, counters {key:
+    (B,) int64} or None, trace) as numpy arrays, where trace is the
+    device plane's {"q": (T, B) f32, "check": (T, B) bool, "faulty2":
+    (T, B, n) bool}, or None under host control; the scan's time goes
+    to ``clock`` as "scan", the rest of the pipeline's as
     "post_scan"."""
     chunk_trials = plan.chunk_trials
     ndev = plan.n_devices
     fused = plan.fused
     gram = plan.data_plane == "gram"
     shared = plan.shared_problem
+    device_ctl = plan.control == "device"
     Ie = None
     if gram:
         Ie = A_dev["rows"].shape[0]
@@ -178,6 +188,12 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
     losses = np.empty((T, B))
     det = np.empty((T, B), bool)
     counts = zero_counts(B) if telemetry else None
+    trace = None
+    if device_ctl:
+        n = stat_np["byz"].shape[1]
+        trace = dict(q=np.empty((T, B), np.float32),
+                     check=np.empty((T, B), bool),
+                     faulty2=np.empty((T, B, n), bool))
 
     def stage(lo: int, slot: _Slot):
         """The chunk's per-trial operands on the device."""
@@ -187,8 +203,6 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
             pad = (-bs) % ndev
             stat_c = {k: pad_rows(v[lo:hi], 0, pad, PAD_FILL.get(k, 0))
                       for k, v in stat_np.items()}
-            xs_c = {k: pad_rows(v[:, lo:hi], 1, pad, PAD_FILL.get(k, 0))
-                    for k, v in xs_np.items()}
             W0 = slot.W0[:bs + pad].zero_()
             cw0 = None if Ie is None else slot.cw0[:bs + pad].zero_()
             A_c, y_c, pid_c = A_dev, y_dev, None
@@ -197,6 +211,12 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
                     np.int64), device)
                 if not shared:
                     A_c, y_c = A_dev[pid_c], y_dev[pid_c]
+            if device_ctl:
+                args = (A_c, y_c, W0, cw0, upload(stat_c, device), com_dev,
+                        noise_dev, pid_c)
+                return lo, hi, args, None
+            xs_c = {k: pad_rows(v[:, lo:hi], 1, pad, PAD_FILL.get(k, 0))
+                    for k, v in xs_np.items()}
             args = (A_c, y_c, W0, cw0, upload(stat_c, device),
                     upload(xs_c, device), com_dev, noise_dev, pid_c)
             return lo, hi, args, carry.gates_from_xs(xs_c)
@@ -207,18 +227,25 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
         bs = hi - lo
         with obtrace.span("pipeline.dispatch", lo=lo, hi=hi):
             timer.start()
-            out = stepcore.scan(
-                *args, gates=gates, impl=impl, shared=shared,
-                has_filter=plan.has_filter, has_bias=plan.has_bias,
-                telemetry=telemetry, **flags)
+            if device_ctl:
+                out = stepcore.device_scan(
+                    *args, impl=impl, gram=gram, shared=shared,
+                    has_bias=plan.has_bias, telemetry=telemetry)
+                # losses, det, then the trace's q, check, faulty2
+                small = [out[1], out[4], out[2], out[3], out[5]]
+            else:
+                out = stepcore.scan(
+                    *args, gates=gates, impl=impl, shared=shared,
+                    has_filter=plan.has_filter, has_bias=plan.has_bias,
+                    telemetry=telemetry, **flags)
+                small = list(out[1:3])
             timer.stop()
             A_c, W0 = args[0], args[2]
             Wc = stepcore.finish(A_c, W0, out[0], **flags)[:bs]
-            # losses, det and the counters keep their padding columns
-            # until the drain
-            small = list(out[1:3])
+            # losses, det, the trace and the counters keep their padding
+            # columns until the drain
             if telemetry:
-                small.append(torch.stack([out[3][k] for k in TEL_KEYS]))
+                small.append(torch.stack([out[-1][k] for k in TEL_KEYS]))
             if not cuda:
                 return lo, hi, None, Wc, small
             done = torch.cuda.Event()
@@ -248,8 +275,12 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
             bs = hi - lo
             losses[:, lo:hi] = small_host[0][:, :bs].numpy()
             det[:, lo:hi] = small_host[1][:, :bs].numpy()
+            if device_ctl:
+                for key, h in zip(("q", "check", "faulty2"),
+                                  small_host[2:5]):
+                    trace[key][:, lo:hi] = h[:, :bs].numpy()
             if telemetry:
-                tel = small_host[2][:, :bs].numpy()
+                tel = small_host[-1][:, :bs].numpy()
                 for i, k in enumerate(TEL_KEYS):
                     counts[k][lo:hi] = tel[i]
 
@@ -263,4 +294,4 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
     if inflight is not None:
         drain(*inflight)
     clock.mark("post_scan", split={"scan": timer.seconds()})
-    return W, losses, det, counts
+    return W, losses, det, counts, trace

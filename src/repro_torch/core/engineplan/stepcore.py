@@ -1,7 +1,9 @@
-"""The protocol step loop under host control, on every data plane.
+"""The protocol step loop, under host or device control, on every data
+plane.
 
-Port of ``repro.core.engineplan.stepcore.step_core`` for
-``control="host"`` (``stepcore.py:71-245`` and ``:415-587``).  Honest
+Port of ``repro.core.engineplan.stepcore.step_core``: ``scan`` for
+``control="host"`` (``stepcore.py:71-245`` and ``:415-587``),
+``device_scan`` for ``control="device"`` (``:248-413``).  Honest
 replicas are copies and every attack is affine, so the whole "shard
 gradients -> tamper -> aggregate/vote" pipeline folds into per-row
 residual coefficients; detection symbols come from sketch tables of the
@@ -29,11 +31,24 @@ never waits on the device.  With ``telemetry`` the loop also adds up the
 protocol counters (``obs.telemetry.TEL_KEYS``) as (B,) int32 tensors on
 the scan's device, exactly as the reference's scan carry does
 (``stepcore.py:533-556``).
+
+``device_scan`` makes every control decision inside the loop, on the
+device: the adaptive q*_t from the loss, the threefry check and tamper
+coins, the masked regroup, the detect verdict, the identify vote and
+the eliminations.  The coins and keys are pure functions of (seed, t,
+phase, w), so the whole chunk's are drawn before the loop in one
+vectorised threefry each.  The reference branches into the identify
+round with ``lax.cond(det.any())``; reading ``det`` on the host would
+stall the loop on the device every step, so the round runs every step
+instead, masked by ``det``: a trial that did not detect adds exactly
+zero and flags no one.  The loop returns the decision trace the host
+replays the control plane from (``engine.replay_control_from_trace``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import adaptive, rngstream
 from repro_torch.core.detection import detect_groups_batched
 from repro_torch.kernels import ops
 from repro_torch.obs.telemetry import TEL_KEYS
@@ -126,6 +141,110 @@ def count_step(tel, x, det, elim, byz) -> None:
         dim=1, dtype=i32)
 
 
+class Epilogue:
+    """The step epilogue both control planes share: the residual, the
+    contraction to an update, the aggregation with the affine attacks
+    folded in, the detection symbols and the coefficient-plane fold.
+
+    A, y, noisevec, stat and the flags are as ``scan`` takes them.  The
+    coefficient planes (fused, gram) carry per-row residual coefficients
+    instead of (B, d) update values, so they share the tuple-valued
+    update (row, ones-row coefficient, noise-row coefficient)."""
+
+    def __init__(self, A, y, cw0, stat, noisevec, *, B: int, impl,
+                 fused: bool, gram: bool, shared: bool, has_bias: bool):
+        self.A, self.y, self.noisevec = A, y, noisevec
+        self.n_data = y.shape[-1]
+        self.lr, self.alpha = stat["lr"], stat["alpha"]
+        self.beta, self.nu = stat["beta"], stat["nu"]
+        self.impl, self.gram, self.shared = impl, gram, shared
+        self.has_bias = has_bias
+        self.coeff = fused or gram
+        if gram:
+            Ie = A["rows"].shape[0]
+            self.Gn = A["G"][:, :self.n_data]   # symbol columns read
+            self.S0n = cw0[:, :self.n_data]
+        elif fused:
+            Ie = A.shape[0]
+        if self.coeff:
+            self.zpad = torch.zeros((B, Ie - self.n_data - 2),
+                                    device=y.device)
+
+    def resid(self, carry):
+        """The (B, I) residual of the gram carry C (from the Gram
+        factors, no d-sized work) or of the stream plane's W."""
+        if self.gram:
+            return self.S0n - carry @ self.Gn - self.y[None, :]
+        if self.shared:
+            return torch.einsum("id,bd->bi", self.A, carry) - self.y[None, :]
+        return torch.einsum("bid,bd->bi", self.A, carry) - self.y
+
+    def step_tables(self, com, t: int, pid):
+        """Step t's sketch tables: (SA (I, k) or the (B, I, k) gathered
+        by ``pid``, sk_one (k,), sk_noise (k,))."""
+        SA = com["SA"][t] if self.gram else com["SA"][t][pid]
+        return SA, com["sk_one"][t], com["sk_noise"][t]
+
+    def contract(self, cr):
+        """(B, I) row weights -> the (B, d) update value."""
+        if self.shared:
+            return torch.einsum("bi,id->bd", cr, self.A)
+        return ops.batched_coded_encode(cr[:, None, :], self.A,
+                                        impl=self.impl)[:, 0]
+
+    def agg(self, agg_coeff, tam, mask, cr_base):
+        """(B, n) aggregation coefficients -> the update, the affine
+        attacks folded in: sum_w coeff_w * attack_w(g_w).  The
+        coefficient planes return the update's coefficient row (B, I)
+        and its two bias coefficients (ones row, noise row); the stream
+        plane the (B, d) update value."""
+        alpha, beta, nu = self.alpha, self.beta, self.nu
+        aeff = torch.where(tam, alpha[:, None], 1.0) * agg_coeff
+        row = torch.einsum("bw,bwi->bi", aeff, mask) * cr_base
+        tw = agg_coeff * tam
+        if self.coeff:
+            return row, (tw * beta[:, None]).sum(dim=1), \
+                (tw * nu[:, None]).sum(dim=1)
+        upd = self.contract(row)
+        if self.has_bias:
+            upd = upd + (tw * beta[:, None]).sum(dim=1)[:, None] \
+                + (tw * nu[:, None]).sum(dim=1)[:, None] * self.noisevec[None]
+        return upd
+
+    def symbols(self, mask, cr_base, tam, SA_b, sk_one, sk_noise):
+        """Per-worker detection symbols: the worker's coefficient row
+        times the step's sketch table ((I, k) on the coefficient planes,
+        the gathered (B, I, k) on the stream plane), attacks applied
+        affinely.  One einsum for all workers, so replicas with
+        identical rows get bitwise identical symbols."""
+        alpha, beta, nu = self.alpha, self.beta, self.nu
+        C = mask * cr_base[:, None, :]
+        if self.coeff:
+            skw = torch.einsum("bwi,ik->bwk", C, SA_b)
+        else:
+            skw = torch.einsum("bwi,bik->bwk", C, SA_b)
+        if self.coeff or self.has_bias:
+            add = beta[:, None, None] * sk_one[None, None] \
+                + nu[:, None, None] * sk_noise[None, None]
+        else:
+            add = 0.0
+        return torch.where(tam[:, :, None],
+                           alpha[:, None, None] * skw + add, skw)
+
+    def acc(self, u, v):
+        if self.coeff:
+            return (u[0] + v[0], u[1] + v[1], u[2] + v[2])
+        return u + v
+
+    def fold_coeff(self, upd, live):
+        """(row, b1, b2) -> the (B, Ie) coefficient increment with lr and
+        the live mask folded in (a dead trial's row is exactly zero)."""
+        row_u, b1, b2 = upd
+        scale = torch.where(live, self.lr, 0.0)
+        return torch.cat([row_u, b1[:, None], b2[:, None], self.zpad],
+                         dim=1) * scale[:, None]
+
+
 def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
          impl, fused: bool = False, gram: bool = False, shared: bool = True,
          has_filter: bool = False, has_bias: bool = True,
@@ -151,73 +270,9 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
     B = xs["live"].shape[1]
     dev = y.device
     lr, alpha, beta, nu = stat["lr"], stat["alpha"], stat["beta"], stat["nu"]
-    # the coefficient planes carry per-row residual coefficients instead
-    # of (B, d) update values, so they share the tuple-valued epilogue
-    coeff = fused or gram
-    if gram:
-        Ie = A["rows"].shape[0]
-        Gn = A["G"][:, :n_data]            # symbol columns the loop reads
-        S0n = cw0[:, :n_data]
-    elif fused:
-        Ie = A.shape[0]
-    if coeff:
-        zpad = torch.zeros((B, Ie - n_data - 2), device=dev)
-
-    def contract(cr):
-        """(B, I) row weights -> the (B, d) update value."""
-        if shared:
-            return torch.einsum("bi,id->bd", cr, A)
-        return ops.batched_coded_encode(cr[:, None, :], A, impl=impl)[:, 0]
-
-    def agg(agg_coeff, tam, mask, cr_base):
-        """(B, n) aggregation coefficients -> the update, the affine
-        attacks folded in: sum_w coeff_w * attack_w(g_w).  The
-        coefficient planes return the update's coefficient row (B, I)
-        and its two bias coefficients (ones row, noise row); the stream
-        plane the (B, d) update value."""
-        aeff = torch.where(tam, alpha[:, None], 1.0) * agg_coeff
-        row = torch.einsum("bw,bwi->bi", aeff, mask) * cr_base
-        tw = agg_coeff * tam
-        if coeff:
-            return row, (tw * beta[:, None]).sum(dim=1), \
-                (tw * nu[:, None]).sum(dim=1)
-        upd = contract(row)
-        if has_bias:
-            upd = upd + (tw * beta[:, None]).sum(dim=1)[:, None] \
-                + (tw * nu[:, None]).sum(dim=1)[:, None] * noisevec[None]
-        return upd
-
-    def symbols(mask, cr_base, tam, SA_b, sk_one, sk_noise):
-        """Per-worker detection symbols: the worker's coefficient row
-        times the step's sketch table ((I, k) on the coefficient planes,
-        the gathered (B, I, k) on the stream plane), attacks applied
-        affinely.  One einsum for all workers, so replicas with
-        identical rows get bitwise identical symbols."""
-        C = mask * cr_base[:, None, :]
-        if coeff:
-            skw = torch.einsum("bwi,ik->bwk", C, SA_b)
-        else:
-            skw = torch.einsum("bwi,bik->bwk", C, SA_b)
-        if coeff or has_bias:
-            add = beta[:, None, None] * sk_one[None, None] \
-                + nu[:, None, None] * sk_noise[None, None]
-        else:
-            add = 0.0
-        return torch.where(tam[:, :, None],
-                           alpha[:, None, None] * skw + add, skw)
-
-    def acc(u, v):
-        if coeff:
-            return (u[0] + v[0], u[1] + v[1], u[2] + v[2])
-        return u + v
-
-    def fold_coeff(upd, live):
-        """(row, b1, b2) -> the (B, Ie) coefficient increment with lr and
-        the live mask folded in (a dead trial's row is exactly zero)."""
-        row_u, b1, b2 = upd
-        scale = torch.where(live, lr, 0.0)
-        return torch.cat([row_u, b1[:, None], b2[:, None], zpad],
-                         dim=1) * scale[:, None]
+    ep = Epilogue(A, y, cw0, stat, noisevec, B=B, impl=impl, fused=fused,
+                  gram=gram, shared=shared, has_bias=has_bias)
+    agg, symbols, acc = ep.agg, ep.symbols, ep.acc
 
     def vote_part(resid, step, shard, group, m, tam, gate, skt=None,
                   mask=None, cr=None, count_elim=False):
@@ -262,16 +317,10 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
                                             impl=impl)
             resid = resid_e[:, :n_data] - y[None, :]
             step = (sk[:n_data], sk[n_data], sk[n_data + 1])
-        elif gram:
-            # no d-sized work: residual symbols from the Gram factors
-            resid = S0n - C @ Gn - y[None, :]
-            step = (com["SA"][t], com["sk_one"][t], com["sk_noise"][t])
         else:
-            if shared:
-                resid = torch.einsum("id,bd->bi", A, W) - y[None, :]
-            else:
-                resid = torch.einsum("bid,bd->bi", A, W) - y
-            step = (com["SA"][t][pid], com["sk_one"][t], com["sk_noise"][t])
+            # gram: no d-sized work, residual symbols from the Gram factors
+            resid = ep.resid(C if gram else W)
+            step = ep.step_tables(com, t, pid)
         losses[t] = (resid * resid).mean(dim=1)
 
         mask1, rows1 = shard_mask(x["shard1"], x["group1"], x["m1"], n_data)
@@ -313,9 +362,9 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
             upd = torch.where((fcode >= 0)[:, None], fupd, upd)
 
         if fused:
-            cw = fold_coeff(upd, x["live"])
+            cw = ep.fold_coeff(upd, x["live"])
         elif gram:
-            C = C + fold_coeff(upd, x["live"])
+            C = C + ep.fold_coeff(upd, x["live"])
         else:
             W = torch.where(x["live"][:, None], W - lr[:, None] * upd, W)
         if telemetry:
@@ -324,6 +373,149 @@ def scan(A, y, W0, cw0, stat, xs, com, noisevec=None, pid=None, *, gates,
     if telemetry:
         return carry, losses, det, tel
     return carry, losses, det
+
+
+def device_scan(A, y, W0, cw0, stat, com, noisevec=None, pid=None, *,
+                impl, gram: bool = False, shared: bool = True,
+                has_bias: bool = True, telemetry: bool = False):
+    """Run the T protocol steps with the control plane on the device
+    (``stepcore.py:248-413`` of the reference).  Returns (carry, losses
+    (T, B) f32, q (T, B) f32, check (T, B) bool, det (T, B) bool,
+    faulty2 (T, B, n) bool), with ``telemetry`` the counters {key: (B,)
+    int32} as a seventh item; ``finish`` turns the carry into W_T.
+
+    A, y, W0, cw0, com, noisevec and pid are as ``scan`` takes them on
+    the gram and stream planes (T is com["SA"]'s first dimension).  stat
+    adds the per-trial statics of the device plane: "p" (f32),
+    "qfix" (f32), "qcode" (0 none, 1 deterministic, 2 randomized,
+    3 adaptive), "f0", "onset", "steps" (int32), "byz" and "act0"
+    (B, n) bool, and the stream key words "dk0", "dk1", "tk0", "tk1",
+    "pk0", "pk1" (int64)."""
+    n_data = y.shape[-1]
+    B, n = stat["byz"].shape
+    T = com["SA"].shape[0]
+    dev = y.device
+    ep = Epilogue(A, y, cw0, stat, noisevec, B=B, impl=impl, fused=False,
+                  gram=gram, shared=shared, has_bias=has_bias)
+    p32, lr = stat["p"], stat["lr"]
+
+    # the chunk's coins and keys, one threefry each; then the parts of
+    # the decisions that do not depend on the loop's values
+    u_dec = rngstream.decide_uniforms_torch(stat["dk0"], stat["dk1"], T)
+    tam_coin = rngstream.uniform01(rngstream.phase_worker_torch(
+        stat["tk0"], stat["tk1"], T, n)) < p32[None, None, :, None]
+    pkeys = rngstream.phase_worker_torch(stat["pk0"], stat["pk1"], T, n)
+    tix = torch.arange(T, dtype=torch.int32, device=dev)[:, None]
+    live_all = tix < stat["steps"][None]                     # (T, B)
+    elig = stat["byz"][None] \
+        & (live_all & (tix >= stat["onset"][None]))[:, :, None]
+    tam1_all = elig & tam_coin[:, 0]                         # (T, B, n)
+    tam2_coin = elig & tam_coin[:, 1]
+    del tam_coin, elig
+
+    losses = torch.empty((T, B), dtype=torch.float32, device=dev)
+    q_tr = torch.empty((T, B), dtype=torch.float32, device=dev)
+    check_tr = torch.empty((T, B), dtype=torch.bool, device=dev)
+    det_tr = torch.empty((T, B), dtype=torch.bool, device=dev)
+    faulty2_tr = torch.empty((T, B, n), dtype=torch.bool, device=dev)
+    carry = torch.zeros_like(cw0) if gram else W0      # C_t, or W_t
+    active = stat["act0"]
+    kappa = torch.zeros(B, dtype=torch.int32, device=dev)
+    if telemetry:
+        tel = {k: torch.zeros(B, dtype=torch.int32, device=dev)
+               for k in TEL_KEYS}
+    for t in range(T):
+        live, tam1 = live_all[t], tam1_all[t]
+        resid = ep.resid(carry)
+        step = ep.step_tables(com, t, pid)
+        loss = (resid * resid).mean(dim=1)
+        losses[t] = loss
+
+        # -- q*_t and the check coin (DECIDE)
+        f_t = torch.clamp(stat["f0"] - kappa, min=0)          # (B,) i32
+        qad = adaptive.q_star_arr(f_t, p32, adaptive.lam_from_loss_arr(loss))
+        qvec = torch.where(stat["qcode"] == 1, 1.0, stat["qfix"])
+        qvec = torch.where(f_t > 0, qvec, 0.0)
+        q_t = torch.where(stat["qcode"] == 3, qad,
+                          torch.where(stat["qcode"] == 0, 0.0, qvec))
+        check = live & (u_dec[t] < q_t)
+
+        # -- the check layout: the masked regroup when checking, else
+        #    the fast layout (every active worker its own shard)
+        r1 = torch.clamp(f_t, min=1) + 1
+        sh_c, gr_c, m_c = ops.batched_regroup(pkeys[t, 0], active, r1)
+        rank = torch.cumsum(active, dim=1, dtype=torch.int32) - 1
+        n_act = active.sum(dim=1, dtype=torch.int32)
+        chk = check[:, None]
+        shard1 = torch.where(chk, sh_c, torch.where(active, rank, 0))
+        group1 = torch.where(chk, gr_c, torch.where(active, rank, -1))
+        group1 = torch.where(live[:, None], group1, -1)
+        m1 = torch.where(check, m_c, n_act)
+        mask1, rows1 = shard_mask(shard1, group1, m1, n_data)
+        cr1 = resid * (2.0 / rows1)[:, None]
+
+        # -- the detect verdict on sketch symbols
+        skt1 = ep.symbols(mask1, cr1, tam1, *step)
+        fault, _ = detect_groups_batched(skt1, group1, tau=TAU_DETECT)
+        det = check & fault
+
+        # -- aggregation (fast and clean-check trials; detecting ones
+        #    take the identify round's vote instead)
+        w_per = 1.0 / torch.clamp(m1 * torch.where(check, r1, 1),
+                                  min=1).to(torch.float32)
+        aggw = torch.where(group1 >= 0, w_per[:, None], 0.0)
+        aggw = torch.where(det[:, None], 0.0, aggw)
+        upd = ep.agg(aggw, tam1, mask1, cr1)
+
+        # -- the identify round at 2 max(f_t, 1) + 1, masked by det: the
+        #    regroup on the phase-1 keys, the vote (K3), the eliminations
+        tam2 = det[:, None] & tam2_coin[t]
+        r2 = 2 * torch.clamp(f_t, min=1) + 1
+        sh2, gr2, m2 = ops.batched_regroup(pkeys[t, 1], active, r2)
+        gr2 = torch.where(det[:, None], gr2, -1)
+        mask2, rows2 = shard_mask(sh2, gr2, m2, n_data)
+        cr2 = torch.where(det[:, None], resid * (2.0 / rows2)[:, None], 0.0)
+        skt2 = ep.symbols(mask2, cr2, tam2, *step)
+        wc, faulty = ops.batched_vote(skt2, gr2, tau=TAU_VOTE, impl=impl)
+        coeff_w = torch.where(det[:, None],
+                              wc / torch.clamp(m2, min=1)[:, None], 0.0)
+        upd = ep.acc(upd, ep.agg(coeff_w, tam2, mask2, cr2))
+        faulty2 = det[:, None] & faulty & (gr2 >= 0)
+
+        if gram:
+            carry = carry + ep.fold_coeff(upd, live)
+        else:
+            carry = torch.where(live[:, None], carry - lr[:, None] * upd,
+                                carry)
+        if telemetry:
+            # as the reference's device carry: redundancy, votes and
+            # identify rounds all trace back to the check coin; tamper
+            # coins count only on workers active at the step's start;
+            # byz_active_steps counts after the eliminations
+            i32 = torch.int32
+            tel["steps"] += live.to(i32)
+            tel["checks"] += check.to(i32)
+            tel["redundant_steps"] += check.to(i32)
+            tel["detects"] += det.to(i32)
+            tel["identify_rounds"] += det.to(i32)
+            tel["vote_rounds"] += det.to(i32)
+            tel["eliminations"] += faulty2.sum(dim=1, dtype=i32)
+            tel["tamper_events"] += ((tam1 & active).sum(dim=1, dtype=i32)
+                                     + (tam2 & active).sum(dim=1, dtype=i32))
+        active = active & ~faulty2
+        kappa = kappa + faulty2.sum(dim=1, dtype=torch.int32)
+        if telemetry:
+            tel["byz_active_steps"] += (stat["byz"] & active
+                                        & live[:, None]).sum(dim=1,
+                                                             dtype=i32)
+        q_tr[t] = torch.where(live, q_t, 0.0)
+        check_tr[t] = check
+        det_tr[t] = det
+        faulty2_tr[t] = faulty2
+    out = (carry, losses, q_tr, check_tr, det_tr, faulty2_tr)
+    if telemetry:
+        return out + (tel,)
+    return out
 
 
 def finish(A, W0, carry, *, fused: bool = False, gram: bool = False):

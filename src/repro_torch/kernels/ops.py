@@ -128,6 +128,67 @@ def batched_vote(replicas: torch.Tensor, group_of_worker: torch.Tensor,
     return winner_coeff, faulty
 
 
+def batched_regroup(keys: torch.Tensor, active: torch.Tensor,
+                    repl: torch.Tensor):
+    """Masked replica regroup, the device control plane's assignment.
+
+    keys (B, n) uint32 values in int64 (the PERM stream); active (B, n)
+    bool; repl (B,) int replication factor.  Each trial's active workers
+    are ordered by (key, worker id), the stable argsort of the host's
+    ``CounterPermuter``, and the first m*r of that order form m =
+    n_active // r groups of r consecutive workers.  One sort on the
+    composite int64 key ``inactive << (32 + s) | key << s | w`` (s bits
+    hold a worker id) gives the reference's lexsort order, ties in the
+    keys included.  Returns (shard (B, n) int32, group (B, n) int32 with
+    -1 = idle, m (B,) int32); inactive workers and the < r leftovers get
+    group -1 and shard 0 (``ops.py:211`` of the reference).
+    """
+    B, n = active.shape
+    s = max(1, (n - 1).bit_length())
+    wi = torch.arange(n, dtype=torch.int64, device=keys.device)
+    inact = (~active).to(torch.int64)
+    comp = (inact << (32 + s)) | (keys.to(torch.int64) << s) | wi[None]
+    order = torch.sort(comp, dim=1).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, wi[None].expand(B, n).contiguous())
+    r = torch.clamp(repl.to(torch.int64), min=1)
+    m = active.sum(dim=1) // r
+    member = active & (rank < (m * r)[:, None])
+    gid = rank // r[:, None]
+    shard = torch.where(member, gid, 0).to(torch.int32)
+    group = torch.where(member, gid, -1).to(torch.int32)
+    return shard, group, m.to(torch.int32)
+
+
+def batched_vote_masked(replicas: torch.Tensor, keys: torch.Tensor,
+                        active: torch.Tensor, repl: torch.Tensor,
+                        tau: float = 1e-5, *, gate: torch.Tensor | None = None,
+                        impl: str | None = None):
+    """Regroup each trial's active workers by the key permutation, then
+    majority-vote per group (``batched_vote``: K3 on a CUDA tensor).
+    ``gate`` (B,) bool idles whole trials.  Returns (winner_coeff,
+    faulty, shard, group, m)."""
+    shard, group, m = batched_regroup(keys, active, repl)
+    gv = group if gate is None else torch.where(gate[:, None], group, -1)
+    wc, faulty = batched_vote(replicas, gv, tau=tau, impl=impl)
+    return wc, faulty, shard, group, m
+
+
+def batched_detect_masked(symbols: torch.Tensor, keys: torch.Tensor,
+                          active: torch.Tensor, repl: torch.Tensor,
+                          tau: float = 1e-9, *,
+                          gate: torch.Tensor | None = None):
+    """Regroup, then flag trials whose replica groups mismatch on their
+    detection symbols.  Returns (trial_fault (B,), worker_mismatch
+    (B, n), shard, group, m)."""
+    from repro_torch.core.detection import detect_groups_batched
+
+    shard, group, m = batched_regroup(keys, active, repl)
+    gv = group if gate is None else torch.where(gate[:, None], group, -1)
+    fault, mism = detect_groups_batched(symbols, gv, tau=tau)
+    return fault, mism, shard, group, m
+
+
 def batched_sketch(flat_g: torch.Tensor, key_scalar, k: int = 256, *,
                    impl: str | None = None) -> torch.Tensor:
     """(B, d) -> (B, k) CountSketches under one shared key."""

@@ -93,6 +93,34 @@ def batched_coded_encode_ref(coeffs: torch.Tensor,
                         grads.to(torch.float32))
 
 
+def batched_regroup_ref(keys, active, repl):
+    """numpy oracle of ``ops.batched_regroup``: per trial, order the
+    active worker ids by a stable argsort on their keys (the host
+    engine's ``CounterPermuter`` contract) and group the first m*r of
+    them, r consecutive workers a group.  Returns (shard (B, n) int32,
+    group (B, n) int32 with -1 = idle, m (B,) int32)."""
+    import numpy as np
+
+    keys = np.asarray(keys)
+    active = np.asarray(active)
+    repl = np.asarray(repl)
+    B, n = active.shape
+    shard = np.zeros((B, n), np.int32)
+    group = np.full((B, n), -1, np.int32)
+    m_out = np.zeros(B, np.int32)
+    for b in range(B):
+        act_idx = np.flatnonzero(active[b])
+        perm = act_idx[np.argsort(keys[b, act_idx], kind="stable")]
+        r = max(1, int(repl[b]))
+        m = len(perm) // r
+        m_out[b] = m
+        mem = perm[: m * r]
+        gid = np.repeat(np.arange(m, dtype=np.int32), r)
+        shard[b, mem] = gid
+        group[b, mem] = gid
+    return shard, group, m_out
+
+
 def fused_step_ref(rows: torch.Tensor, W: torch.Tensor, cw: torch.Tensor,
                    key_scalar, k: int = 256):
     """Composed oracle of the fused step, from the single-op oracles:

@@ -126,9 +126,24 @@ def test_replay_rejects_what_the_reference_rejects():
         jengine.replay_control_fast(_specs(jengine, dep))
     with pytest.raises(ValueError):
         tengine.replay_control_fast(_specs(tengine, dep))
+    with pytest.raises(ValueError):
+        jengine.replay_control_fast(_specs(jengine, dep), rng="device")
+    with pytest.raises(ValueError):
+        tengine.replay_control_fast(_specs(tengine, dep), rng="device")
+    # rng="device" runs, and equals the reference's
+    rec_j, rec_t = jengine.ScheduleRecorder(), tengine.ScheduleRecorder()
+    _assert_same_control(
+        jengine.replay_control_fast(_specs(jengine, CASES["modes"][:1]),
+                                    rec_j, rng="device"),
+        tengine.replay_control_fast(_specs(tengine, CASES["modes"][:1]),
+                                    rec_t, rng="device"))
+    aj, at = _stack(rec_j), _stack(rec_t)
+    for k in aj:
+        np.testing.assert_array_equal(aj[k], at[k], err_msg=k)
     ok = _specs(tengine, CASES["modes"][:1])
-    with pytest.raises(NotImplementedError, match="M6"):
-        tengine.replay_control_fast(ok, rng="device")
+    with pytest.raises(ValueError):
+        jengine.replay_control_fast(_specs(jengine, CASES["modes"][:1]),
+                                    rng="bogus")
     with pytest.raises(ValueError):
         tengine.replay_control_fast(ok, rng="bogus")
 

@@ -386,6 +386,107 @@ def test_stream_planes_on_card_match_cpu(cuda, name):
         np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-4)
 
 
+def test_threefry_on_card_equals_the_numpy_block(cuda):
+    """The counter RNG's torch block on CUDA int64 tensors: bitwise the
+    numpy uint32 block, and the chunk's coins and keys each trial's."""
+    from repro_torch.core import rngstream
+
+    rng = np.random.default_rng(5)
+    words = [rng.integers(0, 1 << 32, size=(64, 33), dtype=np.uint64
+                          ).astype(np.uint32) for _ in range(4)]
+    want = rngstream.threefry2x32(*words)
+    got = rngstream.threefry2x32_torch(
+        *[torch.from_numpy(w.astype(np.int64)).to(cuda) for w in words])
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.cpu().numpy().astype(np.uint32), w)
+    seeds = [0, 3, (1 << 40) + 1]
+    for tag in (rngstream.DECIDE, rngstream.TAMPER, rngstream.PERM):
+        ks = [rngstream.key_for(s, tag) for s in seeds]
+        k0 = torch.tensor([int(a) for a, _ in ks], device=cuda)
+        k1 = torch.tensor([int(b) for _, b in ks], device=cuda)
+        if tag == rngstream.DECIDE:
+            got = rngstream.decide_uniforms_torch(k0, k1, 17).cpu().numpy()
+            for b, s in enumerate(seeds):
+                np.testing.assert_array_equal(
+                    got[:, b], rngstream.decide_uniforms(s, 17))
+            continue
+        got = rngstream.phase_worker_torch(k0, k1, 17, 9).cpu().numpy()
+        for b, s in enumerate(seeds):
+            np.testing.assert_array_equal(
+                got[:, :, b].astype(np.uint32),
+                rngstream._phase_worker_block(s, 17, 9, tag))
+
+
+def test_regroup_on_card_equals_cpu(cuda):
+    """The masked regroup's int64 sort on the card: the CPU's layout, key
+    ties and inactive workers included."""
+    rng = np.random.default_rng(9)
+    B, n = 256, 9
+    keys = rng.integers(0, 4, (B, n)).astype(np.int64)
+    keys[::2] = rng.integers(0, 1 << 32, (B // 2, n), dtype=np.uint64)
+    active = torch.from_numpy(rng.random((B, n)) < 0.75)
+    repl = torch.from_numpy(rng.integers(0, 8, B).astype(np.int32))
+    keys = torch.from_numpy(keys)
+    want = ops.batched_regroup(keys, active, repl)
+    got = ops.batched_regroup(keys.to(cuda), active.to(cuda), repl.to(cuda))
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+# name: (run_batch knobs, problems over the trials, kernels the path must
+# launch)
+DEVICE_PLANES = {
+    "stream": (dict(), 1, ("sketch_batched", "pairwise_relmax_batched")),
+    "per_problem": (dict(), 2, ("sketch_batched", "coded_encode_batched",
+                                "pairwise_relmax_batched")),
+    "gram": (dict(data_plane="gram"), 1,
+             ("gram_factors", "pairwise_relmax_batched")),
+}
+
+
+@pytest.mark.parametrize("name", list(DEVICE_PLANES))
+def test_device_control_kernels_match_plain_and_cpu(cuda, name):
+    """schedule="device" on the card: the kernels against the plain
+    versions on the card and against the CPU run: the trace, identify
+    steps and counters exact, W within 1e-4; telemetry output-neutral."""
+    from repro_torch.obs.telemetry import TEL_KEYS
+
+    kw, problems, kernels = DEVICE_PLANES[name]
+    specs = [repro_torch.TrialSpec(
+        byz=(2, 5), attack=("sign_flip", "scale", "drift")[s % 3],
+        q=(None, 0.4)[s % 2], steps=16, seed=s, n_data=64, d=4096,
+        lr=16.0 / 4096, problem_seed=s % problems) for s in range(6)]
+    ops.reset_launch_counts()
+    card = repro_torch.run_batch(specs, schedule="device", telemetry=True,
+                                 **kw)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in kernels), counts
+    off = repro_torch.run_batch(specs, schedule="device", **kw)
+    for k in card.device_trace:
+        np.testing.assert_array_equal(card.device_trace[k],
+                                      off.device_trace[k], err_msg=k)
+    for a, b in zip(card, off):
+        np.testing.assert_array_equal(a.w, b.w)
+    for other in (
+            repro_torch.run_batch(specs, schedule="device", telemetry=True,
+                                  kernel_impl="torch", **kw),
+            repro_torch.run_batch(specs, schedule="device", telemetry=True,
+                                  device="cpu", **kw)):
+        for k in ("check", "detect", "faulty2"):
+            np.testing.assert_array_equal(card.device_trace[k],
+                                          other.device_trace[k], err_msg=k)
+        for k in TEL_KEYS:
+            np.testing.assert_array_equal(card.telemetry.counters[k],
+                                          other.telemetry.counters[k],
+                                          err_msg=k)
+        for a, b in zip(card, other):
+            assert a.identify_step == b.identify_step
+            np.testing.assert_allclose(a.q_trace, b.q_trace, rtol=1e-5,
+                                       atol=1e-6)
+            np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-4)
+    assert card.telemetry.totals()["eliminations"] > 0
+
+
 # name: (run_batch knobs, problems over the trials, filter baselines)
 TEL_PLANES = {
     "gram": (dict(), 1, False),

@@ -234,7 +234,6 @@ _VI = dict(byz=(2,), attack="drift", q=0.4, steps=5)
 OUT_OF_SLICE = {
     "schedule_oracle": ([_VI], dict(schedule="oracle", data_plane="gram")),
     "schedule_proxy": ([_VI], dict(schedule="proxy", data_plane="gram")),
-    "schedule_device": ([_VI], dict(schedule="device", data_plane="gram")),
     "value_dependent": ([dict(_VI, attack="sign_flip")],
                         dict(data_plane="gram")),
     "adaptive_q": ([dict(_VI, q=None)], dict(data_plane="gram")),
