@@ -47,6 +47,16 @@ Phases, in order; any failed check exits nonzero:
      window (kernels a step, the card's busy share in the step loop); a
      contractive variant held per trial; B = 8, d = 4096 on the card
      against the CPU;
+   - the "oracle" schedule (the numpy engine's host replay, the data
+     plane on the card): adaptive_sweep (B = 256, T = 24, d = 2^13) on
+     the gram (K1, K3), fused (K2, K3) and stream (K4, K3) planes, its
+     control equal to the numpy engine's own run and its wall printed
+     beside the warm ``schedule="device"`` wall; its trials at d = 2^20
+     (B = 4) on the gram and stream planes; and the five named
+     ``SCENARIOS`` at their defined size (d = 8, 300 steps) with no
+     schedule argument, each also against the CPU run; every run held
+     against the plain versions on the card, the scan's sketch verdicts
+     equal to the replay's identify decisions;
    - each of those five engine paths once more with ``telemetry=True``:
      W, losses and detect flags bitwise those of the run without, the
      protocol counters equal to those of the plain versions' run on the
@@ -115,6 +125,17 @@ ADAPTIVE_D_FULL = 1 << 20
 # the reference's host-staged (B, n_data, d) f32 data is 2 GiB (the port
 # gathers each chunk's rows on the card by problem index)
 PER_PROBLEM = dict(B=8, T=3, n_data=64, d=1 << 20, problems=4)
+# the "oracle" schedule at production d: the numpy engine's host replay
+# holds a (B, 8, d) f64 gradient stack (512 MiB at B = 8) and reads the
+# (64, d) f64 problem twice a trial and step, about 4.5 s a trial on the
+# card's host; B = 8 in chunks of 4 (two chunks through the pipeline),
+# the plain versions replay the first ORACLE_PLAIN_FULL trials only
+ORACLE_B_FULL = 8
+ORACLE_CHUNK_FULL = 4
+ORACLE_PLAIN_FULL = 2
+# the plain versions' run of adaptive_sweep under "oracle" at d = 2^13
+# takes the first 64 of the 256 trials (its replay is the cost)
+ORACLE_PLAIN_13 = 64
 # K1's sketch tables at ragged shapes (Ie, d, T, k): k = 96 and 512, one
 # key, one row, d < k, more keys (128) and rows (72) than one block takes
 K1_RAGGED = [(5, 70001, 3, 96), (7, 30001, 130, 512), (66, 5000, 1, 256),
@@ -732,21 +753,25 @@ def gram_sweep_specs(TrialSpec, B, T, n_data, d):
 
 
 def same_control(a, b) -> bool:
+    """Identify steps, efficiency, q-trace, detect flags and schedule
+    arrays equal; ``b`` may hold the first trials of ``a``'s batch only
+    (its run on ``a``'s first specs)."""
+    nb = b.detect_flags.shape[1]
     if not all(ra.identify_step == rb.identify_step
                and ra.efficiency == rb.efficiency
                and ra.q_trace == rb.q_trace for ra, rb in zip(a, b)):
         return False
-    if not (a.detect_flags == b.detect_flags).all():
+    if not (a.detect_flags[:, :nb] == b.detect_flags).all():
         return False
-    return all((v == b.schedule.arrays[key]).all()
+    return all((v[:, :nb] == b.schedule.arrays[key]).all()
                for key, v in a.schedule.arrays.items())
 
 
 def w_close(a, b) -> tuple[float, float]:
     import numpy as np
 
-    Wa = np.stack([r.w for r in a])
     Wb = np.stack([r.w for r in b])
+    Wa = np.stack([r.w for r, _ in zip(a, Wb)])
     return float(np.abs(Wa - Wb).max()), 1e-4 * (1 + float(np.abs(Wb).max()))
 
 
@@ -762,12 +787,13 @@ def check_honest(specs, res) -> None:
             f"{s.label}: an honest worker was eliminated")
 
 
-def check_vs_plain(label, res, specs, **kw) -> float:
-    """The same run with the plain versions on the card: control exact,
-    W within 1e-4*(1+max|W|)."""
+def check_vs_plain(label, res, specs, n=None, **kw) -> float:
+    """The same run with the plain versions on the card (on the first
+    ``n`` specs where ``n`` is given): control exact, W within
+    1e-4*(1+max|W|)."""
     import repro_torch
 
-    plain = repro_torch.run_batch(specs, kernel_impl="torch", **kw)
+    plain = repro_torch.run_batch(specs[:n], kernel_impl="torch", **kw)
     check(same_control(res, plain),
           f"{label}: control differs between kernels and plain versions")
     err, tol = w_close(res, plain)
@@ -1265,6 +1291,181 @@ def phase_device_control(torch):
     return launches, out
 
 
+def oracle_kernels(res) -> tuple:
+    """The kernels a host-control run's plan must launch: its data
+    plane's (K1 gram, K2 fused, K4 stream) and K3 when the schedule has
+    an identify round or a draco vote."""
+    plane = ("gram_factors" if res.plan.data_plane == "gram"
+             else "fused_step" if res.plan.fused else "sketch_batched")
+    arr = res.schedule.arrays
+    voted = bool(arr["identify"].any() or arr["vote1"].any())
+    return (plane,) + (("pairwise_relmax_batched",) if voted else ())
+
+
+def detect_equals_identify(res) -> bool:
+    """The scan's sketch verdict equals the replay's identify decision on
+    every check row (tests/test_engine_parity.py:177-185)."""
+    arr = res.schedule.arrays
+    return not ((res.detect_flags != arr["identify"]) & arr["checks"]).any()
+
+
+def same_numpy_control(res, npb) -> bool:
+    """q-trace, identify steps, kappa and meters equal to the numpy
+    engine's own run of the same specs: under "oracle" the schedule is
+    that engine's run, so this shows that the replay is deterministic."""
+    return all(a.q_trace == b.q_trace and a.identify_step == b.identify_step
+               and a.state.kappa == b.state.kappa
+               and a.state.meter.history == b.state.meter.history
+               and a.efficiency == b.efficiency for a, b in zip(res, npb))
+
+
+def phase_oracle(torch, device_wall_s: float):
+    """The "oracle" schedule (the port's numpy engine replays every trial
+    on the host; the data plane runs on the card): adaptive_sweep as the
+    reference defines it (B = 256, T = 24, d = 2^13, sign_flip, adaptive
+    q*) on the gram (K1, K3), fused (K2, K3) and stream (K4, K3) planes;
+    its trials at d = 2^20 (B = ORACLE_B_FULL in chunks of
+    ORACLE_CHUNK_FULL) on the gram and stream planes; then the five named
+    scenarios at their defined size with no schedule argument ("auto"
+    resolves to "oracle").  Each run is held against the same run with
+    the plain versions on the card (control and detect flags exact, W
+    within 1e-4*(1+max|W|); on the first ORACLE_PLAIN_13 or
+    ORACLE_PLAIN_FULL trials of adaptive_sweep); at d = 2^13 also W
+    against the numpy engine's f64 W, per trial within
+    1e-4*(1+max|W|); the scenarios also against the CPU run."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.core import engine as nengine
+
+    TS = repro_torch.TrialSpec
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    cell = ADAPTIVE_SWEEP
+    specs13 = adaptive_sweep_specs(TS, **cell)
+    t1 = time.perf_counter()
+    npb13 = nengine.run_batch(specs13)
+    numpy_s = time.perf_counter() - t1
+    print(f"oracle: the numpy engine alone on adaptive_sweep (B="
+          f"{cell['B']}, d=2^13): {numpy_s:.4f} s")
+    full_cell = dict(cell, B=ORACLE_B_FULL, d=ADAPTIVE_D_FULL)
+    full = adaptive_sweep_specs(TS, **full_cell,
+                                lr=cell["n_data"] / ADAPTIVE_D_FULL)
+    chunked = dict(chunk_trials=ORACLE_CHUNK_FULL)
+    # (label, specs, knobs, data plane, fused, trials of the plain run)
+    paths = [
+        ("oracle adaptive_sweep gram", specs13, {}, "gram", False,
+         ORACLE_PLAIN_13),
+        ("oracle adaptive_sweep fused", specs13, dict(fused=True), "stream",
+         True, ORACLE_PLAIN_13),
+        ("oracle adaptive_sweep stream", specs13, dict(fused=False),
+         "stream", False, ORACLE_PLAIN_13),
+        ("oracle adaptive_sweep d=2^20 gram", full, chunked, "gram", False,
+         ORACLE_PLAIN_FULL),
+        ("oracle adaptive_sweep d=2^20 stream", full,
+         dict(chunked, fused=False), "stream", False, ORACLE_PLAIN_FULL),
+    ]
+    for label, specs, kw, plane, fused, n_plain in paths:
+        # every kernel was built and run by the earlier phases: the first
+        # run is warm (the replay is numpy), so it is the timed one
+        res, launches[label] = counted(
+            lambda: repro_torch.run_batch(specs, schedule="oracle", **kw))
+        require_launched(launches[label], oracle_kernels(res), label)
+        check(res.plan.schedule_mode == "oracle"
+              and res.plan.control == "host" and res.schedule.mode == "oracle"
+              and not res.schedule.used_proxy
+              and res.plan.data_plane == plane and res.plan.fused == fused,
+              f"{label}: plan {res.plan.schedule_mode}/{res.plan.data_plane}"
+              f"/fused={res.plan.fused}")
+        W = np.stack([r.w for r in res])
+        check(W.shape == (len(specs), specs[0].d)
+              and bool(np.isfinite(W).all()), f"{label}: W shape or values")
+        del W
+        check_honest(specs, res)
+        info = dict(wall_s=res.elapsed_s, phases_s=res.phase_s,
+                    B=len(specs), d=specs[0].d,
+                    chunk_trials=res.plan.chunk_trials, plain_trials=n_plain)
+        if specs is specs13:
+            check(same_numpy_control(res, npb13),
+                  f"{label}: control differs from the numpy engine's run")
+            # the card's f32 W against the numpy engine's f64 W, an
+            # answer independent of the plain versions
+            info["w_err_vs_numpy"] = per_trial_close(res, npb13)
+            print(f"{label} W vs the numpy engine (f64): max over trials of "
+                  f"max|dW|/(1+max|W|) = {info['w_err_vs_numpy']:.3e} "
+                  f"(tolerance 1e-4)")
+            check(info["w_err_vs_numpy"] <= 1e-4,
+                  f"{label}: W differs from the numpy engine's")
+        else:
+            check(res.plan.chunk_trials == ORACLE_CHUNK_FULL,
+                  f"{label}: chunk_trials {res.plan.chunk_trials}")
+        check(detect_equals_identify(res),
+              f"{label}: a sketch verdict differs from the replay's")
+        info["w_err_vs_plain"] = check_vs_plain(label, res, specs, n_plain,
+                                                schedule="oracle", **kw)
+        info["identify_rounds"] = int(res.schedule.arrays["identify"].sum())
+        info["eliminations"] = sum(r.state.kappa for r in res)
+        print(f"{label} (B={len(specs)}, d={specs[0].d}): wall "
+              f"{res.elapsed_s:.4f} s; phases (s): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in res.phase_s.items())
+              + f"; {info['identify_rounds']} identify rounds, "
+              f"{info['eliminations']} eliminations")
+        out[label] = info
+        del res
+    # schedule="device" runs adaptive_sweep on the stream plane: the
+    # oracle's stream-plane wall is the one to set beside it
+    stream13 = out["oracle adaptive_sweep stream"]["wall_s"]
+    gram13 = out["oracle adaptive_sweep gram"]["wall_s"]
+    out["oracle_vs_device_wall"] = stream13 / device_wall_s
+    print(f"adaptive_sweep (B=256, T=24, d=2^13): oracle wall {stream13:.4f} "
+          f"s (stream plane; gram plane {gram13:.4f} s) against the warm "
+          f"schedule=\"device\" wall {device_wall_s:.4f} s (stream plane): "
+          f"{stream13 / device_wall_s:.2f}x")
+
+    scen = {}
+    for name, matrix in repro_torch.SCENARIOS.items():
+        specs = matrix.expand()
+        res, launches[f"scenario {name}"] = counted(
+            lambda: matrix.run(backend="torch"))
+        require_launched(launches[f"scenario {name}"], oracle_kernels(res),
+                         f"scenario {name}")
+        check(res.plan.schedule_mode == "oracle"
+              and res.plan.kernel_impl == "cuda",
+              f"scenario {name}: plan {res.plan.schedule_mode}")
+        check(detect_equals_identify(res),
+              f"scenario {name}: a sketch verdict differs from the replay's")
+        check(all(np.isfinite(r.w).all() for r in res),
+              f"scenario {name}: non-finite W")
+        errs = {}
+        for other_name, other in (
+                ("plain", matrix.run(backend="torch", kernel_impl="torch")),
+                ("cpu", matrix.run(backend="torch", device="cpu"))):
+            check(same_control(res, other),
+                  f"scenario {name}: control differs from the {other_name} "
+                  f"run")
+            # per trial: the "none" trials diverge under sign_flip
+            errs[other_name] = per_trial_close(res, other)
+            check(errs[other_name] <= 1e-4,
+                  f"scenario {name}: W differs from the {other_name} run")
+        exact = sum(r["exact"] for r in res.summarize())
+        scen[name] = dict(trials=len(specs), data_plane=res.plan.data_plane,
+                          fused=res.plan.fused, wall_s=res.elapsed_s,
+                          phases_s=res.phase_s,
+                          w_err_vs_plain=errs["plain"],
+                          w_err_vs_cpu=errs["cpu"],
+                          exact_rows=exact, rows=len(res.summarize()))
+        print(f"scenario {name} ({len(specs)} trials, "
+              f"{res.plan.data_plane}{' fused' if res.plan.fused else ''}): "
+              f"wall {res.elapsed_s:.4f} s; W max over trials of "
+              f"max|dW|/(1+max|W|): vs plain {errs['plain']:.3e}, vs CPU "
+              f"{errs['cpu']:.3e}; {exact} of {len(res.summarize())} "
+              f"summary rows exact")
+    out["scenarios"] = scen
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase_oracle: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def phase_single_path(torch):
     """The single-vector ops through their public entry points, at the
     reference kernel bench's shapes (benchmarks/bench_kernels.py:53-65):
@@ -1720,6 +1921,9 @@ def main() -> int:
     launches.update(stream_launches)
     device_launches, device_ctl = phase_device_control(torch)
     launches.update(device_launches)
+    oracle_launches, oracle = phase_oracle(
+        torch, device_ctl["adaptive_sweep"]["wall_s"])
+    launches.update(oracle_launches)
     launches["single_vector_ops"] = phase_single_path(torch)
     small = phase_small_vs_cpu(torch)
     launches["serving"], serving = phase_serving(
@@ -1728,6 +1932,7 @@ def main() -> int:
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for run in launches.values())
     main_path = dict(gram_sweep=gram, **stream, device_control=device_ctl,
+                     oracle=oracle,
                      launches=launches,
                      small_vs_cpu_w_err=small, serving=serving,
                      attention=attention)

@@ -6,5 +6,15 @@ with their plain PyTorch versions when asked (``device="cpu"``).  The
 JAX package ``repro`` is the reference this port is held against; the
 port imports nothing of it.
 """
-from repro_torch.core.engine import BatchResult, FaultEvent, TrialSpec  # noqa: F401
-from repro_torch.core.engine_torch import run_batch  # noqa: F401
+from repro_torch.core import (  # noqa: F401
+    SCENARIOS,
+    BatchResult,
+    BFTConfig,
+    FaultEvent,
+    FaultPattern,
+    ModeSpec,
+    ProtocolState,
+    ScenarioMatrix,
+    TrialSpec,
+    run_batch,
+)

@@ -29,12 +29,16 @@ Port of ``repro.core.engine_jax.run_batch_jax`` (``engine_jax.py:130-608``):
      that do not share a problem aggregate through
      ``ops.batched_coded_encode``.
 
+The host control plane has three schedules, as the reference's:
+"vector" (the control-only replay, no data plane), "proxy" (the numpy
+engine, ``engine.run_batch``, on a tiny proxy problem: the same
+schedule for value-independent trials) and "oracle" (the numpy engine
+on the real problem: every trial class, value-dependent ones included,
+at the cost of the thing it schedules).  "auto" picks "vector" when
+every trial is value-independent, else "oracle".
+
 The plan is resolved first (``engineplan.plan.resolve_plan``, the
-reference's pure planner).  The "oracle" and "proxy" schedules (and
-"auto" on value-dependent trials, which resolves to "oracle" as in the
-reference) raise ``NotImplementedError`` naming the later slice that
-ports them.  The
-chunks stream through ``engineplan.pipeline.run_chunks``; with
+reference's pure planner).  The chunks stream through ``engineplan.pipeline.run_chunks``; with
 ``telemetry=True`` the step loop adds up the protocol counters, returned
 as ``BatchResult.telemetry`` (``obs.telemetry.Telemetry``).  The facade
 emits the reference's spans (``engine.build_schedule``,
@@ -63,6 +67,7 @@ from repro_torch.core.engine import (
     replay_control_fast,
     replay_control_from_trace,
 )
+from repro_torch.core.engine import run_batch as numpy_run_batch
 from repro_torch.core.engineplan import plan as planlib
 from repro_torch.core.engineplan.pipeline import PhaseClock, run_chunks
 from repro_torch.core.simulation import SimResult, make_problem
@@ -72,6 +77,10 @@ from repro_torch.obs import trace as obtrace
 from repro_torch.obs.telemetry import Telemetry, zero_counts
 
 GRAM_CHUNK = 1 << 16          # columns per f32 product when forming G
+
+# the "proxy" schedule's problem: n_data = max(64, 2 * n_max), d = 4
+PROXY_N_DATA = 64
+PROXY_D = 4
 
 
 @dataclasses.dataclass
@@ -84,21 +93,36 @@ class Schedule:
     mode: str = "oracle"
 
 
-def build_schedule(specs: list[TrialSpec], mode: str = "auto") -> Schedule:
-    """Replay the control machinery into dense arrays: "vector" (and
-    "auto", which picks it whenever valid) runs the batched control-only
-    replay with no data plane at all."""
-    mode = planlib.resolve_schedule_mode(specs, mode, host_only=True)
-    if mode != "vector":
-        raise NotImplementedError(
-            f'schedule mode "{mode}" replays the numpy engine on a real or '
-            f"proxy problem; that engine is ported in a later slice "
-            f"(ROADMAP M10)")
-    rec = ScheduleRecorder()
-    control = replay_control_fast(specs, rec)
+def stacked(rec: ScheduleRecorder) -> dict[str, np.ndarray]:
+    """The recorder's per-step dicts as dense (T, B, ...) arrays."""
     keys = rec.steps[0].keys() if rec.steps else ()
-    arrays = {k: np.stack([st[k] for st in rec.steps]) for k in keys}
-    return Schedule(arrays, control, True, mode)
+    return {k: np.stack([st[k] for st in rec.steps]) for k in keys}
+
+
+def build_schedule(specs: list[TrialSpec], mode: str = "auto") -> Schedule:
+    """Replay the numpy engine's control machinery into dense arrays.
+
+    "vector" runs the batched control-only replay
+    (``engine.replay_control_fast``), no data plane at all; "proxy" runs
+    the numpy engine on a tiny proxy problem (the same schedule, kept as
+    the parity oracle of "vector"); "oracle" runs the numpy engine on the
+    real problem (every trial class; the replay then costs the thing it
+    schedules); "auto" picks "vector" whenever valid, else "oracle".
+    Resolution and eligibility errors route through
+    ``engineplan.plan.resolve_schedule_mode``."""
+    mode = planlib.resolve_schedule_mode(specs, mode, host_only=True)
+    rec = ScheduleRecorder()
+    if mode == "vector":
+        control = replay_control_fast(specs, rec)
+    else:
+        if mode == "proxy":
+            n_data = max(PROXY_N_DATA, 2 * max(s.n for s in specs))
+            ctrl_specs = [dataclasses.replace(s, n_data=n_data, d=PROXY_D)
+                          for s in specs]
+        else:
+            ctrl_specs = specs
+        control = numpy_run_batch(ctrl_specs, _recorder=rec)
+    return Schedule(stacked(rec), control, mode != "oracle", mode)
 
 
 def resolve_device(device) -> torch.device:
@@ -114,26 +138,13 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def require_slice(plan: planlib.ExecutionPlan) -> None:
-    """Raise ``NotImplementedError`` for a plan the port does not run
-    yet, naming the reference's path and the slice that ports it."""
-    if plan.schedule_mode not in ("vector", "device"):
-        raise NotImplementedError(
-            f'schedule mode "{plan.schedule_mode}" is ported with the numpy '
-            f"engine's host replay (ROADMAP M10); the port runs "
-            f'schedule="vector" (value-independent trials) and '
-            f'schedule="device" (every device-schedulable trial)')
-
-
 def device_schedule(specs, trace: dict) -> Schedule:
     """The control plane rebuilt from the device plane's decision trace
     {"q", "check", "detect", "faulty2"}: schedule arrays and control
     results (``engine_jax.py:569-580``)."""
     rec = ScheduleRecorder()
     control = replay_control_from_trace(specs, trace, rec)
-    keys = rec.steps[0].keys() if rec.steps else ()
-    arrays = {k: np.stack([st[k] for st in rec.steps]) for k in keys}
-    return Schedule(arrays, control, True, "device")
+    return Schedule(stacked(rec), control, True, "device")
 
 
 def gram_matrix(rows: torch.Tensor, chunk: int = GRAM_CHUNK) -> torch.Tensor:
@@ -206,12 +217,11 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         on a CUDA device runs the plain versions there (a comparison
         run; never chosen automatically).
     schedule, data_plane, chunk_trials, fused, stream_dtype, telemetry:
-        as the reference's ``run_batch(..., backend="jax")``; "vector"
-        and "device" run, "oracle" and "proxy" raise
-        ``NotImplementedError`` (as does "auto" on value-dependent
-        trials, which resolves to "oracle").  "device" uses the
-        counter-RNG streams (``rng="device"``), so its schedule is not
-        the host streams' one.  ``telemetry=True`` adds up the protocol
+        as the reference's ``run_batch(..., backend="jax")``: "auto",
+        "vector", "proxy" and "oracle" build the schedule on the host
+        (``build_schedule``), "device" makes the decisions in the step
+        loop with the counter-RNG streams (``rng="device"``), so its
+        schedule is not the host streams' one.  ``telemetry=True`` adds up the protocol
         counters in the step loop; the primary outputs are bitwise those
         of the run without.
 
@@ -245,7 +255,6 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
             stream_dtype=stream_dtype, kernel_impl=kernel_impl,
             data_plane=data_plane, telemetry=telemetry)
         planlib.warn_on_fallback(plan)
-    require_slice(plan)
     clock = PhaseClock(device)
     device_ctl = plan.control == "device"
     n_max = max(s.n for s in specs)

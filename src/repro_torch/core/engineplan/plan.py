@@ -3,8 +3,7 @@
 Port of ``repro.core.engineplan.plan`` with ``backend="torch"``.
 :func:`resolve_plan` is pure — specs plus keyword knobs in, a frozen
 :class:`ExecutionPlan` out — so the port resolves the same path the
-reference would take for the same batch, and the facade can name that
-path when it belongs to a later slice of the port.  The schedulability
+reference would take for the same batch.  The schedulability
 predicates and the affine-attack / filter tables live here, as in the
 reference; they are duck-typed over any object with TrialSpec's fields.
 """
@@ -141,12 +140,15 @@ def validate_specs(specs) -> None:
         if not isinstance(s.attack, str) or s.attack not in AFFINE_ATTACKS:
             raise NotImplementedError(
                 f"the device data plane supports the affine attack table "
-                f"{sorted(AFFINE_ATTACKS)}, got {s.attack!r} ({one[0]})")
+                f"{sorted(AFFINE_ATTACKS)}, got {s.attack!r} ({one[0]}) "
+                f'— nearest accepting plan: backend="numpy" (the numpy '
+                f"engine runs arbitrary attack callables)")
         name = filter_name(s)
         if name is not None and name not in FILTER_CODES:
             raise NotImplementedError(
                 f"the device data plane supports filters "
-                f"{sorted(FILTER_CODES)}, got {name!r} ({one[0]})")
+                f"{sorted(FILTER_CODES)}, got {name!r} ({one[0]}) "
+                f'— nearest accepting plan: backend="numpy"')
 
 
 def resolve_schedule_mode(specs, mode: str, *, host_only: bool = False) -> str:

@@ -15,6 +15,12 @@ from typing import Literal
 import numpy as np
 
 from repro_torch.core import adaptive
+from repro_torch.core.assignment import (
+    Assignment,
+    check_assignment,
+    fast_assignment,
+    identify_assignment,
+)
 from repro_torch.core.efficiency import EfficiencyMeter
 
 Mode = Literal["randomized", "deterministic", "draco", "filter", "none"]
@@ -66,6 +72,20 @@ class ProtocolState:
     last_q: float = 0.0
     last_lambda: float = 0.0
 
+    @classmethod
+    def create(cls, cfg: BFTConfig) -> "ProtocolState":
+        n = cfg.n
+        return cls(
+            cfg=cfg,
+            active=np.ones(n, bool),
+            identified=np.zeros(n, bool),
+            crashed=np.zeros(n, bool),
+            alpha=np.full(n, 0.5),
+            beta=np.full(n, 0.5),
+            rng=np.random.default_rng(cfg.seed),
+            decide_rng=decide_generator(cfg.seed),
+        )
+
     @property
     def kappa(self) -> int:
         """κ_t: Byzantine workers identified so far."""
@@ -99,6 +119,17 @@ class ProtocolState:
             return bool((self.decide_rng.random(self.cfg.n) < q_i).any())
         return bool(self.decide_rng.random() < q)
 
+    # Group membership is permuted by the protocol RNG on every draw, so
+    # every Byzantine worker is check-eligible infinitely often (§4.2).
+    def assignment_fast(self) -> Assignment:
+        return fast_assignment(self.active)
+
+    def assignment_check(self) -> Assignment:
+        return check_assignment(self.active, max(1, self.f_t), self.rng)
+
+    def assignment_identify(self) -> Assignment:
+        return identify_assignment(self.active, max(1, self.f_t), self.rng)
+
     def on_clean_check(self, checked_workers: np.ndarray) -> None:
         self.beta[checked_workers] += 1.0
 
@@ -118,3 +149,28 @@ class ProtocolState:
         """Elastic scale-up: recovered nodes rejoin unless identified."""
         self.crashed[workers] = False
         self.active[workers] = ~self.identified[workers]
+
+    def state_dict(self) -> dict:
+        return {
+            "active": self.active.copy(),
+            "identified": self.identified.copy(),
+            "crashed": self.crashed.copy(),
+            "alpha": self.alpha.copy(),
+            "beta": self.beta.copy(),
+            "rng_state": self.rng.bit_generator.state,
+            "decide_rng_state": self.decide_rng.bit_generator.state,
+            "step": self.step,
+            "meter": self.meter.state_dict(),
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self.active = np.asarray(d["active"]).copy()
+        self.identified = np.asarray(d["identified"]).copy()
+        self.crashed = np.asarray(d["crashed"]).copy()
+        self.alpha = np.asarray(d["alpha"]).copy()
+        self.beta = np.asarray(d["beta"]).copy()
+        self.rng.bit_generator.state = d["rng_state"]
+        if "decide_rng_state" in d:       # absent in pre-split checkpoints
+            self.decide_rng.bit_generator.state = d["decide_rng_state"]
+        self.step = int(d["step"])
+        self.meter.load_state_dict(d["meter"])

@@ -487,6 +487,68 @@ def test_device_control_kernels_match_plain_and_cpu(cuda, name):
     assert card.telemetry.totals()["eliminations"] > 0
 
 
+# name: (run_batch knobs, the plan's data plane, kernels the path must
+# launch) for the "oracle" schedule
+ORACLE_PLANES = {
+    "gram": (dict(), "gram", ("gram_factors", "pairwise_relmax_batched")),
+    "fused": (dict(fused=True), "stream",
+              ("fused_step", "pairwise_relmax_batched")),
+    "stream": (dict(fused=False), "stream",
+               ("sketch_batched", "pairwise_relmax_batched")),
+}
+
+
+def _same_oracle_control(a, b):
+    np.testing.assert_array_equal(a.detect_flags, b.detect_flags)
+    for k, v in a.schedule.arrays.items():
+        np.testing.assert_array_equal(v, b.schedule.arrays[k], err_msg=k)
+    for ra, rb in zip(a, b):
+        assert (ra.identify_step, ra.q_trace, ra.efficiency) == (
+            rb.identify_step, rb.q_trace, rb.efficiency)
+
+
+@pytest.mark.parametrize("name", list(ORACLE_PLANES))
+def test_oracle_kernels_match_plain_and_cpu(cuda, name):
+    """schedule="oracle" (the numpy engine's host replay) on the card:
+    the adaptive_sweep shape (sign_flip, adaptive q*) at d = 4096 through
+    the kernels, against the plain versions on the card and the CPU run:
+    control and detect flags exact, W within 1e-4."""
+    kw, plane, kernels = ORACLE_PLANES[name]
+    specs = [repro_torch.TrialSpec(
+        byz=(2, 5), attack="sign_flip", q=None, steps=24, seed=s, n_data=64,
+        d=4096, lr=16.0 / 4096) for s in range(8)]
+    ops.reset_launch_counts()
+    card = repro_torch.run_batch(specs, schedule="oracle", **kw)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in kernels), counts
+    assert card.plan.data_plane == plane and card.plan.kernel_impl == "cuda"
+    assert card.schedule.arrays["identify"].any()
+    for other in (repro_torch.run_batch(specs, schedule="oracle",
+                                        kernel_impl="torch", **kw),
+                  repro_torch.run_batch(specs, schedule="oracle",
+                                        device="cpu", **kw)):
+        _same_oracle_control(card, other)
+        for a, b in zip(card, other):
+            np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-4)
+
+
+def test_scenario_family_on_card_matches_cpu(cuda):
+    """A named scenario with no schedule argument ("auto" -> "oracle"):
+    draco votes on sign-flipped replicas, the filter baselines, adaptive
+    q*; the card against the CPU."""
+    m = repro_torch.SCENARIOS["paper_core"]
+    card = m.run(backend="torch")
+    cpu = m.run(backend="torch", device="cpu")
+    assert card.plan.schedule_mode == "oracle"
+    assert card.plan.kernel_impl == "cuda"
+    _same_oracle_control(card, cpu)
+    # the "none" trials diverge under sign_flip: W is held relative to
+    # its own size, 1e-4 * (1 + max|W|)
+    for s, a, b in zip(card.specs, card, cpu):
+        err = float(np.abs(a.w - b.w).max())
+        assert err <= 1e-4 * (1 + float(np.abs(b.w).max())), s.label
+
+
 # name: (run_batch knobs, problems over the trials, filter baselines)
 TEL_PLANES = {
     "gram": (dict(), 1, False),

@@ -353,14 +353,22 @@ def test_facade_counts_the_device_plan():
 
 def test_auto_still_routes_value_dependent_trials_to_the_oracle():
     """As in the reference, "auto" resolves value-dependent trials to
-    "oracle", which the port refuses naming its slice; "device" runs
-    them."""
-    specs = _specs(tengine, [dict(byz=(2,), attack="sign_flip", q=None,
-                                  steps=5)])
-    with pytest.raises(NotImplementedError, match="M10"):
-        repro_torch.run_batch(specs, device="cpu")
-    out = repro_torch.run_batch(specs, device="cpu", schedule="device")
-    assert out.plan.schedule_mode == "device" and len(out[0].losses) == 5
+    "oracle" (the numpy engine's host replay), and the run matches the
+    reference's same call; "device" runs them too."""
+    cfgs = [dict(byz=(2,), attack="sign_flip", q=None, steps=5)]
+    out = repro_torch.run_batch(_specs(tengine, cfgs), device="cpu")
+    ref = _quiet(lambda: jengine.run_batch(_specs(jengine, cfgs),
+                                           backend="jax", mesh=None))
+    assert out.plan.schedule_mode == ref.plan.schedule_mode == "oracle"
+    np.testing.assert_array_equal(out.detect_flags, ref.detect_flags)
+    for a, b in zip(out, ref):
+        assert (a.identify_step, a.q_trace, a.efficiency) == (
+            b.identify_step, b.q_trace, b.efficiency)
+        np.testing.assert_allclose(a.w, np.asarray(b.w), rtol=W_RTOL,
+                                   atol=W_ATOL)
+    dev = repro_torch.run_batch(_specs(tengine, cfgs), device="cpu",
+                                schedule="device")
+    assert dev.plan.schedule_mode == "device" and len(dev[0].losses) == 5
 
 
 def _random_batch(seed):
