@@ -84,6 +84,27 @@ Phases, in order; any failed check exits nonzero:
      one ``serve.audits`` increment per audit; a tampered
      replica caught; reduced llama3.2-1b and gemma3-1b in f32 on the
      card against the CPU;
+   - training (``phase_train``): llama3.2-1b at full width, random
+     init, bf16, trained by ``repro_torch.train.Trainer`` with n = 8
+     workers, f = 2, sign_flip on workers 2 and 5 (every step), sequence
+     256, global batch 16, AdamW, deterministic mode: K6 at the three
+     per-worker shapes (2, 8 and 16 rows), K4s at every leaf size and K3
+     at the vote's (1, 5, 268435456) against their plain versions,
+     reruns bitwise; two honest workers' gradients and sketches bitwise
+     equal; three ``train_step``s (check, vote eliminating both, fast
+     steps) with K6 16 per worker forward, K4s 11 per check member and K3
+     11 per vote counted against the protocol's assignments; a check step
+     with a Byzantine member leaving params and AdamW state bitwise
+     unchanged; an identify step's update bitwise the update from an
+     honest replica's gradient; each step kind's wall and its split
+     (forward, backward, sketch, vote, update), the card's busy share
+     and its kernels by device time (one profiler window), K6's share,
+     tokens/s, peak memory; the same three steps with the plain versions
+     (control equal; the first loss, the later losses' drops and each
+     leaf's update held relatively, the limits set from readings, and a
+     planted control without the protocol, whose update takes the
+     Byzantine gradients, caught by them); reduced llama3.2-1b in f32
+     trained on the card against the CPU (control exact, 1e-4);
 4. a ``{"kernels": [...]}`` line;
 5. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -196,6 +217,27 @@ def device_ms(torch, fn, kernel: str | None, calls: int = 20):
              and e.name != "Activity Buffer Request"    # the profiler's own
              and (kernel is None or kernel in e.name))
     return us / 1e3 / calls if us > 0 else None
+
+
+def kernel_times(torch, fn) -> dict:
+    """{kernel name: (ms, launches)} of one call of ``fn`` (after one
+    warm call), from one ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA and \
+                e.name != "Activity Buffer Request":   # the profiler's own
+            ms, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return out
 
 
 def sass_counts(name: str, kernel: str) -> dict:
@@ -1894,6 +1936,628 @@ def phase_serving(torch, k6_ms: float):
         tokens_agreed=agreed, small_vs_cpu=small)
 
 
+# the training cell: llama3.2-1b at full width (16 layers, d_model 2048,
+# vocab 128256, bf16), random init, n = 8 workers of which f = 2 may be
+# Byzantine, sequence 256, global batch 16, AdamW; sign_flip on workers
+# 2 and 5, which tamper every time (p_tamper 1)
+TRAIN = dict(arch="llama3.2-1b", n=8, f=2, seq_len=256, global_batch=16,
+             byz=(2, 5), scale=10.0, lr=1e-4, steps=3)
+# the kernels' training run against the plain versions' run (bf16
+# weights, K6's bf16 P.V against the plain version's f32 one): the first
+# loss (the forward alone), relatively; each later loss's drop from the
+# first, relatively to the plain run's drop; and each leaf's update
+# p_final - p_init, as ||p_kern - p_plain|| / ||update_plain||.  A leaf
+# that the plain run leaves unchanged (the norm scales: an update of
+# 3e-4 is under half of bf16's ulp at 1.0) must stay unchanged.  The
+# planted control, the update with two sign-flipped gradients in the
+# mean, must exceed the drop and update limits on every moving leaf.
+# Readings on an H100 (PERF.md section 6): the kernels' run 3.5e-6,
+# 3.1e-4 and 0.010..0.066; the planted control's drop 1.9 and updates
+# 1.60..1.65.
+TRAIN_LOSS0_REL = 1e-4
+TRAIN_DROP_REL = 1e-2
+TRAIN_UPDATE_REL = 0.2
+
+
+def train_cfg_objects():
+    from repro_torch.configs import get_config
+    from repro_torch.core.randomized import BFTConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import AttackConfig, TrainerConfig
+
+    cfg = get_config(TRAIN["arch"])
+    opt = OptConfig(kind="adamw", peak_lr=TRAIN["lr"], warmup_steps=1,
+                    total_steps=100)
+    tc = TrainerConfig(seq_len=TRAIN["seq_len"],
+                       global_batch=TRAIN["global_batch"], log_every=0)
+    attack = AttackConfig("sign_flip", 1.0, TRAIN["scale"])
+    return cfg, opt, tc, attack, BFTConfig
+
+
+def train_seed(n, f, byz) -> int:
+    """The first protocol seed whose step-0 check (deterministic mode)
+    puts a Byzantine worker in a replica group and whose identify round
+    holds both: the run then checks, votes, eliminates both and goes on
+    with fast steps (the protocol's streams only; no card work)."""
+    from repro_torch.core.randomized import BFTConfig, ProtocolState
+
+    for seed in range(1000):
+        st = ProtocolState.create(BFTConfig(n=n, f=f, mode="deterministic",
+                                            seed=seed))
+        st.decide_check(1.0)
+        a, ai = st.assignment_check(), st.assignment_identify()
+        if (a.group_of_worker[list(byz)] >= 0).any() and \
+                (ai.group_of_worker[list(byz)] >= 0).all():
+            return seed
+    fail("no protocol seed puts both Byzantine workers in step 0's vote")
+
+
+def expected_train_launches(f_t: int, n_active: int, identified: bool,
+                            L: int, leaves: int) -> dict:
+    """Launches of one deterministic-mode step from the state before it:
+    a check (r = f_t+1) or, with f_t = 0, a fast step; an identify round
+    (r = 2f_t+1) after a fault.  K6 once per layer per computing
+    worker's forward, K4s once per leaf per check member, K3 once per
+    leaf per identify round."""
+    out = {"flash_attention": 0, "sketch": 0, "pairwise_relmax_batched": 0}
+    if f_t == 0:
+        out["flash_attention"] = L * n_active
+        return out
+    r = f_t + 1
+    members = n_active // r * r
+    out["flash_attention"] = L * members
+    out["sketch"] = leaves * members
+    if identified:
+        r = 2 * f_t + 1
+        out["flash_attention"] += L * (n_active // r * r)
+        out["pairwise_relmax_batched"] = leaves
+    return out
+
+
+def train_kernels(torch, cfg, leaf_sizes, row_counts):
+    """K6 at the training path's per-worker shapes, K4s at every leaf
+    size, K3 at the identify vote's largest leaf, each against its plain
+    version on the card with a bitwise rerun, and timed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import majority_vote as mv
+    from repro_torch.kernels import sketch as sk
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    S, H, K, hd = TRAIN["seq_len"], cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    report, rows = {}, {}
+    for B in row_counts:
+        q, k, v = [torch.randn(*s, generator=gen, device=dev).to(
+            torch.bfloat16) for s in ((B, S, H, hd), (B, S, K, hd),
+                                      (B, S, K, hd))]
+        got = fa.flash_attention_cuda(q, k, v)
+        want = fa.flash_attention_plain(q, k, v)
+        err, tile = max_err(got.float(), want.float()), tile_rel_err(got, want)
+        check(close(got.float(), want.float(), 2e-2, 2e-2) and tile <= 1e-2,
+              f"K6 disagrees at the training shape ({B}, {S})")
+        check(bool(torch.equal(got, fa.flash_attention_cuda(q, k, v))),
+              f"K6 rerun differs at the training shape ({B}, {S})")
+        ms = median_ms(torch, lambda: fa.flash_attention_cuda(q, k, v),
+                       launches=20)
+        plain_ms = median_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
+                             reps=5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), launches=20)
+        b_ms, b_by = attn_bound(B, S, S, H, K, hd, True, None, 2)
+        rows[B] = dict(err=err, tile_rel_err=tile, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"K6 training shape (B={B}, S={S}, H={H}, K={K}, hd={hd}) bf16: "
+              f"max|kernel-plain| = {err:.3e}, worst 64-row block {tile:.3e} "
+              f"(tolerances 2e-2 abs + rel, 1e-2); rerun bitwise equal; "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms="
+              f"{library_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        del q, k, v, qt, kt, vt, got, want
+    B = max(row_counts)
+    r6 = rows[B]
+    report["flash_attention_train"] = entry(
+        "flash_attention_train", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:33", r6["err"], r6["ms"],
+        r6["plain_ms"], r6["bound_ms"], r6["bound_by"], r6["library_ms"])
+
+    kk = 256
+    for d in sorted(set(leaf_sizes)):
+        x = torch.randn(d, generator=gen, device=dev)
+        got, want = sk.sketch_cuda(x, 7), sk.sketch_plain(x, 7)
+        err, rel = max_err(got, want), rel_err(got, want)
+        # a bucket sums d / 256 signed terms (a million at the largest
+        # leaves), so the f32 error scales with the sums' size, not with
+        # each bucket's (which may cancel to near 0)
+        print(f"K4s sketch at the leaf size d={d}: max|kernel-plain| = "
+              f"{err:.3e}, / max(1, max|plain|) = {rel:.3e} (tolerance "
+              f"1e-5)")
+        check(rel <= 1e-5, f"K4s disagrees at d={d}")
+        check(bool(torch.equal(got, sk.sketch_cuda(x, 7))),
+              f"K4s rerun differs at d={d}")
+        if d == max(leaf_sizes):
+            ms = median_ms(torch, lambda: sk.sketch_cuda(x, 7), launches=10)
+            plain_ms = median_ms(torch, lambda: sk.sketch_plain(x, 7), reps=3,
+                                 warm=1)
+            signs = sign_table(torch, d + (-d) % kk, 7, dev).reshape(-1, kk)
+            xs_ = F.pad(x, (0, (-d) % kk)).reshape(-1, kk)
+            library_ms = median_ms(torch, lambda: torch.einsum(
+                "mk,mk->k", xs_, signs), launches=10)
+            b_ms, b_by = bound(d * 4 + kk * 4, d, F32_ADDS_S)
+            report["sketch_train"] = entry(
+                "sketch_train", "sketch.cu", "src/repro/kernels/sketch.py:25",
+                err, ms, plain_ms, b_ms, b_by, library_ms)
+            print(f"K4s sketch d={d}: kernel_ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} einsum_ms={library_ms:.4f} bound_ms="
+                  f"{b_ms:.4f} ({b_by}); {b_ms / ms:.1%} of bound")
+            del signs, xs_
+        del x, got, want
+
+    d = max(leaf_sizes)
+    R = 2 * TRAIN["f"] + 1
+    x = torch.randn(1, R, d, generator=gen, device=dev)
+    x[0, 2] = x[0, 0]                                # one agreeing pair
+    got = mv.pairwise_relmax_batched_cuda(x)
+    want = mv.pairwise_relmax_batched_plain(x)
+    err = max_err(got, want)
+    check(close(got, want, 1e-6, 0.0) and float(got[0, 0, 2]) == 0.0,
+          f"K3 disagrees at (1, {R}, {d})")
+    check(bool(torch.equal(got, mv.pairwise_relmax_batched_cuda(x))),
+          "K3 rerun differs at the training shape")
+    ms = median_ms(torch, lambda: mv.pairwise_relmax_batched_cuda(x),
+                   launches=10)
+    plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_batched_plain(x),
+                         reps=3, warm=1)
+    b_ms, b_by = bound(R * d * 4 + R * R * 4, R * R * d, F32_OPS_S)
+    report["pairwise_relmax_batched_train"] = entry(
+        "pairwise_relmax_batched_train", "majority_vote.cu",
+        "src/repro/kernels/majority_vote.py:63", err, ms, plain_ms, b_ms,
+        b_by, None)
+    print(f"K3 relmax at the vote's shape (1, {R}, {d}): max|kernel-plain| "
+          f"= {err:.3e} (tolerance rtol 1e-6); rerun bitwise equal; "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}); {b_ms / ms:.1%} of bound")
+    del x, got, want
+    return report, rows
+
+
+def honest_replicas_equal(torch, cfg, params, rows: int) -> None:
+    """Two honest workers on the same rows: bitwise equal gradients and
+    sketches (the check's premise; the embedding's accumulating backward
+    and cuBLAS's workspaces are where it could break)."""
+    import numpy as np
+
+    from repro_torch.core import detection, tree
+    from repro_torch.train import steps
+
+    rng = np.random.default_rng(2)
+    dev = tree.leaves(params)[0].device
+    V = min(4096, cfg.vocab_size)         # the data pipeline's alphabet
+    tok = torch.as_tensor(rng.integers(0, V, (rows, TRAIN["seq_len"])),
+                          device=dev)
+    lab = torch.as_tensor(rng.integers(0, V, (rows, TRAIN["seq_len"])),
+                          device=dev)
+    none = steps.AttackConfig("none")
+    g0 = steps.per_worker_grad(params, tok, lab, False, (0, 0), cfg, none)[1]
+    g1 = steps.per_worker_grad(params, tok, lab, False, (0, 1), cfg, none)[1]
+    same = [bool(torch.equal(a, b)) for a, b in zip(tree.leaves(g0),
+                                                    tree.leaves(g1))]
+    s0, s1 = (detection.sketch_tree(g, 0xC0FFEE) for g in (g0, g1))
+    print(f"honest replicas ({rows} x {TRAIN['seq_len']} tokens, full "
+          f"width): gradients bitwise equal on {sum(same)} of {len(same)} "
+          f"leaves; sketches bitwise equal: {bool(torch.equal(s0, s1))}")
+    check(all(same) and bool(torch.equal(s0, s1)),
+          "honest replicas' gradients or sketches differ on the card")
+
+
+def snapshot(torch, params, state):
+    from repro_torch.core import tree
+
+    return [t.clone() for t in tree.leaves(params) + tree.leaves(state)]
+
+
+def same_as(torch, params, state, snap) -> bool:
+    from repro_torch.core import tree
+
+    return all(bool(torch.equal(a, b)) for a, b in
+               zip(tree.leaves(params) + tree.leaves(state), snap))
+
+
+def train_step_checks(torch, cfg, opt, trainer, attack):
+    """On the trained model (AdamW state nonzero): a check step that
+    finds a fault leaves params and state bitwise unchanged (grad_norm,
+    lr reported 0); an identify step's update equals the update from an
+    honest replica's gradient, bitwise."""
+    import numpy as np
+
+    from repro_torch.core import tree
+    from repro_torch.core.assignment import (check_assignment, group_members,
+                                             identify_assignment)
+    from repro_torch.data import global_batch_for_step, worker_batches
+    from repro_torch.optim import opt_update
+    from repro_torch.train import steps
+
+    n, f, byz = TRAIN["n"], TRAIN["f"], list(TRAIN["byz"])
+    mask = np.isin(np.arange(n), byz)
+    step = trainer.state.step
+    batch = global_batch_for_step(cfg, global_batch=TRAIN["global_batch"],
+                                  seq_len=TRAIN["seq_len"], step=step)
+    sc = steps.StepConfig()
+    rng = np.random.default_rng(0)
+    while True:
+        a = check_assignment(np.ones(n, bool), f, rng)
+        if (a.group_of_worker[byz] >= 0).any():
+            break
+    fn = steps.make_check_step(cfg, opt, sc, attack, a.num_shards)
+    snap = snapshot(torch, trainer.params, trainer.opt_state)
+    p, s, m = fn(trainer.params, trainer.opt_state, worker_batches(batch, a),
+                 a.weight, mask, a.group_of_worker, trainer.key, step)
+    unchanged = same_as(torch, p, s, snap)
+    print(f"check step with a Byzantine member: any_fault {m['any_fault']}, "
+          f"group_fault {m['group_fault'].tolist()}, grad_norm "
+          f"{float(m['grad_norm'])}, lr {float(m['lr'])}; params and AdamW "
+          f"state bitwise unchanged: {unchanged}")
+    check(m["any_fault"] and unchanged and float(m["grad_norm"]) == 0.0
+          and float(m["lr"]) == 0.0, "a faulty check step changed the model")
+
+    while True:
+        ai = identify_assignment(np.ones(n, bool), f, rng)
+        members = np.stack(group_members(ai))
+        if np.isin(members, byz).any():
+            break
+    fn = steps.make_identify_step(cfg, opt, sc, attack, members)
+    p, s, m = fn(p, s, worker_batches(batch, ai), ai.weight, mask,
+                 trainer.key, step)
+    found = np.flatnonzero(m["byz"]).tolist()
+    want = sorted(set(members.ravel().tolist()) & set(byz))
+    honest = int(next(w for w in members[0] if w not in byz))
+    wb = worker_batches(batch, ai)
+    ref_p = tree.unflatten(trainer.params, snap[:len(tree.leaves(p))])
+    ref_s = tree.unflatten(trainer.opt_state, snap[len(tree.leaves(p)):])
+    _, g, _ = steps.per_worker_grad(
+        ref_p, torch.as_tensor(wb["tokens"][honest], device=trainer.device),
+        torch.as_tensor(wb["labels"][honest], device=trainer.device), False,
+        (0, 0), cfg, attack)
+    opt_update(opt, g, ref_s, ref_p, step)
+    equal = same_as(torch, p, s, tree.leaves(ref_p) + tree.leaves(ref_s))
+    print(f"identify step (members {members.tolist()}): found {found} "
+          f"(tampering members {want}); its update equals the update from "
+          f"honest worker {honest}'s gradient, bitwise: {equal}")
+    check(found == want and equal, "the identify step's verdict or update "
+                                   "is not the honest replica's")
+    del snap, ref_p, ref_s, g
+
+
+def mode_walls(torch, cfg, opt, trainer, rows_k6_ms):
+    """Each step kind once for its wall and once under a PhaseClock for
+    its split, on the trained model, honest workers."""
+    import numpy as np
+
+    from repro_torch.core.assignment import (check_assignment,
+                                             fast_assignment, group_members,
+                                             identify_assignment)
+    from repro_torch.data import global_batch_for_step, worker_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps
+
+    n, f, L = TRAIN["n"], TRAIN["f"], cfg.num_layers
+    none = steps.AttackConfig("none")
+    sc = steps.StepConfig()
+    batch = global_batch_for_step(cfg, global_batch=TRAIN["global_batch"],
+                                  seq_len=TRAIN["seq_len"], step=0)
+    act = np.ones(n, bool)
+    rng = np.random.default_rng(1)
+    cases = {
+        "fast": fast_assignment(act),
+        "check": check_assignment(act, f, rng),
+        "identify": identify_assignment(act, f, rng),
+    }
+    out = {}
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    for mode, a in cases.items():
+        members = int((a.group_of_worker >= 0).sum())
+        rows = TRAIN["global_batch"] // a.num_shards
+        wb = worker_batches(batch, a)
+
+        def run(clock=None):
+            if mode == "fast":
+                fn = steps.make_fast_step(cfg, opt, sc, none, clock=clock)
+                args = (wb, a.weight, np.zeros(n, bool))
+            elif mode == "check":
+                fn = steps.make_check_step(cfg, opt, sc, none, a.num_shards,
+                                           clock=clock)
+                args = (wb, a.weight, np.zeros(n, bool), a.group_of_worker)
+            else:
+                fn = steps.make_identify_step(
+                    cfg, opt, sc, none, np.stack(group_members(a)),
+                    clock=clock)
+                args = (wb, a.weight, np.zeros(n, bool))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(trainer.params, trainer.opt_state, *args, trainer.key, 1)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        ops.reset_launch_counts()
+        wall = run()
+        counts = ops.launch_counts()
+        clock = steps.PhaseClock()
+        clocked = run(clock)
+        # the card's busy time in one step: every kernel's duration
+        # from one torch.profiler window (one stream, no overlap)
+        times = kernel_times(torch, run)
+        dev_ms = sum(ms for ms, _ in times.values()) or None
+        busy = None if dev_ms is None else dev_ms / 1e3 / wall
+        top = sorted(times.items(), key=lambda kv: -kv[1][0])[:6]
+        k6 = L * members * rows_k6_ms[rows] / 1e3
+        out[mode] = dict(
+            wall_s=wall, clocked_wall_s=clocked, phases_s=dict(clock.s),
+            device_busy_s=None if dev_ms is None else dev_ms / 1e3,
+            device_busy_share=busy,
+            device_launches=sum(n for _, n in times.values()),
+            top_kernels=[(name[:80], ms, n) for name, (ms, n) in top],
+            workers=members, rows_per_worker=rows,
+            batch_tokens_per_s=tokens / wall,
+            computed_tokens_per_s=members * rows * TRAIN["seq_len"] / wall,
+            k6_s=k6, k6_share=k6 / wall, launches=counts)
+        split = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            clock.s.items(), key=lambda kv: -kv[1]))
+        print(f"train {mode} step ({members} workers x {rows} rows x "
+              f"{TRAIN['seq_len']}): wall {wall:.4f} s, {tokens / wall:.1f} "
+              f"batch tokens/s ({members * rows * TRAIN['seq_len'] / wall:.1f}"
+              f" computed); K6 {L * members} x {rows_k6_ms[rows]:.4f} ms = "
+              f"{k6 / wall:.1%} of the wall; card busy (profiler) "
+              + ("not measured" if busy is None else
+                 f"{dev_ms:.1f} ms = {busy:.1%} of the wall")
+              + f"; clocked {clocked:.4f} s: {split}; launches {counts}")
+        print(f"  {mode}: {sum(n for _, n in times.values())} kernels on "
+              f"the card; by device time: " + "; ".join(
+                  f"{name[:60]} {ms:.1f} ms x{n}" for name, (ms, n) in top))
+    return out
+
+
+def phase_train(torch):
+    """llama3.2-1b trained at full width by 8 workers (2 Byzantine) on
+    the card: the training kernels against their plain versions, honest
+    replicas bitwise equal, the deterministic protocol's main path with
+    launch counts, the skipped check and the identify update bitwise,
+    each step kind's wall and split, the same run with the plain
+    versions and a planted control it must catch, and a reduced f32 run
+    on the card against the CPU."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import StepConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg, opt, tc, attack, BFTConfig = train_cfg_objects()
+    n, f, byz = TRAIN["n"], TRAIN["f"], TRAIN["byz"]
+    gb = TRAIN["global_batch"]
+    row_counts = (gb // n, gb // (n // (f + 1)), gb // (n // (2 * f + 1)))
+    params = M.init_train(cfg, 0)
+    leaves = tree.leaves(params)
+    sizes = [t.numel() for t in leaves]
+    print(f"training cell: {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}), {sum(sizes) / 1e9:.4f} B "
+          f"parameters in {len(leaves)} leaves {sizes}; n={n}, f={f}, "
+          f"Byzantine {list(byz)} (sign_flip x {TRAIN['scale']}, every "
+          f"step), seq {TRAIN['seq_len']}, global batch {gb}, AdamW")
+    del params, leaves
+    report, k6_rows = train_kernels(torch, cfg, sizes, row_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    seed = train_seed(n, f, byz)
+    mask = np.isin(np.arange(n), byz)
+
+    def trainer(impl=None):
+        return Trainer(cfg, opt, BFTConfig(n=n, f=f, mode="deterministic",
+                                           seed=seed), tc, attack=attack,
+                       sc=StepConfig(), true_byzantine=mask, impl=impl)
+
+    tr = trainer()
+    init = [x.detach().to("cpu", copy=True) for x in tree.leaves(tr.params)]
+    honest_replicas_equal(torch, cfg, tr.params, row_counts[1])
+
+    def drive(t):
+        """The main path: t.train_step() TRAIN["steps"] times; returns
+        the launches expected from the protocol state before each step
+        and each step's wall."""
+        want = {"flash_attention": 0, "sketch": 0, "pairwise_relmax_batched": 0}
+        walls = []
+        for _ in range(TRAIN["steps"]):
+            f_t, n_act = t.state.f_t, int(t.state.active.sum())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = t.train_step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            for k, v in expected_train_launches(
+                    f_t, n_act, "identified" in rec, cfg.num_layers,
+                    len(sizes)).items():
+                want[k] += v
+        return want, walls
+
+    ops.reset_launch_counts()
+    want, walls = drive(tr)
+    launches = ops.launch_counts()
+    hist = tr.history
+    ident = sorted(np.flatnonzero(tr.state.identified).tolist())
+    print(f"training main path ({TRAIN['steps']} steps, deterministic, "
+          f"protocol seed {seed}): records {hist}; step walls "
+          f"{[round(w, 4) for w in walls]} s; launches {launches} (expected "
+          f"{want})")
+    check(all(launches[k] == v for k, v in want.items()) and
+          launches["flash_attention"] > 0 and launches["sketch"] > 0 and
+          launches["pairwise_relmax_batched"] > 0,
+          "training launches differ from the protocol's count")
+    check(bool(ident) and set(ident) <= set(byz),
+          f"identified {ident}, want a non-empty subset of {list(byz)}")
+    check(all(np.isfinite(r["loss"]) for r in hist), "non-finite loss")
+    final = [t.detach().to("cpu", copy=True) for t in tree.leaves(tr.params)]
+
+    train_step_checks(torch, cfg, opt, tr, attack)
+    modes = mode_walls(torch, cfg, opt, tr, {B: r["ms"] for B, r in
+                                             k6_rows.items()})
+    peak = torch.cuda.max_memory_allocated()
+    print(f"training: torch.cuda.max_memory_allocated = {peak / 2**30:.2f} "
+          f"GiB")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same main path with the plain versions on the card, then the
+    # planted control: the plain versions with no protocol (mode "none"),
+    # so workers 2 and 5's sign-flipped gradients enter the mean
+    def run_to_cpu(t):
+        drive(t)
+        return t.history, [x.detach().to("cpu", copy=True)
+                           for x in tree.leaves(t.params)]
+
+    tp = trainer("torch")
+    ops.reset_launch_counts()
+    plain_hist, plain_final = run_to_cpu(tp)
+    plain_launches = ops.launch_counts()
+    del tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    tn = Trainer(cfg, opt, BFTConfig(n=n, f=f, mode="none", seed=seed), tc,
+                 attack=attack, sc=StepConfig(), true_byzantine=mask,
+                 impl="torch")
+    planted_hist, planted_final = run_to_cpu(tn)
+    del tn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    same_ctl = [{k: v for k, v in r.items() if k != "loss"}
+                for r in plain_hist] == \
+        [{k: v for k, v in r.items() if k != "loss"} for r in hist]
+    sound = train_run_diffs(torch, init, final, hist, plain_final,
+                            plain_hist)
+    planted = train_run_diffs(torch, init, planted_final, planted_hist,
+                              plain_final, plain_hist)
+    print(f"kernels vs plain versions on the card: control equal {same_ctl}; "
+          f"{train_diff_text(sound)}; plain run launched "
+          f"{sum(plain_launches.values())} kernels")
+    print(f"planted control (plain versions, mode none, workers "
+          f"{list(byz)} sign-flipped into the mean) vs plain versions: "
+          f"{train_diff_text(planted)}")
+    check(same_ctl and sound["loss0_rel"] <= TRAIN_LOSS0_REL and
+          sound["drop_rel"] <= TRAIN_DROP_REL and
+          sound["update_rel_max"] <= TRAIN_UPDATE_REL and
+          sound["still_equal"] and sum(plain_launches.values()) == 0,
+          "training with the kernels differs from the plain versions")
+    check(planted["drop_rel"] > TRAIN_DROP_REL and
+          planted["update_rel_min"] > TRAIN_UPDATE_REL,
+          "the comparison with the plain versions does not catch the "
+          "planted wrong gradient")
+    del final, plain_final, planted_final, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = train_small_vs_cpu(torch)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase_train: {phase_s:.1f} s")
+    return launches, report, dict(
+        seed=seed, history=hist, step_walls_s=walls, launches=launches,
+        expected_launches=want, modes=modes, peak_memory_bytes=peak,
+        k6_rows=k6_rows, vs_plain=sound, planted_vs_plain=planted,
+        small_vs_cpu=small,
+        phase_s=phase_s)
+
+
+def train_run_diffs(torch, init, final, hist, ref_final, ref_hist) -> dict:
+    """How far a training run lies from a reference run from the same
+    initial leaves (CPU tensors): the first loss's relative difference,
+    the largest difference of a later loss's drop from the first over
+    the reference's drop, and per leaf ||final - ref|| / ||ref - init||
+    (f32 on the card) over the leaves the reference moves."""
+    loss0_rel = abs(hist[0]["loss"] - ref_hist[0]["loss"]) / abs(
+        ref_hist[0]["loss"])
+    drop_rel = max(
+        abs((a["loss"] - hist[0]["loss"]) - (b["loss"] - ref_hist[0]["loss"]))
+        / abs(b["loss"] - ref_hist[0]["loss"])
+        for a, b in zip(hist[1:], ref_hist[1:]))
+    rel, still = [], True
+    for p0, a, b in zip(init, final, ref_final):
+        p0, a, b = (t.to("cuda").float() for t in (p0, a, b))
+        moved = float((b - p0).norm())
+        if moved == 0.0:
+            still = still and bool((a == p0).all())
+        else:
+            rel.append(float((a - b).norm()) / moved)
+        del p0, a, b
+    return dict(loss0_rel=loss0_rel, drop_rel=drop_rel, update_rel=rel,
+                update_rel_max=max(rel), update_rel_min=min(rel),
+                moving_leaves=len(rel), still_equal=still)
+
+
+def train_diff_text(d: dict) -> str:
+    return (f"first loss rel diff {d['loss0_rel']:.3e} (limit "
+            f"{TRAIN_LOSS0_REL}), loss drops rel diff {d['drop_rel']:.3e} "
+            f"(limit {TRAIN_DROP_REL}), leaf updates rel diff "
+            f"{d['update_rel_min']:.4f}..{d['update_rel_max']:.4f} over "
+            f"{d['moving_leaves']} moving leaves (limit {TRAIN_UPDATE_REL}), "
+            f"unmoved leaves equal {d['still_equal']}")
+
+
+def train_small_vs_cpu(torch) -> dict:
+    """Reduced llama3.2-1b in f32 trained on the card against the CPU
+    (randomized, q 0.5, sign_flip on [2, 5], momentum, 5 steps): control
+    exact, losses within 1e-4 relative, parameters within 1e-4 (1 +
+    max|p|)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.core.randomized import BFTConfig
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (AttackConfig, StepConfig, Trainer,
+                                   TrainerConfig)
+    import numpy as np
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              dtype="float32")
+    init = M.init_train(cfg, 0, device="cpu")
+    mask = np.isin(np.arange(8), [2, 5])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t = Trainer(cfg, OptConfig(kind="momentum", peak_lr=0.05,
+                                   warmup_steps=2, total_steps=40),
+                    BFTConfig(n=8, f=2, mode="randomized", q=0.5,
+                              p_assumed=0.6, seed=17),
+                    TrainerConfig(seq_len=16, global_batch=16, log_every=0),
+                    attack=AttackConfig("sign_flip", 0.6, 5.0),
+                    sc=StepConfig(), true_byzantine=mask, device=dev,
+                    params=M.map_params(lambda x: x.to(dev).clone(), init))
+        t.run(5)
+        runs[dev] = t
+    c, g = runs["cpu"], runs["cuda"]
+    ctl = [{k: v for k, v in r.items() if k != "loss"} for r in g.history] \
+        == [{k: v for k, v in r.items() if k != "loss"} for r in c.history]
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(g.history, c.history))
+    p_err = max(float((a.cpu() - b).abs().max()) / (1 + float(b.abs().max()))
+                for a, b in zip(tree.leaves(g.params), tree.leaves(c.params)))
+    ident = sorted(np.flatnonzero(g.state.identified).tolist())
+    print(f"small {cfg.name} f32 training card vs CPU: control equal {ctl} "
+          f"(identified {ident}); losses max rel diff {loss_err:.3e} "
+          f"(tolerance 1e-4); params max|d|/(1+max|p|) {p_err:.3e} "
+          f"(tolerance 1e-4)")
+    check(ctl and loss_err <= 1e-4 and p_err <= 1e-4,
+          "small training run: card vs CPU differ")
+    return dict(control_equal=ctl, loss_rel_err=loss_err,
+                param_rel_err=p_err, identified=ident)
+
+
 def main() -> int:
     import torch
 
@@ -1928,14 +2592,21 @@ def main() -> int:
     small = phase_small_vs_cpu(torch)
     launches["serving"], serving = phase_serving(
         torch, kernels["flash_attention"]["ms"])
-    # each kernel's launches summed over the counted path runs
+    launches["training"], train_report, training = phase_train(torch)
+    kernels.update(train_report)
+    # each kernel's launches summed over the counted path runs but the
+    # training path's, which the training rows count
     for key, kv in kernels.items():
-        kv["launches"] = sum(run.get(key, 0) for run in launches.values())
+        kv["launches"] = sum(run.get(key, 0) for path, run in launches.items()
+                             if path != "training")
+    for key in train_report:
+        kernels[key]["launches"] = launches["training"][
+            key.removesuffix("_train")]
     main_path = dict(gram_sweep=gram, **stream, device_control=device_ctl,
                      oracle=oracle,
                      launches=launches,
                      small_vs_cpu_w_err=small, serving=serving,
-                     attention=attention)
+                     attention=attention, training=training)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -1,19 +1,31 @@
 """Replica-group fault detection on per-worker symbols.
 
-Port of ``repro.core.detection.detect_groups_batched``: each worker's
-symbols are compared against its group's FIRST member (ascending worker
-id) with an ABSOLUTE tolerance.  Sketches are linear and honest replicas
-are bitwise copies, so a group's symbols are equal exactly when its
-gradients are.  ``hash_sign_sketch`` and ``key_scalar_for_seed`` are the
-sketch and key of the serving audit (``repro_torch.serving``).
+Port of ``repro.core.detection``.
+
+ * ``detect_groups_batched`` (the scenario engines): each worker's
+   symbols against its group's FIRST member (ascending worker id) with
+   an ABSOLUTE tolerance.  Sketches are linear and honest replicas are
+   bitwise copies, so a group's symbols are equal exactly when its
+   gradients are.
+ * ``sketch_tree``, ``detect_groups``, ``detect_full`` (the trainer's
+   check step): each worker's gradient tree is sketched into one (k,)
+   symbol, one K4s launch per leaf, and each member is held against its
+   group's mean within a RELATIVE tolerance tau.
+ * ``hash_sign_sketch`` and ``key_scalar_for_seed`` are also the sketch
+   and key of the serving audit (``repro_torch.serving``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prngkey
+from repro_torch.core.tree import leaves
 from repro_torch.kernels import ops
 
 DEFAULT_K = 256
+DEFAULT_TAU = 1e-5
+# the golden-ratio step between the leaves' sketch keys
+LEAF_KEY_STEP = 0x9E3779B9
 
 
 def hash_sign_sketch(flat_g: torch.Tensor, key_scalar, k: int = DEFAULT_K, *,
@@ -21,6 +33,60 @@ def hash_sign_sketch(flat_g: torch.Tensor, key_scalar, k: int = DEFAULT_K, *,
     """CountSketch of a flat vector: (d,) -> (k,) float32 (``ops.sketch``:
     K4s on a CUDA tensor)."""
     return ops.sketch(flat_g.reshape(-1), key_scalar, k, impl=impl)
+
+
+def sketch_tree(grad_tree, key_scalar, k: int = DEFAULT_K, *,
+                impl: str | None = None) -> torch.Tensor:
+    """One (k,) float32 symbol for a whole gradient tree: leaf i (in
+    ``core.tree`` order, the reference's ``jax.tree.leaves``) sketched
+    over its flat layout under the key ``key_scalar + 0x9E3779B9 (i+1)``
+    mod 2^32, so equal values in different leaves do not cancel, and the
+    leaf sketches summed in order.  Linear: equal gradients give equal
+    symbols."""
+    total = None
+    for i, leaf in enumerate(leaves(grad_tree)):
+        key = (int(key_scalar) + LEAF_KEY_STEP * (i + 1)) & 0xFFFFFFFF
+        s = hash_sign_sketch(leaf.reshape(-1), key, k, impl=impl)
+        total = s if total is None else total + s
+    return total
+
+
+key_scalar_for_step = prngkey.key_scalar_for_step
+
+
+def detect_groups(symbols: torch.Tensor, group_of_worker: torch.Tensor,
+                  num_groups: int, tau: float = DEFAULT_TAU):
+    """Per-group fault flags from per-worker symbols.
+
+    symbols (n, k) float32; group_of_worker (n,) int, -1 idle.  Returns
+    (group_fault (num_groups,) bool, worker_mismatch (n,) bool): a
+    member mismatches when a symbol leaves its group's mean by more than
+    tau * (1 + |mean|); a group is faulty when a member mismatches.
+    With r = f+1 replicas a mismatch does not prove which member lied;
+    that takes the reactive 2f+1 round, as the paper argues."""
+    valid = group_of_worker >= 0
+    gid = torch.where(valid, group_of_worker, 0).to(torch.int64)
+    onehot = torch.nn.functional.one_hot(gid, num_groups).to(symbols.dtype) \
+        * valid[:, None].to(symbols.dtype)
+    count = onehot.sum(dim=0)
+    gsum = torch.einsum("nk,ng->gk", symbols, onehot)
+    gmean = gsum / torch.clamp(count, min=1.0)[:, None]
+    ref = gmean[gid]
+    mismatch = ((symbols - ref).abs() > tau * (1.0 + ref.abs())).any(dim=-1) \
+        & valid
+    group_fault = torch.zeros(num_groups, dtype=torch.int64,
+                              device=symbols.device).index_add_(
+        0, gid, mismatch.to(torch.int64)) > 0
+    return group_fault, mismatch
+
+
+def detect_full(replica_grads: torch.Tensor, tau: float = DEFAULT_TAU):
+    """Paper-faithful replica comparison on full gradients: (r, d) ->
+    () bool, True when the replicas are not unanimous within tau of the
+    first one's magnitude."""
+    ref = replica_grads[0]
+    return ((replica_grads - ref[None]).abs()
+            > tau * (1.0 + ref.abs())[None]).any()
 
 
 def key_scalar_for_seed(n: int) -> int:

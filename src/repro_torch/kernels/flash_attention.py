@@ -5,7 +5,11 @@ its plain PyTorch version.
 hd)`` with K | H, causal (queries aligned to the end of the keys), an
 optional sliding window, f32 or bf16 in and q's dtype out, every sum in
 f32.  The plain version is ``ref.flash_attention_ref``, the port of the
-reference's ``blockwise_attention``.  The CUDA kernel lives in
+reference's ``blockwise_attention``.  ``FlashAttention`` gives the
+forward a gradient for training: the reference has no Pallas backward
+(its training differentiates XLA's ``blockwise_attention``), so the
+backward recomputes the plain version under autograd and differentiates
+that.  The CUDA kernel lives in
 ``csrc/flash_attention.cu``, whose header note says which TPU kernel it
 replaces (src/repro/kernels/flash_attention.py:33), what bounds it on
 the H100 and what its design does about it.
@@ -39,6 +43,30 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_window(window)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     scale=scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is K6 (``impl="cuda"``) or the plain
+    version (``impl="torch"``), computed without a graph, and whose
+    backward recomputes the plain version from the saved q, k, v and
+    differentiates it.  Only the forward launches the kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, impl):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, scale)
+        if impl == "cuda":
+            return flash_attention_cuda(q, k, v, causal, window, scale)
+        return flash_attention_plain(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window, scale = ctx.mask
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_attention_plain(*qkv, causal, window, scale)
+            dq, dk, dv = torch.autograd.grad(out, qkv, grad_out)
+        return dq, dk, dv, None, None, None, None
 
 
 def _lib():

@@ -241,7 +241,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     impl: str | None = None) -> torch.Tensor:
     """GQA attention forward (K6): q (B, Sq, H, hd), k / v (B, Sk, K, hd)
     with K | H -> (B, Sq, H, hd) in q's dtype; causal with the queries
-    aligned to the end of the keys, optional sliding ``window``."""
-    if resolve_impl(impl, q.device) == "cuda":
+    aligned to the end of the keys, optional sliding ``window``.  Where
+    autograd records (an input requires grad), the call goes through
+    ``flash_attention.FlashAttention``: the same forward, with the plain
+    version's gradient."""
+    use = resolve_impl(impl, q.device)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, scale, use)
+    if use == "cuda":
         return _fa.flash_attention_cuda(q, k, v, causal, window, scale)
     return _fa.flash_attention_plain(q, k, v, causal, window, scale)

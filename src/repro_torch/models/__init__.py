@@ -1,11 +1,19 @@
 """Dense decoder models of the port: layers, attention (prefill through
-K6), the layer stack, the model facade and the converter from the JAX
+K6), the layer stack, the model facade (serving, and the training loss
+in the reference's stacked layout) and the converters from the JAX
 package's parameters."""
-from repro_torch.models.convert import from_jax_params  # noqa: F401
+from repro_torch.models.convert import (  # noqa: F401
+    from_jax_params,
+    from_jax_train_params,
+)
 from repro_torch.models.model import (  # noqa: F401
     allocate_cache,
     decode_step,
     forward,
     init,
+    init_train,
+    layer_views,
     prefill,
+    stack_layers,
+    train_loss,
 )

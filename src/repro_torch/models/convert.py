@@ -27,6 +27,14 @@ def to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def from_jax_train_params(cfg: ModelConfig, tree, device=None):
+    """The reference's parameter tree (numpy leaves) in its own stacked
+    layout, the trainer's (``model.init_train``), on ``device``."""
+    tfm.require_dense(cfg)
+    dev = M.resolve_device(device)
+    return M.map_params(lambda a: to_tensor(a).to(dev), tree)
+
+
 def from_jax_params(cfg: ModelConfig, tree, device=None):
     """The reference's parameter tree (numpy leaves) as the port's, on
     ``device`` (``None``: the card, which must exist)."""

@@ -15,12 +15,21 @@ builds it from the reference's stacked tree.  Every entry point runs on
 the card unless ``device="cpu"`` is asked for, and raises without one.
 The KV cache is ``{"k", "v"}``, each (L_attn, B, cache_len, K*hd) in
 the config's dtype, written in place by ``decode_step``.
+
+Training keeps the reference's own layout instead (``stack_layers``,
+``init_train``): ``{"decoder": [[slot per pattern position] per layer
+group], "embed", "final_norm"}``, each slot's leaves stacked over the
+group's repeats, so the tree flattens to the reference's leaves (11 for
+llama3.2-1b).  ``train_loss`` runs ``forward`` on per-layer views of
+those leaves (``layer_views``, one ``unbind`` a leaf, whose backward is
+one ``stack``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, layer_kinds
+from repro_torch.configs.base import ModelConfig, layer_groups, layer_kinds
+from repro_torch.core import tree as tree_mod
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (dtype_of, embed, init_weight, mlp,
@@ -90,6 +99,70 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
                        "ffn": {"gate": w(D, F), "up": w(D, F),
                                "down": w(F, D)}})
     return {"embed": emb, "layers": layers, "final_norm": ones(D)}
+
+
+def _slot_layers(cfg: ModelConfig):
+    """(group, position in the pattern, [layer index per repeat])."""
+    off = 0
+    for g, group in enumerate(layer_groups(cfg)):
+        P = len(group.pattern)
+        for pos in range(P):
+            yield g, pos, [off + r * P + pos for r in range(group.repeats)]
+        off += group.num_layers
+
+
+def stack_layers(params, cfg: ModelConfig):
+    """Per-layer parameters -> the reference's stacked training layout
+    (layer ``off + r * len(pattern) + pos`` is row r of slot [g][pos])."""
+    decoder = [[None] * len(group.pattern) for group in layer_groups(cfg)]
+    for g, pos, idx in _slot_layers(cfg):
+        decoder[g][pos] = tree_mod.tree_map(
+            lambda *xs: torch.stack(xs), *[params["layers"][i] for i in idx])
+    return {"decoder": decoder, "embed": params["embed"],
+            "final_norm": params["final_norm"]}
+
+
+def layer_views(tree, cfg: ModelConfig):
+    """The stacked training layout -> the per-layer layout ``forward``
+    takes, each layer's tensors views of the stacked leaves."""
+    layers = [None] * cfg.num_layers
+    for g, pos, idx in _slot_layers(cfg):
+        slot = tree["decoder"][g][pos]
+        rows = [leaf.unbind(0) for leaf in tree_mod.leaves(slot)]
+        for r, i in enumerate(idx):
+            layers[i] = tree_mod.unflatten(slot, [u[r] for u in rows])
+    return {"embed": tree["embed"], "layers": layers,
+            "final_norm": tree["final_norm"]}
+
+
+def init_train(cfg: ModelConfig, seed: int = 0, device=None):
+    """``init`` in the stacked training layout."""
+    params = init(cfg, seed, device)
+    out = stack_layers(params, cfg)
+    del params
+    return out
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
+    """Mean next-token cross-entropy of the stacked-layout ``params`` on
+    {tokens, labels (B, S)} (labels < 0 ignored); returns (loss,
+    {"ce", "moe_aux"}).  CE = logsumexp - label logit over the f32
+    logits: the gather equals the reference's one-hot contraction, whose
+    other terms are exact zeros.  Dense models only: the loss is the CE
+    and the MoE aux metric is 0.
+    Differentiable: attention goes through ``ops.flash_attention``'s
+    autograd form."""
+    logits, _ = forward(layer_views(params, cfg), batch, cfg, impl=impl)
+    labels = _tokens(batch["labels"], logits.device)
+    valid = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = lse - label_logit
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = torch.where(valid, nll, 0.0).sum() / denom
+    return ce, {"ce": ce,
+                "moe_aux": torch.zeros((), dtype=torch.float32,
+                                       device=logits.device)}
 
 
 def _tokens(tokens, device) -> torch.Tensor:

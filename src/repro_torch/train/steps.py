@@ -1,0 +1,338 @@
+"""The BFT train steps (paper §4): fast, check, identify and filter.
+
+Port of ``repro.train.steps``.  The reference runs each worker as one
+shard of a ``shard_map`` over the ``data`` mesh axis and combines them
+with ``psum`` / ``all_gather``; here the n workers run one after another
+on one device, and what the reference sums over the axis is a weighted
+f32 sum in worker order, what it gathers is a stack.
+
+  fast_step      plain parallelized SGD (efficiency 1).
+  check_step     replicated computation (r = f_t+1) + detection; the
+                 update is applied iff NO fault is detected, otherwise
+                 params and optimizer state are left bitwise unchanged
+                 and grad_norm and lr are reported as 0 (the reference's
+                 ``lax.cond``), and the trainer escalates.
+  identify_step  reactive redundancy (r = 2f_t+1) + majority vote per
+                 leaf on K3: the voted (exact) gradient is applied and
+                 the per-worker Byzantine verdicts returned.
+  filter_step    gradient-filter baselines over every worker's gradient.
+
+Each worker's key is ``fold_in(fold_in(key, step), w)``; the identify
+round reuses the check round's step, so a Byzantine worker that
+tampered in the check tampers again.  A worker outside every replica
+group (weight 0, group -1) computes nothing: the reference computes its
+gradient and gives it weight 0 or masks it out, and the efficiency
+meter does not count it.  Every step function takes (params, opt_state,
+wbatch {tokens, labels (n, rows, S)}, weights (n,), byz_mask (n,),
+[group_of_worker (n,),] key, step) and returns (params, opt_state,
+metrics), updating the first two in place.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from repro_torch.core import byzantine, detection, prngkey, tree
+from repro_torch.kernels import ops
+from repro_torch.models import model as M
+from repro_torch.optim import OptConfig, opt_update
+
+
+@dataclasses.dataclass(frozen=True)
+class AttackConfig:
+    kind: str = "sign_flip"
+    p_tamper: float = 1.0        # the paper's p_i: per-iteration tamper prob
+    scale: float = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    detection: str = "sketch"    # "sketch" | "full"
+    sketch_k: int = 256
+    tau: float = 1e-5
+
+
+def num_workers(weights) -> int:
+    """Workers of a step: one weight each (the reference's product of
+    the worker mesh axes)."""
+    return len(weights)
+
+
+class PhaseClock:
+    """Seconds per phase of the step functions (forward, backward,
+    tamper, sketch, detect, aggregate, vote, update), for the card's
+    breakdown.  Each phase starts and ends with a device synchronize, so
+    a clocked step serializes host and device; leave it off (None) for
+    the step's own wall."""
+
+    def __init__(self):
+        self.s: dict[str, float] = defaultdict(float)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        sync = torch.cuda.synchronize if torch.cuda.is_available() \
+            else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            sync()
+            self.s[name] += time.perf_counter() - t0
+
+
+def _phase(clock, name):
+    return contextlib.nullcontext() if clock is None else clock(name)
+
+
+def worker_key(key, step: int, w: int):
+    return prngkey.fold_in(prngkey.fold_in(key, step), w)
+
+
+def per_worker_grad(params, tokens, labels, byz, key, cfg, attack, *,
+                    impl=None, clock=None):
+    """(loss () f32, gradient tree, did_tamper) of one worker's rows:
+    the loss's gradient with respect to every leaf of ``params``
+    (detached aliases, so ``params`` themselves need no grad), tampered
+    as the worker's attack and coin say."""
+    req = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    with _phase(clock, "forward"):
+        loss, _ = M.train_loss(tree.unflatten(params, req),
+                               {"tokens": tokens, "labels": labels}, cfg,
+                               impl=impl)
+    with _phase(clock, "backward"):
+        grads = torch.autograd.grad(loss, req)
+    del req
+    with _phase(clock, "tamper"):
+        gtree, did = byzantine.maybe_tamper(
+            tree.unflatten(params, list(grads)), is_byz=byz, key=key,
+            attack=attack.kind, p_tamper=attack.p_tamper, scale=attack.scale)
+    return loss.detach(), gtree, did
+
+
+class _Workers:
+    """Runs the workers of one step in order and sums what the
+    reference psums: w * loss and w * g (f32), in worker order."""
+
+    def __init__(self, params, wbatch, weights, byz_mask, key, step, cfg,
+                 attack, impl, clock):
+        dev = tree.leaves(params)[0].device
+        self.params, self.cfg, self.attack = params, cfg, attack
+        self.impl, self.clock, self.key, self.step = impl, clock, key, step
+        self.tokens = torch.as_tensor(np.asarray(wbatch["tokens"]),
+                                      device=dev)
+        self.labels = torch.as_tensor(np.asarray(wbatch["labels"]),
+                                      device=dev)
+        self.weights = np.asarray(weights, np.float32)
+        self.byz = np.asarray(byz_mask, bool)
+        self.loss = torch.zeros((), dtype=torch.float32, device=dev)
+        self.gagg = None
+
+    def grad(self, w: int):
+        loss, g, _ = per_worker_grad(
+            self.params, self.tokens[w], self.labels[w], self.byz[w],
+            worker_key(self.key, self.step, w), self.cfg, self.attack,
+            impl=self.impl, clock=self.clock)
+        self.loss += float(self.weights[w]) * loss
+        return g
+
+    def accumulate(self, w: int, g) -> None:
+        with _phase(self.clock, "aggregate"):
+            wt = float(self.weights[w])
+            scaled = [gl.to(torch.float32) * wt for gl in tree.leaves(g)]
+            if self.gagg is None:
+                self.gagg = scaled
+            else:
+                for a, s in zip(self.gagg, scaled):
+                    a.add_(s)
+
+    def aggregate(self):
+        return tree.unflatten(self.params, self.gagg)
+
+
+def _members(weights) -> list[int]:
+    return [int(w) for w in np.flatnonzero(np.asarray(weights) > 0)]
+
+
+def _update(opt, gagg, opt_state, params, step, clock):
+    with _phase(clock, "update"):
+        return opt_update(opt, gagg, opt_state, params, step)
+
+
+def make_fast_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
+                   *, impl: str | None = None, clock: PhaseClock | None = None):
+    """step_fn(params, opt_state, wbatch, weights, byz_mask, key, step)."""
+
+    def step_fn(params, opt_state, wbatch, weights, byz_mask, key, step):
+        run = _Workers(params, wbatch, weights, byz_mask, key, step, cfg,
+                       attack, impl, clock)
+        for w in _members(weights):
+            run.accumulate(w, run.grad(w))
+        params, opt_state, om = _update(opt, run.aggregate(), opt_state,
+                                        params, step, clock)
+        return params, opt_state, {"loss": run.loss, **om}
+
+    return step_fn
+
+
+def _detect_full(full: dict, group_of_worker, num_groups: int, tau: float):
+    """Paper-faithful detection: ``detect_groups`` on each leaf's full
+    gradients (n, d), idle workers' rows zero (masked), the flags OR'ed
+    over the leaves.  ``full``: {worker: [f32 leaves]}."""
+    n = len(group_of_worker)
+    fault = torch.zeros(num_groups, dtype=torch.bool)
+    mism = torch.zeros(n, dtype=torch.bool)
+    first = next(iter(full.values()))
+    gow = torch.as_tensor(group_of_worker, device=first[0].device)
+    for i, leaf in enumerate(first):
+        g_all = leaf.new_zeros((n, leaf.numel()))
+        for w, leaves_w in full.items():
+            g_all[w] = leaves_w[i].reshape(-1)
+        f_leaf, m_leaf = detection.detect_groups(g_all, gow, num_groups, tau)
+        fault |= f_leaf.cpu()
+        mism |= m_leaf.cpu()
+    return fault, mism
+
+
+def make_check_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
+                    num_groups: int, *, impl: str | None = None,
+                    clock: PhaseClock | None = None):
+    """step_fn(params, opt_state, wbatch, weights, byz_mask,
+    group_of_worker, key, step); metrics hold any_fault (bool),
+    group_fault (G,) and mismatch (n,)."""
+
+    def step_fn(params, opt_state, wbatch, weights, byz_mask,
+                group_of_worker, key, step):
+        run = _Workers(params, wbatch, weights, byz_mask, key, step, cfg,
+                       attack, impl, clock)
+        gow = np.asarray(group_of_worker)
+        n = len(gow)
+        dev = run.loss.device
+        ks = detection.key_scalar_for_step(prngkey.fold_in(key, step))
+        sketches = torch.zeros((n, sc.sketch_k), dtype=torch.float32,
+                               device=dev)
+        full = {}
+        for w in [int(w) for w in np.flatnonzero(gow >= 0)]:
+            g = run.grad(w)
+            if sc.detection == "sketch":
+                with _phase(clock, "sketch"):
+                    sketches[w] = detection.sketch_tree(g, ks, sc.sketch_k,
+                                                        impl=impl)
+            else:
+                full[w] = [leaf.to(torch.float32) for leaf in tree.leaves(g)]
+            run.accumulate(w, g)
+            del g
+        with _phase(clock, "detect"):
+            if sc.detection == "sketch":
+                group_fault, mismatch = detection.detect_groups(
+                    sketches, torch.as_tensor(gow, device=dev), num_groups,
+                    sc.tau)
+            else:
+                group_fault, mismatch = _detect_full(full, gow, num_groups,
+                                                     sc.tau)
+            any_fault = bool(group_fault.any())
+        del full
+        if any_fault:
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            om = {"grad_norm": zero, "lr": zero}
+        else:
+            params, opt_state, om = _update(opt, run.aggregate(), opt_state,
+                                            params, step, clock)
+        return params, opt_state, {
+            "loss": run.loss, "any_fault": any_fault,
+            "group_fault": group_fault, "mismatch": mismatch, **om}
+
+    return step_fn
+
+
+def vote_leaf(reps: torch.Tensor, tau: float, *, impl: str | None = None):
+    """Majority vote per replica group of one leaf: reps (G, r, d) f32 ->
+    (value (d,): the mean over groups of each group's winner, faulty
+    (G, r) bool).
+
+    agree[g, i, j] = rel <= tau with rel from ``ops.batched_pairwise_
+    relmax`` (K3 on a CUDA tensor): max over the leaf of |a - b| / (1 +
+    min(|a|, |b|)).  The reference tests |a - b| <= tau * (1 + min(|a|,
+    |b|)) elementwise; the two agree except where a quotient lies within
+    an ulp of tau.  The winner is the first row with a strict majority
+    (row 0 when none has one), faulty = not agree[winner]."""
+    G, r = reps.shape[:2]
+    agree = ops.batched_pairwise_relmax(reps, impl=impl) <= tau
+    counts = agree.sum(dim=-1)
+    winner = torch.argmax((counts > r // 2).to(torch.int8), dim=-1)
+    rows = torch.arange(G, device=reps.device)
+    faulty = ~agree[rows, winner]
+    return reps[rows, winner].mean(dim=0), faulty
+
+
+def make_identify_step(cfg, opt: OptConfig, sc: StepConfig,
+                       attack: AttackConfig, members: np.ndarray, *,
+                       impl: str | None = None,
+                       clock: PhaseClock | None = None):
+    """``members``: (G, r) worker ids per replica group.  Metrics hold
+    byz (n,) bool, the workers the vote found faulty.  The update uses
+    the voted (exact) gradient: the paper's recovery."""
+    members = np.asarray(members)
+    G, r = members.shape
+    order = members.reshape(-1)
+
+    def step_fn(params, opt_state, wbatch, weights, byz_mask, key, step):
+        run = _Workers(params, wbatch, weights, byz_mask, key, step, cfg,
+                       attack, impl, clock)
+        n = num_workers(weights)
+        grads = {int(w): tree.leaves(run.grad(int(w))) for w in sorted(order)}
+        faulty_all = torch.zeros((G, r), dtype=torch.bool,
+                                 device=run.loss.device)
+        voted = []
+        for i, leaf in enumerate(tree.leaves(params)):
+            with _phase(clock, "vote"):
+                reps = torch.stack([grads[int(w)][i].reshape(-1).to(
+                    torch.float32) for w in order]).reshape(G, r, -1)
+                for w in order:
+                    grads[int(w)][i] = None       # one leaf's replicas at a time
+                value, faulty = vote_leaf(reps, sc.tau, impl=impl)
+                del reps
+                faulty_all |= faulty
+                voted.append(value.reshape(leaf.shape))
+        byz = np.zeros(n, bool)
+        byz[order] = faulty_all.reshape(-1).cpu().numpy()
+        params, opt_state, om = _update(opt, tree.unflatten(params, voted),
+                                        opt_state, params, step, clock)
+        return params, opt_state, {"loss": run.loss, "byz": byz, **om}
+
+    return step_fn
+
+
+def make_filter_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
+                     filter_name: str, f: int, *, impl: str | None = None,
+                     clock: PhaseClock | None = None):
+    """Gradient-filter baseline (paper §3 related work / §5 combo): every
+    worker's gradient, robust-aggregated leafwise (KRUM / median /
+    trimmed mean / GMoM / norm clip); no redundancy, no exact fault
+    tolerance.  Every worker computes, as in the reference (an inactive
+    one reads shard 0's rows)."""
+    from repro_torch.core.filters import FILTERS
+
+    fn_filter = FILTERS[filter_name]
+
+    def step_fn(params, opt_state, wbatch, weights, byz_mask, key, step):
+        run = _Workers(params, wbatch, weights, byz_mask, key, step, cfg,
+                       attack, impl, clock)
+        n = num_workers(weights)
+        grads = [tree.leaves(run.grad(w)) for w in range(n)]
+        filtered = []
+        for i, leaf in enumerate(tree.leaves(params)):
+            with _phase(clock, "aggregate"):
+                g_all = torch.stack([grads[w][i].reshape(-1).to(
+                    torch.float32) for w in range(n)])
+                filtered.append(fn_filter(g_all, f).reshape(leaf.shape))
+        params, opt_state, om = _update(opt, tree.unflatten(params, filtered),
+                                        opt_state, params, step, clock)
+        return params, opt_state, {"loss": run.loss, **om}
+
+    return step_fn

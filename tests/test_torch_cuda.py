@@ -756,3 +756,121 @@ def test_serving_on_card_matches_cpu(cuda, name):
     assert compared > 0 and agreed == compared
     torch.testing.assert_close(card.logits[0].cpu(), cpu.logits[0], rtol=0,
                                atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the trainer on the card
+# ---------------------------------------------------------------------------
+
+def _trainer(cfg, device, params, mode="randomized", seed=17, impl=None):
+    from repro_torch.core.randomized import BFTConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import (AttackConfig, StepConfig, Trainer,
+                                   TrainerConfig)
+
+    mask = np.zeros(8, bool)
+    mask[[2, 5]] = True
+    return Trainer(cfg, OptConfig(kind="momentum", peak_lr=0.05,
+                                  warmup_steps=2, total_steps=40),
+                   BFTConfig(n=8, f=2, mode=mode, q=0.5, p_assumed=0.6,
+                             seed=seed),
+                   TrainerConfig(seq_len=16, global_batch=16, log_every=0),
+                   attack=AttackConfig("sign_flip", 0.6, 5.0),
+                   sc=StepConfig(), true_byzantine=mask, device=device,
+                   params=params, impl=impl)
+
+
+def test_trainer_on_card_matches_cpu(cuda):
+    """Reduced llama3.2-1b in f32, randomized q = 0.5 under sign_flip on
+    [2, 5], five steps: the control exact, losses within 1e-4 relative,
+    parameters within 1e-4 (1 + max|p|); K6 in every forward, K4s on
+    every check member's leaves, K3 on every identify leaf."""
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    cfg = _small("llama3.2-1b")
+    init = M.init_train(cfg, 0, device="cpu")
+    cpu = _trainer(cfg, "cpu", M.map_params(torch.clone, init))
+    cpu.run(5)
+    card = _trainer(cfg, None, M.map_params(lambda t: t.to(cuda), init))
+    ops.reset_launch_counts()
+    card.run(5)
+    counts = ops.launch_counts()
+    assert [r.get("identified") for r in card.history] == \
+        [r.get("identified") for r in cpu.history]
+    for g, w in zip(card.history, cpu.history):
+        assert {k: v for k, v in g.items() if k != "loss"} == \
+            {k: v for k, v in w.items() if k != "loss"}
+        assert abs(g["loss"] - w["loss"]) <= 1e-4 * abs(w["loss"])
+    for a, b in zip(tree.leaves(card.params), tree.leaves(cpu.params)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * (1 + float(b.abs().max()))
+    n_leaves = len(tree.leaves(init))
+    assert counts["flash_attention"] == cfg.num_layers * \
+        card.state.meter.computed
+    assert counts["pairwise_relmax_batched"] == \
+        n_leaves * card.state.meter.identify_iterations
+    assert counts["sketch"] > 0 and counts["sketch"] % n_leaves == 0
+
+
+def test_honest_replicas_are_bitwise_equal_on_card(cuda):
+    """Two workers on the same rows (bf16, reduced llama3.2-1b): equal
+    gradients and sketches bit for bit, the premise of the check; the
+    embedding's backward (an accumulating index_put) included."""
+    from repro_torch.core import detection, tree
+    from repro_torch.models import model as M
+    from repro_torch.train import steps
+
+    cfg = _small("llama3.2-1b", "bfloat16")
+    params = M.init_train(cfg, 0)
+    rng = np.random.default_rng(3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).to(cuda)
+    lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).to(cuda)
+    att = steps.AttackConfig("none")
+    grads = [steps.per_worker_grad(params, tok, lab, False, (0, w), cfg,
+                                   att)[1] for w in range(2)]
+    for a, b in zip(tree.leaves(grads[0]), tree.leaves(grads[1])):
+        assert torch.equal(a, b)
+    s = [detection.sketch_tree(g, 12345) for g in grads]
+    assert torch.equal(s[0], s[1])
+
+
+def test_attention_gradient_on_card(cuda):
+    """K6 with a gradient: the forward is the kernel's (one launch), the
+    gradient the plain version's, on the card."""
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)
+               .requires_grad_() for s in ((2, 256, 32, 64), (2, 256, 8, 64),
+                                           (2, 256, 8, 64)))
+    go = torch.randn(2, 256, 32, 64, generator=g, device=cuda).to(
+        torch.bfloat16)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert torch.equal(out, flash_attention.flash_attention_cuda(
+        q.detach(), k.detach(), v.detach()))
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v), (q, k, v),
+                               go)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("G,r,d", [(1, 5, 1_000_003), (2, 3, 4097)])
+def test_identify_vote_on_card_matches_plain(cuda, G, r, d):
+    """``steps.vote_leaf`` with K3 against the plain version on the card:
+    the same winners, faulty flags and voted values."""
+    from repro_torch.train import steps
+
+    g = torch.Generator(device=cuda).manual_seed(G * r)
+    reps = torch.randn(G, 1, d, generator=g, device=cuda).repeat(1, r, 1)
+    reps[0, 1] *= -10.0
+    if r > 3:
+        reps[0, 3, 17] += 1e-2
+    got_v, got_f = steps.vote_leaf(reps, 1e-5)
+    want_v, want_f = steps.vote_leaf(reps, 1e-5, impl="torch")
+    assert torch.equal(got_f, want_f) and torch.equal(got_v, want_v)
+    assert got_f[0].tolist() == [False, True, False] + \
+        ([True, False] if r > 3 else [])
