@@ -105,6 +105,22 @@ Phases, in order; any failed check exits nonzero:
      planted control without the protocol, whose update takes the
      Byzantine gradients, caught by them); reduced llama3.2-1b in f32
      trained on the card against the CPU (control exact, 1e-4);
+   - serving mamba2-780m (``phase_serving_mamba``): at full width,
+     random init, bf16, through ``ServeEngine.generate`` (B = 4, a
+     512-token prompt, two SSD chunks, replayed through decode to fill
+     the SSM cache, 32 greedy tokens, q_audit = 0.25): K4s twice per
+     audit and no other kernel; the audit count equal to the coins, no
+     failure, one ``serve.audit_decode`` span and one ``serve.audits``
+     increment per audit; the chunked prefill's last logits against the
+     replay's; a decode step run twice on one cache, bitwise, its input
+     cache unchanged; one decode step's kernels, busy time and byte
+     bound (one profiler window); a tampered replica caught; K4s at the
+     audit's 4 x 50280 against its plain version; reduced mamba2-780m in
+     f32 on the card against the CPU (logits and cache 1e-4, tokens
+     equal);
+   - training mamba2-780m (``phase_train`` with ``MAMBA_TRAIN``): the
+     checks of llama3.2-1b's training at global batch 8 (no K6; K4s 16
+     per check member, K3 16 per vote, at (1, 5, 226492416));
 4. a ``{"kernels": [...]}`` line;
 5. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -219,24 +235,35 @@ def device_ms(torch, fn, kernel: str | None, calls: int = 20):
     return us / 1e3 / calls if us > 0 else None
 
 
+def cuda_kernel_events(prof) -> list:
+    """(name, µs) of each CUDA event a finished ``torch.profiler`` window
+    recorded, the profiler's own buffer requests left out, from the raw
+    Kineto events (``prof.events()`` would build a Python object for
+    every event, about a quarter of a millisecond each)."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and e.name() != "Activity Buffer Request"]
+
+
 def kernel_times(torch, fn) -> dict:
     """{kernel name: (ms, launches)} of one call of ``fn`` (after one
-    warm call), from one ``torch.profiler`` window."""
-    from torch.autograd import DeviceType
+    warm call), from one ``torch.profiler`` window over the card's
+    activity alone (a window that also records the host's operators
+    takes seconds for every ten thousand kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     out: dict = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) == DeviceType.CUDA and \
-                e.name != "Activity Buffer Request":   # the profiler's own
-            ms, n = out.get(e.name, (0.0, 0))
-            out[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, us in cuda_kernel_events(prof):
+        ms, n = out.get(name, (0.0, 0))
+        out[name] = (ms + us / 1e3, n + 1)
     return out
 
 
@@ -1762,6 +1789,80 @@ def teacher_forced_logits(cfg, params, prompt, out, coins):
         yield lg
 
 
+def serve_audited(torch, cfg, params, prompt, steps, sv):
+    """One ``ServeEngine.generate`` run with audits, the launch counts set
+    to 0 just before: (engine, tokens, launches, the audit coins, the
+    span and counter counts); checks one
+    ``serve.audit_decode`` span and one ``serve.audits`` increment per
+    audit, the audits equal to the seeded coins and no failure."""
+    import numpy as np
+
+    from repro_torch.obs import metrics as obmetrics
+    from repro_torch.obs import trace as obtrace
+    from repro_torch.serving import ServeEngine
+
+    def serve():
+        eng = ServeEngine(cfg, params, q_audit=sv["q_audit"],
+                          seed=sv["seed"], record_logits=True)
+        return eng, eng.generate(prompt, steps)
+
+    def serve_counters():
+        return (obmetrics.counter("serve.audits").value,
+                obmetrics.counter("serve.audit_failures").value)
+
+    obtrace.clear()
+    before = serve_counters()
+    (eng, out), launches = counted(serve)
+    n_spans = sum(e["name"] == "serve.audit_decode" for e in obtrace.spans())
+    audits_inc, failures_inc = (a - b for a, b in zip(serve_counters(),
+                                                      before))
+    print(f"serving {cfg.name} (B={prompt.shape[0]}, S={prompt.shape[1]}, "
+          f"{steps} tokens, q_audit={sv['q_audit']}) launches: {launches}")
+    print(f"serve.audit_decode spans {n_spans}, engine audits {eng.audits}; "
+          f"counters serve.audits +{audits_inc}, serve.audit_failures "
+          f"+{failures_inc}")
+    check(n_spans == audits_inc == eng.audits
+          and failures_inc == eng.audit_failures,
+          f"{cfg.name}: serving spans or counters disagree with the "
+          f"engine's audits")
+    coins = np.random.default_rng(sv["seed"]).random(steps)
+    want_audits = int((coins < sv["q_audit"]).sum())
+    check(eng.audits == want_audits and eng.audit_failures == 0,
+          f"audits {eng.audits} (want {want_audits}), failures "
+          f"{eng.audit_failures}")
+    check(tuple(out.shape) == (prompt.shape[0], steps) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()), "bad token array")
+    check(all(bool(torch.isfinite(lg).all()) for lg in eng.logits),
+          "non-finite logits")
+    return eng, out, launches, coins, dict(
+        audit_spans=n_spans, audit_counter_increments=audits_inc)
+
+
+def tampered_replica_caught(cfg, params, prompt) -> None:
+    """A Byzantine replica (examples/serve_audit.py: final-norm scale[0]
+    x 3): its decode logits' audit sketch differs from the honest
+    replica's, which a rerun of the honest one matches."""
+    from repro_torch.core import detection
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import sketches_agree
+
+    scale = params["final_norm"]["scale"].clone()
+    scale[0] *= 3.0
+    bad = dict(params, final_norm={"scale": scale})
+    ks = detection.key_scalar_for_seed(7)
+
+    def sketch_of(p):
+        lg, _ = M.decode_step(p, prompt[:, 0], 0, M.allocate_cache(
+            cfg, prompt.shape[0], 16, M.params_device(p)), cfg)
+        return detection.hash_sign_sketch(lg.reshape(-1), ks)
+
+    honest = sketch_of(params)
+    caught = not sketches_agree(honest, sketch_of(bad))
+    print(f"tampered replica caught by the audit sketch: {caught}")
+    check(caught and sketches_agree(honest, sketch_of(params)),
+          "the audit did not single out the tampered replica")
+
+
 def phase_serving(torch, k6_ms: float):
     """llama3.2-1b served at full width through ServeEngine.generate,
     against the same run with the plain versions; the tampered replica;
@@ -1769,12 +1870,8 @@ def phase_serving(torch, k6_ms: float):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import detection
     from repro_torch.models import model as M
-    from repro_torch.obs import metrics as obmetrics
-    from repro_torch.obs import trace as obtrace
     from repro_torch.serving import ServeEngine, token_agreement
-    from repro_torch.serving.engine import sketches_agree
 
     cfg = get_config(SERVE["arch"])
     B, S, steps = SERVE["B"], SERVE["S"], SERVE["steps"]
@@ -1792,38 +1889,13 @@ def phase_serving(torch, k6_ms: float):
                           seed=SERVE["seed"], impl=impl, record_logits=True)
         return eng, eng.generate(prompt, steps)
 
-    def serve_counters():
-        return (obmetrics.counter("serve.audits").value,
-                obmetrics.counter("serve.audit_failures").value)
-
-    obtrace.clear()
-    before = serve_counters()
-    (eng, out), launches = counted(serve)
-    n_spans = sum(e["name"] == "serve.audit_decode" for e in obtrace.spans())
-    audits_inc, failures_inc = (a - b for a, b in zip(serve_counters(),
-                                                      before))
-    print(f"serving {cfg.name} (B={B}, S={S}, {steps} tokens, q_audit="
-          f"{SERVE['q_audit']}) launches: {launches}")
-    print(f"serve.audit_decode spans {n_spans}, engine audits {eng.audits}; "
-          f"counters serve.audits +{audits_inc}, serve.audit_failures "
-          f"+{failures_inc}")
-    check(n_spans == audits_inc == eng.audits
-          and failures_inc == eng.audit_failures,
-          "serving spans or counters disagree with the engine's audits")
-    coins = np.random.default_rng(SERVE["seed"]).random(steps)
-    want_audits = int((coins < SERVE["q_audit"]).sum())
+    eng, out, launches, coins, spans = serve_audited(
+        torch, cfg, params, prompt, steps, SERVE)
     check(launches["flash_attention"] == cfg.num_layers,
           f"K6 launched {launches['flash_attention']} times in one prefill, "
           f"want {cfg.num_layers}")
     check(launches["sketch"] == 2 * eng.audits,
           f"K4s launched {launches['sketch']} times for {eng.audits} audits")
-    check(eng.audits == want_audits and eng.audit_failures == 0,
-          f"audits {eng.audits} (want {want_audits}), failures "
-          f"{eng.audit_failures}")
-    check(tuple(out.shape) == (B, steps) and bool(
-        ((out >= 0) & (out < cfg.vocab_size)).all()), "bad token array")
-    check(all(bool(torch.isfinite(lg).all()) for lg in eng.logits),
-          "non-finite logits")
     prefill_s, audit_s = eng.phase_s["prefill"], eng.phase_s["audit"]
     decode_s = eng.phase_s["decode"] + audit_s        # every step
     plain_steps = steps - eng.audits
@@ -1834,8 +1906,7 @@ def phase_serving(torch, k6_ms: float):
           f"{eng.phase_s['decode'] / max(1, plain_steps) * 1e3:.4f} ms each, "
           f"audited {audit_s / max(1, eng.audits) * 1e3:.4f} ms each); K6 "
           f"{cfg.num_layers} x {k6_ms:.4f} ms = {k6_share:.1%} of the "
-          f"prefill; audits {eng.audits} (coins under {SERVE['q_audit']}: "
-          f"{want_audits}), failures {eng.audit_failures}")
+          f"prefill; audits {eng.audits}, failures {eng.audit_failures}")
 
     eng_p, out_p = serve("torch")
     check(eng_p.audits == eng.audits and eng_p.audit_failures == 0,
@@ -1879,23 +1950,8 @@ def phase_serving(torch, k6_ms: float):
     check(forced_held == B * steps, "teacher-forced decode logits differ "
                                     "between kernels and plain")
 
-    # a Byzantine replica (examples/serve_audit.py): final-norm scale[0] x 3
-    scale = params["final_norm"]["scale"].clone()
-    scale[0] *= 3.0
-    bad = dict(params, final_norm={"scale": scale})
-    ks = detection.key_scalar_for_seed(7)
-
-    def sketch_of(p):
-        lg, _ = M.decode_step(p, prompt[:, 0], 0, M.allocate_cache(
-            cfg, B, 16, M.params_device(p)), cfg)
-        return detection.hash_sign_sketch(lg.reshape(-1), ks)
-
-    honest = sketch_of(params)
-    caught = not sketches_agree(honest, sketch_of(bad))
-    print(f"tampered replica caught by the audit sketch: {caught}")
-    check(caught and sketches_agree(honest, sketch_of(params)),
-          "the audit did not single out the tampered replica")
-    del params, bad
+    tampered_replica_caught(cfg, params, prompt)
+    del params
 
     small = {}
     for arch in ("llama3.2-1b", "gemma3-1b"):
@@ -1929,11 +1985,210 @@ def phase_serving(torch, k6_ms: float):
         step_logits_err_vs_plain=step_err,
         decode_ms_per_step=decode_s / steps * 1e3,
         tokens_per_s=B * steps / decode_s, k6_share_of_prefill=k6_share,
-        audits=eng.audits, audit_failures=eng.audit_failures,
-        audit_spans=n_spans, audit_counter_increments=audits_inc,
+        audits=eng.audits, audit_failures=eng.audit_failures, **spans,
         prefill_logits_err_vs_plain=prefill_err, tokens_compared=compared,
         forced_step_rows_held=forced_held, forced_logits_err=forced_err,
         tokens_agreed=agreed, small_vs_cpu=small)
+
+
+# the mamba serving cell: mamba2-780m at full width (48 layers, d_model
+# 1536, d_inner 3072, 48 heads of 64, d_state 128, chunk 256, vocab
+# 50280 tied, bf16), random init, seed 0; B = 4, a 512-token prompt (two
+# SSD chunks), 32 greedy tokens, q_audit = 0.25
+MAMBA_SERVE = dict(arch="mamba2-780m", B=4, S=512, steps=32, q_audit=0.25,
+                   seed=0)
+# the chunked prefill's last-position logits against the logits of the
+# prompt replayed token by token through decode, as max|d| <=
+# MAMBA_CHUNKED_REL * (1 + max|replay logits|): bf16 rounding over 48
+# layers, in other places in the two (the prefill's conv rounds after
+# each shifted add, the decode's once; other GEMM shapes).  Read on an
+# H100: 2.67e-2 (argmax equal in 4 of 4 rows); in f32 the two agree to
+# 3e-6, and in bf16 each lies about 3e-2 from the f32 logits (48 layers
+# at d_model 256 on the CPU)
+MAMBA_CHUNKED_REL = 5e-2
+
+
+def decode_step_bytes(cfg, params, B: int) -> float:
+    """Bytes one decode step must move at batch B: every layer weight
+    once, the tied table read in bf16 and its f32 copy written and read
+    (the reference's f32 unembed), the mamba state and conv buffers read
+    and written, the (B, V) f32 logits written."""
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    layers = sum(t.numel() * t.element_size()
+                 for t in tree.leaves(params["layers"]))
+    table = params["embed"]["tokens"].numel()
+    cache = sum(t.numel() * t.element_size() for t in tree.leaves(
+        M.allocate_cache(cfg, B, 1, "meta")))
+    return layers + table * (2 + 4 + 4) + 2 * cache + B * cfg.vocab_size * 4
+
+
+def phase_serving_mamba(torch):
+    """mamba2-780m served at full width through ServeEngine.generate (the
+    chunked prefill, the prompt replayed through decode to fill the SSM
+    cache, audited greedy decode): the audits against the seeded coins,
+    K4s twice an audit, the spans and counters, the chunked prefill's
+    logits against the replay's, a decode step replayed on one cache,
+    the tampered replica, K4s at the audit's shape against its plain
+    version, and the reduced model in f32 on the card against the
+    CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import sketch as sk
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine
+
+    sv = MAMBA_SERVE
+    cfg = get_config(sv["arch"])
+    B, S, steps = sv["B"], sv["S"], sv["steps"]
+    t_phase = time.perf_counter()
+    params = M.init(cfg, sv["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    dev = M.params_device(params)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               size=(B, S))
+    ServeEngine(cfg, params).generate(prompt[:, :16], 2)     # warm-up
+
+    eng, out, launches, _, spans = serve_audited(torch, cfg, params,
+                                                 prompt, steps, sv)
+    check(launches["sketch"] == 2 * eng.audits and sum(
+        launches.values()) == launches["sketch"],
+          f"mamba serving launched {launches} for {eng.audits} audits "
+          f"(want K4s twice an audit and nothing else)")
+    ph = eng.phase_s
+    decode_s = ph["decode"] + ph["audit"]
+    plain_steps = steps - eng.audits
+    print(f"model init {init_s:.4f} s; prefill {ph['prefill']:.4f} s; "
+          f"replay {ph['replay']:.4f} s ({ph['replay'] / S * 1e3:.4f} ms a "
+          f"prompt token); decode {decode_s:.4f} s = "
+          f"{decode_s / steps * 1e3:.4f} ms per step, "
+          f"{B * steps / decode_s:.1f} tokens/s (unaudited steps "
+          f"{ph['decode'] / max(1, plain_steps) * 1e3:.4f} ms each, audited "
+          f"{ph['audit'] / max(1, eng.audits) * 1e3:.4f} ms each); audits "
+          f"{eng.audits}, failures {eng.audit_failures}")
+
+    # the chunked SSD against the sequential replay, at full width
+    pre, _ = M.prefill(params, {"tokens": prompt}, cfg)
+    rep = eng.logits[0]
+    chunk_err = max_err(pre, rep)
+    chunk_tol = logits_tol(rep, MAMBA_CHUNKED_REL)
+    scale = chunk_tol / MAMBA_CHUNKED_REL                  # 1 + max|logits|
+    same_top = int((pre.argmax(-1) == rep.argmax(-1)).sum())
+    print(f"chunked prefill vs replayed prompt, last-position logits: "
+          f"max|d| = {chunk_err:.4e}, {chunk_err / scale:.4e} of 1 + "
+          f"max|logits| = {scale:.4f} "
+          f"(limit {MAMBA_CHUNKED_REL}); argmax equal in {same_top} of {B} "
+          f"rows")
+    check(chunk_err <= chunk_tol, "the chunked prefill's logits differ from "
+                                  "the replay's")
+
+    # a decode step replayed on one cache: bitwise, its input untouched
+    cache = M.allocate_cache(cfg, B, S + steps, dev)
+    for t in range(4):
+        _, cache = M.decode_step(params, prompt[:, t], t, cache, cfg)
+    kept = {n: x.clone() for n, x in cache["mamba"].items()}
+    l1, c1 = M.decode_step(params, prompt[:, 4], 4, cache, cfg)
+    l2, c2 = M.decode_step(params, prompt[:, 4], 4, cache, cfg)
+    replay_ok = bool(torch.equal(l1, l2)) and all(
+        torch.equal(cache["mamba"][n], kept[n]) and
+        torch.equal(c1["mamba"][n], c2["mamba"][n]) for n in kept)
+    print(f"decode step replayed on one cache: logits and new cache bitwise "
+          f"equal, input cache unchanged: {replay_ok}")
+    check(replay_ok, "a replayed mamba decode step differs or changed its "
+                     "input cache")
+    del kept, c1, c2
+
+    # one decode step: CUDA-event time, kernels and busy time (profiler)
+    def one_step():
+        M.decode_step(params, out[:, 0], 5, cache, cfg)
+
+    step_ms = median_ms(torch, one_step, reps=5, warm=1)
+    times = kernel_times(torch, one_step)
+    busy_ms = sum(ms for ms, _ in times.values())
+    n_kernels = sum(n for _, n in times.values())
+    b_ms = decode_step_bytes(cfg, params, B) / HBM_BYTES_S * 1e3
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:5]
+    print(f"decode step (B={B}): {step_ms:.4f} ms (CUDA events), {n_kernels}"
+          f" kernels, card busy {busy_ms:.4f} ms ({busy_ms / step_ms:.1%}); "
+          f"byte bound {b_ms:.4f} ms; by device time: " + "; ".join(
+              f"{name[:50]} {ms:.3f} ms x{n}" for name, (ms, n) in top))
+
+    tampered_replica_caught(cfg, params, prompt)
+    del params, cache
+
+    # K4s at the audit's shape: the (B, V) logits flattened
+    d = B * cfg.vocab_size
+    x = torch.randn(d, generator=torch.Generator(device=dev).manual_seed(21),
+                    device=dev)
+    got, want = sk.sketch_cuda(x, 7), sk.sketch_plain(x, 7)
+    err, rel = max_err(got, want), rel_err(got, want)
+    check(rel <= 1e-5, f"K4s disagrees at the audit's d={d}")
+    check(bool(torch.equal(got, sk.sketch_cuda(x, 7))),
+          f"K4s rerun differs at d={d}")
+    kk = 256
+    ms = median_ms(torch, lambda: sk.sketch_cuda(x, 7), launches=50)
+    plain_ms = median_ms(torch, lambda: sk.sketch_plain(x, 7), reps=5)
+    signs = sign_table(torch, d + (-d) % kk, 7, dev).reshape(-1, kk)
+    xs_ = torch.nn.functional.pad(x, (0, (-d) % kk)).reshape(-1, kk)
+    library_ms = median_ms(torch, lambda: torch.einsum("mk,mk->k", xs_,
+                                                       signs), launches=50)
+    kb_ms, kb_by = bound(d * 4 + kk * 4, d, F32_ADDS_S)
+    report = {"sketch_mamba_audit": entry(
+        "sketch_mamba_audit", "sketch.cu", "src/repro/kernels/sketch.py:25",
+        err, ms, plain_ms, kb_ms, kb_by, library_ms)}
+    print(f"K4s sketch at the mamba audit's d={d}: max|kernel-plain| = "
+          f"{err:.3e}, / max(1, max|plain|) = {rel:.3e} (tolerance 1e-5); "
+          f"rerun bitwise equal; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"einsum_ms={library_ms:.4f} bound_ms={kb_ms:.4f} ({kb_by})")
+    del x, got, want, signs, xs_
+
+    # the reduced model in f32: the card against the CPU
+    rc = dataclasses.replace(get_config(sv["arch"]).reduced(),
+                             dtype="float32")
+    rp = M.init(rc, 0, device="cpu")
+    rprompt = np.random.default_rng(1).integers(0, rc.vocab_size,
+                                                size=(2, 32))
+    runs, caches = {}, {}
+    for d_ in ("cpu", "cuda"):
+        e = ServeEngine(rc, rp, q_audit=0.5, seed=0, device=d_,
+                        record_logits=True)
+        runs[d_] = (e, e.generate(rprompt, 8).cpu())
+        _, c = M.prefill(e.params, {"tokens": rprompt}, rc, 40)
+        for t in range(32):
+            _, c = M.decode_step(e.params, rprompt[:, t], t, c, rc)
+        caches[d_] = {n: x.cpu() for n, x in c["mamba"].items()}
+    (ec, oc), (eg, og) = runs["cpu"], runs["cuda"]
+    tol = logits_tol(torch.stack(ec.logits), 1e-4)
+    err = max(max_err(eg.logits[i].cpu(), ec.logits[i]) for i in range(8))
+    cache_err = max(max_err(caches["cuda"][n], caches["cpu"][n]) /
+                    (1 + float(caches["cpu"][n].abs().max()))
+                    for n in caches["cpu"])
+    print(f"small {rc.name} f32 card vs CPU: logits max|d| = {err:.3e} "
+          f"(tolerance {tol:.3e}); cache max|d|/(1+max|.|) = "
+          f"{cache_err:.3e} (tolerance 1e-4); tokens equal "
+          f"{bool(torch.equal(og, oc))}; audits {eg.audits} / {ec.audits}")
+    check(torch.equal(og, oc) and eg.audits == ec.audits and
+          eg.audit_failures == 0, f"{rc.name}: card vs CPU tokens or "
+                                  f"audits differ")
+    check(err <= tol and cache_err <= 1e-4,
+          f"{rc.name}: card vs CPU logits or cache differ")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase_serving_mamba: {phase_s:.1f} s")
+    return launches, report, dict(
+        init_s=init_s, phase_s_split=ph, decode_s=decode_s,
+        decode_ms_per_step=decode_s / steps * 1e3,
+        replay_ms_per_token=ph["replay"] / S * 1e3,
+        tokens_per_s=B * steps / decode_s, audits=eng.audits,
+        audit_failures=eng.audit_failures, **spans,
+        chunked_vs_replay_err=chunk_err,
+        chunked_vs_replay_tol=chunk_tol, argmax_equal_rows=same_top,
+        decode_step_ms=step_ms, decode_step_kernels=n_kernels,
+        decode_step_busy_ms=busy_ms, decode_step_bound_ms=b_ms,
+        small_vs_cpu=dict(logits_err=err, cache_err=cache_err),
+        phase_s=phase_s)
 
 
 # the training cell: llama3.2-1b at full width (16 layers, d_model 2048,
@@ -1942,6 +2197,14 @@ def phase_serving(torch, k6_ms: float):
 # 2 and 5, which tamper every time (p_tamper 1)
 TRAIN = dict(arch="llama3.2-1b", n=8, f=2, seq_len=256, global_batch=16,
              byz=(2, 5), scale=10.0, lr=1e-4, steps=3)
+# the mamba training cell: mamba2-780m at full width (48 layers, d_model
+# 1536, d_inner 3072, 48 heads of 64, d_state 128, chunk 256, vocab
+# 50280 tied, bf16) in TRAIN's protocol, with the global batch cut from
+# 16 to 8: each layer keeps four or five (rows, 1, 48, 256, 256) f32
+# intra-chunk tensors for the backward (about 0.65 GB a layer at 8
+# rows, 31 GB over the 48), which the reference bounds with cfg.remat
+# and the port does not (ROADMAP)
+MAMBA_TRAIN = dict(TRAIN, arch="mamba2-780m", global_batch=8)
 # the kernels' training run against the plain versions' run (bf16
 # weights, K6's bf16 P.V against the plain version's f32 one): the first
 # loss (the forward alone), relatively; each later loss's drop from the
@@ -1959,18 +2222,18 @@ TRAIN_DROP_REL = 1e-2
 TRAIN_UPDATE_REL = 0.2
 
 
-def train_cfg_objects():
+def train_cfg_objects(spec):
     from repro_torch.configs import get_config
     from repro_torch.core.randomized import BFTConfig
     from repro_torch.optim import OptConfig
     from repro_torch.train import AttackConfig, TrainerConfig
 
-    cfg = get_config(TRAIN["arch"])
-    opt = OptConfig(kind="adamw", peak_lr=TRAIN["lr"], warmup_steps=1,
+    cfg = get_config(spec["arch"])
+    opt = OptConfig(kind="adamw", peak_lr=spec["lr"], warmup_steps=1,
                     total_steps=100)
-    tc = TrainerConfig(seq_len=TRAIN["seq_len"],
-                       global_batch=TRAIN["global_batch"], log_every=0)
-    attack = AttackConfig("sign_flip", 1.0, TRAIN["scale"])
+    tc = TrainerConfig(seq_len=spec["seq_len"],
+                       global_batch=spec["global_batch"], log_every=0)
+    attack = AttackConfig("sign_flip", 1.0, spec["scale"])
     return cfg, opt, tc, attack, BFTConfig
 
 
@@ -2014,10 +2277,12 @@ def expected_train_launches(f_t: int, n_active: int, identified: bool,
     return out
 
 
-def train_kernels(torch, cfg, leaf_sizes, row_counts):
-    """K6 at the training path's per-worker shapes, K4s at every leaf
-    size, K3 at the identify vote's largest leaf, each against its plain
-    version on the card with a bitwise rerun, and timed."""
+def train_kernels(torch, cfg, leaf_sizes, row_counts, spec, tag):
+    """K6 at the training path's per-worker shapes (a model with
+    attention layers), K4s at every leaf size, K3 at the identify vote's
+    largest leaf, each against its plain version on the card with a
+    bitwise rerun, and timed; the kernels line's rows are named
+    ``<kernel>_<tag>``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import majority_vote as mv
     from repro_torch.kernels import sketch as sk
@@ -2025,10 +2290,10 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts):
     F = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20)
-    S, H, K, hd = TRAIN["seq_len"], cfg.num_heads, cfg.num_kv_heads, \
+    S, H, K, hd = spec["seq_len"], cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
     report, rows = {}, {}
-    for B in row_counts:
+    for B in row_counts if H else ():
         q, k, v = [torch.randn(*s, generator=gen, device=dev).to(
             torch.bfloat16) for s in ((B, S, H, hd), (B, S, K, hd),
                                       (B, S, K, hd))]
@@ -2055,12 +2320,12 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts):
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms="
               f"{library_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
         del q, k, v, qt, kt, vt, got, want
-    B = max(row_counts)
-    r6 = rows[B]
-    report["flash_attention_train"] = entry(
-        "flash_attention_train", "flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:33", r6["err"], r6["ms"],
-        r6["plain_ms"], r6["bound_ms"], r6["bound_by"], r6["library_ms"])
+    if rows:
+        r6 = rows[max(row_counts)]
+        report[f"flash_attention_{tag}"] = entry(
+            f"flash_attention_{tag}", "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:33", r6["err"], r6["ms"],
+            r6["plain_ms"], r6["bound_ms"], r6["bound_by"], r6["library_ms"])
 
     kk = 256
     for d in sorted(set(leaf_sizes)):
@@ -2085,9 +2350,10 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts):
             library_ms = median_ms(torch, lambda: torch.einsum(
                 "mk,mk->k", xs_, signs), launches=10)
             b_ms, b_by = bound(d * 4 + kk * 4, d, F32_ADDS_S)
-            report["sketch_train"] = entry(
-                "sketch_train", "sketch.cu", "src/repro/kernels/sketch.py:25",
-                err, ms, plain_ms, b_ms, b_by, library_ms)
+            report[f"sketch_{tag}"] = entry(
+                f"sketch_{tag}", "sketch.cu",
+                "src/repro/kernels/sketch.py:25", err, ms, plain_ms, b_ms,
+                b_by, library_ms)
             print(f"K4s sketch d={d}: kernel_ms={ms:.4f} plain_ms="
                   f"{plain_ms:.4f} einsum_ms={library_ms:.4f} bound_ms="
                   f"{b_ms:.4f} ({b_by}); {b_ms / ms:.1%} of bound")
@@ -2095,7 +2361,7 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts):
         del x, got, want
 
     d = max(leaf_sizes)
-    R = 2 * TRAIN["f"] + 1
+    R = 2 * spec["f"] + 1
     x = torch.randn(1, R, d, generator=gen, device=dev)
     x[0, 2] = x[0, 0]                                # one agreeing pair
     got = mv.pairwise_relmax_batched_cuda(x)
@@ -2110,8 +2376,8 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts):
     plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_batched_plain(x),
                          reps=3, warm=1)
     b_ms, b_by = bound(R * d * 4 + R * R * 4, R * R * d, F32_OPS_S)
-    report["pairwise_relmax_batched_train"] = entry(
-        "pairwise_relmax_batched_train", "majority_vote.cu",
+    report[f"pairwise_relmax_batched_{tag}"] = entry(
+        f"pairwise_relmax_batched_{tag}", "majority_vote.cu",
         "src/repro/kernels/majority_vote.py:63", err, ms, plain_ms, b_ms,
         b_by, None)
     print(f"K3 relmax at the vote's shape (1, {R}, {d}): max|kernel-plain| "
@@ -2122,7 +2388,7 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts):
     return report, rows
 
 
-def honest_replicas_equal(torch, cfg, params, rows: int) -> None:
+def honest_replicas_equal(torch, cfg, params, rows: int, spec) -> None:
     """Two honest workers on the same rows: bitwise equal gradients and
     sketches (the check's premise; the embedding's accumulating backward
     and cuBLAS's workspaces are where it could break)."""
@@ -2134,9 +2400,9 @@ def honest_replicas_equal(torch, cfg, params, rows: int) -> None:
     rng = np.random.default_rng(2)
     dev = tree.leaves(params)[0].device
     V = min(4096, cfg.vocab_size)         # the data pipeline's alphabet
-    tok = torch.as_tensor(rng.integers(0, V, (rows, TRAIN["seq_len"])),
+    tok = torch.as_tensor(rng.integers(0, V, (rows, spec["seq_len"])),
                           device=dev)
-    lab = torch.as_tensor(rng.integers(0, V, (rows, TRAIN["seq_len"])),
+    lab = torch.as_tensor(rng.integers(0, V, (rows, spec["seq_len"])),
                           device=dev)
     none = steps.AttackConfig("none")
     g0 = steps.per_worker_grad(params, tok, lab, False, (0, 0), cfg, none)[1]
@@ -2144,7 +2410,7 @@ def honest_replicas_equal(torch, cfg, params, rows: int) -> None:
     same = [bool(torch.equal(a, b)) for a, b in zip(tree.leaves(g0),
                                                     tree.leaves(g1))]
     s0, s1 = (detection.sketch_tree(g, 0xC0FFEE) for g in (g0, g1))
-    print(f"honest replicas ({rows} x {TRAIN['seq_len']} tokens, full "
+    print(f"honest replicas ({rows} x {spec['seq_len']} tokens, full "
           f"width): gradients bitwise equal on {sum(same)} of {len(same)} "
           f"leaves; sketches bitwise equal: {bool(torch.equal(s0, s1))}")
     check(all(same) and bool(torch.equal(s0, s1)),
@@ -2164,7 +2430,7 @@ def same_as(torch, params, state, snap) -> bool:
                zip(tree.leaves(params) + tree.leaves(state), snap))
 
 
-def train_step_checks(torch, cfg, opt, trainer, attack):
+def train_step_checks(torch, cfg, opt, trainer, attack, spec):
     """On the trained model (AdamW state nonzero): a check step that
     finds a fault leaves params and state bitwise unchanged (grad_norm,
     lr reported 0); an identify step's update equals the update from an
@@ -2178,11 +2444,11 @@ def train_step_checks(torch, cfg, opt, trainer, attack):
     from repro_torch.optim import opt_update
     from repro_torch.train import steps
 
-    n, f, byz = TRAIN["n"], TRAIN["f"], list(TRAIN["byz"])
+    n, f, byz = spec["n"], spec["f"], list(spec["byz"])
     mask = np.isin(np.arange(n), byz)
     step = trainer.state.step
-    batch = global_batch_for_step(cfg, global_batch=TRAIN["global_batch"],
-                                  seq_len=TRAIN["seq_len"], step=step)
+    batch = global_batch_for_step(cfg, global_batch=spec["global_batch"],
+                                  seq_len=spec["seq_len"], step=step)
     sc = steps.StepConfig()
     rng = np.random.default_rng(0)
     while True:
@@ -2229,7 +2495,7 @@ def train_step_checks(torch, cfg, opt, trainer, attack):
     del snap, ref_p, ref_s, g
 
 
-def mode_walls(torch, cfg, opt, trainer, rows_k6_ms):
+def mode_walls(torch, cfg, opt, trainer, rows_k6_ms, spec):
     """Each step kind once for its wall and once under a PhaseClock for
     its split, on the trained model, honest workers."""
     import numpy as np
@@ -2239,13 +2505,15 @@ def mode_walls(torch, cfg, opt, trainer, rows_k6_ms):
                                              identify_assignment)
     from repro_torch.data import global_batch_for_step, worker_batches
     from repro_torch.kernels import ops
+    from repro_torch.models.transformer import attn_layer_indices
     from repro_torch.train import steps
 
-    n, f, L = TRAIN["n"], TRAIN["f"], cfg.num_layers
+    n, f = spec["n"], spec["f"]
+    L = len(attn_layer_indices(cfg))
     none = steps.AttackConfig("none")
     sc = steps.StepConfig()
-    batch = global_batch_for_step(cfg, global_batch=TRAIN["global_batch"],
-                                  seq_len=TRAIN["seq_len"], step=0)
+    batch = global_batch_for_step(cfg, global_batch=spec["global_batch"],
+                                  seq_len=spec["seq_len"], step=0)
     act = np.ones(n, bool)
     rng = np.random.default_rng(1)
     cases = {
@@ -2254,10 +2522,10 @@ def mode_walls(torch, cfg, opt, trainer, rows_k6_ms):
         "identify": identify_assignment(act, f, rng),
     }
     out = {}
-    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    tokens = spec["global_batch"] * spec["seq_len"]
     for mode, a in cases.items():
         members = int((a.group_of_worker >= 0).sum())
-        rows = TRAIN["global_batch"] // a.num_shards
+        rows = spec["global_batch"] // a.num_shards
         wb = worker_batches(batch, a)
 
         def run(clock=None):
@@ -2286,11 +2554,13 @@ def mode_walls(torch, cfg, opt, trainer, rows_k6_ms):
         clocked = run(clock)
         # the card's busy time in one step: every kernel's duration
         # from one torch.profiler window (one stream, no overlap)
+        t_prof = time.perf_counter()
         times = kernel_times(torch, run)
+        prof_s = time.perf_counter() - t_prof
         dev_ms = sum(ms for ms, _ in times.values()) or None
         busy = None if dev_ms is None else dev_ms / 1e3 / wall
         top = sorted(times.items(), key=lambda kv: -kv[1][0])[:6]
-        k6 = L * members * rows_k6_ms[rows] / 1e3
+        k6 = L * members * rows_k6_ms.get(rows, 0.0) / 1e3
         out[mode] = dict(
             wall_s=wall, clocked_wall_s=clocked, phases_s=dict(clock.s),
             device_busy_s=None if dev_ms is None else dev_ms / 1e3,
@@ -2299,26 +2569,30 @@ def mode_walls(torch, cfg, opt, trainer, rows_k6_ms):
             top_kernels=[(name[:80], ms, n) for name, (ms, n) in top],
             workers=members, rows_per_worker=rows,
             batch_tokens_per_s=tokens / wall,
-            computed_tokens_per_s=members * rows * TRAIN["seq_len"] / wall,
-            k6_s=k6, k6_share=k6 / wall, launches=counts)
+            computed_tokens_per_s=members * rows * spec["seq_len"] / wall,
+            k6_s=k6, k6_share=k6 / wall, launches=counts,
+            profile_window_s=prof_s)
         split = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
             clock.s.items(), key=lambda kv: -kv[1]))
         print(f"train {mode} step ({members} workers x {rows} rows x "
-              f"{TRAIN['seq_len']}): wall {wall:.4f} s, {tokens / wall:.1f} "
-              f"batch tokens/s ({members * rows * TRAIN['seq_len'] / wall:.1f}"
-              f" computed); K6 {L * members} x {rows_k6_ms[rows]:.4f} ms = "
+              f"{spec['seq_len']}): wall {wall:.4f} s, {tokens / wall:.1f} "
+              f"batch tokens/s ({members * rows * spec['seq_len'] / wall:.1f}"
+              f" computed); K6 {L * members} x "
+              f"{rows_k6_ms.get(rows, 0.0):.4f} ms = "
               f"{k6 / wall:.1%} of the wall; card busy (profiler) "
               + ("not measured" if busy is None else
                  f"{dev_ms:.1f} ms = {busy:.1%} of the wall")
-              + f"; clocked {clocked:.4f} s: {split}; launches {counts}")
+              + f"; clocked {clocked:.4f} s: {split}; launches {counts}; "
+              f"profiler window {prof_s:.1f} s")
         print(f"  {mode}: {sum(n for _, n in times.values())} kernels on "
               f"the card; by device time: " + "; ".join(
                   f"{name[:60]} {ms:.1f} ms x{n}" for name, (ms, n) in top))
     return out
 
 
-def phase_train(torch):
-    """llama3.2-1b trained at full width by 8 workers (2 Byzantine) on
+def phase_train(torch, spec, tag: str):
+    """The model of ``spec`` (TRAIN: llama3.2-1b, MAMBA_TRAIN:
+    mamba2-780m) trained at full width by 8 workers (2 Byzantine) on
     the card: the training kernels against their plain versions, honest
     replicas bitwise equal, the deterministic protocol's main path with
     launch counts, the skipped check and the identify update bitwise,
@@ -2332,14 +2606,23 @@ def phase_train(torch):
     from repro_torch.core import tree
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
+    from repro_torch.models.transformer import attn_layer_indices
     from repro_torch.train import StepConfig, Trainer
 
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg, opt, tc, attack, BFTConfig = train_cfg_objects()
-    n, f, byz = TRAIN["n"], TRAIN["f"], TRAIN["byz"]
-    gb = TRAIN["global_batch"]
+    split, last = {}, [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        split[name] = now - last[0]
+        last[0] = now
+
+    cfg, opt, tc, attack, BFTConfig = train_cfg_objects(spec)
+    L_attn = len(attn_layer_indices(cfg))
+    n, f, byz = spec["n"], spec["f"], spec["byz"]
+    gb = spec["global_batch"]
     row_counts = (gb // n, gb // (n // (f + 1)), gb // (n // (2 * f + 1)))
     params = M.init_train(cfg, 0)
     leaves = tree.leaves(params)
@@ -2348,10 +2631,12 @@ def phase_train(torch):
           f"{cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}), {sum(sizes) / 1e9:.4f} B "
           f"parameters in {len(leaves)} leaves {sizes}; n={n}, f={f}, "
-          f"Byzantine {list(byz)} (sign_flip x {TRAIN['scale']}, every "
-          f"step), seq {TRAIN['seq_len']}, global batch {gb}, AdamW")
+          f"Byzantine {list(byz)} (sign_flip x {spec['scale']}, every "
+          f"step), seq {spec['seq_len']}, global batch {gb}, AdamW")
     del params, leaves
-    report, k6_rows = train_kernels(torch, cfg, sizes, row_counts)
+    report, k6_rows = train_kernels(torch, cfg, sizes, row_counts, spec,
+                                    tag)
+    mark("kernels")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2366,15 +2651,17 @@ def phase_train(torch):
 
     tr = trainer()
     init = [x.detach().to("cpu", copy=True) for x in tree.leaves(tr.params)]
-    honest_replicas_equal(torch, cfg, tr.params, row_counts[1])
+    honest_replicas_equal(torch, cfg, tr.params, row_counts[1], spec)
+    mark("init_and_honest_replicas")
 
     def drive(t):
-        """The main path: t.train_step() TRAIN["steps"] times; returns
+        """The main path: t.train_step() spec["steps"] times; returns
         the launches expected from the protocol state before each step
         and each step's wall."""
-        want = {"flash_attention": 0, "sketch": 0, "pairwise_relmax_batched": 0}
+        want = dict.fromkeys(("flash_attention", "sketch",
+                              "pairwise_relmax_batched"), 0)
         walls = []
-        for _ in range(TRAIN["steps"]):
+        for _ in range(spec["steps"]):
             f_t, n_act = t.state.f_t, int(t.state.active.sum())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2382,7 +2669,7 @@ def phase_train(torch):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             for k, v in expected_train_launches(
-                    f_t, n_act, "identified" in rec, cfg.num_layers,
+                    f_t, n_act, "identified" in rec, L_attn,
                     len(sizes)).items():
                 want[k] += v
         return want, walls
@@ -2392,22 +2679,25 @@ def phase_train(torch):
     launches = ops.launch_counts()
     hist = tr.history
     ident = sorted(np.flatnonzero(tr.state.identified).tolist())
-    print(f"training main path ({TRAIN['steps']} steps, deterministic, "
+    print(f"training main path ({spec['steps']} steps, deterministic, "
           f"protocol seed {seed}): records {hist}; step walls "
           f"{[round(w, 4) for w in walls]} s; launches {launches} (expected "
           f"{want})")
     check(all(launches[k] == v for k, v in want.items()) and
-          launches["flash_attention"] > 0 and launches["sketch"] > 0 and
-          launches["pairwise_relmax_batched"] > 0,
+          (launches["flash_attention"] > 0) == (L_attn > 0) and
+          launches["sketch"] > 0 and launches["pairwise_relmax_batched"] > 0,
           "training launches differ from the protocol's count")
     check(bool(ident) and set(ident) <= set(byz),
           f"identified {ident}, want a non-empty subset of {list(byz)}")
     check(all(np.isfinite(r["loss"]) for r in hist), "non-finite loss")
     final = [t.detach().to("cpu", copy=True) for t in tree.leaves(tr.params)]
+    mark("main_path")
 
-    train_step_checks(torch, cfg, opt, tr, attack)
+    train_step_checks(torch, cfg, opt, tr, attack, spec)
+    mark("step_checks")
     modes = mode_walls(torch, cfg, opt, tr, {B: r["ms"] for B, r in
-                                             k6_rows.items()})
+                                             k6_rows.items()}, spec)
+    mark("mode_walls")
     peak = torch.cuda.max_memory_allocated()
     print(f"training: torch.cuda.max_memory_allocated = {peak / 2**30:.2f} "
           f"GiB")
@@ -2427,6 +2717,7 @@ def phase_train(torch):
     ops.reset_launch_counts()
     plain_hist, plain_final = run_to_cpu(tp)
     plain_launches = ops.launch_counts()
+    mark("plain_run")
     del tp
     gc.collect()
     torch.cuda.empty_cache()
@@ -2434,6 +2725,7 @@ def phase_train(torch):
                  attack=attack, sc=StepConfig(), true_byzantine=mask,
                  impl="torch")
     planted_hist, planted_final = run_to_cpu(tn)
+    mark("planted_run")
     del tn
     gc.collect()
     torch.cuda.empty_cache()
@@ -2464,14 +2756,16 @@ def phase_train(torch):
     gc.collect()
     torch.cuda.empty_cache()
 
-    small = train_small_vs_cpu(torch)
+    small = train_small_vs_cpu(torch, spec["arch"])
+    mark("small_vs_cpu")
     phase_s = time.perf_counter() - t_phase
-    print(f"phase_train: {phase_s:.1f} s")
+    print(f"phase_train ({cfg.name}): {phase_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items()) + ")")
     return launches, report, dict(
         seed=seed, history=hist, step_walls_s=walls, launches=launches,
         expected_launches=want, modes=modes, peak_memory_bytes=peak,
         k6_rows=k6_rows, vs_plain=sound, planted_vs_plain=planted,
-        small_vs_cpu=small,
+        small_vs_cpu=small, phase_split_s=split,
         phase_s=phase_s)
 
 
@@ -2510,8 +2804,8 @@ def train_diff_text(d: dict) -> str:
             f"unmoved leaves equal {d['still_equal']}")
 
 
-def train_small_vs_cpu(torch) -> dict:
-    """Reduced llama3.2-1b in f32 trained on the card against the CPU
+def train_small_vs_cpu(torch, arch: str) -> dict:
+    """The reduced ``arch`` in f32 trained on the card against the CPU
     (randomized, q 0.5, sign_flip on [2, 5], momentum, 5 steps): control
     exact, losses within 1e-4 relative, parameters within 1e-4 (1 +
     max|p|)."""
@@ -2524,8 +2818,7 @@ def train_small_vs_cpu(torch) -> dict:
                                    TrainerConfig)
     import numpy as np
 
-    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     init = M.init_train(cfg, 0, device="cpu")
     mask = np.isin(np.arange(8), [2, 5])
     runs = {}
@@ -2592,21 +2885,31 @@ def main() -> int:
     small = phase_small_vs_cpu(torch)
     launches["serving"], serving = phase_serving(
         torch, kernels["flash_attention"]["ms"])
-    launches["training"], train_report, training = phase_train(torch)
-    kernels.update(train_report)
-    # each kernel's launches summed over the counted path runs but the
-    # training path's, which the training rows count
+    launches["training"], train_report, training = phase_train(
+        torch, TRAIN, "train")
+    launches["serving_mamba"], mserve_report, serving_mamba = \
+        phase_serving_mamba(torch)
+    launches["training_mamba"], mtrain_report, training_mamba = phase_train(
+        torch, MAMBA_TRAIN, "mamba_train")
+    # each kernel's launches summed over the counted path runs but those
+    # with rows of their own, which count them there
+    own = {"training": ("_train", train_report),
+           "serving_mamba": ("_mamba_audit", mserve_report),
+           "training_mamba": ("_mamba_train", mtrain_report)}
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for path, run in launches.items()
-                             if path != "training")
-    for key in train_report:
-        kernels[key]["launches"] = launches["training"][
-            key.removesuffix("_train")]
+                             if path not in own)
+    for path, (suffix, report) in own.items():
+        for key, kv in report.items():
+            kv["launches"] = launches[path][key.removesuffix(suffix)]
+        kernels.update(report)
     main_path = dict(gram_sweep=gram, **stream, device_control=device_ctl,
                      oracle=oracle,
                      launches=launches,
                      small_vs_cpu_w_err=small, serving=serving,
-                     attention=attention, training=training)
+                     attention=attention, training=training,
+                     serving_mamba=serving_mamba,
+                     training_mamba=training_mamba)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.assignment import Assignment, identify_assignment
+from repro_torch.core.identification import vote_tree  # noqa: F401
 
 
 def draco_assignment(active: np.ndarray, f: int) -> Assignment:

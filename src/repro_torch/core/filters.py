@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import tree as tree_mod
+
 
 def _median(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Median along ``dim``; an even count gives the mean of the two
@@ -93,3 +95,17 @@ FILTERS = {
     ),
     "norm_clip": lambda g, f: norm_clip(g),
 }
+
+
+def filter_tree(grad_trees, name: str, f: int):
+    """A filter applied leaf-wise over a tree of stacked gradients
+    (leading n), in f32, each result cast back to its leaf's dtype."""
+    fn = FILTERS[name]
+
+    def per_leaf(leaf):
+        n = leaf.shape[0]
+        flat = leaf.reshape(n, -1).to(torch.float32)
+        return fn(flat, f).reshape(leaf.shape[1:]).to(leaf.dtype)
+
+    return tree_mod.unflatten(grad_trees, [per_leaf(leaf) for leaf in
+                                           tree_mod.leaves(grad_trees)])

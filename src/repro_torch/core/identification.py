@@ -7,14 +7,16 @@ form a strict majority of pairwise-equal values: the vote recovers the
 exact gradient and exposes every replica that deviates.
 
 ``majority_vote_np`` is the host simulators' numpy form (f32, as the
-reference's); ``pairwise_agreement`` and ``majority_vote`` take torch
-tensors on any device.  The batched on-device vote of the engine's data
-plane is ``kernels.ops.batched_vote`` (K3).
+reference's); ``pairwise_agreement``, ``majority_vote`` and
+``vote_tree`` take torch tensors on any device.  The batched on-device
+vote of the engine's data plane is ``kernels.ops.batched_vote`` (K3).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core import tree as tree_mod
 
 DEFAULT_TAU = 1e-5
 
@@ -63,3 +65,25 @@ def majority_vote(replicas: torch.Tensor, tau: float = DEFAULT_TAU):
     value = replicas[winner]
     faulty = ~agree[winner] & has_majority
     return value, faulty, has_majority
+
+
+def vote_tree(replica_trees, tau: float = DEFAULT_TAU):
+    """Majority vote leaf-wise over a tree of stacked replicas (each
+    leaf's leading dim r).
+
+    Each leaf is voted on independently; one per-replica faulty mask is
+    the union of the leaves' (a worker is Byzantine if it tampered any
+    leaf).  Returns (voted tree, faulty (r,) bool, ok () bool: every
+    leaf had a strict majority)."""
+    leaves = tree_mod.leaves(replica_trees)
+    r = leaves[0].shape[0]
+    dev = leaves[0].device
+    faulty = torch.zeros(r, dtype=torch.bool, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    voted = []
+    for leaf in leaves:
+        value, f_leaf, has_maj = majority_vote(leaf.reshape(r, -1), tau)
+        voted.append(value.reshape(leaf.shape[1:]))
+        faulty |= f_leaf
+        ok &= has_maj
+    return tree_mod.unflatten(replica_trees, voted), faulty, ok

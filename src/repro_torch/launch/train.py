@@ -1,6 +1,7 @@
 """Training launcher of the port.
 
-Instantiates the BFT trainer for a registered dense architecture and
+Instantiates the BFT trainer for a registered dense or Mamba2
+architecture (``--arch llama3.2-1b``, ``--arch mamba2-780m``) and
 runs it with checkpointing, restart and the randomized
 reactive-redundancy protocol live; the n workers run one after another
 on one device (the card by default).

@@ -6,7 +6,10 @@ the port's tree (``repro_torch.models.model``).  The reference stacks
 each periodic layer group with a leading ``repeats`` dim
 (``transformer.abstract_stack``): layer ``off + r * len(pattern) + pos``
 is row ``r`` of group slot ``[g][pos]`` (``model._layer_param``).  The
-port keeps one entry per layer, in layer order.
+port keeps one entry per layer, in layer order.  Every leaf comes over
+by name with its dtype: a mamba layer's ``ln1`` and 13 mixer leaves
+(``A_log``, ``dt_bias`` and ``D`` in f32, the rest in the config's
+dtype) as the dense layers' do.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ def to_tensor(a) -> torch.Tensor:
 def from_jax_train_params(cfg: ModelConfig, tree, device=None):
     """The reference's parameter tree (numpy leaves) in its own stacked
     layout, the trainer's (``model.init_train``), on ``device``."""
-    tfm.require_dense(cfg)
+    tfm.require_ported(cfg)
     dev = M.resolve_device(device)
     return M.map_params(lambda a: to_tensor(a).to(dev), tree)
 
@@ -38,7 +41,7 @@ def from_jax_train_params(cfg: ModelConfig, tree, device=None):
 def from_jax_params(cfg: ModelConfig, tree, device=None):
     """The reference's parameter tree (numpy leaves) as the port's, on
     ``device`` (``None``: the card, which must exist)."""
-    tfm.require_dense(cfg)
+    tfm.require_ported(cfg)
     dev = M.resolve_device(device)
     layers = []
     for group, slots in zip(layer_groups(cfg), tree["decoder"]):

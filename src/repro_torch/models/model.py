@@ -1,8 +1,8 @@
 """Model facade: init, forward, prefill, decode with a KV cache.
 
 Port of ``repro.models.model`` for the dense decoders (llama3.2-1b,
-gemma3-1b, qwen3-4b, ...).  Parameters are a plain tree of tensors on
-one device:
+gemma3-1b, qwen3-4b, ...) and the attention-free Mamba2 (mamba2-780m).
+Parameters are a plain tree of tensors on one device:
 
     {"embed": {"tokens": (V, D)[, "head": (D, V)]},
      "layers": [{"ln1": {"scale"}, "mixer": {"wq", "wk", "wv", "wo"
@@ -10,19 +10,24 @@ one device:
                  "ffn": {"gate", "up", "down"}}, ...],   # one per layer
      "final_norm": {"scale"}}
 
-with the reference's (in, out) matrix layout; ``convert.from_jax_params``
-builds it from the reference's stacked tree.  Every entry point runs on
-the card unless ``device="cpu"`` is asked for, and raises without one.
-The KV cache is ``{"k", "v"}``, each (L_attn, B, cache_len, K*hd) in
-the config's dtype, written in place by ``decode_step``.
+with the reference's (in, out) matrix layout; a mamba layer is
+``{"ln1", "mixer": <the 13 leaves of ssm.init_mamba>}`` (no ``ln2``,
+no ``ffn``).  ``convert.from_jax_params`` builds the tree from the
+reference's stacked one.  Every entry point runs on the card unless
+``device="cpu"`` is asked for, and raises without one.  The cache has
+``{"k", "v"}``, each (L_attn, B, cache_len, K*hd) in the config's
+dtype, written in place by ``decode_step``, when the model has
+attention layers, and ``{"mamba": {"state", "conv_x", "conv_B",
+"conv_C"}}`` when it has mamba layers, which ``decode_step`` replaces
+with new tensors (the reference's functional cache).
 
 Training keeps the reference's own layout instead (``stack_layers``,
 ``init_train``): ``{"decoder": [[slot per pattern position] per layer
 group], "embed", "final_norm"}``, each slot's leaves stacked over the
 group's repeats, so the tree flattens to the reference's leaves (11 for
-llama3.2-1b).  ``train_loss`` runs ``forward`` on per-layer views of
-those leaves (``layer_views``, one ``unbind`` a leaf, whose backward is
-one ``stack``).
+llama3.2-1b, 16 for mamba2-780m).  ``train_loss`` runs ``forward`` on
+per-layer views of those leaves (``layer_views``, one ``unbind`` a
+leaf, whose backward is one ``stack``).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, layer_groups, layer_kinds
 from repro_torch.core import tree as tree_mod
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (dtype_of, embed, init_weight, mlp,
                                        rmsnorm, unembed)
@@ -71,8 +77,9 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     """Random-init parameters with the reference's distributions
     (``layers.materialize``): matrices truncated normal on [-2, 2] times
     1/sqrt(fan_in), norm scales one; drawn from a ``torch.Generator`` on
-    the target device seeded with ``seed`` (other numbers than JAX's)."""
-    tfm.require_dense(cfg)
+    the target device seeded with ``seed`` (other numbers than JAX's);
+    mamba mixers as ``ssm.init_mamba``."""
+    tfm.require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg)
@@ -89,15 +96,20 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     if not cfg.tie_embeddings:
         emb["head"] = w(D, cfg.vocab_size)
     layers = []
-    for _ in layer_kinds(cfg):
-        mixer = {"wq": w(D, H * hd), "wk": w(D, K * hd), "wv": w(D, K * hd),
-                 "wo": w(H * hd, D)}
-        if cfg.qk_norm:
-            mixer["q_norm"] = ones(hd)["scale"]
-            mixer["k_norm"] = ones(hd)["scale"]
-        layers.append({"ln1": ones(D), "mixer": mixer, "ln2": ones(D),
-                       "ffn": {"gate": w(D, F), "up": w(D, F),
-                               "down": w(F, D)}})
+    for kind in layer_kinds(cfg):
+        if kind.mixer == "mamba":
+            mixer = ssm_mod.init_mamba(cfg, gen, dev)
+        else:
+            mixer = {"wq": w(D, H * hd), "wk": w(D, K * hd),
+                     "wv": w(D, K * hd), "wo": w(H * hd, D)}
+            if cfg.qk_norm:
+                mixer["q_norm"] = ones(hd)["scale"]
+                mixer["k_norm"] = ones(hd)["scale"]
+        layer = {"ln1": ones(D), "mixer": mixer}
+        if kind.ffn == "mlp":
+            layer["ln2"] = ones(D)
+            layer["ffn"] = {"gate": w(D, F), "up": w(D, F), "down": w(F, D)}
+        layers.append(layer)
     return {"embed": emb, "layers": layers, "final_norm": ones(D)}
 
 
@@ -148,8 +160,8 @@ def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
     {tokens, labels (B, S)} (labels < 0 ignored); returns (loss,
     {"ce", "moe_aux"}).  CE = logsumexp - label logit over the f32
     logits: the gather equals the reference's one-hot contraction, whose
-    other terms are exact zeros.  Dense models only: the loss is the CE
-    and the MoE aux metric is 0.
+    other terms are exact zeros.  No MoE layer is ported: the loss is the
+    CE and the MoE aux metric is 0.
     Differentiable: attention goes through ``ops.flash_attention``'s
     autograd form."""
     logits, _ = forward(layer_views(params, cfg), batch, cfg, impl=impl)
@@ -174,7 +186,7 @@ def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
     """(logits (B, S, V) f32, [(k, v) (B, S, K*hd) per attention layer]).
     ``last_only`` unembeds the last position only (logits (B, 1, V)):
     the same numbers without the (B, S, V) array."""
-    tfm.require_dense(cfg)
+    tfm.require_ported(cfg)
     if batch.get("ctx") is not None:
         raise NotImplementedError("context inputs (vlm / audio) are not "
                                   "ported yet (ROADMAP M11)")
@@ -192,22 +204,34 @@ def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
 
 
 def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
-    """Zero KV cache: {"k", "v"} (L_attn, B, seq_len, K*hd), the config's
-    dtype (the reference's ``abstract_cache``); mamba and cross-attention
-    caches are not ported (ROADMAP M11)."""
-    tfm.require_dense(cfg)
-    shape = (len(tfm.attn_layer_indices(cfg)), batch, seq_len,
-             cfg.num_kv_heads * cfg.head_dim)
-    return {n: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
-            for n in ("k", "v")}
+    """Zero decode cache in the reference's ``abstract_cache`` layout:
+    {"k", "v"} (L_attn, B, seq_len, K*hd) in the config's dtype when the
+    model has attention layers; {"mamba": ``ssm.allocate_mamba_cache``}
+    when it has mamba layers.  Cross-attention caches are not ported
+    (ROADMAP M11)."""
+    tfm.require_ported(cfg)
+    cache = {}
+    n_attn = len(tfm.attn_layer_indices(cfg))
+    if n_attn:
+        shape = (n_attn, batch, seq_len, cfg.num_kv_heads * cfg.head_dim)
+        for n in ("k", "v"):
+            cache[n] = torch.zeros(shape, dtype=dtype_of(cfg), device=device)
+    n_mamba = len(tfm.mamba_layer_indices(cfg))
+    if n_mamba:
+        cache["mamba"] = ssm_mod.allocate_mamba_cache(cfg, batch, n_mamba,
+                                                      device)
+    return cache
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int | None = None, *,
             impl: str | None = None):
-    """Run the full prompt, returning (last-token logits (B, V), cache)."""
+    """Run the full prompt, returning (last-token logits (B, V), cache).
+    The cache's k/v hold the prompt's; its mamba part is zero, as the
+    reference's prefill leaves it: ``ServeEngine.generate`` fills it by
+    replaying the prompt through ``decode_step``."""
     logits, kv_all = forward(params, batch, cfg, collect_kv=True,
                              last_only=True, impl=impl)
-    B, S = kv_all[0][0].shape[:2]
+    B, S = batch["tokens"].shape
     cache = allocate_cache(cfg, B, S if cache_len is None else cache_len,
                            params_device(params))
     for i, (k, v) in enumerate(kv_all):
@@ -219,32 +243,51 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     """One decode step.  token: (B,) int; pos: the position the new token
     occupies (the cache holds pos valid entries before the call).
 
-    Returns (logits (B, V) f32, cache): the new token's k/v are written
-    into ``cache`` in place at ``pos``.  Run twice on the same inputs it
-    writes the same values, so a replay sees what the first run saw (the
-    reference's cache is functional).
+    Returns (logits (B, V) f32, new cache).  The new token's k/v are
+    written into ``cache``'s k/v in place at ``pos``: run twice on the
+    same inputs it writes the same values, so a replay sees what the
+    first run saw.  The mamba state and conv buffers are not idempotent
+    that way, so they are functional, as the reference's whole cache is:
+    the new cache holds new mamba tensors and ``cache``'s stay as they
+    were.
     """
-    tfm.require_dense(cfg)
+    tfm.require_ported(cfg)
     dev = params_device(params)
     token = _tokens(token, dev)
     B = token.shape[0]
     K, hd = cfg.num_kv_heads, cfg.head_dim
     x = embed(params["embed"], token[:, None], cfg)            # (B, 1, D)
     positions = torch.full((1, 1), int(pos), device=dev)
-    for attn_i, (kind, p) in enumerate(zip(layer_kinds(cfg),
-                                           params["layers"])):
+    new_mamba = {n: [] for n in cache.get("mamba", {})}
+    attn_i = 0
+    for kind, p in zip(layer_kinds(cfg), params["layers"]):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        q = attn.project_q(p["mixer"], h, cfg, positions)
-        k_new, v_new = attn.project_kv(p["mixer"], h, cfg, positions)
-        ck, cv = cache["k"][attn_i], cache["v"][attn_i]
-        attn.update_cache(ck, cv, k_new.reshape(B, 1, K * hd),
-                          v_new.reshape(B, 1, K * hd), int(pos))
-        S = ck.shape[1]
-        o = attn.decode_attention(
-            q, ck.reshape(B, S, K, hd), cv.reshape(B, S, K, hd),
-            valid_len=int(pos) + 1, window=tfm.window_of(kind, cfg))
-        x = x + attn.output_proj(p["mixer"], o)
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp(p["ffn"], h)
+        if kind.mixer == "mamba":
+            i = len(new_mamba["state"])
+            out, mnew = ssm_mod.mamba_decode_step(
+                p["mixer"], h[:, 0],
+                {n: t[i] for n, t in cache["mamba"].items()}, cfg)
+            for n, t in mnew.items():
+                new_mamba[n].append(t)
+            x = x + out[:, None]
+        else:
+            q = attn.project_q(p["mixer"], h, cfg, positions)
+            k_new, v_new = attn.project_kv(p["mixer"], h, cfg, positions)
+            ck, cv = cache["k"][attn_i], cache["v"][attn_i]
+            attn.update_cache(ck, cv, k_new.reshape(B, 1, K * hd),
+                              v_new.reshape(B, 1, K * hd), int(pos))
+            S = ck.shape[1]
+            o = attn.decode_attention(
+                q, ck.reshape(B, S, K, hd), cv.reshape(B, S, K, hd),
+                valid_len=int(pos) + 1, window=tfm.window_of(kind, cfg))
+            x = x + attn.output_proj(p["mixer"], o)
+            attn_i += 1
+        if kind.ffn == "mlp":
+            h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            x = x + mlp(p["ffn"], h)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x[:, 0], cfg), cache
+    new_cache = dict(cache)
+    if new_mamba:
+        new_cache["mamba"] = {n: torch.stack(ts) for n, ts in
+                              new_mamba.items()}
+    return unembed(params["embed"], x[:, 0], cfg), new_cache

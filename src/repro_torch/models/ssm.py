@@ -1,0 +1,218 @@
+"""Mamba2 (SSD, state-space duality) block, chunked algorithm.
+
+Port of ``repro.models.ssm``.  Prefill and training split the sequence
+into chunks of length Q: the intra-chunk term is a masked quadratic
+(attention-like) product, the inter-chunk term a recurrence over
+per-chunk states (the reference's ``lax.scan``, a Python loop here).
+Decode is O(1) a token through the (B, H, N, P) state and a causal conv
+buffer of the previous d_conv - 1 raw projected inputs.
+
+Precision follows the reference: the projections and the out projection
+in the config's dtype; the conv outputs, SiLU, softplus, dt, A, the
+decays, the states and y in f32; the gated y * silu(z) in f32, cast to
+the dtype before the RMSNorm.  The SSM state is f32, the conv caches
+are in the dtype.  No kernel: the reference computes these products as
+einsums outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dtype_of, init_weight, rmsnorm
+
+
+def dims(cfg):
+    """(d_inner, heads, groups, d_state)."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    return d_inner, d_inner // s.head_dim, s.n_groups, s.d_state
+
+
+def init_mamba(cfg, gen: torch.Generator, device):
+    """The reference's ``abstract_mamba`` leaves, drawn with its
+    distributions (``layers.materialize``): matrices (and the (d_conv, C)
+    conv weights, std 0.5) truncated normal times 1/sqrt(shape[-2]);
+    A_log = log U(1, 16) and dt_bias = softplus^-1 of U(1e-3, 1e-1), in
+    f32; D (f32) and norm ones."""
+    dt = dtype_of(cfg)
+    D, d_conv = cfg.d_model, cfg.ssm.d_conv
+    d_inner, H, G, N = dims(cfg)
+
+    def w(*shape):
+        return init_weight(shape, dt, gen, device)
+
+    def uniform(lo, hi):
+        u = torch.empty(H, dtype=torch.float32, device=device)
+        return u.uniform_(lo, hi, generator=gen)
+
+    u = uniform(1e-3, 1e-1)
+    return {
+        "in_z": w(D, d_inner), "in_x": w(D, d_inner),
+        "in_B": w(D, G * N), "in_C": w(D, G * N), "in_dt": w(D, H),
+        "conv_x": w(d_conv, d_inner), "conv_B": w(d_conv, G * N),
+        "conv_C": w(d_conv, G * N),
+        "A_log": torch.log(uniform(1.0, 16.0)),
+        "dt_bias": u + torch.log(-torch.expm1(-u)),
+        "D": torch.ones(H, dtype=torch.float32, device=device),
+        "norm": torch.ones(d_inner, dtype=dt, device=device),
+        "out": w(d_inner, D),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv by shifted adds.  x: (B, T, C), w: (W, C)."""
+    W, T = w.shape[0], x.shape[1]
+    out = x * w[-1]
+    for i in range(1, W):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :T]
+        out = out + shifted * w[W - 1 - i]
+    return out
+
+
+def _ssd_inputs(params, xin: torch.Tensor, cfg):
+    """The prefill's projections: (z, x (B,T,H,P), B (B,T,G,N), C, dt)."""
+    d_inner, H, G, N = dims(cfg)
+    Bsz, T, _ = xin.shape
+    z = xin @ params["in_z"]
+    x = xin @ params["in_x"]
+    Bp = xin @ params["in_B"]
+    Cp = xin @ params["in_C"]
+    dtp = xin @ params["in_dt"]
+    x = F.silu(_causal_conv(x, params["conv_x"]).float())
+    Bp = F.silu(_causal_conv(Bp, params["conv_B"]).float())
+    Cp = F.silu(_causal_conv(Cp, params["conv_C"]).float())
+    dt = F.softplus(dtp.float() + params["dt_bias"])            # (B, T, H)
+    return (z, x.reshape(Bsz, T, H, -1), Bp.reshape(Bsz, T, G, N),
+            Cp.reshape(Bsz, T, G, N), dt)
+
+
+def _gate_out(params, y: torch.Tensor, z: torch.Tensor, cfg) -> torch.Tensor:
+    """Gated RMSNorm and the out projection: y f32 (..., d_inner)."""
+    y = y * F.silu(z.float())
+    y = rmsnorm({"scale": params["norm"]}, y.to(dtype_of(cfg)), cfg.norm_eps)
+    return y @ params["out"]
+
+
+def mamba(params, xin: torch.Tensor, cfg, initial_state=None,
+          return_state: bool = False):
+    """xin: (B, T, D) -> (B, T, D), the chunked SSD; with
+    ``return_state`` also the final (B, H, N, P) f32 state."""
+    d_inner, H, G, N = dims(cfg)
+    HG = H // G
+    Bsz, T, _ = xin.shape
+    Q = min(cfg.ssm.chunk, T)
+    if T % Q:
+        raise ValueError(f"seq len {T} not a multiple of chunk {Q}")
+    nC = T // Q
+
+    z, x, Bp, Cp, dt = _ssd_inputs(params, xin, cfg)
+    P = x.shape[-1]
+    A = -torch.exp(params["A_log"])                             # (H,) < 0
+    log_a = dt * A                                              # (B, T, H)
+
+    xc = x.reshape(Bsz, nC, Q, H, P)
+    Bc = Bp.reshape(Bsz, nC, Q, G, N)
+    Cc = Cp.reshape(Bsz, nC, Q, G, N)
+    dtc = dt.reshape(Bsz, nC, Q, H)
+    L = torch.cumsum(log_a.reshape(Bsz, nC, Q, H), dim=2)       # inclusive
+
+    # intra-chunk: G[b,c,h,q,s] = (C_q . B_s) exp(L_q - L_s) dt_s, s <= q.
+    # The clamp keeps exp finite above the diagonal (L_q - L_s > 0 there
+    # reaches hundreds at full width): an inf would turn into NaN in the
+    # backward pass even where the mask zeroes the forward.
+    # Each group's C.B is broadcast over its HG heads (the reference's
+    # repeat, without the copy).
+    cb = torch.einsum("bcqgn,bcsgn->bcgqs", Cc, Bc)[:, :, :, None]
+    dec = L[:, :, :, None, :] - L[:, :, None, :, :]             # (B,C,Q,Q,H)
+    dec = torch.exp(torch.clamp(dec, max=0.0)).permute(0, 1, 4, 2, 3)
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=xin.device).tril()
+    g = torch.where(mask, (cb * dec.unflatten(2, (G, HG))).flatten(2, 3),
+                    0.0)                                        # (B,C,H,Q,Q)
+    g = g * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchqs,bcshp->bcqhp", g, xc)
+
+    # per-chunk local states: sum_s exp(L_last - L_s) dt_s B_s x_s
+    wdec = torch.exp(L[:, :, -1:, :] - L)                       # (B,C,Q,H)
+    Bh = Bc.repeat_interleave(HG, dim=3)                        # (B,C,Q,H,N)
+    wb = Bh * (wdec * dtc)[..., None]
+    S_local = torch.einsum("bcshn,bcshp->bchnp", wb, xc)        # (B,C,H,N,P)
+
+    # the inter-chunk recurrence
+    chunk_decay = torch.exp(L[:, :, -1, :])                     # (B, C, H)
+    S = (torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=xin.device)
+         if initial_state is None else initial_state)
+    prevs = []
+    for c in range(nC):
+        prevs.append(S)
+        S = S * chunk_decay[:, c, :, None, None] + S_local[:, c]
+    S_prevs = torch.stack(prevs, dim=1)                         # (B,C,H,N,P)
+
+    # y_inter[q] = exp(L_q) C_q . S_prev
+    cg = Cc.repeat_interleave(HG, dim=3)                        # (B,C,Q,H,N)
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", cg, S_prevs)
+    y_inter = y_inter * torch.exp(L)[..., None]
+
+    y = (y_intra + y_inter).reshape(Bsz, T, H, P)
+    y = y + params["D"][None, None, :, None] * x
+    out = _gate_out(params, y.reshape(Bsz, T, d_inner), z, cfg)
+    return (out, S) if return_state else out
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def allocate_mamba_cache(cfg, batch: int, num_layers: int, device):
+    """Zero decode cache (the reference's ``abstract_mamba_cache``):
+    state (L_m, B, H, N, P) f32, conv_x (L_m, B, d_conv-1, d_inner) and
+    conv_B, conv_C (L_m, B, d_conv-1, G*N) in the config's dtype."""
+    d_inner, H, G, N = dims(cfg)
+    W, dt = cfg.ssm.d_conv - 1, dtype_of(cfg)
+    return {
+        "state": torch.zeros(num_layers, batch, H, N, cfg.ssm.head_dim,
+                             dtype=torch.float32, device=device),
+        "conv_x": torch.zeros(num_layers, batch, W, d_inner, dtype=dt,
+                              device=device),
+        "conv_B": torch.zeros(num_layers, batch, W, G * N, dtype=dt,
+                              device=device),
+        "conv_C": torch.zeros(num_layers, batch, W, G * N, dtype=dt,
+                              device=device),
+    }
+
+
+def _conv_step(x_new: torch.Tensor, conv_cache: torch.Tensor,
+               w: torch.Tensor):
+    """x_new: (B, C); conv_cache: (B, W-1, C) of the previous raw inputs.
+    Returns (y (B, C), the new cache): the window's products summed in
+    f32 and rounded once, as the reference's einsum (a dot) does."""
+    window = torch.cat([conv_cache, x_new[:, None, :]], dim=1)  # (B, W, C)
+    y = (window.float() * w.float()).sum(dim=1).to(x_new.dtype)
+    return y, window[:, 1:]
+
+
+def mamba_decode_step(params, xin: torch.Tensor, cache, cfg):
+    """One token.  xin: (B, D); cache: {state, conv_x, conv_B, conv_C} of
+    one layer.  Returns (out (B, D), new cache): new tensors, the input
+    cache untouched (a replayed step starts from the same state)."""
+    d_inner, H, G, N = dims(cfg)
+    HG = H // G
+    z = xin @ params["in_z"]
+    x, ncx = _conv_step(xin @ params["in_x"], cache["conv_x"],
+                        params["conv_x"])
+    Bp, ncb = _conv_step(xin @ params["in_B"], cache["conv_B"],
+                         params["conv_B"])
+    Cp, ncc = _conv_step(xin @ params["in_C"], cache["conv_C"],
+                         params["conv_C"])
+    dtp = xin @ params["in_dt"]
+    x = F.silu(x.float()).reshape(-1, H, cfg.ssm.head_dim)
+    Bh = F.silu(Bp.float()).reshape(-1, G, N).repeat_interleave(HG, dim=1)
+    Ch = F.silu(Cp.float()).reshape(-1, G, N).repeat_interleave(HG, dim=1)
+    dt = F.softplus(dtp.float() + params["dt_bias"])            # (B, H)
+    a = torch.exp(dt * -torch.exp(params["A_log"]))             # (B, H)
+    S = cache["state"] * a[:, :, None, None] + torch.einsum(
+        "bhn,bhp,bh->bhnp", Bh, x, dt)
+    y = torch.einsum("bhn,bhnp->bhp", Ch, S) + params["D"][None, :, None] * x
+    out = _gate_out(params, y.reshape(-1, d_inner), z, cfg)
+    return out, {"state": S, "conv_x": ncx, "conv_B": ncb, "conv_C": ncc}
+

@@ -1,5 +1,5 @@
-"""Serving: batched prefill + greedy decode with a KV cache, and the
-paper's §5 self-check applied to inference.
+"""Serving: batched prefill + greedy decode with a KV / SSM cache, and
+the paper's §5 self-check applied to inference.
 
 Port of ``repro.serving.engine``.  ``audit_decode`` replays a decode
 step and compares CountSketches of the two logit arrays (K4s on the
@@ -44,15 +44,16 @@ def audit_decode(params, token, pos: int, cache, cfg, *, key: int,
 
     ``key`` is the seed n of the reference's ``jax.random.PRNGKey(n)``.
     Returns (logits, cache, consistent: bool).  The replay writes the same
-    k/v at ``pos`` as the first run (``decode_step``), so it sees the
-    cache the first run saw.
+    k/v at ``pos`` as the first run (``decode_step``) and reads the mamba
+    state the first run left untouched, so it sees the cache the first
+    run saw.
     """
-    logits, cache = M.decode_step(params, token, pos, cache, cfg)
+    logits, new_cache = M.decode_step(params, token, pos, cache, cfg)
     logits2, _ = M.decode_step(params, token, pos, cache, cfg)
     ks = detection.key_scalar_for_seed(key)
     s1 = detection.hash_sign_sketch(logits.reshape(-1), ks, k, impl=impl)
     s2 = detection.hash_sign_sketch(logits2.reshape(-1), ks, k, impl=impl)
-    return logits, cache, sketches_agree(s1, s2)
+    return logits, new_cache, sketches_agree(s1, s2)
 
 
 def _sync(device: torch.device) -> None:
@@ -68,8 +69,9 @@ class ServeEngine:
     one); ``impl`` picks the kernels' implementation (``None``: follow
     the device; ``"torch"``: the plain versions, for comparison).  After
     ``generate``: ``audits``, ``audit_failures``, ``phase_s`` (seconds
-    of the prefill, of the unaudited decode steps and of the audited
-    ones, the card synchronized at each boundary) and, with
+    of the prefill, of the prompt's replay through decode that fills a
+    mamba cache, of the unaudited decode steps and of the audited ones,
+    the card synchronized at each boundary) and, with
     ``record_logits``, ``logits``: the (B, V) logits each token was
     chosen from.
     """
@@ -83,7 +85,7 @@ class ServeEngine:
     record_logits: bool = False
 
     def __post_init__(self):
-        tfm.require_dense(self.cfg)
+        tfm.require_ported(self.cfg)
         self.device = M.resolve_device(self.device)
         self.params = M.to_device(self.params, self.device)
         self._rng = np.random.default_rng(self.seed)
@@ -104,6 +106,15 @@ class ServeEngine:
         logits, cache = M.prefill(self.params, {"tokens": tokens}, self.cfg,
                                   cache_len=S + steps, impl=self.impl)
         _sync(self.device)
+        t_pre = time.perf_counter()
+        # the mamba cache: the prompt replayed through decode from zero
+        # (O(S) steps), as the reference does; its last step's logits
+        # choose the first token
+        if "mamba" in cache:
+            for t in range(S):
+                logits, cache = M.decode_step(self.params, tokens[:, t], t,
+                                              cache, self.cfg)
+            _sync(self.device)
         t1 = time.perf_counter()
         out = []
         audit_s = 0.0
@@ -131,7 +142,7 @@ class ServeEngine:
                                               self.cfg)
             tok = torch.argmax(logits, dim=-1)
         _sync(self.device)
-        self.phase_s = {"prefill": t1 - t0,
+        self.phase_s = {"prefill": t_pre - t0, "replay": t1 - t_pre,
                         "decode": time.perf_counter() - t1 - audit_s,
                         "audit": audit_s}
         if not out:

@@ -874,3 +874,98 @@ def test_identify_vote_on_card_matches_plain(cuda, G, r, d):
     assert torch.equal(got_f, want_f) and torch.equal(got_v, want_v)
     assert got_f[0].tolist() == [False, True, False] + \
         ([True, False] if r > 3 else [])
+
+
+# ---------------------------------------------------------------------------
+# mamba2-780m on the card
+# ---------------------------------------------------------------------------
+
+def test_mamba_serving_on_card_matches_cpu(cuda):
+    """Reduced mamba2-780m in f32: ServeEngine on the card against the
+    CPU (the chunked prefill, the prompt replay, audited decode); logits
+    within 1e-4 (1 + max|.|), tokens under the margin rule, the same
+    audits; no K6 (attention-free), K4s twice an audit; a decode step
+    replayed on one cache bitwise, its input cache unchanged."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine, token_agreement
+
+    cfg = _small("mamba2-780m")
+    params = M.init(cfg, 0, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               size=(2, 32))
+    cpu = ServeEngine(cfg, params, q_audit=0.5, seed=0, device="cpu",
+                      record_logits=True)
+    want = cpu.generate(prompt, 8)
+    card = ServeEngine(cfg, params, q_audit=0.5, seed=0, record_logits=True)
+    ops.reset_launch_counts()
+    got = card.generate(prompt, 8).cpu()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 0
+    assert counts["sketch"] == 2 * card.audits > 0
+    assert (card.audits, card.audit_failures) == (cpu.audits, 0)
+    tol = 1e-4 * (1 + float(torch.stack(cpu.logits).abs().max()))
+    compared, agreed = token_agreement(cpu.logits, want, got, tol)
+    assert compared > 0 and agreed == compared
+    torch.testing.assert_close(card.logits[0].cpu(), cpu.logits[0], rtol=0,
+                               atol=tol)
+    _, cache = M.prefill(card.params, {"tokens": prompt}, cfg, 40)
+    for t in range(32):
+        _, cache = M.decode_step(card.params, prompt[:, t], t, cache, cfg)
+    before = {n: x.clone() for n, x in cache["mamba"].items()}
+    a, ca = M.decode_step(card.params, got[:, 0], 32, cache, cfg)
+    b, cb = M.decode_step(card.params, got[:, 0], 32, cache, cfg)
+    assert torch.equal(a, b)
+    for n in before:
+        assert torch.equal(cache["mamba"][n], before[n])
+        assert torch.equal(ca["mamba"][n], cb["mamba"][n])
+
+
+def test_mamba_trainer_on_card_matches_cpu(cuda):
+    """Reduced mamba2-780m in f32, randomized q = 0.5 under sign_flip on
+    [2, 5], five steps: the control exact, losses within 1e-4 relative,
+    parameters within 1e-4 (1 + max|p|); K4s on every check member's 16
+    leaves, K3 on every identify leaf, no K6."""
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    cfg = _small("mamba2-780m")
+    init = M.init_train(cfg, 0, device="cpu")
+    assert len(tree.leaves(init)) == 16
+    cpu = _trainer(cfg, "cpu", M.map_params(torch.clone, init))
+    cpu.run(5)
+    card = _trainer(cfg, None, M.map_params(lambda t: t.to(cuda), init))
+    ops.reset_launch_counts()
+    card.run(5)
+    counts = ops.launch_counts()
+    for g, w in zip(card.history, cpu.history):
+        assert {k: v for k, v in g.items() if k != "loss"} == \
+            {k: v for k, v in w.items() if k != "loss"}
+        assert abs(g["loss"] - w["loss"]) <= 1e-4 * abs(w["loss"])
+    for a, b in zip(tree.leaves(card.params), tree.leaves(cpu.params)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * (1 + float(b.abs().max()))
+    assert counts["flash_attention"] == 0
+    assert counts["pairwise_relmax_batched"] == \
+        16 * card.state.meter.identify_iterations
+    assert counts["sketch"] > 0 and counts["sketch"] % 16 == 0
+
+
+def test_mamba_honest_replicas_are_bitwise_equal_on_card(cuda):
+    """Two workers on the same rows (bf16, reduced mamba2-780m, two SSD
+    chunks): equal gradients and sketches bit for bit."""
+    from repro_torch.core import detection, tree
+    from repro_torch.models import model as M
+    from repro_torch.train import steps
+
+    cfg = _small("mamba2-780m", "bfloat16")
+    params = M.init_train(cfg, 0)
+    rng = np.random.default_rng(3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32))).to(cuda)
+    lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32))).to(cuda)
+    att = steps.AttackConfig("none")
+    grads = [steps.per_worker_grad(params, tok, lab, False, (0, w), cfg,
+                                   att)[1] for w in range(2)]
+    for a, b in zip(tree.leaves(grads[0]), tree.leaves(grads[1])):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+    s = [detection.sketch_tree(g, 12345) for g in grads]
+    assert torch.equal(s[0], s[1])

@@ -260,7 +260,7 @@ def test_key_scalar_for_seed_matches_reference(n):
         jdet.key_scalar_for_step(jax.random.PRNGKey(n)))
 
 
-@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "mamba2-780m",
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b",
                                   "llama-3.2-vision-90b", "jamba-v0.1-52b",
                                   "whisper-tiny"])
 def test_unported_layers_raise(name):

@@ -7,8 +7,9 @@ The reference trains in a subprocess with eight host devices
 scenario's initial parameters, history, protocol state and final
 parameters; the port starts from the same parameters
 (``convert.from_jax_train_params``) on ``device="cpu"`` and runs the
-same scenario.  Model: llama3.2-1b ``reduced()`` in f32, n = 8 workers,
-f = 2, sequence 16, global batch 16.
+same scenario.  Model: llama3.2-1b ``reduced()`` in f32 (mamba2-780m's
+for the ``ssm_*`` scenarios), n = 8 workers, f = 2, sequence 16, global
+batch 16.
 
 Held: every control quantity exactly (check / identify decisions, the
 identified sets, efficiency, q, f_t, kappa, the active and identified
@@ -16,9 +17,10 @@ masks, the meter); losses within 1e-4 relative; final parameters
 within 1e-4 * (1 + max|p|) per leaf, with sgd, momentum and adamw alike
 (the adamw restart scenario measures about 8e-6).
 
-The scenarios are split over three test files (this one,
-``test_torch_trainer_modes.py``, ``test_torch_trainer_restart.py``), one
-reference subprocess each, so that no file runs much over a minute.
+The scenarios are split over four test files (this one,
+``test_torch_trainer_modes.py``, ``test_torch_trainer_restart.py``,
+``test_torch_trainer_ssm.py``), one reference subprocess each, so that
+no file runs much over a minute.
 """
 import dataclasses
 import json
@@ -74,6 +76,13 @@ SCENARIOS = {
                     seed=6, opt="momentum",
                     actions=[("run", 2), ("crash", [0, 7]), ("run", 3),
                              ("recover", [0]), ("run", 3)]),
+    # mamba2-780m (tests/test_torch_trainer_ssm.py)
+    "ssm_randomized": dict(arch="mamba2-780m", mode="randomized", q=0.5,
+                           attack="sign_flip", byz=[2, 5], seed=17,
+                           opt="momentum", actions=[("run", 5)]),
+    "ssm_deterministic": dict(arch="mamba2-780m", mode="deterministic",
+                              attack="noise", byz=[1], seed=3, opt="adamw",
+                              actions=[("run", 4)]),
 }
 
 
@@ -82,7 +91,7 @@ def drive(spec, pkg, make, workdir):
     BFTConfig, OptConfig, AttackConfig) and trainer factory
     ``make(cfg, opt, bft, tc, attack, detection, mask)``.  Returns
     (trainer, the resumed trainer or None, the resumed step or None)."""
-    cfg = pkg["cfg"]
+    cfg = pkg["cfg"](spec.get("arch", "llama3.2-1b"))
     tc = pkg["TrainerConfig"](
         seq_len=SEQ, global_batch=BATCH, log_every=0,
         checkpoint_dir=workdir if spec.get("checkpoint_every") else None,
@@ -138,9 +147,9 @@ def _reference_main(out_dir, names) -> None:
     from repro.train import AttackConfig, StepConfig, Trainer, TrainerConfig
 
     mesh = make_mesh((N, 1), ("data", "model"))
-    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
-                              dtype="float32")
-    pkg = dict(cfg=cfg, TrainerConfig=TrainerConfig, BFTConfig=BFTConfig,
+    pkg = dict(cfg=lambda arch: dataclasses.replace(
+        get_config(arch).reduced(), dtype="float32"),
+               TrainerConfig=TrainerConfig, BFTConfig=BFTConfig,
                OptConfig=OptConfig, AttackConfig=AttackConfig)
 
     def flat(params):
@@ -208,10 +217,14 @@ def port(name, arrays, workdir):
     from repro_torch.train import (AttackConfig, StepConfig, Trainer,
                                    TrainerConfig)
 
-    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
-                              dtype="float32")
-    template = M.init_train(cfg, 0, device="cpu")
-    pkg = dict(cfg=cfg, TrainerConfig=TrainerConfig, BFTConfig=BFTConfig,
+    def cfg_of(arch):
+        return dataclasses.replace(get_config(arch).reduced(),
+                                   dtype="float32")
+
+    spec = SCENARIOS[name]
+    template = M.init_train(cfg_of(spec.get("arch", "llama3.2-1b")), 0,
+                            device="cpu")
+    pkg = dict(cfg=cfg_of, TrainerConfig=TrainerConfig, BFTConfig=BFTConfig,
                OptConfig=OptConfig, AttackConfig=AttackConfig)
 
     def make(cfg, opt, bft, tc, attack, detection, mask):
@@ -222,7 +235,7 @@ def port(name, arrays, workdir):
                        sc=StepConfig(detection=detection),
                        true_byzantine=mask, device="cpu", params=params)
 
-    return drive(SCENARIOS[name], pkg, make, workdir)
+    return drive(spec, pkg, make, workdir)
 
 
 def assert_same_control(got: dict, want: dict) -> None:
