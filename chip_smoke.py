@@ -105,7 +105,8 @@ Phases, in order; any failed check exits nonzero:
      planted control without the protocol, whose update takes the
      Byzantine gradients, caught by them); reduced llama3.2-1b in f32
      trained on the card against the CPU (control exact, 1e-4);
-   - serving mamba2-780m (``phase_serving_mamba``): at full width,
+   - serving mamba2-780m (``phase_serving_replayed(MAMBA_SERVE)``): at
+     full width,
      random init, bf16, through ``ServeEngine.generate`` (B = 4, a
      512-token prompt, two SSD chunks, replayed through decode to fill
      the SSM cache, 32 greedy tokens, q_audit = 0.25): K4s twice per
@@ -121,6 +122,23 @@ Phases, in order; any failed check exits nonzero:
    - training mamba2-780m (``phase_train`` with ``MAMBA_TRAIN``): the
      checks of llama3.2-1b's training at global batch 8 (no K6; K4s 16
      per check member, K3 16 per vote, at (1, 5, 226492416));
+   - serving phi3.5-moe-42b-a6.6b (``phase_serving(MOE_SERVE)``): at
+     full width, 16 of its 32 layers, the llama cell's traffic and
+     checks (K6 at its prefill shape, the qwen3-4b one, hd 128), plus
+     the prefill's dropped share of the top-2 choices (C = 2560 at
+     N = 16384), a decode step run twice on one cache bitwise and
+     profiled against its byte bound (every expert read), K4s at the
+     audit's 4 x 32064 and reduced phi3.5-moe in f32 card vs CPU (the
+     llama cell gets the replay and profile checks too);
+   - training phi3.5-moe (``phase_train`` with ``MOE_TRAIN``): full
+     width, one layer, the checks of llama3.2-1b's training (K4s 13 per
+     check member, K3 13 per vote, at (1, 5, 419430400));
+   - serving jamba-v0.1-52b (``phase_serving_replayed(HYBRID_SERVE)``):
+     full width, 8 of its 32 layers (one attention period), the mamba
+     cell's traffic and checks, K6 once in the prefill; the chunked
+     prefill at a capacity that drops nothing against the replay (the
+     config's own, which drops, beside it, not held); one training step
+     of reduced jamba in f32 card vs CPU;
 4. a ``{"kernels": [...]}`` line;
 5. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -129,6 +147,7 @@ script imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -1609,7 +1628,8 @@ def phase_small_vs_cpu(torch):
 # causal; the llama3.2-1b prefill first (its row in the kernels line)
 ATTN_SHAPES = [
     ("llama3.2-1b prefill", 4, 4096, 32, 8, 64, None),
-    ("qwen3-4b prefill", 4, 4096, 32, 8, 128, None),
+    ("qwen3-4b and phi3.5-moe prefill", 4, 4096, 32, 8, 128, None),
+    ("jamba-v0.1-52b prefill", 4, 512, 32, 8, 128, None),
     ("gemma3-1b local layer", 1, 4096, 4, 1, 256, 512),
     ("gemma3-1b global layer", 1, 4096, 4, 1, 256, None),
 ]
@@ -1626,9 +1646,11 @@ ATTN_RAGGED = [
     (1, 200, 200, 4, 1, 256, True, 64),
 ]
 # the serving cell: llama3.2-1b at full width, prompt cut from
-# SHAPES["prefill_32k"] (32768 x 32) to 4096 x 4
+# SHAPES["prefill_32k"] (32768 x 32) to 4096 x 4; K6 at its prefill shape
+# (ATTN_SHAPES), reduced llama3.2-1b and gemma3-1b in f32 card vs CPU
 SERVE = dict(arch="llama3.2-1b", B=4, S=4096, steps=32, q_audit=0.25,
-             seed=0)
+             seed=0, k6_shape="llama3.2-1b prefill",
+             small=("llama3.2-1b", "gemma3-1b"))
 
 
 def attn_pairs(Sq, Sk, causal, window) -> int:
@@ -1760,7 +1782,18 @@ def logits_tol(logits, rel: float) -> float:
     return rel * (1.0 + float(logits.abs().max()))
 
 
-def teacher_forced_logits(cfg, params, prompt, out, coins):
+def cell_cfg(sv):
+    """The cell's config: the arch at full width, its depth cut to
+    ``sv["layers"]`` where set."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(sv["arch"])
+    if sv.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=sv["layers"])
+    return cfg
+
+
+def teacher_forced_logits(cfg, params, prompt, out, coins, sv):
     """The plain versions fed a run's greedy tokens ``out`` (B, steps):
     yields, per step, the (B, V) logits that step's token was chosen from
     (the prompt's last-token logits, then each decode step's), the run's
@@ -1779,9 +1812,9 @@ def teacher_forced_logits(cfg, params, prompt, out, coins):
                           cache_len=S + steps, impl="torch")
     yield lg
     for i in range(steps - 1):
-        if coins[i] < SERVE["q_audit"]:
+        if coins[i] < sv["q_audit"]:
             lg, cache, ok = audit_decode(params, out[:, i], S + i, cache, cfg,
-                                         key=SERVE["seed"] + 1000 + i,
+                                         key=sv["seed"] + 1000 + i,
                                          impl="torch")
             check(ok, f"teacher-forced plain run: audit at step {i} failed")
         else:
@@ -1838,6 +1871,19 @@ def serve_audited(torch, cfg, params, prompt, steps, sv):
         audit_spans=n_spans, audit_counter_increments=audits_inc)
 
 
+def check_serving_launches(cfg, launches, audits) -> None:
+    """K6 once per attention layer (the prefill), K4s twice per audit,
+    no other kernel."""
+    from repro_torch.models.transformer import attn_layer_indices
+
+    want = {"flash_attention": len(attn_layer_indices(cfg)),
+            "sketch": 2 * audits}
+    check(all(launches[k] == v for k, v in want.items()) and
+          sum(launches.values()) == sum(want.values()),
+          f"{cfg.name} serving launched {launches}, want {want} and "
+          f"nothing else")
+
+
 def tampered_replica_caught(cfg, params, prompt) -> None:
     """A Byzantine replica (examples/serve_audit.py: final-norm scale[0]
     x 3): its decode logits' audit sketch differs from the honest
@@ -1863,264 +1909,148 @@ def tampered_replica_caught(cfg, params, prompt) -> None:
           "the audit did not single out the tampered replica")
 
 
-def phase_serving(torch, k6_ms: float):
-    """llama3.2-1b served at full width through ServeEngine.generate,
-    against the same run with the plain versions; the tampered replica;
-    reduced llama3.2-1b and gemma3-1b on the card against the CPU."""
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    from repro_torch.serving import ServeEngine, token_agreement
-
-    cfg = get_config(SERVE["arch"])
-    B, S, steps = SERVE["B"], SERVE["S"], SERVE["steps"]
-    t0 = time.perf_counter()
-    params = M.init(cfg, SERVE["seed"])
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                               size=(B, S))
-    # warm-up (cuBLAS handles, the kernel libraries): a short run
-    ServeEngine(cfg, params).generate(prompt[:, :256], 2)
-
-    def serve(impl=None):
-        eng = ServeEngine(cfg, params, q_audit=SERVE["q_audit"],
-                          seed=SERVE["seed"], impl=impl, record_logits=True)
-        return eng, eng.generate(prompt, steps)
-
-    eng, out, launches, coins, spans = serve_audited(
-        torch, cfg, params, prompt, steps, SERVE)
-    check(launches["flash_attention"] == cfg.num_layers,
-          f"K6 launched {launches['flash_attention']} times in one prefill, "
-          f"want {cfg.num_layers}")
-    check(launches["sketch"] == 2 * eng.audits,
-          f"K4s launched {launches['sketch']} times for {eng.audits} audits")
-    prefill_s, audit_s = eng.phase_s["prefill"], eng.phase_s["audit"]
-    decode_s = eng.phase_s["decode"] + audit_s        # every step
-    plain_steps = steps - eng.audits
-    k6_share = cfg.num_layers * k6_ms / (prefill_s * 1e3)
-    print(f"model init {init_s:.4f} s; prefill {prefill_s:.4f} s; decode "
-          f"{decode_s:.4f} s = {decode_s / steps * 1e3:.4f} ms per step, "
-          f"{B * steps / decode_s:.1f} tokens/s (unaudited steps "
-          f"{eng.phase_s['decode'] / max(1, plain_steps) * 1e3:.4f} ms each, "
-          f"audited {audit_s / max(1, eng.audits) * 1e3:.4f} ms each); K6 "
-          f"{cfg.num_layers} x {k6_ms:.4f} ms = {k6_share:.1%} of the "
-          f"prefill; audits {eng.audits}, failures {eng.audit_failures}")
-
-    eng_p, out_p = serve("torch")
-    check(eng_p.audits == eng.audits and eng_p.audit_failures == 0,
-          "plain run: audits differ")
-    tol = logits_tol(eng_p.logits[0], 3e-2)
-    prefill_err = max_err(eng.logits[0], eng_p.logits[0])
-    compared, agreed = token_agreement(eng_p.logits, out_p, out, tol)
-    # how far each row's tokens run equal from the start; while they do,
-    # that row's logits are held to the same tolerance
-    lead = [next((i for i in range(steps) if out[r, i] != out_p[r, i]),
-                 steps) for r in range(B)]
-    step_err = max(max_err(eng.logits[i][r], eng_p.logits[i][r])
-                   for r in range(B) for i in range(lead[r] + 1)
-                   if i < steps)
-    print(f"kernels vs plain: prefill last-token logits max|d| = "
-          f"{prefill_err:.3e} (tolerance {tol:.3e}); greedy tokens compared "
-          f"under the margin rule {compared}, agreed {agreed} of "
-          f"{B * steps}; each row's tokens equal for its first {lead} "
-          f"steps, its logits there max|d| = {step_err:.3e}; plain "
-          f"prefill {eng_p.phase_s['prefill']:.4f} s")
-    check(prefill_err <= tol,
-          "prefill logits differ between kernels and plain")
-    check(step_err <= tol, "decode logits differ between kernels and plain "
-                           "while the tokens agree")
-    check(agreed == compared, "greedy tokens differ between kernels and plain")
-    del eng_p, out_p
-
-    forced_err, forced_held, forced_worst = 0.0, 0, 0.0
-    for i, lg in enumerate(teacher_forced_logits(cfg, params, prompt, out,
-                                                 coins)):
-        for r in range(B):
-            e = max_err(eng.logits[i][r], lg[r])
-            t = logits_tol(lg[r], 3e-2)
-            forced_err = max(forced_err, e)
-            forced_worst = max(forced_worst, e / t)
-            forced_held += int(e <= t)
-    print(f"kernels vs plain, teacher-forced (the kernel run's tokens fed "
-          f"to the plain versions): {forced_held} of {B * steps} step-rows "
-          f"within 3e-2*(1+max|logits|), max|d| = {forced_err:.3e} (worst "
-          f"{forced_worst:.3f} of its tolerance)")
-    check(forced_held == B * steps, "teacher-forced decode logits differ "
-                                    "between kernels and plain")
-
-    tampered_replica_caught(cfg, params, prompt)
-    del params
-
-    small = {}
-    for arch in ("llama3.2-1b", "gemma3-1b"):
-        rc = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
-        rp = M.init(rc, 0, device="cpu")
-        rprompt = np.random.default_rng(1).integers(0, rc.vocab_size,
-                                                    size=(2, 40))
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            e = ServeEngine(rc, rp, q_audit=0.5, seed=0, device=dev,
-                            record_logits=True)
-            runs[dev] = (e, e.generate(rprompt, 8))
-        (ec, oc), (eg, og) = runs["cpu"], runs["cuda"]
-        og = og.cpu()
-        tol = logits_tol(torch.stack(ec.logits), 1e-4)
-        # logits at every step whose earlier tokens agree
-        err = max(max_err(eg.logits[i].cpu(), ec.logits[i])
-                  for i in range(8) if torch.equal(og[:, :i], oc[:, :i]))
-        n_cmp, n_agr = token_agreement(ec.logits, oc, og, tol)
-        print(f"small {rc.name} f32 card vs CPU: logits max|d| = {err:.3e} "
-              f"(tolerance {tol:.3e}); tokens compared {n_cmp}, agreed "
-              f"{n_agr}; audits {eg.audits} / {ec.audits}")
-        check(n_agr == n_cmp and n_cmp > 0 and
-              eg.audits == ec.audits and eg.audit_failures == 0,
-              f"{rc.name}: card vs CPU tokens or audits differ")
-        check(err <= tol, f"{rc.name}: card vs CPU logits differ")
-        small[rc.name] = dict(logits_err=err, compared=n_cmp, agreed=n_agr)
-    return launches, dict(
-        init_s=init_s, prefill_s=prefill_s, decode_s=decode_s,
-        audit_s=audit_s, leading_equal_tokens_vs_plain=lead,
-        step_logits_err_vs_plain=step_err,
-        decode_ms_per_step=decode_s / steps * 1e3,
-        tokens_per_s=B * steps / decode_s, k6_share_of_prefill=k6_share,
-        audits=eng.audits, audit_failures=eng.audit_failures, **spans,
-        prefill_logits_err_vs_plain=prefill_err, tokens_compared=compared,
-        forced_step_rows_held=forced_held, forced_logits_err=forced_err,
-        tokens_agreed=agreed, small_vs_cpu=small)
-
-
-# the mamba serving cell: mamba2-780m at full width (48 layers, d_model
-# 1536, d_inner 3072, 48 heads of 64, d_state 128, chunk 256, vocab
-# 50280 tied, bf16), random init, seed 0; B = 4, a 512-token prompt (two
-# SSD chunks), 32 greedy tokens, q_audit = 0.25
-MAMBA_SERVE = dict(arch="mamba2-780m", B=4, S=512, steps=32, q_audit=0.25,
-                   seed=0)
-# the chunked prefill's last-position logits against the logits of the
-# prompt replayed token by token through decode, as max|d| <=
-# MAMBA_CHUNKED_REL * (1 + max|replay logits|): bf16 rounding over 48
-# layers, in other places in the two (the prefill's conv rounds after
-# each shifted add, the decode's once; other GEMM shapes).  Read on an
-# H100: 2.67e-2 (argmax equal in 4 of 4 rows); in f32 the two agree to
-# 3e-6, and in bf16 each lies about 3e-2 from the f32 logits (48 layers
-# at d_model 256 on the CPU)
-MAMBA_CHUNKED_REL = 5e-2
-
-
-def decode_step_bytes(cfg, params, B: int) -> float:
-    """Bytes one decode step must move at batch B: every layer weight
-    once, the tied table read in bf16 and its f32 copy written and read
-    (the reference's f32 unembed), the mamba state and conv buffers read
-    and written, the (B, V) f32 logits written."""
+def decode_step_bytes(cfg, params, B: int, kv_len: int) -> float:
+    """Bytes one decode step must move at batch B with ``kv_len`` valid
+    cache positions: every layer weight once (every expert of an MoE
+    layer: the reference's grouped products read all of them), the
+    unembedding matrix read in bf16 and its f32 copy written and read
+    (the reference's f32 unembed), the k/v of the valid positions read,
+    the mamba state and conv buffers read and written, the (B, V) f32
+    logits written."""
     from repro_torch.core import tree
     from repro_torch.models import model as M
 
-    layers = sum(t.numel() * t.element_size()
-                 for t in tree.leaves(params["layers"]))
-    table = params["embed"]["tokens"].numel()
-    cache = sum(t.numel() * t.element_size() for t in tree.leaves(
-        M.allocate_cache(cfg, B, 1, "meta")))
-    return layers + table * (2 + 4 + 4) + 2 * cache + B * cfg.vocab_size * 4
+    def nbytes(t):
+        return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+
+    emb = params["embed"]
+    table = (emb["tokens"] if cfg.tie_embeddings else emb["head"]).numel()
+    cache = M.allocate_cache(cfg, B, kv_len, "meta")
+    return (nbytes(params["layers"]) + table * (2 + 4 + 4)
+            + nbytes([cache.get("k", []), cache.get("v", [])])
+            + 2 * nbytes(cache.get("mamba", {})) + B * cfg.vocab_size * 4)
 
 
-def phase_serving_mamba(torch):
-    """mamba2-780m served at full width through ServeEngine.generate (the
-    chunked prefill, the prompt replayed through decode to fill the SSM
-    cache, audited greedy decode): the audits against the seeded coins,
-    K4s twice an audit, the spans and counters, the chunked prefill's
-    logits against the replay's, a decode step replayed on one cache,
-    the tampered replica, K4s at the audit's shape against its plain
-    version, and the reduced model in f32 on the card against the
-    CPU."""
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import sketch as sk
+def decode_step_profile(torch, cfg, params, token, pos, cache, B) -> dict:
+    """One decode step: its CUDA-event time, its kernels and the card's
+    busy time in it (one profiler window), beside the byte bound."""
     from repro_torch.models import model as M
-    from repro_torch.serving import ServeEngine
 
-    sv = MAMBA_SERVE
-    cfg = get_config(sv["arch"])
-    B, S, steps = sv["B"], sv["S"], sv["steps"]
-    t_phase = time.perf_counter()
-    params = M.init(cfg, sv["seed"])
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t_phase
-    dev = M.params_device(params)
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                               size=(B, S))
-    ServeEngine(cfg, params).generate(prompt[:, :16], 2)     # warm-up
-
-    eng, out, launches, _, spans = serve_audited(torch, cfg, params,
-                                                 prompt, steps, sv)
-    check(launches["sketch"] == 2 * eng.audits and sum(
-        launches.values()) == launches["sketch"],
-          f"mamba serving launched {launches} for {eng.audits} audits "
-          f"(want K4s twice an audit and nothing else)")
-    ph = eng.phase_s
-    decode_s = ph["decode"] + ph["audit"]
-    plain_steps = steps - eng.audits
-    print(f"model init {init_s:.4f} s; prefill {ph['prefill']:.4f} s; "
-          f"replay {ph['replay']:.4f} s ({ph['replay'] / S * 1e3:.4f} ms a "
-          f"prompt token); decode {decode_s:.4f} s = "
-          f"{decode_s / steps * 1e3:.4f} ms per step, "
-          f"{B * steps / decode_s:.1f} tokens/s (unaudited steps "
-          f"{ph['decode'] / max(1, plain_steps) * 1e3:.4f} ms each, audited "
-          f"{ph['audit'] / max(1, eng.audits) * 1e3:.4f} ms each); audits "
-          f"{eng.audits}, failures {eng.audit_failures}")
-
-    # the chunked SSD against the sequential replay, at full width
-    pre, _ = M.prefill(params, {"tokens": prompt}, cfg)
-    rep = eng.logits[0]
-    chunk_err = max_err(pre, rep)
-    chunk_tol = logits_tol(rep, MAMBA_CHUNKED_REL)
-    scale = chunk_tol / MAMBA_CHUNKED_REL                  # 1 + max|logits|
-    same_top = int((pre.argmax(-1) == rep.argmax(-1)).sum())
-    print(f"chunked prefill vs replayed prompt, last-position logits: "
-          f"max|d| = {chunk_err:.4e}, {chunk_err / scale:.4e} of 1 + "
-          f"max|logits| = {scale:.4f} "
-          f"(limit {MAMBA_CHUNKED_REL}); argmax equal in {same_top} of {B} "
-          f"rows")
-    check(chunk_err <= chunk_tol, "the chunked prefill's logits differ from "
-                                  "the replay's")
-
-    # a decode step replayed on one cache: bitwise, its input untouched
-    cache = M.allocate_cache(cfg, B, S + steps, dev)
-    for t in range(4):
-        _, cache = M.decode_step(params, prompt[:, t], t, cache, cfg)
-    kept = {n: x.clone() for n, x in cache["mamba"].items()}
-    l1, c1 = M.decode_step(params, prompt[:, 4], 4, cache, cfg)
-    l2, c2 = M.decode_step(params, prompt[:, 4], 4, cache, cfg)
-    replay_ok = bool(torch.equal(l1, l2)) and all(
-        torch.equal(cache["mamba"][n], kept[n]) and
-        torch.equal(c1["mamba"][n], c2["mamba"][n]) for n in kept)
-    print(f"decode step replayed on one cache: logits and new cache bitwise "
-          f"equal, input cache unchanged: {replay_ok}")
-    check(replay_ok, "a replayed mamba decode step differs or changed its "
-                     "input cache")
-    del kept, c1, c2
-
-    # one decode step: CUDA-event time, kernels and busy time (profiler)
     def one_step():
-        M.decode_step(params, out[:, 0], 5, cache, cfg)
+        M.decode_step(params, token, pos, cache, cfg)
 
     step_ms = median_ms(torch, one_step, reps=5, warm=1)
     times = kernel_times(torch, one_step)
     busy_ms = sum(ms for ms, _ in times.values())
     n_kernels = sum(n for _, n in times.values())
-    b_ms = decode_step_bytes(cfg, params, B) / HBM_BYTES_S * 1e3
+    b_ms = decode_step_bytes(cfg, params, B, pos + 1) / HBM_BYTES_S * 1e3
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:5]
     print(f"decode step (B={B}): {step_ms:.4f} ms (CUDA events), {n_kernels}"
           f" kernels, card busy {busy_ms:.4f} ms ({busy_ms / step_ms:.1%}); "
-          f"byte bound {b_ms:.4f} ms; by device time: " + "; ".join(
+          f"byte bound {b_ms:.4f} ms ({b_ms / step_ms:.1%} of the step); by "
+          f"device time: " + "; ".join(
               f"{name[:50]} {ms:.3f} ms x{n}" for name, (ms, n) in top))
+    return dict(decode_step_ms=step_ms, decode_step_kernels=n_kernels,
+                decode_step_busy_ms=busy_ms, decode_step_bound_ms=b_ms,
+                decode_step_top=[(n[:80], ms, c) for n, (ms, c) in top])
 
-    tampered_replica_caught(cfg, params, prompt)
-    del params, cache
 
-    # K4s at the audit's shape: the (B, V) logits flattened
-    d = B * cfg.vocab_size
+def decode_replayed_bitwise(torch, cfg, params, cache, token, pos) -> None:
+    """A decode step run twice on one cache: logits, k/v and new mamba
+    tensors bitwise equal, the input cache's mamba tensors unchanged
+    (the audit's premise)."""
+    from repro_torch.models import model as M
+
+    kept = {n: x.clone() for n, x in cache.get("mamba", {}).items()}
+    l1, c1 = M.decode_step(params, token, pos, cache, cfg)
+    kv1 = [cache[n][:, :, pos].clone() for n in ("k", "v") if n in cache]
+    l2, c2 = M.decode_step(params, token, pos, cache, cfg)
+    kv2 = [cache[n][:, :, pos] for n in ("k", "v") if n in cache]
+    same = bool(torch.equal(l1, l2)) and all(
+        torch.equal(a, b) for a, b in zip(kv1, kv2)) and all(
+        torch.equal(cache["mamba"][n], kept[n]) and
+        torch.equal(c1["mamba"][n], c2["mamba"][n]) for n in kept)
+    print(f"decode step replayed on one cache: logits, k/v and new mamba "
+          f"tensors bitwise equal, input cache unchanged: {same}")
+    check(same, f"{cfg.name}: a replayed decode step differs or changed "
+                f"its input cache")
+
+
+class RoutingTape:
+    """The MoE routing's discrete choices in one run (``record``): per
+    ``moe.routing`` call, the expert indices, slots and keep; or those
+    choices given to another run (``replay``), whose gates come from its
+    own router probabilities at the replayed indices.  A top-k choice
+    flips where a router margin lies under the attention kernel's bf16
+    rounding, and a flip moves the capacity slots of every later token
+    of its expert, so the plain versions' run is held against the
+    kernels' with the kernels' routing, as it is fed their tokens.
+    ``flips`` counts the replayed choices that the run's own routing
+    would have made otherwise (expert or rank), of ``choices``."""
+
+    def __init__(self):
+        self.calls, self.flips, self.choices = [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.models import moe as moe_mod
+
+        real = moe_mod.routing
+        moe_mod.routing = lambda *a: fn(real, *a)
+        try:
+            yield self
+        finally:
+            moe_mod.routing = real
+
+    def record(self):
+        def fn(real, *a):
+            out = real(*a)
+            self.calls.append((out[1], out[3], out[4]))
+            return out
+
+        return self._patched(fn)
+
+    def replay(self):
+        import torch
+
+        calls = iter(self.calls)
+
+        def fn(real, *a):
+            probs, idx, _, _, _, C = real(*a)
+            r_idx, r_slot, r_keep = next(calls, (None,) * 3)
+            check(r_idx is not None and r_idx.shape == idx.shape,
+                  "a routing replay does not match the recorded run's "
+                  "calls")
+            self.flips += int((idx != r_idx).sum())
+            self.choices += idx.numel()
+            g = probs.gather(1, r_idx)
+            g = g / torch.clamp(g.sum(dim=-1, keepdim=True), min=1e-9)
+            return probs, r_idx, g * r_keep.to(g.dtype), r_slot, r_keep, C
+
+        return self._patched(fn)
+
+
+def drop_share(cfg, calls, N: int, label: str = "the kernel run") -> dict:
+    """The prefill's routing (its MoE layers' ``RoutingTape`` calls):
+    per layer the share of top-k choices the capacity dropped."""
+    from repro_torch.models import moe as moe_mod
+
+    shares = [float((~keep).sum()) / keep.numel() for _, _, keep in calls]
+    C = moe_mod.capacity(cfg, N)
+    print(f"prefill MoE routing of {label} (N = {N} tokens, C = {C}): "
+          f"dropped share "
+          f"of top-{cfg.moe.top_k} choices per MoE layer "
+          f"{[round(x, 4) for x in shares]}, mean "
+          f"{sum(shares) / len(shares):.4f}")
+    return dict(capacity=C, dropped_share=shares,
+                dropped_share_mean=sum(shares) / len(shares))
+
+
+def audit_sketch_row(torch, d: int, name: str, dev) -> dict:
+    """K4s at an audit's d (the (B, V) logits flattened) against its
+    plain version, a rerun bitwise, and timed: a kernels-line row."""
+    from repro_torch.kernels import sketch as sk
+
     x = torch.randn(d, generator=torch.Generator(device=dev).manual_seed(21),
                     device=dev)
     got, want = sk.sketch_cuda(x, 7), sk.sketch_plain(x, 7)
@@ -2136,59 +2066,401 @@ def phase_serving_mamba(torch):
     library_ms = median_ms(torch, lambda: torch.einsum("mk,mk->k", xs_,
                                                        signs), launches=50)
     kb_ms, kb_by = bound(d * 4 + kk * 4, d, F32_ADDS_S)
-    report = {"sketch_mamba_audit": entry(
-        "sketch_mamba_audit", "sketch.cu", "src/repro/kernels/sketch.py:25",
-        err, ms, plain_ms, kb_ms, kb_by, library_ms)}
-    print(f"K4s sketch at the mamba audit's d={d}: max|kernel-plain| = "
+    print(f"K4s sketch at the audit's d={d}: max|kernel-plain| = "
           f"{err:.3e}, / max(1, max|plain|) = {rel:.3e} (tolerance 1e-5); "
           f"rerun bitwise equal; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"einsum_ms={library_ms:.4f} bound_ms={kb_ms:.4f} ({kb_by})")
-    del x, got, want, signs, xs_
+    return entry(name, "sketch.cu", "src/repro/kernels/sketch.py:25", err,
+                 ms, plain_ms, kb_ms, kb_by, library_ms)
 
-    # the reduced model in f32: the card against the CPU
-    rc = dataclasses.replace(get_config(sv["arch"]).reduced(),
-                             dtype="float32")
+
+def attention_row(rows, shape: str, name: str) -> dict:
+    """A kernels-line row for K6 from ``phase_attention_kernel``'s
+    measurement at a serving path's prefill shape."""
+    r = rows[shape]
+    return entry(name, "flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:33", r["err"], r["ms"],
+                 r["plain_ms"], r["bound_ms"], r["bound_by"], r["library_ms"])
+
+
+def small_serving_vs_cpu(torch, arch: str, S: int, replayed: bool) -> dict:
+    """Reduced ``arch`` in f32 served on the card against the CPU (B = 2,
+    an S-token prompt, 8 tokens, q_audit 0.5): the same audits, no
+    failure; logits within 1e-4 (1 + max|.|) at every step whose earlier
+    tokens agree.  ``replayed`` (a mamba cache, filled by the prompt's
+    replay): the tokens equal and the cache after the replay within
+    1e-4 (1 + max|.|); else the tokens under the margin rule."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine, token_agreement
+
+    rc = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     rp = M.init(rc, 0, device="cpu")
     rprompt = np.random.default_rng(1).integers(0, rc.vocab_size,
-                                                size=(2, 32))
+                                                size=(2, S))
     runs, caches = {}, {}
     for d_ in ("cpu", "cuda"):
         e = ServeEngine(rc, rp, q_audit=0.5, seed=0, device=d_,
                         record_logits=True)
         runs[d_] = (e, e.generate(rprompt, 8).cpu())
-        _, c = M.prefill(e.params, {"tokens": rprompt}, rc, 40)
-        for t in range(32):
-            _, c = M.decode_step(e.params, rprompt[:, t], t, c, rc)
-        caches[d_] = {n: x.cpu() for n, x in c["mamba"].items()}
+        if replayed:
+            _, c = M.prefill(e.params, {"tokens": rprompt}, rc, S + 8)
+            for t in range(S):
+                _, c = M.decode_step(e.params, rprompt[:, t], t, c, rc)
+            caches[d_] = {n: x.cpu() for n, x in c["mamba"].items()}
     (ec, oc), (eg, og) = runs["cpu"], runs["cuda"]
     tol = logits_tol(torch.stack(ec.logits), 1e-4)
-    err = max(max_err(eg.logits[i].cpu(), ec.logits[i]) for i in range(8))
-    cache_err = max(max_err(caches["cuda"][n], caches["cpu"][n]) /
-                    (1 + float(caches["cpu"][n].abs().max()))
-                    for n in caches["cpu"])
+    err = max(max_err(eg.logits[i].cpu(), ec.logits[i])
+              for i in range(8) if torch.equal(og[:, :i], oc[:, :i]))
+    n_cmp, n_agr = token_agreement(ec.logits, oc, og, tol)
+    cache_err = max((max_err(caches["cuda"][n], caches["cpu"][n]) /
+                     (1 + float(caches["cpu"][n].abs().max()))
+                     for n in caches.get("cpu", {})), default=0.0)
     print(f"small {rc.name} f32 card vs CPU: logits max|d| = {err:.3e} "
-          f"(tolerance {tol:.3e}); cache max|d|/(1+max|.|) = "
-          f"{cache_err:.3e} (tolerance 1e-4); tokens equal "
-          f"{bool(torch.equal(og, oc))}; audits {eg.audits} / {ec.audits}")
-    check(torch.equal(og, oc) and eg.audits == ec.audits and
-          eg.audit_failures == 0, f"{rc.name}: card vs CPU tokens or "
-                                  f"audits differ")
+          f"(tolerance {tol:.3e}); tokens compared {n_cmp}, agreed "
+          f"{n_agr}, equal {bool(torch.equal(og, oc))}; cache "
+          f"max|d|/(1+max|.|) = {cache_err:.3e} (tolerance 1e-4); audits "
+          f"{eg.audits} / {ec.audits}")
+    check(n_agr == n_cmp and n_cmp > 0 and eg.audits == ec.audits and
+          eg.audit_failures == 0 and (torch.equal(og, oc) or not replayed),
+          f"{rc.name}: card vs CPU tokens or audits differ")
     check(err <= tol and cache_err <= 1e-4,
           f"{rc.name}: card vs CPU logits or cache differ")
+    return dict(logits_err=err, compared=n_cmp, agreed=n_agr,
+                cache_err=cache_err)
+
+
+# the MoE serving cell: phi3.5-moe-42b-a6.6b at full width (d_model 4096,
+# 32 heads, 8 kv heads of 128, 16 experts top-2 with d_ff 6400, vocab
+# 32064 untied, bf16), random init, its depth cut from 32 to 16 layers
+# (one layer is 1.30 B parameters, 2.60 GB: 32 layers do not fit the
+# card's 80 GB), in the llama cell's traffic; K6 at its prefill shape
+# (4, 4096, 32, 8, 128) is phase_attention_kernel's hd-128 shape
+MOE_SERVE = dict(SERVE, arch="phi3.5-moe-42b-a6.6b", layers=16,
+                 k6_shape="qwen3-4b and phi3.5-moe prefill",
+                 small=("phi3.5-moe-42b-a6.6b",), tag="moe_serving")
+
+
+def phase_serving(torch, attention, sv):
+    """``sv``'s model (SERVE: llama3.2-1b; MOE_SERVE: phi3.5-moe at 16 of
+    32 layers) served at full width through ServeEngine.generate, against
+    the same run with the plain versions and the plain versions fed its
+    tokens; a decode step replayed on one cache and profiled; the MoE
+    prefill's dropped share; the tampered replica; reduced configs in
+    f32 on the card against the CPU.  Returns (launches, kernels-line
+    rows of its own (those of a cell with a ``tag``), report)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.base import layer_kinds
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine, token_agreement
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cell_cfg(sv)
+    B, S, steps = sv["B"], sv["S"], sv["steps"]
+    t0 = time.perf_counter()
+    params = M.init(cfg, sv["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dev = M.params_device(params)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               size=(B, S))
+    # warm-up (cuBLAS handles, the kernel libraries): a short run
+    ServeEngine(cfg, params).generate(prompt[:, :256], 2)
+
+    def serve(impl=None):
+        eng = ServeEngine(cfg, params, q_audit=sv["q_audit"],
+                          seed=sv["seed"], impl=impl, record_logits=True)
+        return eng, eng.generate(prompt, steps)
+
+    tape = RoutingTape()
+    with tape.record():
+        eng, out, launches, coins, spans = serve_audited(
+            torch, cfg, params, prompt, steps, sv)
+    check_serving_launches(cfg, launches, eng.audits)
+    k6_ms = attention[sv["k6_shape"]]["ms"]
+    prefill_s, audit_s = eng.phase_s["prefill"], eng.phase_s["audit"]
+    decode_s = eng.phase_s["decode"] + audit_s        # every step
+    plain_steps = steps - eng.audits
+    k6_share = cfg.num_layers * k6_ms / (prefill_s * 1e3)
+    print(f"model init {init_s:.4f} s; prefill {prefill_s:.4f} s; decode "
+          f"{decode_s:.4f} s = {decode_s / steps * 1e3:.4f} ms per step, "
+          f"{B * steps / decode_s:.1f} tokens/s (unaudited steps "
+          f"{eng.phase_s['decode'] / max(1, plain_steps) * 1e3:.4f} ms each, "
+          f"audited {audit_s / max(1, eng.audits) * 1e3:.4f} ms each); K6 "
+          f"{cfg.num_layers} x {k6_ms:.4f} ms = {k6_share:.1%} of the "
+          f"prefill; audits {eng.audits}, failures {eng.audit_failures}")
+    extra = {}
+    if cfg.moe:
+        n_moe = sum(k.ffn == "moe" for k in layer_kinds(cfg))
+        extra = drop_share(cfg, tape.calls[:n_moe], B * S)
+        # the plain versions' prefill with their own routing: not held
+        own = RoutingTape()
+        with own.record():
+            lg_own, _ = M.prefill(params, {"tokens": prompt}, cfg,
+                                  impl="torch")
+        flips = sum(int((a[0] != b[0]).sum()) for a, b in
+                    zip(own.calls, tape.calls[:n_moe]))
+        extra.update(own_routing_prefill_err=max_err(lg_own, eng.logits[0]),
+                     own_routing_flips=flips,
+                     own_routing_dropped_share_mean=drop_share(
+                         cfg, own.calls, B * S, "the plain versions")[
+                             "dropped_share_mean"])
+        print(f"plain prefill with its own routing (not held): last-token "
+              f"logits max|d| = {extra['own_routing_prefill_err']:.3e}; "
+              f"{flips} of {n_moe * B * S * cfg.moe.top_k} top-k choices "
+              f"differ from the kernel run's (expert or rank)")
+        del lg_own, own
+
+    with tape.replay():
+        eng_p, out_p = serve("torch")
+    check(eng_p.audits == eng.audits and eng_p.audit_failures == 0,
+          "plain run: audits differ")
+    tol = logits_tol(eng_p.logits[0], 3e-2)
+    prefill_err = max_err(eng.logits[0], eng_p.logits[0])
+    compared, agreed = token_agreement(eng_p.logits, out_p, out, tol)
+    # how far each row's tokens run equal from the start; while they do,
+    # that row's logits are held to the same tolerance
+    lead = [next((i for i in range(steps) if out[r, i] != out_p[r, i]),
+                 steps) for r in range(B)]
+    step_err = max(max_err(eng.logits[i][r], eng_p.logits[i][r])
+                   for r in range(B) for i in range(lead[r] + 1)
+                   if i < steps)
+    print(f"kernels vs plain" + (" (the plain run given the kernel run's "
+                                   "routing)" if cfg.moe else "") +
+          f": prefill last-token logits max|d| = "
+          f"{prefill_err:.3e} (tolerance {tol:.3e}); greedy tokens compared "
+          f"under the margin rule {compared}, agreed {agreed} of "
+          f"{B * steps}; each row's tokens equal for its first {lead} "
+          f"steps, its logits there max|d| = {step_err:.3e}; plain "
+          f"prefill {eng_p.phase_s['prefill']:.4f} s")
+    check(prefill_err <= tol,
+          "prefill logits differ between kernels and plain")
+    check(step_err <= tol, "decode logits differ between kernels and plain "
+                           "while the tokens agree")
+    check(agreed == compared, "greedy tokens differ between kernels and plain")
+    del eng_p, out_p
+
+    forced_err, forced_held, forced_worst = 0.0, 0, 0.0
+    forced = RoutingTape()
+    forced.calls = tape.calls
+    with forced.replay():
+        for i, lg in enumerate(teacher_forced_logits(cfg, params, prompt,
+                                                     out, coins, sv)):
+            for r in range(B):
+                e = max_err(eng.logits[i][r], lg[r])
+                t = logits_tol(lg[r], 3e-2)
+                forced_err = max(forced_err, e)
+                forced_worst = max(forced_worst, e / t)
+                forced_held += int(e <= t)
+    print(f"kernels vs plain, teacher-forced (the kernel run's tokens"
+          + (" and routing" if cfg.moe else "") + f" fed to the plain "
+          f"versions): {forced_held} of {B * steps} step-rows within "
+          f"3e-2*(1+max|logits|), max|d| = {forced_err:.3e} (worst "
+          f"{forced_worst:.3f} of its tolerance)"
+          + (f"; their own routing would differ in {forced.flips} of "
+             f"{forced.choices} choices" if cfg.moe else ""))
+    extra.update(forced_routing_flips=forced.flips,
+                 forced_routing_choices=forced.choices)
+    del tape, forced
+    check(forced_held == B * steps, "teacher-forced decode logits differ "
+                                    "between kernels and plain")
+
+    _, cache = M.prefill(params, {"tokens": prompt}, cfg,
+                         cache_len=S + steps)
+    decode_replayed_bitwise(torch, cfg, params, cache, out[:, 0], S)
+    extra.update(decode_step_profile(torch, cfg, params, out[:, 0], S, cache,
+                                     B))
+    del cache
+    tampered_replica_caught(cfg, params, prompt)
+    audits, failures = eng.audits, eng.audit_failures
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = {}
+    if sv.get("tag"):
+        tag = sv["tag"]
+        rows[f"flash_attention_{tag}"] = attention_row(
+            attention, sv["k6_shape"], f"flash_attention_{tag}")
+        rows[f"sketch_{tag}"] = audit_sketch_row(
+            torch, B * cfg.vocab_size, f"sketch_{tag}", dev)
+    small = {arch: small_serving_vs_cpu(torch, arch, 40, False)
+             for arch in sv["small"]}
+    return launches, rows, dict(
+        init_s=init_s, prefill_s=prefill_s, decode_s=decode_s,
+        audit_s=audit_s, leading_equal_tokens_vs_plain=lead,
+        step_logits_err_vs_plain=step_err,
+        decode_ms_per_step=decode_s / steps * 1e3,
+        tokens_per_s=B * steps / decode_s, k6_share_of_prefill=k6_share,
+        audits=audits, audit_failures=failures, **spans,
+        prefill_logits_err_vs_plain=prefill_err,
+        tokens_compared=compared, forced_step_rows_held=forced_held,
+        forced_logits_err=forced_err, tokens_agreed=agreed,
+        small_vs_cpu=small, **extra)
+
+
+# the mamba serving cell: mamba2-780m at full width (48 layers, d_model
+# 1536, d_inner 3072, 48 heads of 64, d_state 128, chunk 256, vocab
+# 50280 tied, bf16), random init, seed 0; B = 4, a 512-token prompt (two
+# SSD chunks), 32 greedy tokens, q_audit = 0.25
+MAMBA_SERVE = dict(arch="mamba2-780m", B=4, S=512, steps=32, q_audit=0.25,
+                   seed=0, tag="mamba_audit")
+# the hybrid serving cell: jamba-v0.1-52b at full width (d_model 4096,
+# d_inner 8192, 128 SSM heads of 64, d_state 16, 32 heads / 8 kv heads of
+# 128, 16 experts top-2 with d_ff 14336, vocab 65536 untied, bf16),
+# random init, its depth cut from 32 to 8 layers, one attention period
+# (7 mamba layers and attention at 4; MoE on the odd layers, the MLP on
+# the even ones; 12.7 B parameters in the layers); the mamba cell's
+# traffic; K6 once, in the attention layer's prefill
+HYBRID_SERVE = dict(MAMBA_SERVE, arch="jamba-v0.1-52b", layers=8,
+                    k6_shape="jamba-v0.1-52b prefill", tag="jamba_serving")
+# the chunked prefill's last-position logits against the logits of the
+# prompt replayed token by token through decode, as max|d| <=
+# MAMBA_CHUNKED_REL * (1 + max|replay logits|): bf16 rounding over 48
+# layers, in other places in the two (the prefill's conv rounds after
+# each shifted add, the decode's once; other GEMM shapes).  Read on an
+# H100: 2.67e-2 (argmax equal in 4 of 4 rows); in f32 the two agree to
+# 3e-6, and in bf16 each lies about 3e-2 from the f32 logits (48 layers
+# at d_model 256 on the CPU).  For an MoE model the prefill takes a
+# capacity that drops no choice (a decode step of B = 4 tokens never
+# drops one: C = 8 >= B), so that the two compute the same function
+MAMBA_CHUNKED_REL = 5e-2
+
+
+def phase_serving_replayed(torch, attention, sv):
+    """``sv``'s model (MAMBA_SERVE: mamba2-780m; HYBRID_SERVE: jamba at 8
+    of 32 layers) served at full width through ServeEngine.generate (the
+    chunked prefill, the prompt replayed through decode to fill the SSM
+    cache, audited greedy decode): the audits against the seeded coins,
+    K6 once per attention layer and K4s twice an audit, the spans and
+    counters, the chunked prefill's logits against the replay's, a
+    decode step replayed on one cache, the tampered replica, K4s at the
+    audit's shape against its plain version, and the reduced model in
+    f32 on the card against the CPU (jamba also one training step).
+    Returns (launches, kernels-line rows, report)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.base import layer_kinds
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cell_cfg(sv)
+    B, S, steps = sv["B"], sv["S"], sv["steps"]
+    t_phase = time.perf_counter()
+    params = M.init(cfg, sv["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    dev = M.params_device(params)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               size=(B, S))
+    ServeEngine(cfg, params).generate(prompt[:, :16], 2)     # warm-up
+
+    tape = RoutingTape()
+    with tape.record():
+        eng, out, launches, _, spans = serve_audited(torch, cfg, params,
+                                                     prompt, steps, sv)
+    check_serving_launches(cfg, launches, eng.audits)
+    ph = eng.phase_s
+    decode_s = ph["decode"] + ph["audit"]
+    plain_steps = steps - eng.audits
+    print(f"model init {init_s:.4f} s; prefill {ph['prefill']:.4f} s; "
+          f"replay {ph['replay']:.4f} s ({ph['replay'] / S * 1e3:.4f} ms a "
+          f"prompt token); decode {decode_s:.4f} s = "
+          f"{decode_s / steps * 1e3:.4f} ms per step, "
+          f"{B * steps / decode_s:.1f} tokens/s (unaudited steps "
+          f"{ph['decode'] / max(1, plain_steps) * 1e3:.4f} ms each, audited "
+          f"{ph['audit'] / max(1, eng.audits) * 1e3:.4f} ms each); audits "
+          f"{eng.audits}, failures {eng.audit_failures}")
+
+    # the chunked SSD against the sequential replay, at full width; with
+    # MoE layers, the prefill at a capacity that drops nothing and with
+    # the replay's routing (a decode step of B tokens drops nothing)
+    extra, same_fn, routed = {}, cfg, contextlib.nullcontext()
+    rep = eng.logits[0]
+    if cfg.moe:
+        n_moe = sum(k.ffn == "moe" for k in layer_kinds(cfg))
+        extra = drop_share(cfg, tape.calls[:n_moe], B * S)
+        same_fn = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        for name, c in (("dropping", cfg), ("own_routing", same_fn)):
+            lg, _ = M.prefill(params, {"tokens": prompt}, c)
+            extra[f"{name}_prefill_vs_replay_err"] = max_err(lg, rep)
+        replay = RoutingTape()
+        for j in range(n_moe):
+            idx = torch.stack([tape.calls[n_moe * (1 + t) + j][0]
+                               for t in range(S)], dim=1).reshape(B * S, -1)
+            flat = torch.nn.functional.one_hot(
+                idx, cfg.moe.num_experts).reshape(idx.numel(), -1)
+            slot = ((flat.cumsum(0) - flat) * flat).sum(-1).reshape(idx.shape)
+            replay.calls.append((idx, slot, torch.ones_like(slot,
+                                                            dtype=torch.bool)))
+        routed = replay.replay()
+    with routed:
+        pre, _ = M.prefill(params, {"tokens": prompt}, same_fn)
+    if cfg.moe:
+        extra.update(replay_routing_flips=replay.flips,
+                     replay_routing_choices=replay.choices)
+    del tape
+    chunk_err = max_err(pre, rep)
+    chunk_tol = logits_tol(rep, MAMBA_CHUNKED_REL)
+    scale = chunk_tol / MAMBA_CHUNKED_REL                  # 1 + max|logits|
+    same_top = int((pre.argmax(-1) == rep.argmax(-1)).sum())
+    print(f"chunked prefill vs replayed prompt, last-position logits: "
+          f"max|d| = {chunk_err:.4e}, {chunk_err / scale:.4e} of 1 + "
+          f"max|logits| = {scale:.4f} "
+          f"(limit {MAMBA_CHUNKED_REL}); argmax equal in {same_top} of {B} "
+          f"rows" + (f" (the no-drop prefill given the replay's routing, "
+                     f"whose own would differ in {replay.flips} of "
+                     f"{replay.choices} choices); not held: with its own "
+                     f"routing max|d| = "
+                     f"{extra['own_routing_prefill_vs_replay_err']:.4e}, at "
+                     f"the config's capacity (which drops) "
+                     f"{extra['dropping_prefill_vs_replay_err']:.4e}"
+                     if cfg.moe else ""))
+    check(chunk_err <= chunk_tol, "the chunked prefill's logits differ from "
+                                  "the replay's")
+
+    cache = M.allocate_cache(cfg, B, S + steps, dev)
+    for t in range(4):
+        _, cache = M.decode_step(params, prompt[:, t], t, cache, cfg)
+    decode_replayed_bitwise(torch, cfg, params, cache, prompt[:, 4], 4)
+    extra.update(decode_step_profile(torch, cfg, params, out[:, 0], 5, cache,
+                                     B))
+    tampered_replica_caught(cfg, params, prompt)
+    audits, failures = eng.audits, eng.audit_failures
+    del params, cache, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tag = sv["tag"]
+    rows = {f"sketch_{tag}": audit_sketch_row(
+        torch, B * cfg.vocab_size, f"sketch_{tag}", dev)}
+    if sv.get("k6_shape"):
+        rows[f"flash_attention_{tag}"] = attention_row(
+            attention, sv["k6_shape"], f"flash_attention_{tag}")
+    small = small_serving_vs_cpu(torch, sv["arch"], 32, True)
+    if cfg.moe:
+        small["train"] = train_small_vs_cpu(torch, sv["arch"], steps=1)
     phase_s = time.perf_counter() - t_phase
-    print(f"phase_serving_mamba: {phase_s:.1f} s")
-    return launches, report, dict(
+    print(f"phase_serving_replayed ({cfg.name}): {phase_s:.1f} s")
+    return launches, rows, dict(
         init_s=init_s, phase_s_split=ph, decode_s=decode_s,
         decode_ms_per_step=decode_s / steps * 1e3,
         replay_ms_per_token=ph["replay"] / S * 1e3,
-        tokens_per_s=B * steps / decode_s, audits=eng.audits,
-        audit_failures=eng.audit_failures, **spans,
-        chunked_vs_replay_err=chunk_err,
+        tokens_per_s=B * steps / decode_s, audits=audits,
+        audit_failures=failures, **spans, chunked_vs_replay_err=chunk_err,
         chunked_vs_replay_tol=chunk_tol, argmax_equal_rows=same_top,
-        decode_step_ms=step_ms, decode_step_kernels=n_kernels,
-        decode_step_busy_ms=busy_ms, decode_step_bound_ms=b_ms,
-        small_vs_cpu=dict(logits_err=err, cache_err=cache_err),
-        phase_s=phase_s)
+        small_vs_cpu=small, phase_s=phase_s, **extra)
 
 
 # the training cell: llama3.2-1b at full width (16 layers, d_model 2048,
@@ -2205,6 +2477,12 @@ TRAIN = dict(arch="llama3.2-1b", n=8, f=2, seq_len=256, global_batch=16,
 # rows, 31 GB over the 48), which the reference bounds with cfg.remat
 # and the port does not (ROADMAP)
 MAMBA_TRAIN = dict(TRAIN, arch="mamba2-780m", global_batch=8)
+# the MoE training cell: phi3.5-moe-42b-a6.6b at full width (MOE_SERVE's
+# widths), its depth cut from 32 layers to 1 (1.56 B parameters with the
+# embeddings, 1.26x llama3.2-1b's 1.24 B), in TRAIN's protocol and batch;
+# the identify vote stacks 5 replicas of an expert leaf (1, 16, 4096,
+# 6400) in f32: 2,097,152,000 elements, 8.39 GB
+MOE_TRAIN = dict(TRAIN, arch="phi3.5-moe-42b-a6.6b", layers=1)
 # the kernels' training run against the plain versions' run (bf16
 # weights, K6's bf16 P.V against the plain version's f32 one): the first
 # loss (the forward alone), relatively; each later loss's drop from the
@@ -2223,12 +2501,11 @@ TRAIN_UPDATE_REL = 0.2
 
 
 def train_cfg_objects(spec):
-    from repro_torch.configs import get_config
     from repro_torch.core.randomized import BFTConfig
     from repro_torch.optim import OptConfig
     from repro_torch.train import AttackConfig, TrainerConfig
 
-    cfg = get_config(spec["arch"])
+    cfg = cell_cfg(spec)
     opt = OptConfig(kind="adamw", peak_lr=spec["lr"], warmup_steps=1,
                     total_steps=100)
     tc = TrainerConfig(seq_len=spec["seq_len"],
@@ -2388,13 +2665,16 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts, spec, tag):
     return report, rows
 
 
-def honest_replicas_equal(torch, cfg, params, rows: int, spec) -> None:
+def honest_replicas_equal(torch, cfg, params, rows: int, spec) -> dict:
     """Two honest workers on the same rows: bitwise equal gradients and
-    sketches (the check's premise; the embedding's accumulating backward
-    and cuBLAS's workspaces are where it could break)."""
+    sketches (the check's premise; the embedding's accumulating backward,
+    the MoE dispatch's and cuBLAS's workspaces are where it could
+    break).  Returns the rows' loss terms: the loss is ce + 0.01 moe_aux
+    (moe_aux 0 without MoE layers)."""
     import numpy as np
 
     from repro_torch.core import detection, tree
+    from repro_torch.models import model as M
     from repro_torch.train import steps
 
     rng = np.random.default_rng(2)
@@ -2415,6 +2695,16 @@ def honest_replicas_equal(torch, cfg, params, rows: int, spec) -> None:
           f"leaves; sketches bitwise equal: {bool(torch.equal(s0, s1))}")
     check(all(same) and bool(torch.equal(s0, s1)),
           "honest replicas' gradients or sketches differ on the card")
+    with torch.no_grad():
+        loss, m = M.train_loss(params, {"tokens": tok, "labels": lab}, cfg)
+    terms = {k: float(v) for k, v in dict(m, loss=loss).items()}
+    print(f"the rows' loss {terms['loss']:.6f} = ce {terms['ce']:.6f} + "
+          f"{M.MOE_AUX_COEF} x moe_aux {terms['moe_aux']:.6f}")
+    check(abs(terms["loss"] - terms["ce"] - M.MOE_AUX_COEF *
+              terms["moe_aux"]) <= 1e-5 * terms["loss"] and
+          (terms["moe_aux"] > 0) == (cfg.moe is not None),
+          "the training loss is not ce + 0.01 moe_aux")
+    return terms
 
 
 def snapshot(torch, params, state):
@@ -2651,7 +2941,8 @@ def phase_train(torch, spec, tag: str):
 
     tr = trainer()
     init = [x.detach().to("cpu", copy=True) for x in tree.leaves(tr.params)]
-    honest_replicas_equal(torch, cfg, tr.params, row_counts[1], spec)
+    loss_terms = honest_replicas_equal(torch, cfg, tr.params, row_counts[1],
+                                       spec)
     mark("init_and_honest_replicas")
 
     def drive(t):
@@ -2674,8 +2965,10 @@ def phase_train(torch, spec, tag: str):
                 want[k] += v
         return want, walls
 
+    tape = RoutingTape()
     ops.reset_launch_counts()
-    want, walls = drive(tr)
+    with tape.record():
+        want, walls = drive(tr)
     launches = ops.launch_counts()
     hist = tr.history
     ident = sorted(np.flatnonzero(tr.state.identified).tolist())
@@ -2713,9 +3006,12 @@ def phase_train(torch, spec, tag: str):
         return t.history, [x.detach().to("cpu", copy=True)
                            for x in tree.leaves(t.params)]
 
+    # an MoE model's plain run takes the kernel run's routing (as the
+    # serving phases' plain runs do)
     tp = trainer("torch")
     ops.reset_launch_counts()
-    plain_hist, plain_final = run_to_cpu(tp)
+    with tape.replay():
+        plain_hist, plain_final = run_to_cpu(tp)
     plain_launches = ops.launch_counts()
     mark("plain_run")
     del tp
@@ -2737,7 +3033,10 @@ def phase_train(torch, spec, tag: str):
                             plain_hist)
     planted = train_run_diffs(torch, init, planted_final, planted_hist,
                               plain_final, plain_hist)
-    print(f"kernels vs plain versions on the card: control equal {same_ctl}; "
+    print(f"kernels vs plain versions on the card" + (
+        f" (the plain run given the kernel run's routing, whose own would "
+        f"differ in {tape.flips} of {tape.choices} choices)" if tape.calls
+        else "") + f": control equal {same_ctl}; "
           f"{train_diff_text(sound)}; plain run launched "
           f"{sum(plain_launches.values())} kernels")
     print(f"planted control (plain versions, mode none, workers "
@@ -2765,6 +3064,8 @@ def phase_train(torch, spec, tag: str):
         seed=seed, history=hist, step_walls_s=walls, launches=launches,
         expected_launches=want, modes=modes, peak_memory_bytes=peak,
         k6_rows=k6_rows, vs_plain=sound, planted_vs_plain=planted,
+        plain_routing_flips=tape.flips, plain_routing_choices=tape.choices,
+        loss_terms=loss_terms,
         small_vs_cpu=small, phase_split_s=split,
         phase_s=phase_s)
 
@@ -2804,11 +3105,11 @@ def train_diff_text(d: dict) -> str:
             f"unmoved leaves equal {d['still_equal']}")
 
 
-def train_small_vs_cpu(torch, arch: str) -> dict:
+def train_small_vs_cpu(torch, arch: str, steps: int = 5) -> dict:
     """The reduced ``arch`` in f32 trained on the card against the CPU
-    (randomized, q 0.5, sign_flip on [2, 5], momentum, 5 steps): control
-    exact, losses within 1e-4 relative, parameters within 1e-4 (1 +
-    max|p|)."""
+    (randomized, q 0.5, sign_flip on [2, 5], momentum, ``steps`` steps):
+    control exact, losses within 1e-4 relative, parameters within 1e-4
+    (1 + max|p|)."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree
     from repro_torch.core.randomized import BFTConfig
@@ -2831,7 +3132,7 @@ def train_small_vs_cpu(torch, arch: str) -> dict:
                     attack=AttackConfig("sign_flip", 0.6, 5.0),
                     sc=StepConfig(), true_byzantine=mask, device=dev,
                     params=M.map_params(lambda x: x.to(dev).clone(), init))
-        t.run(5)
+        t.run(steps)
         runs[dev] = t
     c, g = runs["cpu"], runs["cuda"]
     ctl = [{k: v for k, v in r.items() if k != "loss"} for r in g.history] \
@@ -2883,19 +3184,27 @@ def main() -> int:
     launches.update(oracle_launches)
     launches["single_vector_ops"] = phase_single_path(torch)
     small = phase_small_vs_cpu(torch)
-    launches["serving"], serving = phase_serving(
-        torch, kernels["flash_attention"]["ms"])
+    launches["serving"], _, serving = phase_serving(torch, attention, SERVE)
     launches["training"], train_report, training = phase_train(
         torch, TRAIN, "train")
     launches["serving_mamba"], mserve_report, serving_mamba = \
-        phase_serving_mamba(torch)
+        phase_serving_replayed(torch, attention, MAMBA_SERVE)
     launches["training_mamba"], mtrain_report, training_mamba = phase_train(
         torch, MAMBA_TRAIN, "mamba_train")
+    launches["serving_moe"], moe_serve_report, serving_moe = phase_serving(
+        torch, attention, MOE_SERVE)
+    launches["training_moe"], moe_train_report, training_moe = phase_train(
+        torch, MOE_TRAIN, "moe_train")
+    launches["serving_hybrid"], hybrid_report, serving_hybrid = \
+        phase_serving_replayed(torch, attention, HYBRID_SERVE)
     # each kernel's launches summed over the counted path runs but those
     # with rows of their own, which count them there
     own = {"training": ("_train", train_report),
            "serving_mamba": ("_mamba_audit", mserve_report),
-           "training_mamba": ("_mamba_train", mtrain_report)}
+           "training_mamba": ("_mamba_train", mtrain_report),
+           "serving_moe": ("_moe_serving", moe_serve_report),
+           "training_moe": ("_moe_train", moe_train_report),
+           "serving_hybrid": ("_jamba_serving", hybrid_report)}
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for path, run in launches.items()
                              if path not in own)
@@ -2909,7 +3218,9 @@ def main() -> int:
                      small_vs_cpu_w_err=small, serving=serving,
                      attention=attention, training=training,
                      serving_mamba=serving_mamba,
-                     training_mamba=training_mamba)
+                     training_mamba=training_mamba, serving_moe=serving_moe,
+                     training_moe=training_moe,
+                     serving_hybrid=serving_hybrid)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

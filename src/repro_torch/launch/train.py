@@ -1,8 +1,9 @@
 """Training launcher of the port.
 
-Instantiates the BFT trainer for a registered dense or Mamba2
-architecture (``--arch llama3.2-1b``, ``--arch mamba2-780m``) and
-runs it with checkpointing, restart and the randomized
+Instantiates the BFT trainer for a registered dense, MoE, Mamba2 or
+hybrid architecture (``--arch llama3.2-1b``, ``--arch
+phi3.5-moe-42b-a6.6b``, ``--arch mamba2-780m``, ``--arch
+jamba-v0.1-52b``) and runs it with checkpointing, restart and the randomized
 reactive-redundancy protocol live; the n workers run one after another
 on one device (the card by default).
 

@@ -9,7 +9,8 @@ is row ``r`` of group slot ``[g][pos]`` (``model._layer_param``).  The
 port keeps one entry per layer, in layer order.  Every leaf comes over
 by name with its dtype: a mamba layer's ``ln1`` and 13 mixer leaves
 (``A_log``, ``dt_bias`` and ``D`` in f32, the rest in the config's
-dtype) as the dense layers' do.
+dtype) and an MoE layer's ``ffn`` leaves (``router``, ``gate``, ``up``,
+``down`` and the ``shared`` expert's three) as the dense layers' do.
 """
 from __future__ import annotations
 

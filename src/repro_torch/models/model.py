@@ -1,8 +1,9 @@
 """Model facade: init, forward, prefill, decode with a KV cache.
 
 Port of ``repro.models.model`` for the dense decoders (llama3.2-1b,
-gemma3-1b, qwen3-4b, ...) and the attention-free Mamba2 (mamba2-780m).
-Parameters are a plain tree of tensors on one device:
+gemma3-1b, qwen3-4b, ...), the MoE decoders (phi3.5-moe,
+llama4-maverick), the attention-free Mamba2 (mamba2-780m) and the
+hybrid (jamba).  Parameters are a plain tree of tensors on one device:
 
     {"embed": {"tokens": (V, D)[, "head": (D, V)]},
      "layers": [{"ln1": {"scale"}, "mixer": {"wq", "wk", "wv", "wo"
@@ -10,10 +11,12 @@ Parameters are a plain tree of tensors on one device:
                  "ffn": {"gate", "up", "down"}}, ...],   # one per layer
      "final_norm": {"scale"}}
 
-with the reference's (in, out) matrix layout; a mamba layer is
-``{"ln1", "mixer": <the 13 leaves of ssm.init_mamba>}`` (no ``ln2``,
-no ``ffn``).  ``convert.from_jax_params`` builds the tree from the
-reference's stacked one.  Every entry point runs on the card unless
+with the reference's (in, out) matrix layout; an MoE layer's ``ffn``
+is ``{"router", "gate", "up", "down"[, "shared"]}`` (``moe.init_moe``);
+a mamba layer's mixer is the 13 leaves of ``ssm.init_mamba``, and
+without an ffn (mamba2-780m) it has no ``ln2`` and no ``ffn``.
+``convert.from_jax_params`` builds the tree from the reference's
+stacked one.  Every entry point runs on the card unless
 ``device="cpu"`` is asked for, and raises without one.  The cache has
 ``{"k", "v"}``, each (L_attn, B, cache_len, K*hd) in the config's
 dtype, written in place by ``decode_step``, when the model has
@@ -25,9 +28,9 @@ Training keeps the reference's own layout instead (``stack_layers``,
 ``init_train``): ``{"decoder": [[slot per pattern position] per layer
 group], "embed", "final_norm"}``, each slot's leaves stacked over the
 group's repeats, so the tree flattens to the reference's leaves (11 for
-llama3.2-1b, 16 for mamba2-780m).  ``train_loss`` runs ``forward`` on
-per-layer views of those leaves (``layer_views``, one ``unbind`` a
-leaf, whose backward is one ``stack``).
+llama3.2-1b, 16 for mamba2-780m, 13 for phi3.5-moe).  ``train_loss``
+runs ``forward`` on per-layer views of those leaves (``layer_views``,
+one ``unbind`` a leaf, whose backward is one ``stack``).
 """
 from __future__ import annotations
 
@@ -36,10 +39,13 @@ import torch
 from repro_torch.configs.base import ModelConfig, layer_groups, layer_kinds
 from repro_torch.core import tree as tree_mod
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (dtype_of, embed, init_weight, mlp,
+from repro_torch.models.layers import (dtype_of, embed, init_weight,
                                        rmsnorm, unembed)
+
+MOE_AUX_COEF = 0.01
 
 
 def resolve_device(device) -> torch.device:
@@ -78,7 +84,7 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     (``layers.materialize``): matrices truncated normal on [-2, 2] times
     1/sqrt(fan_in), norm scales one; drawn from a ``torch.Generator`` on
     the target device seeded with ``seed`` (other numbers than JAX's);
-    mamba mixers as ``ssm.init_mamba``."""
+    mamba mixers as ``ssm.init_mamba``, MoE ffns as ``moe.init_moe``."""
     tfm.require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -106,9 +112,11 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
                 mixer["q_norm"] = ones(hd)["scale"]
                 mixer["k_norm"] = ones(hd)["scale"]
         layer = {"ln1": ones(D), "mixer": mixer}
-        if kind.ffn == "mlp":
+        if kind.ffn != "none":
             layer["ln2"] = ones(D)
-            layer["ffn"] = {"gate": w(D, F), "up": w(D, F), "down": w(F, D)}
+            layer["ffn"] = ({"gate": w(D, F), "up": w(D, F), "down": w(F, D)}
+                            if kind.ffn == "mlp"
+                            else moe_mod.init_moe(cfg, gen, dev))
         layers.append(layer)
     return {"embed": emb, "layers": layers, "final_norm": ones(D)}
 
@@ -157,14 +165,14 @@ def init_train(cfg: ModelConfig, seed: int = 0, device=None):
 
 def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
     """Mean next-token cross-entropy of the stacked-layout ``params`` on
-    {tokens, labels (B, S)} (labels < 0 ignored); returns (loss,
-    {"ce", "moe_aux"}).  CE = logsumexp - label logit over the f32
-    logits: the gather equals the reference's one-hot contraction, whose
-    other terms are exact zeros.  No MoE layer is ported: the loss is the
-    CE and the MoE aux metric is 0.
-    Differentiable: attention goes through ``ops.flash_attention``'s
-    autograd form."""
-    logits, _ = forward(layer_views(params, cfg), batch, cfg, impl=impl)
+    {tokens, labels (B, S)} (labels < 0 ignored) plus ``MOE_AUX_COEF``
+    times the MoE layers' summed aux loss; returns (loss, {"ce",
+    "moe_aux"}).  CE = logsumexp - label logit over the f32 logits: the
+    gather equals the reference's one-hot contraction, whose other terms
+    are exact zeros.  Differentiable: attention goes through
+    ``ops.flash_attention``'s autograd form."""
+    logits, _, aux = forward(layer_views(params, cfg), batch, cfg,
+                             impl=impl)
     labels = _tokens(batch["labels"], logits.device)
     valid = labels >= 0
     lse = torch.logsumexp(logits, dim=-1)
@@ -172,9 +180,7 @@ def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
     nll = lse - label_logit
     denom = torch.clamp(valid.sum(), min=1)
     ce = torch.where(valid, nll, 0.0).sum() / denom
-    return ce, {"ce": ce,
-                "moe_aux": torch.zeros((), dtype=torch.float32,
-                                       device=logits.device)}
+    return ce + MOE_AUX_COEF * aux, {"ce": ce, "moe_aux": aux}
 
 
 def _tokens(tokens, device) -> torch.Tensor:
@@ -183,9 +189,10 @@ def _tokens(tokens, device) -> torch.Tensor:
 
 def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
             last_only: bool = False, impl: str | None = None):
-    """(logits (B, S, V) f32, [(k, v) (B, S, K*hd) per attention layer]).
-    ``last_only`` unembeds the last position only (logits (B, 1, V)):
-    the same numbers without the (B, S, V) array."""
+    """(logits (B, S, V) f32, [(k, v) (B, S, K*hd) per attention layer],
+    aux () f32: the MoE layers' aux losses summed).  ``last_only``
+    unembeds the last position only (logits (B, 1, V)): the same numbers
+    without the (B, S, V) array."""
     tfm.require_ported(cfg)
     if batch.get("ctx") is not None:
         raise NotImplementedError("context inputs (vlm / audio) are not "
@@ -195,12 +202,13 @@ def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
     S = tokens.shape[1]
     x = embed(params["embed"], tokens, cfg)
     positions = torch.arange(S, device=dev)[None]
-    x, kv_all = tfm.run_stack(params["layers"], x, cfg, positions=positions,
-                              collect_kv=collect_kv, impl=impl)
+    x, kv_all, aux = tfm.run_stack(params["layers"], x, cfg,
+                                   positions=positions,
+                                   collect_kv=collect_kv, impl=impl)
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), kv_all
+    return unembed(params["embed"], x, cfg), kv_all, aux
 
 
 def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
@@ -229,8 +237,8 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int | None = None, *,
     The cache's k/v hold the prompt's; its mamba part is zero, as the
     reference's prefill leaves it: ``ServeEngine.generate`` fills it by
     replaying the prompt through ``decode_step``."""
-    logits, kv_all = forward(params, batch, cfg, collect_kv=True,
-                             last_only=True, impl=impl)
+    logits, kv_all, _ = forward(params, batch, cfg, collect_kv=True,
+                                last_only=True, impl=impl)
     B, S = batch["tokens"].shape
     cache = allocate_cache(cfg, B, S if cache_len is None else cache_len,
                            params_device(params))
@@ -249,7 +257,8 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     first run saw.  The mamba state and conv buffers are not idempotent
     that way, so they are functional, as the reference's whole cache is:
     the new cache holds new mamba tensors and ``cache``'s stay as they
-    were.
+    were.  An MoE layer routes the step's B tokens as one group, as the
+    reference does.
     """
     tfm.require_ported(cfg)
     dev = params_device(params)
@@ -282,9 +291,7 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
                 valid_len=int(pos) + 1, window=tfm.window_of(kind, cfg))
             x = x + attn.output_proj(p["mixer"], o)
             attn_i += 1
-        if kind.ffn == "mlp":
-            h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-            x = x + mlp(p["ffn"], h)
+        x, _ = tfm.apply_ffn(kind, p, x, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     new_cache = dict(cache)
     if new_mamba:

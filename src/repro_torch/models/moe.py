@@ -1,0 +1,147 @@
+"""Mixture-of-Experts layer: top-k routing with capacity-bounded gather
+dispatch.
+
+Port of ``repro.models.moe``: its global path (``_moe_global``), which
+the reference takes on one device and inside the trainer's worker
+bodies.  Its ``LOCAL_DISPATCH`` path, a nested ``shard_map`` over the
+batch shards, is off by default there and waits here for multi-card
+training (ROADMAP Queue 1 item 7).
+
+Each (token, choice) gets a slot in its expert's capacity buffer from
+an exclusive cumulative sum over the routing one-hots, token-major and
+choice-minor; choices past the capacity C are dropped and their gate is
+zero.  The expert FFNs are three batched products over the (E, C, D)
+buffer.  Precision follows the reference: routing (the router product,
+softmax, top-k, renormalization) in f32; the expert products in the
+config's dtype, the SiLU in f32 cast back; the combine an f32 weighted
+sum over the choices, cast to the input's dtype; the shared expert
+added after, in the dtype.
+
+The dispatch and the combine are row gathers (``_Gather``) whose
+backward is the gather by the inverse map, summed over the choices in a
+fixed order: every slot holds at most one choice, so no gradient is
+added by a scatter, and the backward adds no floats atomically (honest
+replicas stay bitwise equal on the card).  No kernel: the reference
+computes these products as einsums outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import dtype_of, init_weight, mlp
+
+
+def capacity(cfg, num_tokens: int) -> int:
+    """Slots per expert for ``num_tokens`` routed tokens, a multiple of
+    8 and at least 8 (the reference's rule)."""
+    m = cfg.moe
+    c = int(num_tokens * m.top_k * m.capacity_factor / m.num_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def init_moe(cfg, gen: torch.Generator, device):
+    """The reference's ``abstract_moe`` leaves with its distribution
+    (``layers.materialize``): truncated normal on [-2, 2] times
+    1/sqrt(shape[-2]), in the config's dtype."""
+    m = cfg.moe
+    E, F, D = m.num_experts, m.d_ff, cfg.d_model
+
+    def w(*shape):
+        return init_weight(shape, dtype_of(cfg), gen, device)
+
+    p = {"router": w(D, E), "gate": w(E, D, F), "up": w(E, D, F),
+         "down": w(E, F, D)}
+    if m.shared_expert:
+        p["shared"] = {"gate": w(D, F), "up": w(D, F), "down": w(F, D)}
+    return p
+
+
+def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``src`` (n, D) at ``idx`` (any shape, values in [0, n]);
+    index n reads a zero row.  Returns idx.shape + (D,)."""
+    n = src.shape[0]
+    flat = idx.reshape(-1)
+    out = src.index_select(0, flat.clamp(max=n - 1))
+    out.masked_fill_((flat == n)[:, None], 0)
+    return out.reshape(*idx.shape, src.shape[1])
+
+
+class _Gather(torch.autograd.Function):
+    """out = ``_take(src, fwd)``; the gradient of src row i is the sum
+    over j, in order, of grad rows ``bwd[i, j]`` (index len(out) reads
+    zero).  ``bwd`` must list, for each row of src, every position of
+    ``fwd`` that reads it."""
+
+    @staticmethod
+    def forward(ctx, src, fwd, bwd):
+        ctx.save_for_backward(bwd)
+        return _take(src, fwd)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (bwd,) = ctx.saved_tensors
+        g = _take(grad.reshape(-1, grad.shape[-1]), bwd)
+        out = g[:, 0]
+        for j in range(1, g.shape[1]):
+            out = out + g[:, j]
+        return out, None, None
+
+
+def routing(params, xt: torch.Tensor, cfg):
+    """The routing pass of ``xt`` (N, D): (probs (N, E) f32, expert_idx
+    (N, K), gates (N, K) f32 renormalized and zeroed where dropped, slot
+    (N, K) within the expert, keep (N, K) bool, C)."""
+    m = cfg.moe
+    N = xt.shape[0]
+    E, K = m.num_experts, m.top_k
+    C = capacity(cfg, N)
+    logits = xt.to(torch.float32) @ params["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, expert_idx = torch.topk(probs, K, dim=-1)
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    flat = torch.nn.functional.one_hot(expert_idx, E).reshape(N * K, E)
+    slot = ((flat.cumsum(dim=0) - flat) * flat).sum(dim=-1).reshape(N, K)
+    keep = slot < C
+    gates = gates * keep.to(gates.dtype)
+    return probs, expert_idx, gates, slot, keep, C
+
+
+def moe(params, x: torch.Tensor, cfg):
+    """x (B, S, D) -> (y (B, S, D), aux () f32): the B * S tokens routed
+    as one group, as the reference's global path does."""
+    m = cfg.moe
+    B, S, D = x.shape
+    N = B * S
+    E, K = m.num_experts, m.top_k
+    xt = x.reshape(N, D)
+    probs, expert_idx, gates, slot, keep, C = routing(params, xt, cfg)
+
+    # (token, choice) -> its row of the (E*C) buffer, E*C where dropped;
+    # and each row's token (N where empty) and (token, choice) (N*K)
+    dest = torch.where(keep, expert_idx * C + slot, E * C).reshape(-1)
+    ids = torch.arange(N * K, device=x.device)
+    src = torch.full((E * C + 1,), N * K, dtype=ids.dtype, device=x.device)
+    src.scatter_(0, dest, ids)
+    src = src[:E * C]
+    token_of_row = torch.where(src < N * K, src // K, N)
+
+    xe = _Gather.apply(xt, token_of_row, dest.reshape(N, K))
+    xe = xe.reshape(E, C, D)
+    g = torch.bmm(xe, params["gate"])
+    u = torch.bmm(xe, params["up"])
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(xe.dtype) * u
+    ye = torch.bmm(h, params["down"]).reshape(E * C, D)
+
+    ytk = _Gather.apply(ye, dest, src[:, None]).reshape(N, K, D)
+    y = ytk[:, 0].to(torch.float32) * gates[:, :1]
+    for k in range(1, K):
+        y = y + ytk[:, k].to(torch.float32) * gates[:, k:k + 1]
+    y = y.to(x.dtype)
+    if m.shared_expert:
+        y = y + mlp(params["shared"], xt)
+
+    # every top-k choice counts, dropped ones included
+    frac = torch.bincount(expert_idx.reshape(-1), minlength=E).to(
+        torch.float32) / (N * K)
+    aux = E * torch.sum(frac * probs.mean(dim=0))
+    return y.reshape(B, S, D), aux

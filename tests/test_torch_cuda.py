@@ -969,3 +969,76 @@ def test_mamba_honest_replicas_are_bitwise_equal_on_card(cuda):
         assert torch.equal(a, b) and bool(torch.isfinite(a).all())
     s = [detection.sketch_tree(g, 12345) for g in grads]
     assert torch.equal(s[0], s[1])
+
+
+# ---------------------------------------------------------------------------
+# phi3.5-moe and jamba on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"])
+def test_moe_serving_on_card_matches_cpu(cuda, name):
+    """Reduced phi3.5-moe (prefill k/v, no replay) and jamba (the prompt
+    replayed to fill its mamba cache) in f32: ServeEngine on the card
+    against the CPU; logits within 1e-4 (1 + max|.|), tokens under the
+    margin rule, the same audits; K6 once per attention layer, K4s twice
+    an audit."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import attn_layer_indices
+    from repro_torch.serving import ServeEngine, token_agreement
+
+    cfg = _small(name)
+    params = M.init(cfg, 0, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               size=(2, 32))
+    cpu = ServeEngine(cfg, params, q_audit=0.5, seed=0, device="cpu",
+                      record_logits=True)
+    want = cpu.generate(prompt, 8)
+    card = ServeEngine(cfg, params, q_audit=0.5, seed=0, record_logits=True)
+    ops.reset_launch_counts()
+    got = card.generate(prompt, 8).cpu()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == len(attn_layer_indices(cfg))
+    assert counts["sketch"] == 2 * card.audits > 0
+    assert (card.audits, card.audit_failures) == (cpu.audits, 0)
+    tol = 1e-4 * (1 + float(torch.stack(cpu.logits).abs().max()))
+    compared, agreed = token_agreement(cpu.logits, want, got, tol)
+    assert compared > 0 and agreed == compared
+    torch.testing.assert_close(card.logits[0].cpu(), cpu.logits[0], rtol=0,
+                               atol=tol)
+
+
+def test_moe_honest_replicas_are_bitwise_equal_on_card(cuda, monkeypatch):
+    """Two workers on the same rows (bf16, reduced phi3.5-moe at a
+    capacity factor that drops choices): equal gradients on every leaf,
+    the router and experts included, and equal sketches, bit for bit:
+    the dispatch's and combine's backward add no floats atomically."""
+    import dataclasses
+
+    from repro_torch.core import detection, tree
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.train import steps
+
+    cfg = _small("phi3.5-moe-42b-a6.6b", "bfloat16")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    params = M.init_train(cfg, 0)
+    rng = np.random.default_rng(3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).to(cuda)
+    lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).to(cuda)
+    dropped, routing = [], moe.routing
+
+    def recorded(*a):
+        out = routing(*a)
+        dropped.append(int((~out[4]).sum()))
+        return out
+
+    monkeypatch.setattr(moe, "routing", recorded)
+    att = steps.AttackConfig("none")
+    grads = [steps.per_worker_grad(params, tok, lab, False, (0, w), cfg,
+                                   att)[1] for w in range(2)]
+    assert len(dropped) == 2 * cfg.num_layers and min(dropped) > 0
+    for a, b in zip(tree.leaves(grads[0]), tree.leaves(grads[1])):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+    s = [detection.sketch_tree(g, 12345) for g in grads]
+    assert torch.equal(s[0], s[1])

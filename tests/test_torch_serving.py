@@ -128,7 +128,7 @@ def test_forward_matches_reference(name):
     jparams, tparams, prompt = _setup(name)
     want, _, _ = JM.forward(jparams, {"tokens": jnp.asarray(prompt)},
                             _jcfg(name))
-    got, _ = M.forward(tparams, {"tokens": prompt}, _cfg(name))
+    got, _, _ = M.forward(tparams, {"tokens": prompt}, _cfg(name))
     assert got.shape == (B, S, _cfg(name).vocab_size)
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=_tol(want))
 
@@ -260,9 +260,7 @@ def test_key_scalar_for_seed_matches_reference(n):
         jdet.key_scalar_for_step(jax.random.PRNGKey(n)))
 
 
-@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b",
-                                  "llama-3.2-vision-90b", "jamba-v0.1-52b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "whisper-tiny"])
 def test_unported_layers_raise(name):
     cfg = get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="M11"):

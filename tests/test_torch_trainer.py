@@ -8,8 +8,8 @@ scenario's initial parameters, history, protocol state and final
 parameters; the port starts from the same parameters
 (``convert.from_jax_train_params``) on ``device="cpu"`` and runs the
 same scenario.  Model: llama3.2-1b ``reduced()`` in f32 (mamba2-780m's
-for the ``ssm_*`` scenarios), n = 8 workers, f = 2, sequence 16, global
-batch 16.
+for the ``ssm_*`` scenarios, phi3.5-moe's for ``moe_*``), n = 8
+workers, f = 2, sequence 16, global batch 16.
 
 Held: every control quantity exactly (check / identify decisions, the
 identified sets, efficiency, q, f_t, kappa, the active and identified
@@ -17,10 +17,10 @@ masks, the meter); losses within 1e-4 relative; final parameters
 within 1e-4 * (1 + max|p|) per leaf, with sgd, momentum and adamw alike
 (the adamw restart scenario measures about 8e-6).
 
-The scenarios are split over four test files (this one,
+The scenarios are split over five test files (this one,
 ``test_torch_trainer_modes.py``, ``test_torch_trainer_restart.py``,
-``test_torch_trainer_ssm.py``), one reference subprocess each, so that
-no file runs much over a minute.
+``test_torch_trainer_ssm.py``, ``test_torch_trainer_moe.py``), one
+reference subprocess each, so that no file runs much over a minute.
 """
 import dataclasses
 import json
@@ -82,6 +82,11 @@ SCENARIOS = {
                            opt="momentum", actions=[("run", 5)]),
     "ssm_deterministic": dict(arch="mamba2-780m", mode="deterministic",
                               attack="noise", byz=[1], seed=3, opt="adamw",
+                              actions=[("run", 4)]),
+    # phi3.5-moe (tests/test_torch_trainer_moe.py)
+    "moe_deterministic": dict(arch="phi3.5-moe-42b-a6.6b",
+                              mode="deterministic", attack="sign_flip",
+                              byz=[2, 5], seed=3, opt="adamw",
                               actions=[("run", 4)]),
 }
 
