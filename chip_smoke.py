@@ -139,6 +139,24 @@ Phases, in order; any failed check exits nonzero:
      prefill at a capacity that drops nothing against the replay (the
      config's own, which drops, beside it, not held); one training step
      of reduced jamba in f32 card vs CPU;
+   - serving with a context (``phase_serving_ctx``): whisper-tiny at
+     full size (``WHISPER_SERVE``: B = 4, ctx (4, 1500, 384), a 128-token
+     prompt, 32 tokens, q_audit 0.25) and llama-3.2-vision-90b at full
+     width, 10 of its 100 layers (``VISION_SERVE``: the mamba cell's
+     traffic, ctx (4, 1601, 8192)), the cross-attention gates at
+     ``CTX_GATE``; the prompt replayed through decode over the zero
+     cross caches, as the reference's engine does: the audits, K6 at
+     each prefill shape (whisper's encoder, decoder self- and
+     cross-attention; vision's self- and cross-attention) counted by
+     shape, K4s twice an audit, spans and counters; the prefill's logits
+     with the kernels against the plain versions (3e-2 (1 + max|.|)) and
+     moved beyond that by the context (``context_shifted``; a second
+     i.i.d. draw's move printed), the tokens the same under that draw;
+     the plain versions fed the kernel run's tokens; a decode step
+     replayed bitwise, the cross caches left zero, the step profiled;
+     a tampered replica caught; K6 at each shape and K4s at the
+     audit's against their plain versions with times, SDPA and bounds;
+     peak memory; reduced whisper-tiny and vision in f32 card vs CPU;
 4. a ``{"kernels": [...]}`` line;
 5. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -1671,6 +1689,28 @@ def attn_bound(B, Sq, Sk, H, K, hd, causal, window, itemsize):
                  BF16_OPS_S)
 
 
+def held_attention(got, want, dtype, what):
+    """K6's two checks against its plain version, both printed before
+    either is applied: elementwise (f32 2e-5, bf16 2e-2, abs + rel), and
+    the relative error of every 64-query-row block (f32 1e-5, bf16 1e-2:
+    the sound kernel gives about 2.5e-3 in bf16, from P's rounding to
+    bf16 and the output's)."""
+    import torch
+
+    tol, tile_tol = ((2e-5, 1e-5) if dtype == torch.float32
+                     else (2e-2, 1e-2))
+    err = max_err(got.float(), want.float())
+    tile = tile_rel_err(got, want)
+    print(f"K6 {what} {str(dtype)[6:]}: max|kernel-plain| = {err:.3e} "
+          f"(tolerance {tol} abs + rel); worst 64-row block "
+          f"||kernel-plain|| / ||plain|| = {tile:.3e} (limit {tile_tol})")
+    check(close(got.float(), want.float(), tol, tol),
+          f"K6 disagrees at {what} {dtype}")
+    check(tile <= tile_tol, f"K6 disagrees at {what} {dtype} (block "
+                            f"relative error {tile:.3e})")
+    return err, tile
+
+
 def phase_attention_kernel(torch):
     """K6 against its plain version on the card, at the serving path's
     shapes and at small ragged ones, with its time beside the plain
@@ -1700,26 +1740,6 @@ def phase_attention_kernel(torch):
         return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=keep)
 
-    def held(got, want, dtype, what):
-        """K6's two checks against its plain version, both printed before
-        either is applied: elementwise (f32 2e-5, bf16 2e-2, abs + rel),
-        and the relative error of every 64-query-row block (f32 1e-5,
-        bf16 1e-2: the sound kernel gives about 2.5e-3 in bf16, from P's
-        rounding to bf16 and the output's)."""
-        tol, tile_tol = ((2e-5, 1e-5) if dtype == torch.float32
-                         else (2e-2, 1e-2))
-        err = max_err(got.float(), want.float())
-        tile = tile_rel_err(got, want)
-        print(f"K6 {what} {str(dtype)[6:]}: max|kernel-plain| = {err:.3e} "
-              f"(tolerance {tol} abs + rel); worst 64-row block "
-              f"||kernel-plain|| / ||plain|| = {tile:.3e} (limit "
-              f"{tile_tol})")
-        check(close(got.float(), want.float(), tol, tol),
-              f"K6 disagrees at {what} {dtype}")
-        check(tile <= tile_tol, f"K6 disagrees at {what} {dtype} (block "
-                                f"relative error {tile:.3e})")
-        return err, tile
-
     rows = {}
     for shape in ATTN_RAGGED:
         B, Sq, Sk, H, K, hd, causal, window = shape
@@ -1728,13 +1748,14 @@ def phase_attention_kernel(torch):
             got = fa.flash_attention_cuda(q, k, v, causal, window)
             want = fa.flash_attention_plain(q, k, v, causal, window)
             torch.cuda.synchronize()
-            held(got, want, dtype, f"ragged {shape}")
+            held_attention(got, want, dtype, f"ragged {shape}")
     for label, B, S, H, K, hd, window in ATTN_SHAPES:
         q, k, v = qkv(B, S, S, H, K, hd, torch.bfloat16)
         got = fa.flash_attention_cuda(q, k, v, True, window)
         want = fa.flash_attention_plain(q, k, v, True, window)
         torch.cuda.synchronize()
-        err, tile = held(got, want, torch.bfloat16, f"the {label} shape")
+        err, tile = held_attention(got, want, torch.bfloat16,
+                                   f"the {label} shape")
         again = fa.flash_attention_cuda(q, k, v, True, window)
         check(bool(torch.equal(got, again)), f"K6 rerun differs ({label})")
         del got, want, again
@@ -1793,13 +1814,15 @@ def cell_cfg(sv):
     return cfg
 
 
-def teacher_forced_logits(cfg, params, prompt, out, coins, sv):
+def teacher_forced_logits(cfg, params, prompt, out, coins, sv, ctx=None):
     """The plain versions fed a run's greedy tokens ``out`` (B, steps):
     yields, per step, the (B, V) logits that step's token was chosen from
-    (the prompt's last-token logits, then each decode step's), the run's
-    audited steps replayed as audits with the same keys (``coins``: the
-    run's audit coins).  So every step of every row can be held against
-    the run, whether or not the two runs' greedy choices would part."""
+    (the prompt's last-token logits, from the prefill or, with a cross
+    cache, its replay through decode as the engine runs it; then each
+    decode step's), the run's audited steps replayed as audits with the
+    same keys (``coins``: the run's audit coins).  So every step of every
+    row can be held against the run, whether or not the two runs' greedy
+    choices would part."""
     import torch
 
     from repro_torch.models import model as M
@@ -1808,8 +1831,13 @@ def teacher_forced_logits(cfg, params, prompt, out, coins, sv):
     B, S = prompt.shape
     steps = out.shape[1]
     tokens = torch.as_tensor(prompt, device=out.device)
-    lg, cache = M.prefill(params, {"tokens": tokens}, cfg,
-                          cache_len=S + steps, impl="torch")
+    batch = {"tokens": tokens} if ctx is None else {"tokens": tokens,
+                                                    "ctx": ctx}
+    lg, cache = M.prefill(params, batch, cfg, cache_len=S + steps,
+                          impl="torch")
+    if "cross_k" in cache:
+        for t in range(S):
+            lg, cache = M.decode_step(params, tokens[:, t], t, cache, cfg)
     yield lg
     for i in range(steps - 1):
         if coins[i] < sv["q_audit"]:
@@ -1822,10 +1850,10 @@ def teacher_forced_logits(cfg, params, prompt, out, coins, sv):
         yield lg
 
 
-def serve_audited(torch, cfg, params, prompt, steps, sv):
-    """One ``ServeEngine.generate`` run with audits, the launch counts set
-    to 0 just before: (engine, tokens, launches, the audit coins, the
-    span and counter counts); checks one
+def serve_audited(torch, cfg, params, prompt, steps, sv, ctx=None):
+    """One ``ServeEngine.generate`` run with audits (and ``ctx``), the
+    launch counts set to 0 just before: (engine, tokens, launches, the
+    audit coins, the span and counter counts); checks one
     ``serve.audit_decode`` span and one ``serve.audits`` increment per
     audit, the audits equal to the seeded coins and no failure."""
     import numpy as np
@@ -1837,7 +1865,7 @@ def serve_audited(torch, cfg, params, prompt, steps, sv):
     def serve():
         eng = ServeEngine(cfg, params, q_audit=sv["q_audit"],
                           seed=sv["seed"], record_logits=True)
-        return eng, eng.generate(prompt, steps)
+        return eng, eng.generate(prompt, steps, ctx=ctx)
 
     def serve_counters():
         return (obmetrics.counter("serve.audits").value,
@@ -1872,12 +1900,13 @@ def serve_audited(torch, cfg, params, prompt, steps, sv):
 
 
 def check_serving_launches(cfg, launches, audits) -> None:
-    """K6 once per attention layer (the prefill), K4s twice per audit,
-    no other kernel."""
-    from repro_torch.models.transformer import attn_layer_indices
+    """K6 once per attention of the prefill (every self-attention layer,
+    encoder layer and cross-attention), K4s twice per audit, no other
+    kernel."""
+    from repro_torch.models.transformer import attn_layer_indices, num_cross
 
-    want = {"flash_attention": len(attn_layer_indices(cfg)),
-            "sketch": 2 * audits}
+    want = {"flash_attention": cfg.encoder_layers + len(
+        attn_layer_indices(cfg)) + num_cross(cfg), "sketch": 2 * audits}
     check(all(launches[k] == v for k, v in want.items()) and
           sum(launches.values()) == sum(want.values()),
           f"{cfg.name} serving launched {launches}, want {want} and "
@@ -1915,8 +1944,8 @@ def decode_step_bytes(cfg, params, B: int, kv_len: int) -> float:
     layer: the reference's grouped products read all of them), the
     unembedding matrix read in bf16 and its f32 copy written and read
     (the reference's f32 unembed), the k/v of the valid positions read,
-    the mamba state and conv buffers read and written, the (B, V) f32
-    logits written."""
+    the mamba state and conv buffers read and written, the cross caches
+    read, the (B, V) f32 logits written."""
     from repro_torch.core import tree
     from repro_torch.models import model as M
 
@@ -1927,7 +1956,8 @@ def decode_step_bytes(cfg, params, B: int, kv_len: int) -> float:
     table = (emb["tokens"] if cfg.tie_embeddings else emb["head"]).numel()
     cache = M.allocate_cache(cfg, B, kv_len, "meta")
     return (nbytes(params["layers"]) + table * (2 + 4 + 4)
-            + nbytes([cache.get("k", []), cache.get("v", [])])
+            + nbytes([cache.get(n, []) for n in ("k", "v", "cross_k",
+                                                 "cross_v")])
             + 2 * nbytes(cache.get("mamba", {})) + B * cfg.vocab_size * 4)
 
 
@@ -2087,29 +2117,39 @@ def small_serving_vs_cpu(torch, arch: str, S: int, replayed: bool) -> dict:
     """Reduced ``arch`` in f32 served on the card against the CPU (B = 2,
     an S-token prompt, 8 tokens, q_audit 0.5): the same audits, no
     failure; logits within 1e-4 (1 + max|.|) at every step whose earlier
-    tokens agree.  ``replayed`` (a mamba cache, filled by the prompt's
-    replay): the tokens equal and the cache after the replay within
-    1e-4 (1 + max|.|); else the tokens under the margin rule."""
+    tokens agree.  ``replayed`` (a mamba or cross cache: the prompt
+    replayed through decode): the tokens equal and the cache after the
+    replay within 1e-4 (1 + max|.|); else the tokens under the margin
+    rule.  A model that attends to a context gets one from a numpy seed,
+    its gates at CTX_GATE, and its prefill's logits (which the replay's
+    replace) are held too."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
+    from repro_torch.models.transformer import uses_context
     from repro_torch.serving import ServeEngine, token_agreement
 
     rc = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
     rp = M.init(rc, 0, device="cpu")
     rprompt = np.random.default_rng(1).integers(0, rc.vocab_size,
                                                 size=(2, S))
-    runs, caches = {}, {}
+    ctx = None
+    if uses_context(rc):
+        set_gates(rp, CTX_GATE)
+        ctx = context_draw(rc, 2, 1)
+    batch = {"tokens": rprompt, "ctx": ctx}
+    runs, caches, pre = {}, {}, {}
     for d_ in ("cpu", "cuda"):
         e = ServeEngine(rc, rp, q_audit=0.5, seed=0, device=d_,
                         record_logits=True)
-        runs[d_] = (e, e.generate(rprompt, 8).cpu())
+        runs[d_] = (e, e.generate(rprompt, 8, ctx=ctx).cpu())
         if replayed:
-            _, c = M.prefill(e.params, {"tokens": rprompt}, rc, S + 8)
+            pre[d_], c = M.prefill(e.params, batch, rc, S + 8)
             for t in range(S):
                 _, c = M.decode_step(e.params, rprompt[:, t], t, c, rc)
-            caches[d_] = {n: x.cpu() for n, x in c["mamba"].items()}
+            parts = c["mamba"] if "mamba" in c else c
+            caches[d_] = {n: x.cpu() for n, x in parts.items()}
     (ec, oc), (eg, og) = runs["cpu"], runs["cuda"]
     tol = logits_tol(torch.stack(ec.logits), 1e-4)
     err = max(max_err(eg.logits[i].cpu(), ec.logits[i])
@@ -2118,18 +2158,22 @@ def small_serving_vs_cpu(torch, arch: str, S: int, replayed: bool) -> dict:
     cache_err = max((max_err(caches["cuda"][n], caches["cpu"][n]) /
                      (1 + float(caches["cpu"][n].abs().max()))
                      for n in caches.get("cpu", {})), default=0.0)
+    pre_err = max_err(pre["cuda"].cpu(), pre["cpu"]) if ctx is not None \
+        else 0.0
     print(f"small {rc.name} f32 card vs CPU: logits max|d| = {err:.3e} "
           f"(tolerance {tol:.3e}); tokens compared {n_cmp}, agreed "
           f"{n_agr}, equal {bool(torch.equal(og, oc))}; cache "
           f"max|d|/(1+max|.|) = {cache_err:.3e} (tolerance 1e-4); audits "
-          f"{eg.audits} / {ec.audits}")
+          f"{eg.audits} / {ec.audits}" + (
+              f"; the prefill's logits with the context max|d| = "
+              f"{pre_err:.3e}" if ctx is not None else ""))
     check(n_agr == n_cmp and n_cmp > 0 and eg.audits == ec.audits and
           eg.audit_failures == 0 and (torch.equal(og, oc) or not replayed),
           f"{rc.name}: card vs CPU tokens or audits differ")
-    check(err <= tol and cache_err <= 1e-4,
+    check(err <= tol and cache_err <= 1e-4 and pre_err <= tol,
           f"{rc.name}: card vs CPU logits or cache differ")
     return dict(logits_err=err, compared=n_cmp, agreed=n_agr,
-                cache_err=cache_err)
+                cache_err=cache_err, prefill_err=pre_err)
 
 
 # the MoE serving cell: phi3.5-moe-42b-a6.6b at full width (d_model 4096,
@@ -2461,6 +2505,302 @@ def phase_serving_replayed(torch, attention, sv):
         audit_failures=failures, **spans, chunked_vs_replay_err=chunk_err,
         chunked_vs_replay_tol=chunk_tol, argmax_equal_rows=same_top,
         small_vs_cpu=small, phase_s=phase_s, **extra)
+
+
+# the context cells (bf16, random init, seed 0; each ctx (B, Tctx,
+# d_model) standard normals from np.random.default_rng, seeds 1 and 2).
+# whisper-tiny at full size (configs/whisper_tiny.py: 4 encoder and 4
+# decoder layers, d_model 384, 6 heads of 64, d_ff 1536, vocab 51865
+# tied; 41 M parameters), B = 4, ctx (4, 1500, 384), a 128-token prompt
+# (160 positions stay under the released model's 448), 32 tokens,
+# q_audit 0.25; K6 12 times a prefill: the encoder (4, 1500, 1500, 6, 6,
+# 64) non-causal, decoder self-attention (4, 128, 128) causal,
+# cross-attention (4, 128, 1500) non-causal
+WHISPER_SERVE = dict(arch="whisper-tiny", B=4, S=128, steps=32,
+                     q_audit=0.25, seed=0, tag="whisper")
+# llama-3.2-vision-90b at full width (configs/llama_3_2_vision_90b.py:
+# d_model 8192, 64 heads / 8 kv heads of 128, d_ff 28672, vocab 128256
+# untied), its depth cut from 100 to 10 layers: two periods of 5,
+# cross-attention at 4 and 9 (a layer is 855.6 M parameters; the 100
+# layers are 171 GB, more than the card's 80; the 10 and the embeddings
+# 10.66 B parameters, 21.3 GB); the mamba cell's traffic with ctx (4,
+# 1601, 8192); K6 10 times a prefill: self-attention (4, 512, 512, 64,
+# 8, 128) causal, cross-attention (4, 512, 1601) non-causal
+VISION_SERVE = dict(arch="llama-3.2-vision-90b", layers=10, B=4, S=512,
+                    steps=32, q_audit=0.25, seed=0, tag="vision")
+# every cross-attention layer's gate after init: the reference
+# initializes gate_attn to 0, and tanh(0) = 0 makes a cross-attention
+# layer add nothing, so a phase at 0 would check nothing of it
+CTX_GATE = 0.5
+
+
+def set_gates(params, value: float) -> None:
+    """Every ``cross_attn`` layer's ``gate_attn`` set to ``value``."""
+    for p in params["layers"]:
+        if "gate_attn" in p["mixer"]:
+            p["mixer"]["gate_attn"].fill_(value)
+
+
+def context_draw(cfg, B: int, seed: int):
+    """A (B, Tctx, d_model) f32 context of standard normals."""
+    import numpy as np
+
+    T = (cfg.num_encoder_positions if cfg.is_encoder_decoder
+         else cfg.num_vision_tokens)
+    return np.random.default_rng(seed).standard_normal(
+        (B, T, cfg.d_model), dtype=np.float32)
+
+
+def context_shifted(ctx, seed: int):
+    """``ctx`` plus one (B, 1, d_model) standard-normal offset a row,
+    shared by all its positions (as the patches of one image share their
+    statistics).  Two i.i.d. contexts differ in ways that cross-attention
+    averages away: its weights over 1601 keys are near uniform at random
+    init, so each output row is a mean of 1601 i.i.d. values, and at
+    llama-3.2-vision-90b's width two such contexts move the last-token
+    logits about as much as bf16 rounding does; a shared offset moves
+    every key and value alike and survives the mean."""
+    import numpy as np
+
+    B, _, D = ctx.shape
+    return ctx + np.random.default_rng(seed).standard_normal(
+        (B, 1, D), dtype=np.float32)
+
+
+def ctx_attention_shapes(cfg, B: int, S: int) -> dict:
+    """{label: ((B, Sq, Sk, H, K, hd, causal), launches)} of K6 in one
+    prefill of a model that attends to a context: the encoder's layers,
+    the self-attention layers, the cross-attentions."""
+    from repro_torch.models.transformer import attn_layer_indices, num_cross
+
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    T = (cfg.num_encoder_positions if cfg.is_encoder_decoder
+         else cfg.num_vision_tokens)
+    out = {"encoder": ((B, T, T, H, K, hd, False), cfg.encoder_layers),
+           "self": ((B, S, S, H, K, hd, True), len(attn_layer_indices(cfg))),
+           "cross": ((B, S, T, H, K, hd, False), num_cross(cfg))}
+    return {k: v for k, v in out.items() if v[1]}
+
+
+@contextlib.contextmanager
+def attention_tape():
+    """K6's launches by shape while open: {(B, Sq, Sk, H, K, hd, causal):
+    launches}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    real, seen = fa.flash_attention_cuda, {}
+
+    def taped(q, k, v, causal=True, window=None, scale=None):
+        key = (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+               bool(causal))
+        seen[key] = seen.get(key, 0) + 1
+        return real(q, k, v, causal, window, scale)
+
+    fa.flash_attention_cuda = taped
+    try:
+        yield seen
+    finally:
+        fa.flash_attention_cuda = real
+
+
+def ctx_attention_rows(torch, shapes, tag: str) -> dict:
+    """K6 at each of a context cell's prefill shapes against its plain
+    version (``held_attention``'s bf16 bounds), a rerun bitwise, and
+    timed beside the plain version, SDPA (``is_causal`` as the shape,
+    ``enable_gqa``) and the bound: kernels-line rows
+    ``flash_attention_<tag>_<label>`` with the cell's launches."""
+    from repro_torch.kernels import flash_attention as fa
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    for label, ((B, Sq, Sk, H, K, hd, causal), n) in shapes.items():
+        q, k, v = [torch.randn(*s, generator=gen, device=dev).to(
+            torch.bfloat16) for s in ((B, Sq, H, hd), (B, Sk, K, hd),
+                                      (B, Sk, K, hd))]
+        what = f"{tag} {label} ({B}, {Sq}, {Sk}, {H}, {K}, {hd}, causal=" \
+               f"{causal})"
+        got = fa.flash_attention_cuda(q, k, v, causal)
+        want = fa.flash_attention_plain(q, k, v, causal)
+        err, tile = held_attention(got, want, torch.bfloat16, what)
+        check(bool(torch.equal(got, fa.flash_attention_cuda(q, k, v,
+                                                            causal))),
+              f"K6 rerun differs at {what}")
+        ms = median_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                              causal),
+                       launches=10)
+        plain_ms = median_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal), reps=3, warm=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), launches=10)
+        dev_ms = device_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, causal), "flash", calls=10)
+        b_ms, b_by = attn_bound(B, Sq, Sk, H, K, hd, causal, None, 2)
+        name = f"flash_attention_{tag}_{label}"
+        rows[name] = entry(name, "flash_attention.cu",
+                           "src/repro/kernels/flash_attention.py:33", err,
+                           ms, plain_ms, b_ms, b_by, library_ms)
+        rows[name].update(launches=n, device_ms=dev_ms, tile_rel_err=tile)
+        print(f"K6 {what}: rerun bitwise equal; kernel_ms={ms:.4f} (device "
+              f"{fmt_ms(dev_ms)}) plain_ms={plain_ms:.4f} sdpa_ms="
+              f"{library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); "
+              f"{b_ms / ms:.1%} of bound; {n} launches a prefill")
+        del q, k, v, qt, kt, vt, got, want
+    return rows
+
+
+def phase_serving_ctx(torch, sv):
+    """``sv``'s model (WHISPER_SERVE: whisper-tiny; VISION_SERVE:
+    llama-3.2-vision-90b at 10 of 100 layers) served at full width with
+    a context through ServeEngine.generate (the prefill with the encoder
+    and cross-attention, then the prompt replayed through decode over
+    the zero cross caches, as the reference does, and audited greedy
+    decode): the audits against the seeded coins, K6 at each prefill
+    shape as many times as the model has such attentions, K4s twice an
+    audit, the spans and counters; the prefill's logits with the kernels
+    against the plain versions, and moved by the context beyond that
+    tolerance; the tokens the same under a second context; the
+    plain versions fed the kernel run's tokens; a decode step replayed
+    on one cache, the cross caches left zero; the tampered replica; K6
+    at the cell's shapes and K4s at the audit's against their plain
+    versions; the reduced model in f32 on the card against the CPU.
+    Returns (launches, kernels-line rows with their launches, report)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cell_cfg(sv)
+    B, S, steps, tag = sv["B"], sv["S"], sv["steps"], sv["tag"]
+    t_phase = time.perf_counter()
+    params = M.init(cfg, sv["seed"])
+    set_gates(params, CTX_GATE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    dev = M.params_device(params)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               size=(B, S))
+    ctxs = [context_draw(cfg, B, seed) for seed in (1, 2)]
+    print(f"{cfg.name}: {cfg.num_layers} decoder layers, "
+          f"{cfg.encoder_layers} encoder layers, {n_params} parameters "
+          f"(init {init_s:.4f} s), cross-attention gates {CTX_GATE}; ctx "
+          f"{ctxs[0].shape}")
+    ServeEngine(cfg, params).generate(prompt[:, :16], 2, ctx=ctxs[0])
+
+    with attention_tape() as taped:
+        eng, out, launches, coins, spans = serve_audited(
+            torch, cfg, params, prompt, steps, sv, ctx=ctxs[0])
+    check_serving_launches(cfg, launches, eng.audits)
+    shapes = ctx_attention_shapes(cfg, B, S)
+    want = {shape: n for shape, n in shapes.values()}
+    print(f"K6 launches by shape (B, Sq, Sk, H, K, hd, causal): {taped}")
+    check(taped == want, f"{cfg.name}: K6 launched {taped}, want {want}")
+    ph = eng.phase_s
+    decode_s = ph["decode"] + ph["audit"]
+    plain_steps = steps - eng.audits
+    print(f"prefill {ph['prefill']:.4f} s; replay {ph['replay']:.4f} s "
+          f"({ph['replay'] / S * 1e3:.4f} ms a prompt token); decode "
+          f"{decode_s:.4f} s = {decode_s / steps * 1e3:.4f} ms per step, "
+          f"{B * steps / decode_s:.1f} tokens/s (unaudited steps "
+          f"{ph['decode'] / max(1, plain_steps) * 1e3:.4f} ms each, audited "
+          f"{ph['audit'] / max(1, eng.audits) * 1e3:.4f} ms each); audits "
+          f"{eng.audits}, failures {eng.audit_failures}")
+
+    # the prefill's logits, which the replay's replace in generate: the
+    # kernels against the plain versions; moved by the second i.i.d.
+    # context (reported) and by the first one shifted (held beyond the
+    # tolerance: the context is live)
+    batch = {"tokens": prompt, "ctx": ctxs[0]}
+    pre, _ = M.prefill(params, batch, cfg)
+    pre_plain, _ = M.prefill(params, batch, cfg, impl="torch")
+    tol = logits_tol(pre_plain, 3e-2)
+    pre_err = max_err(pre, pre_plain)
+    moved = {}
+    for name, c in (("iid", ctxs[1]), ("shifted", context_shifted(ctxs[0],
+                                                                  3))):
+        other, _ = M.prefill(params, {"tokens": prompt, "ctx": c}, cfg)
+        moved[name] = max_err(other, pre)
+        del other
+    print(f"prefill last-token logits: kernels vs plain max|d| = "
+          f"{pre_err:.4e} (tolerance {tol:.4e} = 3e-2 (1 + max|.|)); the "
+          f"second i.i.d. context moves them by {moved['iid']:.4e} (not "
+          f"held), the first one with a shared offset a row by "
+          f"{moved['shifted']:.4e} (held: more than the tolerance)")
+    check(pre_err <= tol, f"{cfg.name}: prefill logits differ between "
+                          f"kernels and plain")
+    check(moved["shifted"] > tol, f"{cfg.name}: the context does not reach "
+                                  f"the prefill's logits")
+    del pre, pre_plain
+
+    # generate under the second context: the same tokens, since the
+    # replay and decode read the zero cross caches (the reference's too)
+    other = ServeEngine(cfg, params, q_audit=sv["q_audit"], seed=sv["seed"])
+    same_tokens = bool(torch.equal(other.generate(prompt, steps,
+                                                  ctx=ctxs[1]), out))
+    print(f"generate's tokens under the second context equal the first's: "
+          f"{same_tokens}")
+    check(same_tokens, f"{cfg.name}: generate's tokens depend on ctx")
+    del other
+
+    forced_err, forced_held = 0.0, 0
+    for i, lg in enumerate(teacher_forced_logits(cfg, params, prompt, out,
+                                                 coins, sv, ctx=ctxs[0])):
+        for r in range(B):
+            e = max_err(eng.logits[i][r], lg[r])
+            forced_err = max(forced_err, e)
+            forced_held += int(e <= logits_tol(lg[r], 3e-2))
+    print(f"kernels vs plain, teacher-forced (the kernel run's tokens fed "
+          f"to the plain versions, the prompt replayed): {forced_held} of "
+          f"{B * steps} step-rows within 3e-2*(1+max|logits|), max|d| = "
+          f"{forced_err:.3e}")
+    check(forced_held == B * steps, "teacher-forced decode logits differ "
+                                    "between kernels and plain")
+
+    _, cache = M.prefill(params, batch, cfg, cache_len=S + steps)
+    decode_replayed_bitwise(torch, cfg, params, cache, out[:, 0], S)
+    extra = decode_step_profile(torch, cfg, params, out[:, 0], S, cache, B)
+    zero = not (cache["cross_k"].any() or cache["cross_v"].any())
+    print(f"the cross caches after prefill and decode steps are zero: "
+          f"{zero}")
+    check(zero, f"{cfg.name}: a cross cache was written")
+    tampered_replica_caught(cfg, params, prompt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    audits, failures = eng.audits, eng.audit_failures
+    del params, cache, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = ctx_attention_rows(torch, shapes, tag)
+    sketch_row = audit_sketch_row(torch, B * cfg.vocab_size,
+                                  f"sketch_{tag}_audit", dev)
+    sketch_row["launches"] = launches["sketch"]
+    rows[sketch_row["name"]] = sketch_row
+    check(sum(r["launches"] for r in rows.values()) ==
+          sum(launches.values()), f"{cfg.name}: rows miss launches")
+    small = small_serving_vs_cpu(torch, sv["arch"], 24, True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase_serving_ctx ({cfg.name}): {phase_s:.1f} s; peak memory "
+          f"{peak_gib:.2f} GiB")
+    return launches, rows, dict(
+        init_s=init_s, parameters=n_params, phase_s_split=ph,
+        decode_s=decode_s, decode_ms_per_step=decode_s / steps * 1e3,
+        replay_ms_per_token=ph["replay"] / S * 1e3,
+        tokens_per_s=B * steps / decode_s, audits=audits,
+        audit_failures=failures, **spans, k6_by_shape={
+            str(k): n for k, n in taped.items()},
+        prefill_logits_err_vs_plain=pre_err, prefill_tol=tol,
+        prefill_moved_by_ctx=moved, tokens_same_under_ctx=same_tokens,
+        forced_step_rows_held=forced_held, forced_logits_err=forced_err,
+        peak_gib=peak_gib, small_vs_cpu=small, phase_s=phase_s, **extra)
 
 
 # the training cell: llama3.2-1b at full width (16 layers, d_model 2048,
@@ -3197,6 +3537,13 @@ def main() -> int:
         torch, MOE_TRAIN, "moe_train")
     launches["serving_hybrid"], hybrid_report, serving_hybrid = \
         phase_serving_replayed(torch, attention, HYBRID_SERVE)
+    launches["serving_whisper"], whisper_rows, serving_whisper = \
+        phase_serving_ctx(torch, WHISPER_SERVE)
+    launches["serving_vision"], vision_rows, serving_vision = \
+        phase_serving_ctx(torch, VISION_SERVE)
+    # rows whose launches their phase counted by shape
+    by_shape = {"serving_whisper": whisper_rows,
+                "serving_vision": vision_rows}
     # each kernel's launches summed over the counted path runs but those
     # with rows of their own, which count them there
     own = {"training": ("_train", train_report),
@@ -3207,11 +3554,13 @@ def main() -> int:
            "serving_hybrid": ("_jamba_serving", hybrid_report)}
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for path, run in launches.items()
-                             if path not in own)
+                             if path not in own and path not in by_shape)
     for path, (suffix, report) in own.items():
         for key, kv in report.items():
             kv["launches"] = launches[path][key.removesuffix(suffix)]
         kernels.update(report)
+    for rows in by_shape.values():
+        kernels.update(rows)
     main_path = dict(gram_sweep=gram, **stream, device_control=device_ctl,
                      oracle=oracle,
                      launches=launches,
@@ -3220,7 +3569,9 @@ def main() -> int:
                      serving_mamba=serving_mamba,
                      training_mamba=training_mamba, serving_moe=serving_moe,
                      training_moe=training_moe,
-                     serving_hybrid=serving_hybrid)
+                     serving_hybrid=serving_hybrid,
+                     serving_whisper=serving_whisper,
+                     serving_vision=serving_vision)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

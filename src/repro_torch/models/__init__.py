@@ -1,8 +1,9 @@
-"""Decoder models of the port, dense, MoE, Mamba2 and hybrid: layers,
-attention (prefill through K6), the MoE layer (``moe``), the Mamba2 SSD
-block (``ssm``), the layer stack, the model facade (serving, and the
-training loss in the reference's stacked layout) and the converters
-from the JAX package's parameters."""
+"""The port's models, dense, MoE, Mamba2, hybrid, the VLM backbone with
+cross-attention and the encoder-decoder: layers, attention (prefill,
+encoder and cross-attention through K6), the MoE layer (``moe``), the
+Mamba2 SSD block (``ssm``), the layer stacks, the model facade
+(serving, and the training loss in the reference's stacked layout) and
+the converters from the JAX package's parameters."""
 from repro_torch.models.convert import (  # noqa: F401
     from_jax_params,
     from_jax_train_params,

@@ -1,6 +1,6 @@
-"""Attention: GQA with optional qk-norm and sliding-window (local)
-masks; full-sequence (prefill) attention through K6 and single-token
-decode against a KV cache.
+"""Attention: GQA with optional qk-norm, sliding-window (local) masks
+and cross-attention; full-sequence (prefill) attention through K6 and
+single-token decode against a KV cache.
 
 Port of ``repro.models.attention``.  ``blockwise_attention`` is the
 reference's flash-style prefill attention; here it is
@@ -17,7 +17,28 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, l2norm
+from repro_torch.models.layers import (apply_rope, dtype_of, init_weight,
+                                       l2norm)
+
+
+def init_attention(cfg, gen: torch.Generator, device,
+                   cross: bool = False) -> dict:
+    """The reference's ``abstract_attention`` materialized: wq, wk, wv, wo
+    (D, H*hd) / (D, K*hd) / (H*hd, D), qk-norm scales one; a
+    cross-attention layer's ``gate_attn`` a 0-d leaf in the config's
+    dtype, zero as the reference initializes it (tanh(0) = 0: a fresh
+    cross-attention layer adds nothing)."""
+    dt = dtype_of(cfg)
+    D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {n: init_weight(shape, dt, gen, device) for n, shape in (
+        ("wq", (D, H * hd)), ("wk", (D, K * hd)), ("wv", (D, K * hd)),
+        ("wo", (H * hd, D)))}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dt, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=dt, device=device)
+    if cross:
+        p["gate_attn"] = torch.zeros((), dtype=dt, device=device)
+    return p
 
 
 def project_q(params, x: torch.Tensor, cfg, positions=None,

@@ -9,15 +9,18 @@ is row ``r`` of group slot ``[g][pos]`` (``model._layer_param``).  The
 port keeps one entry per layer, in layer order.  Every leaf comes over
 by name with its dtype: a mamba layer's ``ln1`` and 13 mixer leaves
 (``A_log``, ``dt_bias`` and ``D`` in f32, the rest in the config's
-dtype) and an MoE layer's ``ffn`` leaves (``router``, ``gate``, ``up``,
-``down`` and the ``shared`` expert's three) as the dense layers' do.
+dtype), an MoE layer's ``ffn`` leaves (``router``, ``gate``, ``up``,
+``down`` and the ``shared`` expert's three), a cross-attention layer's
+``gate_attn`` (row r of an (R,) leaf: a 0-d tensor) and an
+encoder-decoder model's ``ln_cross`` and ``cross`` as the dense layers'
+do; its ``encoder`` stack the same way, and ``encoder_norm``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, layer_groups
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
 
@@ -44,12 +47,13 @@ def from_jax_params(cfg: ModelConfig, tree, device=None):
     ``device`` (``None``: the card, which must exist)."""
     tfm.require_ported(cfg)
     dev = M.resolve_device(device)
-    layers = []
-    for group, slots in zip(layer_groups(cfg), tree["decoder"]):
-        for r in range(group.repeats):
-            for pos in range(len(group.pattern)):
-                layers.append(M.map_params(lambda a: a[r], slots[pos]))
-    assert len(layers) == cfg.num_layers
-    params = {"embed": dict(tree["embed"]), "layers": layers,
-              "final_norm": dict(tree["final_norm"])}
+    params = {k: v for k, v in tree.items() if k not in ("decoder",
+                                                         "encoder")}
+    for flat, stacked, groups in M.layer_stacks(cfg):
+        params[flat] = [
+            M.map_params(lambda a, r=r: a[r], slots[pos])
+            for group, slots in zip(groups, tree[stacked])
+            for r in range(group.repeats)
+            for pos in range(len(group.pattern))]
+    assert len(params["layers"]) == cfg.num_layers
     return M.map_params(lambda a: to_tensor(a).to(dev), params)

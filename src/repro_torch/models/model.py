@@ -1,42 +1,55 @@
 """Model facade: init, forward, prefill, decode with a KV cache.
 
-Port of ``repro.models.model`` for the dense decoders (llama3.2-1b,
-gemma3-1b, qwen3-4b, ...), the MoE decoders (phi3.5-moe,
-llama4-maverick), the attention-free Mamba2 (mamba2-780m) and the
-hybrid (jamba).  Parameters are a plain tree of tensors on one device:
+Port of ``repro.models.model`` for every model of the configs: the
+dense decoders (llama3.2-1b, gemma3-1b, qwen3-4b, ...), the MoE
+decoders (phi3.5-moe, llama4-maverick), the attention-free Mamba2
+(mamba2-780m), the hybrid (jamba), the VLM backbone with
+cross-attention layers (llama-3.2-vision-90b) and the encoder-decoder
+(whisper-tiny).  Parameters are a plain tree of tensors on one device:
 
     {"embed": {"tokens": (V, D)[, "head": (D, V)]},
      "layers": [{"ln1": {"scale"}, "mixer": {"wq", "wk", "wv", "wo"
-                 [, "q_norm", "k_norm"]}, "ln2": {"scale"},
+                 [, "q_norm", "k_norm"][, "gate_attn"]}, "ln2": {"scale"},
                  "ffn": {"gate", "up", "down"}}, ...],   # one per layer
      "final_norm": {"scale"}}
 
 with the reference's (in, out) matrix layout; an MoE layer's ``ffn``
 is ``{"router", "gate", "up", "down"[, "shared"]}`` (``moe.init_moe``);
 a mamba layer's mixer is the 13 leaves of ``ssm.init_mamba``, and
-without an ffn (mamba2-780m) it has no ``ln2`` and no ``ffn``.
+without an ffn (mamba2-780m) it has no ``ln2`` and no ``ffn``.  A
+``cross_attn`` layer's mixer has ``gate_attn``, a 0-d leaf.  An
+encoder-decoder model adds ``"encoder"`` (its attn+mlp layers) and
+``"encoder_norm"``, and each decoder layer ``"ln_cross"`` and
+``"cross"`` (a cross-attention sub-block).  A model that reads a
+context takes ``batch["ctx"]`` (B, T, D): whisper's frame embeddings,
+run through the encoder, or the VLM's patch embeddings, used directly.
 ``convert.from_jax_params`` builds the tree from the reference's
 stacked one.  Every entry point runs on the card unless
 ``device="cpu"`` is asked for, and raises without one.  The cache has
 ``{"k", "v"}``, each (L_attn, B, cache_len, K*hd) in the config's
 dtype, written in place by ``decode_step``, when the model has
-attention layers, and ``{"mamba": {"state", "conv_x", "conv_B",
+attention layers; ``{"mamba": {"state", "conv_x", "conv_B",
 "conv_C"}}`` when it has mamba layers, which ``decode_step`` replaces
-with new tensors (the reference's functional cache).
+with new tensors (the reference's functional cache); and ``{"cross_k",
+"cross_v"}`` when it reads a context, which nothing writes: they stay
+zero, as the reference's do.
 
 Training keeps the reference's own layout instead (``stack_layers``,
 ``init_train``): ``{"decoder": [[slot per pattern position] per layer
-group], "embed", "final_norm"}``, each slot's leaves stacked over the
-group's repeats, so the tree flattens to the reference's leaves (11 for
-llama3.2-1b, 16 for mamba2-780m, 13 for phi3.5-moe).  ``train_loss``
-runs ``forward`` on per-layer views of those leaves (``layer_views``,
-one ``unbind`` a leaf, whose backward is one ``stack``).
+group], "embed", "final_norm"}`` (and ``"encoder"``, ``[[slot]]`` over
+one group, and ``"encoder_norm"``), each slot's leaves stacked over
+the group's repeats, so the tree flattens to the reference's leaves
+(11 for llama3.2-1b, 16 for mamba2-780m, 13 for phi3.5-moe).
+``train_loss`` runs ``forward`` on per-layer views of those leaves
+(``layer_views``, one ``unbind`` a leaf, whose backward is one
+``stack``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, layer_groups, layer_kinds
+from repro_torch.configs.base import (LayerGroup, ModelConfig, layer_groups,
+                                      layer_kinds)
 from repro_torch.core import tree as tree_mod
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -82,15 +95,15 @@ def params_device(params) -> torch.device:
 def init(cfg: ModelConfig, seed: int = 0, device=None):
     """Random-init parameters with the reference's distributions
     (``layers.materialize``): matrices truncated normal on [-2, 2] times
-    1/sqrt(fan_in), norm scales one; drawn from a ``torch.Generator`` on
-    the target device seeded with ``seed`` (other numbers than JAX's);
-    mamba mixers as ``ssm.init_mamba``, MoE ffns as ``moe.init_moe``."""
+    1/sqrt(fan_in), norm scales one, ``gate_attn`` zero; drawn from a
+    ``torch.Generator`` on the target device seeded with ``seed`` (other
+    numbers than JAX's); mamba mixers as ``ssm.init_mamba``, MoE ffns as
+    ``moe.init_moe``."""
     tfm.require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg)
     D, F = cfg.d_model, cfg.d_ff
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def w(*shape):
         return init_weight(shape, dt, gen, dev)
@@ -98,61 +111,91 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     def ones(n):
         return {"scale": torch.ones(n, dtype=dt, device=dev)}
 
-    emb = {"tokens": w(cfg.vocab_size, D)}
-    if not cfg.tie_embeddings:
-        emb["head"] = w(D, cfg.vocab_size)
-    layers = []
-    for kind in layer_kinds(cfg):
+    def layer(kind, cross_block):
         if kind.mixer == "mamba":
             mixer = ssm_mod.init_mamba(cfg, gen, dev)
         else:
-            mixer = {"wq": w(D, H * hd), "wk": w(D, K * hd),
-                     "wv": w(D, K * hd), "wo": w(H * hd, D)}
-            if cfg.qk_norm:
-                mixer["q_norm"] = ones(hd)["scale"]
-                mixer["k_norm"] = ones(hd)["scale"]
-        layer = {"ln1": ones(D), "mixer": mixer}
+            mixer = attn.init_attention(cfg, gen, dev,
+                                        cross=kind.mixer == "cross_attn")
+        p = {"ln1": ones(D), "mixer": mixer}
+        if cross_block:
+            p["ln_cross"] = ones(D)
+            p["cross"] = attn.init_attention(cfg, gen, dev, cross=True)
         if kind.ffn != "none":
-            layer["ln2"] = ones(D)
-            layer["ffn"] = ({"gate": w(D, F), "up": w(D, F), "down": w(F, D)}
-                            if kind.ffn == "mlp"
-                            else moe_mod.init_moe(cfg, gen, dev))
-        layers.append(layer)
-    return {"embed": emb, "layers": layers, "final_norm": ones(D)}
+            p["ln2"] = ones(D)
+            p["ffn"] = ({"gate": w(D, F), "up": w(D, F), "down": w(F, D)}
+                        if kind.ffn == "mlp"
+                        else moe_mod.init_moe(cfg, gen, dev))
+        return p
+
+    emb = {"tokens": w(cfg.vocab_size, D)}
+    if not cfg.tie_embeddings:
+        emb["head"] = w(D, cfg.vocab_size)
+    params = {"embed": emb,
+              "layers": [layer(k, cfg.is_encoder_decoder)
+                         for k in layer_kinds(cfg)],
+              "final_norm": ones(D)}
+    if cfg.is_encoder_decoder:
+        params["encoder"] = [layer(k, False) for k in tfm.encoder_kinds(cfg)]
+        params["encoder_norm"] = ones(D)
+    return params
 
 
-def _slot_layers(cfg: ModelConfig):
+def _encoder_groups(cfg: ModelConfig) -> list[LayerGroup]:
+    """The reference's grouping of the encoder: one group of
+    ``encoder_layers`` repeats of attn+mlp."""
+    return [LayerGroup((tfm.ENCODER_KIND,), cfg.encoder_layers)]
+
+
+def layer_stacks(cfg: ModelConfig):
+    """(per-layer key, stacked key, the reference's layer groups) of each
+    layer stack of the model."""
+    out = [("layers", "decoder", layer_groups(cfg))]
+    if cfg.is_encoder_decoder:
+        out.append(("encoder", "encoder", _encoder_groups(cfg)))
+    return out
+
+
+def _slot_layers(groups: list[LayerGroup]):
     """(group, position in the pattern, [layer index per repeat])."""
     off = 0
-    for g, group in enumerate(layer_groups(cfg)):
+    for g, group in enumerate(groups):
         P = len(group.pattern)
         for pos in range(P):
             yield g, pos, [off + r * P + pos for r in range(group.repeats)]
         off += group.num_layers
 
 
+def _unstacked(tree) -> dict:
+    """The leaves outside the layer stacks."""
+    return {k: v for k, v in tree.items()
+            if k not in ("layers", "decoder", "encoder")}
+
+
 def stack_layers(params, cfg: ModelConfig):
     """Per-layer parameters -> the reference's stacked training layout
     (layer ``off + r * len(pattern) + pos`` is row r of slot [g][pos])."""
-    decoder = [[None] * len(group.pattern) for group in layer_groups(cfg)]
-    for g, pos, idx in _slot_layers(cfg):
-        decoder[g][pos] = tree_mod.tree_map(
-            lambda *xs: torch.stack(xs), *[params["layers"][i] for i in idx])
-    return {"decoder": decoder, "embed": params["embed"],
-            "final_norm": params["final_norm"]}
+    out = _unstacked(params)
+    for flat, stacked, groups in layer_stacks(cfg):
+        out[stacked] = [[None] * len(group.pattern) for group in groups]
+        for g, pos, idx in _slot_layers(groups):
+            out[stacked][g][pos] = tree_mod.tree_map(
+                lambda *xs: torch.stack(xs), *[params[flat][i] for i in idx])
+    return out
 
 
 def layer_views(tree, cfg: ModelConfig):
     """The stacked training layout -> the per-layer layout ``forward``
     takes, each layer's tensors views of the stacked leaves."""
-    layers = [None] * cfg.num_layers
-    for g, pos, idx in _slot_layers(cfg):
-        slot = tree["decoder"][g][pos]
-        rows = [leaf.unbind(0) for leaf in tree_mod.leaves(slot)]
-        for r, i in enumerate(idx):
-            layers[i] = tree_mod.unflatten(slot, [u[r] for u in rows])
-    return {"embed": tree["embed"], "layers": layers,
-            "final_norm": tree["final_norm"]}
+    out = _unstacked(tree)
+    for flat, stacked, groups in layer_stacks(cfg):
+        out[flat] = [None] * sum(g.num_layers for g in groups)
+        for g, pos, idx in _slot_layers(groups):
+            slot = tree[stacked][g][pos]
+            rows = [leaf.unbind(0) for leaf in tree_mod.leaves(slot)]
+            for r, i in enumerate(idx):
+                out[flat][i] = tree_mod.unflatten(slot, [u[r] for u in rows])
+    return out
 
 
 def init_train(cfg: ModelConfig, seed: int = 0, device=None):
@@ -165,12 +208,12 @@ def init_train(cfg: ModelConfig, seed: int = 0, device=None):
 
 def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
     """Mean next-token cross-entropy of the stacked-layout ``params`` on
-    {tokens, labels (B, S)} (labels < 0 ignored) plus ``MOE_AUX_COEF``
-    times the MoE layers' summed aux loss; returns (loss, {"ce",
-    "moe_aux"}).  CE = logsumexp - label logit over the f32 logits: the
-    gather equals the reference's one-hot contraction, whose other terms
-    are exact zeros.  Differentiable: attention goes through
-    ``ops.flash_attention``'s autograd form."""
+    {tokens, labels (B, S)[, ctx]} (labels < 0 ignored) plus
+    ``MOE_AUX_COEF`` times the MoE layers' summed aux loss; returns
+    (loss, {"ce", "moe_aux"}).  CE = logsumexp - label logit over the
+    f32 logits: the gather equals the reference's one-hot contraction,
+    whose other terms are exact zeros.  Differentiable: attention goes
+    through ``ops.flash_attention``'s autograd form."""
     logits, _, aux = forward(layer_views(params, cfg), batch, cfg,
                              impl=impl)
     labels = _tokens(batch["labels"], logits.device)
@@ -187,23 +230,45 @@ def _tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).to(torch.int64)
 
 
+def _context(params, batch, cfg: ModelConfig, impl: str | None):
+    """What cross-attention reads: ``batch["ctx"]`` (B, T, D) cast to the
+    config's dtype; for an encoder-decoder model run through the encoder
+    (positions 0..T-1 with rope, no causal mask) and ``encoder_norm``,
+    for a VLM used as it is.  None for a model without cross-attention,
+    which ignores a ctx as the reference does."""
+    if not tfm.uses_context(cfg):
+        return None
+    if batch.get("ctx") is None:
+        raise ValueError(f"{cfg.name} attends to a context: pass "
+                         f"batch['ctx'], (B, T, d_model) embeddings")
+    dev = params_device(params)
+    ctx = torch.as_tensor(batch["ctx"], device=dev).to(dtype_of(cfg))
+    if not cfg.is_encoder_decoder:
+        return ctx
+    positions = torch.arange(ctx.shape[1], device=dev)[None]
+    x, _, _ = tfm.run_stack(params["encoder"], ctx, cfg, positions=positions,
+                            kinds=tfm.encoder_kinds(cfg), causal=False,
+                            impl=impl)
+    return rmsnorm(params["encoder_norm"], x, cfg.norm_eps)
+
+
 def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
             last_only: bool = False, impl: str | None = None):
     """(logits (B, S, V) f32, [(k, v) (B, S, K*hd) per attention layer],
-    aux () f32: the MoE layers' aux losses summed).  ``last_only``
-    unembeds the last position only (logits (B, 1, V)): the same numbers
-    without the (B, S, V) array."""
+    aux () f32: the MoE layers' aux losses summed) of {tokens (B, S)[,
+    ctx (B, T, D)]}; a model that attends to a context raises
+    ``ValueError`` without ``ctx``.  ``last_only`` unembeds the last
+    position only (logits (B, 1, V)): the same numbers without the (B,
+    S, V) array."""
     tfm.require_ported(cfg)
-    if batch.get("ctx") is not None:
-        raise NotImplementedError("context inputs (vlm / audio) are not "
-                                  "ported yet (ROADMAP M11)")
+    ctx = _context(params, batch, cfg, impl)
     dev = params_device(params)
     tokens = _tokens(batch["tokens"], dev)
     S = tokens.shape[1]
     x = embed(params["embed"], tokens, cfg)
     positions = torch.arange(S, device=dev)[None]
     x, kv_all, aux = tfm.run_stack(params["layers"], x, cfg,
-                                   positions=positions,
+                                   positions=positions, ctx=ctx,
                                    collect_kv=collect_kv, impl=impl)
     if last_only:
         x = x[:, -1:]
@@ -215,28 +280,40 @@ def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
     """Zero decode cache in the reference's ``abstract_cache`` layout:
     {"k", "v"} (L_attn, B, seq_len, K*hd) in the config's dtype when the
     model has attention layers; {"mamba": ``ssm.allocate_mamba_cache``}
-    when it has mamba layers.  Cross-attention caches are not ported
-    (ROADMAP M11)."""
+    when it has mamba layers; {"cross_k", "cross_v"} (n_cross, B, Tctx,
+    K*hd) in the config's dtype when it attends to a context: n_cross
+    its ``cross_attn`` layers plus, for an encoder-decoder model, every
+    decoder layer; Tctx ``num_encoder_positions`` (encoder-decoder) or
+    ``num_vision_tokens``."""
     tfm.require_ported(cfg)
     cache = {}
+    dt, KH = dtype_of(cfg), cfg.num_kv_heads * cfg.head_dim
     n_attn = len(tfm.attn_layer_indices(cfg))
     if n_attn:
-        shape = (n_attn, batch, seq_len, cfg.num_kv_heads * cfg.head_dim)
         for n in ("k", "v"):
-            cache[n] = torch.zeros(shape, dtype=dtype_of(cfg), device=device)
+            cache[n] = torch.zeros((n_attn, batch, seq_len, KH), dtype=dt,
+                                   device=device)
     n_mamba = len(tfm.mamba_layer_indices(cfg))
     if n_mamba:
         cache["mamba"] = ssm_mod.allocate_mamba_cache(cfg, batch, n_mamba,
                                                       device)
+    n_cross = tfm.num_cross(cfg)
+    if n_cross:
+        T = (cfg.num_encoder_positions if cfg.is_encoder_decoder
+             else cfg.num_vision_tokens)
+        for n in ("cross_k", "cross_v"):
+            cache[n] = torch.zeros((n_cross, batch, T, KH), dtype=dt,
+                                   device=device)
     return cache
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int | None = None, *,
             impl: str | None = None):
-    """Run the full prompt, returning (last-token logits (B, V), cache).
-    The cache's k/v hold the prompt's; its mamba part is zero, as the
-    reference's prefill leaves it: ``ServeEngine.generate`` fills it by
-    replaying the prompt through ``decode_step``."""
+    """Run the full prompt (and its ``ctx``), returning (last-token logits
+    (B, V), cache).  The cache's k/v hold the prompt's; its mamba and
+    cross parts are zero, as the reference's prefill leaves them:
+    ``ServeEngine.generate`` replays the prompt through ``decode_step``,
+    which fills the mamba part and never writes the cross part."""
     logits, kv_all, _ = forward(params, batch, cfg, collect_kv=True,
                                 last_only=True, impl=impl)
     B, S = batch["tokens"].shape
@@ -245,6 +322,18 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int | None = None, *,
     for i, (k, v) in enumerate(kv_all):
         attn.update_cache(cache["k"][i], cache["v"][i], k, v, 0)
     return logits[:, -1], cache
+
+
+def _decode_cross(p, h: torch.Tensor, cache, i: int, cfg: ModelConfig):
+    """One token's cross-attention (``p``'s projections, no rope) over
+    the i-th cross cache, every position visible."""
+    q = attn.project_q(p, h, cfg, None, rope=False)
+    ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+    B, T = ck.shape[:2]
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    o = attn.decode_attention(q, ck.reshape(B, T, K, hd),
+                              cv.reshape(B, T, K, hd), valid_len=T)
+    return attn.output_proj(p, o)
 
 
 def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
@@ -258,7 +347,10 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     that way, so they are functional, as the reference's whole cache is:
     the new cache holds new mamba tensors and ``cache``'s stay as they
     were.  An MoE layer routes the step's B tokens as one group, as the
-    reference does.
+    reference does.  Cross-attention reads the cross caches and never
+    writes them; over the zero caches a step leaves them (attention over
+    zero keys and values gives exactly 0) it adds nothing, as in the
+    reference.
     """
     tfm.require_ported(cfg)
     dev = params_device(params)
@@ -268,7 +360,7 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     x = embed(params["embed"], token[:, None], cfg)            # (B, 1, D)
     positions = torch.full((1, 1), int(pos), device=dev)
     new_mamba = {n: [] for n in cache.get("mamba", {})}
-    attn_i = 0
+    attn_i = cross_i = 0
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         if kind.mixer == "mamba":
@@ -279,6 +371,10 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
             for n, t in mnew.items():
                 new_mamba[n].append(t)
             x = x + out[:, None]
+        elif kind.mixer == "cross_attn":
+            mix = _decode_cross(p["mixer"], h, cache, cross_i, cfg)
+            x = x + mix * torch.tanh(p["mixer"]["gate_attn"].to(mix.dtype))
+            cross_i += 1
         else:
             q = attn.project_q(p["mixer"], h, cfg, positions)
             k_new, v_new = attn.project_kv(p["mixer"], h, cfg, positions)
@@ -291,6 +387,10 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
                 valid_len=int(pos) + 1, window=tfm.window_of(kind, cfg))
             x = x + attn.output_proj(p["mixer"], o)
             attn_i += 1
+        if "cross" in p:
+            h = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+            x = x + _decode_cross(p["cross"], h, cache, cross_i, cfg)
+            cross_i += 1
         x, _ = tfm.apply_ffn(kind, p, x, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     new_cache = dict(cache)

@@ -1,11 +1,13 @@
-"""The decoder layer stack: attention (global and sliding-window local),
-Mamba2 mixers; the SwiGLU MLP, the MoE layer or no ffn.
+"""The layer stacks: the decoder (and an encoder-decoder model's
+encoder) of attention (global and sliding-window local), cross-attention
+and Mamba2 mixers; the SwiGLU MLP, the MoE layer or no ffn.
 
-Port of ``repro.models.transformer`` for these layer kinds.  The
-reference scans periodic layer groups with ``lax.scan`` (and remat);
-here the layers are a Python list run in order.  Encoder-decoder
-models and cross-attention layers raise ``NotImplementedError``
-(ROADMAP M11).
+Port of ``repro.models.transformer``.  The reference scans periodic
+layer groups with ``lax.scan`` (and remat); here the layers are a
+Python list run in order.  A ``cross_attn`` layer (llama-3.2-vision)
+attends from the sequence to the context without rope and gates its
+output by tanh(gate_attn); every decoder layer of an encoder-decoder
+model (whisper) has a ``cross`` sub-block after its mixer, ungated.
 """
 from __future__ import annotations
 
@@ -18,21 +20,35 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, rmsnorm
 
 ATTN_MIXERS = ("attn", "attn_local")
-PORTED_MIXERS = ATTN_MIXERS + ("mamba",)
-PORTED_FFNS = ("mlp", "moe", "none")
+MIXERS = ATTN_MIXERS + ("mamba", "cross_attn")
+FFNS = ("mlp", "moe", "none")
+ENCODER_KIND = LayerKind("attn", "mlp")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a config with layers the port does not run yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP M11)")
+    """Raise for a config with a layer kind the stack does not run (its
+    branches take any mixer but mamba and cross_attn for attention)."""
     for kind in layer_kinds(cfg):
-        if kind.mixer not in PORTED_MIXERS or kind.ffn not in PORTED_FFNS:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind.tag} layers (cross-attention) are not "
-                f"ported yet (ROADMAP M11)")
+        if kind.mixer not in MIXERS or kind.ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: unknown layer kind {kind.tag}")
+
+
+def encoder_kinds(cfg: ModelConfig) -> list[LayerKind]:
+    """An encoder-decoder model's encoder: ``encoder_layers`` attn+mlp
+    layers (none for a decoder-only model)."""
+    return [ENCODER_KIND] * cfg.encoder_layers
+
+
+def num_cross(cfg: ModelConfig) -> int:
+    """Cross-attentions (and cross caches): one per ``cross_attn`` layer
+    and, for an encoder-decoder model, one per decoder layer."""
+    return sum(k.mixer == "cross_attn" for k in layer_kinds(cfg)) + (
+        cfg.num_layers if cfg.is_encoder_decoder else 0)
+
+
+def uses_context(cfg: ModelConfig) -> bool:
+    """Whether the model reads ``ctx``: it has a cross-attention."""
+    return num_cross(cfg) > 0
 
 
 def attn_layer_indices(cfg: ModelConfig) -> list[int]:
@@ -49,25 +65,44 @@ def window_of(kind: LayerKind, cfg: ModelConfig) -> int | None:
     return cfg.sliding_window if kind.mixer == "attn_local" else None
 
 
+def cross_attention(p, h: torch.Tensor, ctx: torch.Tensor,
+                    cfg: ModelConfig, impl: str | None = None):
+    """Attention from h (B, S, D) to ctx (B, T, D), no rope on either
+    side and no mask (K6 non-causal), through ``p``'s projections."""
+    q = attn.project_q(p, h, cfg, None, rope=False)
+    k, v = attn.project_kv(p, ctx, cfg, None, rope=False)
+    o = attn.blockwise_attention(q, k, v, causal=False, impl=impl)
+    return attn.output_proj(p, o)
+
+
 def apply_layer(kind: LayerKind, p, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor, collect_kv: bool = False,
+                positions: torch.Tensor, ctx: torch.Tensor | None = None,
+                causal: bool = True, collect_kv: bool = False,
                 impl: str | None = None):
     """One layer (full-sequence path).  Returns (x, (k, v) | None, aux):
     k and v as (B, S, K*hd) for an attention layer when ``collect_kv``;
-    aux the MoE load-balance loss (f32) of an MoE layer, else None."""
+    aux the MoE load-balance loss (f32) of an MoE layer, else None.
+    ``ctx`` (B, T, D) is what cross-attention reads; ``causal=False``
+    is the encoder's self-attention."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     kv = None
     if kind.mixer == "mamba":
         x = x + ssm_mod.mamba(p["mixer"], h, cfg)
+    elif kind.mixer == "cross_attn":
+        mix = cross_attention(p["mixer"], h, ctx, cfg, impl)
+        x = x + mix * torch.tanh(p["mixer"]["gate_attn"].to(mix.dtype))
     else:
         q = attn.project_q(p["mixer"], h, cfg, positions)
         k, v = attn.project_kv(p["mixer"], h, cfg, positions)
-        o = attn.blockwise_attention(q, k, v, causal=True,
+        o = attn.blockwise_attention(q, k, v, causal=causal,
                                      window=window_of(kind, cfg), impl=impl)
         x = x + attn.output_proj(p["mixer"], o)
         if collect_kv:
             B, S = k.shape[:2]
             kv = (k.reshape(B, S, -1), v.reshape(B, S, -1))
+    if "cross" in p:             # an encoder-decoder model's decoder layer
+        h = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        x = x + cross_attention(p["cross"], h, ctx, cfg, impl)
     x, aux = apply_ffn(kind, p, x, cfg)
     return x, kv, aux
 
@@ -85,15 +120,18 @@ def apply_ffn(kind: LayerKind, p, x: torch.Tensor, cfg: ModelConfig):
 
 
 def run_stack(layers, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, collect_kv: bool = False,
-              impl: str | None = None):
-    """All layers in order; returns (x, [(k, v) per attention layer],
-    aux): aux () f32 the MoE layers' aux losses summed in layer order
-    from 0, as the reference's scan carries it."""
+              positions: torch.Tensor, kinds: list[LayerKind] | None = None,
+              ctx: torch.Tensor | None = None, causal: bool = True,
+              collect_kv: bool = False, impl: str | None = None):
+    """All layers in order (``kinds``: theirs, the decoder's by default);
+    returns (x, [(k, v) per attention layer], aux): aux () f32 the MoE
+    layers' aux losses summed in layer order from 0, as the reference's
+    scan carries it."""
     kv_all = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in zip(layer_kinds(cfg), layers):
+    for kind, p in zip(layer_kinds(cfg) if kinds is None else kinds, layers):
         x, kv, aux = apply_layer(kind, p, x, cfg, positions=positions,
+                                 ctx=ctx, causal=causal,
                                  collect_kv=collect_kv, impl=impl)
         if kv is not None:
             kv_all.append(kv)

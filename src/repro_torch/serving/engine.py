@@ -70,8 +70,9 @@ class ServeEngine:
     the device; ``"torch"``: the plain versions, for comparison).  After
     ``generate``: ``audits``, ``audit_failures``, ``phase_s`` (seconds
     of the prefill, of the prompt's replay through decode that fills a
-    mamba cache, of the unaudited decode steps and of the audited ones,
-    the card synchronized at each boundary) and, with
+    mamba cache or follows a cross cache, of the unaudited decode steps
+    and of the audited ones, the card synchronized at each boundary)
+    and, with
     ``record_logits``, ``logits``: the (B, V) logits each token was
     chosen from.
     """
@@ -95,22 +96,26 @@ class ServeEngine:
         self.logits: list[torch.Tensor] = []
 
     def generate(self, tokens, steps: int, ctx=None) -> torch.Tensor:
-        """Greedy generation.  tokens: (B, S) prompt; returns (B, steps)."""
-        if ctx is not None:
-            raise NotImplementedError("context inputs (vlm / audio) are not "
-                                      "ported yet (ROADMAP M11)")
+        """Greedy generation.  tokens: (B, S) prompt; ctx: (B, T, D)
+        context embeddings, which a model that attends to a context
+        needs; returns (B, steps)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         S = tokens.shape[1]
+        batch = {"tokens": tokens}
+        if ctx is not None:
+            batch["ctx"] = ctx
         self.logits = []
         t0 = time.perf_counter()
-        logits, cache = M.prefill(self.params, {"tokens": tokens}, self.cfg,
+        logits, cache = M.prefill(self.params, batch, self.cfg,
                                   cache_len=S + steps, impl=self.impl)
         _sync(self.device)
         t_pre = time.perf_counter()
-        # the mamba cache: the prompt replayed through decode from zero
-        # (O(S) steps), as the reference does; its last step's logits
-        # choose the first token
-        if "mamba" in cache:
+        # a mamba or cross cache: the prompt replayed through decode from
+        # the prefill's cache (O(S) steps), as the reference does; its
+        # last step's logits choose the first token.  Nothing writes the
+        # cross caches, so the replay and every later step read them as
+        # zero: the tokens do not depend on ctx, in the reference either
+        if "mamba" in cache or "cross_k" in cache:
             for t in range(S):
                 logits, cache = M.decode_step(self.params, tokens[:, t], t,
                                               cache, self.cfg)

@@ -23,7 +23,10 @@ def make_train_step(cfg, opt: OptConfig, *, impl: str | None = None):
         req = [p.detach().requires_grad_() for p in tree.leaves(params)]
         loss, _ = M.train_loss(tree.unflatten(params, req), batch, cfg,
                                impl=impl)
-        grads = tree.unflatten(params, list(torch.autograd.grad(loss, req)))
+        # a leaf the loss never reads (whisper's ``cross/gate_attn``) gets
+        # a zero gradient, as under ``jax.grad``
+        grads = tree.unflatten(params, list(torch.autograd.grad(
+            loss, req, materialize_grads=True)))
         params, opt_state, om = opt_update(opt, grads, opt_state, params,
                                            step)
         return params, opt_state, {"loss": loss.detach(), **om}

@@ -646,6 +646,12 @@ FLASH_SHAPES = [
     (1, 1500, 1500, 1, 1, 64, True, None),
     (1, 2048, 2048, 2, 1, 256, True, None),
     (2, 200, 520, 4, 4, 64, False, None),
+    # the context path: whisper's encoder (non-causal, 1500 = 11 * 128 +
+    # 92 keys) and cross-attention (one query tile, B * H = 12), the
+    # vision cross-attention (GQA 8:1 at hd 128, 1601 = 12 * 128 + 65)
+    (1, 1500, 1500, 6, 6, 64, False, None),
+    (2, 128, 1500, 6, 6, 64, False, None),
+    (1, 257, 1601, 16, 2, 128, False, None),
 ]
 
 
@@ -1005,6 +1011,57 @@ def test_moe_serving_on_card_matches_cpu(cuda, name):
     assert compared > 0 and agreed == compared
     torch.testing.assert_close(card.logits[0].cpu(), cpu.logits[0], rtol=0,
                                atol=tol)
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "llama-3.2-vision-90b"])
+def test_ctx_serving_on_card_matches_cpu(cuda, name):
+    """Reduced whisper-tiny (its encoder) and llama-3.2-vision-90b (its
+    cross-attention layers, gates at 0.5) in f32 with a context:
+    ServeEngine on the card against the CPU; logits within 1e-4 (1 +
+    max|.|), tokens under the margin rule, the same audits; K6 in every
+    attention of the prefill (encoder, decoder self- and
+    cross-attention), K4s twice an audit; the prefill's logits on the
+    card against the CPU's, and moved by a second context."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import (attn_layer_indices,
+                                                num_cross)
+    from repro_torch.serving import ServeEngine, token_agreement
+
+    cfg = _small(name)
+    params = M.init(cfg, 0, device="cpu")
+    for p in params["layers"]:
+        if "gate_attn" in p["mixer"]:
+            p["mixer"]["gate_attn"].fill_(0.5)
+    T = cfg.num_encoder_positions if cfg.is_encoder_decoder \
+        else cfg.num_vision_tokens
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, size=(2, 24))
+    ctx, ctx2 = (rng.standard_normal((2, T, cfg.d_model)).astype(np.float32)
+                 for _ in range(2))
+    cpu = ServeEngine(cfg, params, q_audit=0.5, seed=0, device="cpu",
+                      record_logits=True)
+    want = cpu.generate(prompt, 8, ctx=ctx)
+    card = ServeEngine(cfg, params, q_audit=0.5, seed=0, record_logits=True)
+    ops.reset_launch_counts()
+    got = card.generate(prompt, 8, ctx=ctx).cpu()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.encoder_layers + len(
+        attn_layer_indices(cfg)) + num_cross(cfg)
+    assert counts["sketch"] == 2 * card.audits > 0
+    assert (card.audits, card.audit_failures) == (cpu.audits, 0)
+    tol = 1e-4 * (1 + float(torch.stack(cpu.logits).abs().max()))
+    compared, agreed = token_agreement(cpu.logits, want, got, tol)
+    assert compared > 0 and agreed == compared
+    torch.testing.assert_close(card.logits[0].cpu(), cpu.logits[0], rtol=0,
+                               atol=tol)
+    pre = {}
+    for d, p in (("cpu", params), ("cuda", card.params)):
+        for i, c in enumerate((ctx, ctx2)):
+            pre[d, i], _ = M.prefill(p, {"tokens": prompt, "ctx": c}, cfg)
+    for i in range(2):
+        torch.testing.assert_close(pre["cuda", i].cpu(), pre["cpu", i],
+                                   rtol=0, atol=tol)
+    assert float((pre["cpu", 0] - pre["cpu", 1]).abs().max()) > 100 * tol
 
 
 def test_moe_honest_replicas_are_bitwise_equal_on_card(cuda, monkeypatch):

@@ -261,15 +261,24 @@ def test_key_scalar_for_seed_matches_reference(n):
 
 
 @pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "whisper-tiny"])
-def test_unported_layers_raise(name):
-    cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="M11"):
-        M.init(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        M.allocate_cache(cfg, 1, 8, "cpu")
-    dense = M.init(_cfg("llama3.2-1b"), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        ServeEngine(cfg, dense, device="cpu")
+def test_ctx_models_are_accepted(name):
+    """The VLM and the encoder-decoder: ``init``, ``allocate_cache`` (with
+    its zero cross caches) and ``ServeEngine`` take them; ``forward``
+    without ``ctx`` raises ``ValueError`` naming it, with it runs."""
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32")
+    params = M.init(cfg, 0, device="cpu")
+    cache = M.allocate_cache(cfg, 1, 8, "cpu")
+    T = cfg.num_encoder_positions if cfg.is_encoder_decoder \
+        else cfg.num_vision_tokens
+    assert tuple(cache["cross_k"].shape)[1:] == (1, T, cfg.num_kv_heads *
+                                                 cfg.head_dim)
+    ServeEngine(cfg, params, device="cpu")
+    tokens = np.zeros((1, 4), np.int32)
+    with pytest.raises(ValueError, match="ctx"):
+        M.forward(params, {"tokens": tokens}, cfg)
+    ctx = np.zeros((1, T, cfg.d_model), np.float32)
+    logits, _, _ = M.forward(params, {"tokens": tokens, "ctx": ctx}, cfg)
+    assert logits.shape == (1, 4, cfg.vocab_size)
 
 
 def test_default_device_needs_a_card():
