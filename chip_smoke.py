@@ -105,6 +105,15 @@ Phases, in order; any failed check exits nonzero:
      planted control without the protocol, whose update takes the
      Byzantine gradients, caught by them); reduced llama3.2-1b in f32
      trained on the card against the CPU (control exact, 1e-4);
+   - the launch tools (``phase_dryrun``, ``DRYRUN``): llama3.2-1b's
+     plain train (16 x 256, AdamW), prefill (4 x 4096) and decode (one
+     token against a 4 x 4128 cache) steps at full width, each traced
+     by the dry-run on meta tensors and then run on the card under the
+     same counter: FLOPs, bytes accessed and argument bytes equal
+     exactly, K6's launches its counted calls, the measured peak within
+     ``DRYRUN_PEAK_REL`` of the prediction; the warm wall beside the
+     roofline and the MFU; the BFT steps' bounds at 16 x 256 beside
+     ``phase_train``'s walls; ``memprobe`` at one layer in bf16 and f32;
    - serving mamba2-780m (``phase_serving_replayed(MAMBA_SERVE)``): at
      full width,
      random init, bf16, through ``ServeEngine.generate`` (B = 4, a
@@ -177,13 +186,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s; f32 adds/s
-# (67 TFLOP/s counts an FMA as two operations, so one add is half of it)
-HBM_BYTES_S = 3.35e12
-F32_ADDS_S = 67e12 / 2
-F32_OPS_S = 67e12
-# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
-BF16_OPS_S = 989e12
 
 GRAM_SWEEP = dict(B=32, T=120, n_data=64, d=1 << 20)
 # benchmarks/bench_protocol.py:304-331 with its default knobs; the plan
@@ -386,10 +388,18 @@ def rel_err(a, b) -> float:
         else 0.0
 
 
-def bound(bytes_: float, ops: float, ops_rate: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_ / HBM_BYTES_S * 1e3, ops / ops_rate * 1e3
-    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+def roofline():
+    """The port's roofline (``repro_torch.launch.roofline``): the card's
+    constants (H100 SXM data sheet, 700 W) and each kernel's cost."""
+    from repro_torch.launch import roofline as RL
+
+    return RL
+
+
+def kernel_bound(name: str, **dims) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") of one call of kernel
+    ``name`` at ``dims`` (``roofline.kernel_cost``)."""
+    return roofline().kernel_bound_ms(name, **dims)
 
 
 def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
@@ -511,9 +521,8 @@ def phase_kernels(torch):
     # R read once and SK written once, against three bf16 tensor-core
     # passes of 2 T Ie d operations; the CUDA-core bound of the f32
     # kernel it replaced (T Ie d signed adds at 33.5e12 a second) beside it
-    b_ms, b_by = bound(Ie * d * 4 + T * 4 + T * Ie * k * 4,
-                       3 * 2 * T * Ie * d, BF16_OPS_S)
-    core_ms = T * Ie * d / F32_ADDS_S * 1e3
+    b_ms, b_by = kernel_bound("gram_factors", Ie=Ie, d=d, T=T, k=k)
+    core_ms = T * Ie * d / roofline().F32_ADDS_S * 1e3
     report["gram_factors"] = entry(
         "gram_factors", "gram.cu", "src/repro/kernels/gram.py:45", err_sk,
         ms, plain_ms, b_ms, b_by, library_ms)
@@ -558,8 +567,7 @@ def phase_kernels(torch):
         x_main), "relmax_kernel", calls=50)
     B, R, dd = main_shape
     # one f32 division per element and pair
-    b_ms, b_by = bound(B * R * dd * 4 + B * R * R * 4, B * R * R * dd,
-                       F32_OPS_S)
+    b_ms, b_by = kernel_bound("pairwise_relmax_batched", B=B, R=R, d=dd)
     report["pairwise_relmax_batched"] = entry(
         "pairwise_relmax_batched", "majority_vote.cu",
         "src/repro/kernels/majority_vote.py:63", err_main, ms, plain_ms,
@@ -637,9 +645,7 @@ def phase_stream_kernels(torch):
             dev_k2[f"{label} {kern}"] = device_ms(
                 torch, lambda: fs.fused_step_cuda(r, W, cw, key), kern,
                 calls=10)
-    b_ms, b_by = bound(Ie2 * d2 * 4 + 2 * B2 * d2 * 4 + 2 * B2 * Ie2 * 4
-                       + Ie2 * k * 4, 4 * B2 * Ie2 * d2 + Ie2 * d2,
-                       F32_OPS_S)
+    b_ms, b_by = kernel_bound("fused_step", Ie=Ie2, B=B2, d=d2, k=k)
     report["fused_step"] = entry(
         "fused_step", "fused_step.cu", "src/repro/kernels/fused_step.py:50",
         err2, ms, plain_ms, b_ms, b_by, None)
@@ -676,7 +682,7 @@ def phase_stream_kernels(torch):
     g3 = g.reshape(B4, -1, k)
     library_ms = median_ms(torch, lambda: torch.einsum("bmk,mk->bk", g3,
                                                        signs))
-    b_ms, b_by = bound(B4 * d4 * 4 + B4 * k * 4, B4 * d4, F32_ADDS_S)
+    b_ms, b_by = kernel_bound("sketch_batched", B=B4, d=d4, k=k)
     report["sketch_batched"] = entry(
         "sketch_batched", "sketch.cu", "src/repro/kernels/sketch.py:77",
         err4, ms, plain_ms, b_ms, b_by, library_ms)
@@ -688,7 +694,7 @@ def phase_stream_kernels(torch):
     ms_pp = median_ms(torch, lambda: sk.sketch_batched_cuda(gp, key))
     print(f"K4 sketch_batched (B={gp.shape[0]}, d=2^20, the per-problem "
           f"rows): kernel_ms={ms_pp:.4f} bound_ms="
-          f"{gp.numel() * 4 / HBM_BYTES_S * 1e3:.4f} (bytes)")
+          f"{gp.numel() * 4 / roofline().HBM_BYTES_S * 1e3:.4f} (bytes)")
     del g, g3, gp
 
     d4s = 1_000_000                      # bench_kernels.py's single sketch
@@ -721,14 +727,14 @@ def phase_stream_kernels(torch):
         k4s[label] = dict(
             ms=median_ms(torch, fn, launches=50),
             device_ms=device_ms(torch, fn, None, calls=50),
-            bound_ms=bound(v.numel() * 4 + k * 4, v.numel(), F32_ADDS_S)[0])
+            bound_ms=kernel_bound("sketch", d=v.numel(), k=k)[0])
     ms, dev_ms = k4s["d=1e6"]["ms"], k4s["d=1e6"]["device_ms"]
     plain_ms = median_ms(torch, lambda: sk.sketch_plain(x, 7), launches=50)
     xs_ = torch.nn.functional.pad(x, (0, (-d4s) % k)).reshape(-1, k)
     signs = sign_table(torch, xs_.numel(), 7, dev).reshape(-1, k)
     library_ms = median_ms(torch, lambda: torch.einsum("mk,mk->k", xs_,
                                                        signs), launches=50)
-    b_ms, b_by = bound(d4s * 4 + k * 4, d4s, F32_ADDS_S)
+    b_ms, b_by = kernel_bound("sketch", d=d4s, k=k)
     report["sketch"] = entry("sketch", "sketch.cu",
                              "src/repro/kernels/sketch.py:25", err, ms,
                              plain_ms, b_ms, b_by, library_ms)
@@ -762,8 +768,8 @@ def phase_stream_kernels(torch):
     ms = median_ms(torch, lambda: enc.coded_encode_batched_cuda(c, g))
     plain_ms = median_ms(torch, lambda: enc.coded_encode_batched_plain(c, g))
     library_ms = median_ms(torch, lambda: torch.bmm(c, g))
-    b_ms, b_by = bound(B5 * m5 * d5 * 4 + B5 * m5 * 4 + B5 * d5 * 4,
-                       2 * B5 * m5 * d5, F32_OPS_S)
+    b_ms, b_by = kernel_bound("coded_encode_batched", B=B5, n_sym=1, m=m5,
+                              d=d5)
     report["coded_encode_batched"] = entry(
         "coded_encode_batched", "coded_encode.cu",
         "src/repro/kernels/coded_encode.py:51", err5, ms, plain_ms, b_ms,
@@ -792,8 +798,7 @@ def phase_stream_kernels(torch):
     dev_ms = device_ms(torch, lambda: enc.coded_encode_cuda(C, G),
                        "encode_kernel")
     lib_dev_ms = device_ms(torch, lambda: C @ G, None)
-    b_ms, b_by = bound(2 * 4 * 200_000 * 4 + 16 * 4, 2 * 4 * 4 * 200_000,
-                       F32_OPS_S)
+    b_ms, b_by = kernel_bound("coded_encode", n_sym=4, m=4, d=200_000)
     report["coded_encode"] = entry(
         "coded_encode", "coded_encode.cu",
         "src/repro/kernels/coded_encode.py:21", err, ms, plain_ms, b_ms, b_by,
@@ -822,7 +827,7 @@ def phase_stream_kernels(torch):
                          launches=50)
     dev_ms = device_ms(torch, lambda: mv.pairwise_relmax_cuda(x),
                        "relmax_kernel", calls=50)
-    b_ms, b_by = bound(R3 * d3 * 4 + R3 * R3 * 4, R3 * R3 * d3, F32_OPS_S)
+    b_ms, b_by = kernel_bound("pairwise_relmax", R=R3, d=d3)
     report["pairwise_relmax"] = entry(
         "pairwise_relmax", "majority_vote.cu",
         "src/repro/kernels/majority_vote.py:30", err, ms, plain_ms, b_ms,
@@ -1671,22 +1676,14 @@ SERVE = dict(arch="llama3.2-1b", B=4, S=4096, steps=32, q_audit=0.25,
              small=("llama3.2-1b", "gemma3-1b"))
 
 
-def attn_pairs(Sq, Sk, causal, window) -> int:
-    """Unmasked (query, key) pairs of one (batch, head)."""
-    import numpy as np
-
-    i = np.arange(Sq, dtype=np.int64)
-    hi = np.minimum(Sk - 1, i + Sk - Sq) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(0, i + Sk - Sq - window + 1) if window else 0
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
 def attn_bound(B, Sq, Sk, H, K, hd, causal, window, itemsize):
     """K6's bound: q, k, v read once and o written once against the bf16
     tensor-core peak for 4 B H hd (unmasked pairs) operations."""
-    bytes_ = (2 * B * Sq * H * hd + 2 * B * Sk * K * hd) * itemsize
-    return bound(bytes_, 4 * B * H * hd * attn_pairs(Sq, Sk, causal, window),
-                 BF16_OPS_S)
+    RL = roofline()
+    c = RL.kernel_cost("flash_attention", B=B, Sq=Sq, Sk=Sk, H=H, K=K,
+                       hd=hd, causal=causal, window=window,
+                       dtype="bfloat16" if itemsize == 2 else "float32")
+    return RL.bound_ms(c.bytes, c.flops, RL.BF16_OPS_S)
 
 
 def held_attention(got, want, dtype, what):
@@ -1973,7 +1970,8 @@ def decode_step_profile(torch, cfg, params, token, pos, cache, B) -> dict:
     times = kernel_times(torch, one_step)
     busy_ms = sum(ms for ms, _ in times.values())
     n_kernels = sum(n for _, n in times.values())
-    b_ms = decode_step_bytes(cfg, params, B, pos + 1) / HBM_BYTES_S * 1e3
+    b_ms = decode_step_bytes(cfg, params, B, pos + 1) \
+        / roofline().HBM_BYTES_S * 1e3
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:5]
     print(f"decode step (B={B}): {step_ms:.4f} ms (CUDA events), {n_kernels}"
           f" kernels, card busy {busy_ms:.4f} ms ({busy_ms / step_ms:.1%}); "
@@ -2095,7 +2093,7 @@ def audit_sketch_row(torch, d: int, name: str, dev) -> dict:
     xs_ = torch.nn.functional.pad(x, (0, (-d) % kk)).reshape(-1, kk)
     library_ms = median_ms(torch, lambda: torch.einsum("mk,mk->k", xs_,
                                                        signs), launches=50)
-    kb_ms, kb_by = bound(d * 4 + kk * 4, d, F32_ADDS_S)
+    kb_ms, kb_by = kernel_bound("sketch", d=d, k=kk)
     print(f"K4s sketch at the audit's d={d}: max|kernel-plain| = "
           f"{err:.3e}, / max(1, max|plain|) = {rel:.3e} (tolerance 1e-5); "
           f"rerun bitwise equal; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -2966,7 +2964,7 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts, spec, tag):
             xs_ = F.pad(x, (0, (-d) % kk)).reshape(-1, kk)
             library_ms = median_ms(torch, lambda: torch.einsum(
                 "mk,mk->k", xs_, signs), launches=10)
-            b_ms, b_by = bound(d * 4 + kk * 4, d, F32_ADDS_S)
+            b_ms, b_by = kernel_bound("sketch", d=d, k=kk)
             report[f"sketch_{tag}"] = entry(
                 f"sketch_{tag}", "sketch.cu",
                 "src/repro/kernels/sketch.py:25", err, ms, plain_ms, b_ms,
@@ -2992,7 +2990,7 @@ def train_kernels(torch, cfg, leaf_sizes, row_counts, spec, tag):
                    launches=10)
     plain_ms = median_ms(torch, lambda: mv.pairwise_relmax_batched_plain(x),
                          reps=3, warm=1)
-    b_ms, b_by = bound(R * d * 4 + R * R * 4, R * R * d, F32_OPS_S)
+    b_ms, b_by = kernel_bound("pairwise_relmax_batched", B=1, R=R, d=d)
     report[f"pairwise_relmax_batched_{tag}"] = entry(
         f"pairwise_relmax_batched_{tag}", "majority_vote.cu",
         "src/repro/kernels/majority_vote.py:63", err, ms, plain_ms, b_ms,
@@ -3492,6 +3490,179 @@ def train_small_vs_cpu(torch, arch: str, steps: int = 5) -> dict:
                 param_rel_err=p_err, identified=ident)
 
 
+# the launch tools (launch.dryrun, roofline, memprobe) held against
+# llama3.2-1b's plain steps at full width, bf16, random init: the
+# training cell's tokens (global batch 16 x 256, AdamW), SERVE's prefill
+# (4 x 4096) and one decode step against SERVE's whole cache (4 x
+# (4096 + 32), the token at the last position)
+DRYRUN = dict(arch="llama3.2-1b", train=(16, 256), prefill=(4, 4096),
+              decode=(4, 4096 + 32), reps=3)
+# the measured peak against the dry-run's prediction: a gap outside this
+# band is a fault of the counter
+DRYRUN_PEAK_REL = 0.10
+
+
+def dryrun_inputs(torch, cfg, kind: str, B: int, S: int, params, dev):
+    """The step's inputs on the card: ``params``, AdamW's zero state,
+    seeded tokens and labels (int32, as ``launch.specs``), a zero cache
+    with the token at its last position."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def toks(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+
+    if kind == "train":
+        return (params, init_opt_state(OptConfig(), params),
+                {"tokens": toks(B, S), "labels": toks(B, S)}, 0)
+    if kind == "prefill":
+        return (params, {"tokens": toks(B, S)})
+    return (params, toks(B), S - 1, M.allocate_cache(cfg, B, S, dev))
+
+
+def phase_dryrun(torch, training: dict | None):
+    """(a) llama3.2-1b's plain train, prefill and decode steps
+    (``train.pjit_step``) at full width: each traced by the dry-run on
+    meta tensors (``launch.dryrun.lower_compile``), then run on the card
+    under the same ``StepCounter``: FLOPs, bytes accessed and the
+    arguments' bytes equal exactly, K6's launches equal to the counter's
+    calls, the peak (``max_memory_allocated`` after a reset, the inputs
+    resident and nothing else counted) within ``DRYRUN_PEAK_REL`` of the
+    predicted ``peak_bytes``; the warm wall (median of 3, CUDA events,
+    outside the counter) beside compute_s, memory_s, the roofline
+    fraction and the MFU (model FLOPs / (wall x 989e12)).  (b)
+    ``run_bft_cells`` at the training cell's 16 x 256: each step kind's
+    bound beside ``phase_train``'s measured wall.  (c) ``memprobe`` at
+    one layer: predicted and measured peaks in bf16 and f32."""
+    import gc
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import memprobe
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig
+
+    RL = roofline()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dry-run: the card's memory {total} bytes "
+          f"(roofline.HBM_PER_CARD {RL.HBM_PER_CARD})")
+    cfg = get_config(DRYRUN["arch"])
+    params = M.init_train(cfg, 0, dev)
+    out = {"total_memory": total, "steps": {}}
+    for kind in ("train", "prefill", "decode"):
+        B, S = DRYRUN[kind]
+        shape = ShapeConfig(kind, S, B, kind)
+        t0 = time.perf_counter()
+        pred = D.lower_compile(cfg, shape)
+        trace_s = time.perf_counter() - t0
+        step = D.step_for(cfg, kind, OptConfig())
+        args = dryrun_inputs(torch, cfg, kind, B, S, params, dev)
+        ops.reset_launch_counts()
+        res, mem = memprobe.measure_peak(
+            lambda *a: D.count_step(step, a, "cuda"), args, dev)
+        launched = ops.launch_counts()
+        got = res[1]
+        del res
+        wall_ms = median_ms(torch, lambda: step(*args), reps=DRYRUN["reps"],
+                            warm=1)
+        rl = D.roofline_of(cfg, shape, pred)
+        mfu = rl.model_flops_total / (wall_ms / 1e3 * RL.BF16_OPS_S)
+        peak_rel = mem["peak_bytes"] / pred["peak_bytes"] - 1
+        row = dict(
+            global_batch=B, seq_len=S, trace_s=trace_s,
+            predicted=pred, card=got, measured_peak_bytes=mem["peak_bytes"],
+            other_resident_bytes=mem["other_resident_bytes"],
+            peak_rel=peak_rel, launches=launched, wall_ms=wall_ms,
+            roofline=rl.as_dict(), bound_ms=rl.bound_s * 1e3,
+            bound_share=rl.bound_s * 1e3 / wall_ms, mfu=mfu)
+        out["steps"][kind] = row
+        print(f"dry-run {kind} ({B} x {S}): trace {trace_s:.2f} s; FLOPs "
+              f"meta {pred['flops']:.6g} card {got['flops']:.6g} (by dtype "
+              f"{pred['flops_by_dtype']}); bytes meta {pred['bytes']:.6g} "
+              f"card {got['bytes']:.6g}; arg_bytes meta {pred['arg_bytes']}"
+              f" card {got['arg_bytes']}; peak predicted "
+              f"{pred['peak_bytes'] / 2**30:.4f} GiB, measured "
+              f"{mem['peak_bytes'] / 2**30:.4f} GiB ({peak_rel:+.2%}; other "
+              f"resident {mem['other_resident_bytes'] / 2**20:.1f} MiB; the "
+              f"counter on the card {got['peak_bytes'] / 2**30:.4f} GiB); "
+              f"kernels meta {pred['kernels']} card {got['kernels']}, "
+              f"launched {launched}")
+        print(f"  {kind}: warm wall {wall_ms:.3f} ms (median of "
+              f"{DRYRUN['reps']}); compute_s {rl.compute_s * 1e3:.3f} ms, "
+              f"memory_s {rl.memory_s * 1e3:.3f} ms ({rl.dominant}); bound "
+              f"{rl.bound_s * 1e3:.3f} ms = {row['bound_share']:.2%} of the "
+              f"wall; roofline fraction (compute / bound) "
+              f"{rl.roofline_fraction:.3f}; model FLOPs "
+              f"{rl.model_flops_total:.6g}, MFU {mfu:.2%}")
+        for key in ("flops", "bytes", "arg_bytes"):
+            check(got[key] == pred[key], f"dry-run {kind}: {key} on the card "
+                  f"{got[key]} != meta {pred[key]}")
+        check(got["flops_by_dtype"] == pred["flops_by_dtype"],
+              f"dry-run {kind}: FLOPs by dtype differ")
+        k6 = got["kernels"].get("flash_attention", {}).get("calls", 0)
+        check(launched["flash_attention"] == k6 == pred["kernels"].get(
+            "flash_attention", {}).get("calls", 0),
+              f"dry-run {kind}: K6 launched {launched['flash_attention']}, "
+              f"counted {k6}")
+        check(abs(peak_rel) <= DRYRUN_PEAK_REL,
+              f"dry-run {kind}: measured peak {mem['peak_bytes']} is "
+              f"{peak_rel:+.2%} off the predicted {pred['peak_bytes']}")
+        del args
+        gc.collect()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B, S = DRYRUN["train"]
+    t0 = time.perf_counter()
+    bft = D.run_bft_cells(cfg.name, n=8, f=2, global_batch=B, seq_len=S)
+    out["bft"] = bft
+    walls = (training or {}).get("modes", {})
+    for mode in ("fast", "check", "check_full", "identify"):
+        m = bft[mode]
+        w = walls.get(mode, {}).get("wall_s")
+        print(f"dry-run BFT {mode} (r {m['replication']}, {m['num_shards']} "
+              f"shards, 16 x 256): bound {m['bound_s'] * 1e3:.3f} ms "
+              f"({m['roofline']['dominant']}; compute "
+              f"{m['roofline']['compute_s'] * 1e3:.3f}, memory "
+              f"{m['roofline']['memory_s'] * 1e3:.3f}), predicted peak "
+              f"{m['peak_bytes'] / 2**30:.3f} GiB; phase_train's wall "
+              + ("not measured" if w is None else
+                 f"{w * 1e3:.3f} ms ({m['bound_s'] / w:.2%} of it)"))
+    out["bft_s"] = time.perf_counter() - t0
+
+    probes = {dt: memprobe.probe(cfg.name, dt, global_batch=B, seq_len=S)
+              for dt in ("bfloat16", "float32")}
+    out["memprobe"] = probes
+    for dt, r in probes.items():
+        print(f"memprobe {dt} (one layer, {B} x {S}): predicted "
+              f"{r['predicted_peak_bytes'] / 2**30:.4f} GiB, measured "
+              f"{r['measured_peak_bytes'] / 2**30:.4f} GiB ("
+              f"{r['measured_peak_bytes'] / r['predicted_peak_bytes'] - 1:+.2%}"
+              f"), inputs {r['arg_bytes'] / 2**30:.4f} GiB")
+        check(r["measured_peak_bytes"] > 0, f"memprobe {dt}: no peak")
+    pb, pf = (probes[d]["predicted_peak_bytes"] for d in ("bfloat16",
+                                                          "float32"))
+    mb, mf = (probes[d]["measured_peak_bytes"] for d in ("bfloat16",
+                                                         "float32"))
+    out["memprobe_ratio"] = {"predicted": pb / pf, "measured": mb / mf}
+    print(f"memprobe bf16/f32 peak ratio: predicted {pb / pf:.4f}, "
+          f"measured {mb / mf:.4f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase_dryrun: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3527,6 +3698,7 @@ def main() -> int:
     launches["serving"], _, serving = phase_serving(torch, attention, SERVE)
     launches["training"], train_report, training = phase_train(
         torch, TRAIN, "train")
+    dryrun = phase_dryrun(torch, training)
     launches["serving_mamba"], mserve_report, serving_mamba = \
         phase_serving_replayed(torch, attention, MAMBA_SERVE)
     launches["training_mamba"], mtrain_report, training_mamba = phase_train(
@@ -3571,7 +3743,7 @@ def main() -> int:
                      training_moe=training_moe,
                      serving_hybrid=serving_hybrid,
                      serving_whisper=serving_whisper,
-                     serving_vision=serving_vision)
+                     serving_vision=serving_vision, dryrun=dryrun)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -21,8 +21,9 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _account, _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.launch.roofline import kernel_cost
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # bf16 at these head dims runs the Hopper body, which may ask for scratch
@@ -45,19 +46,49 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     scale=scale)
 
 
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """K6's shape-only form for the dry-run: the output on q's (``meta``)
+    device, with no (B, H, Sq, Sk) score buffer, which K6 never makes."""
+    check_window(window)
+    B, Sq, H, hd = q.shape
+    return torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+         window: int | None = None):
+    """K6's ``roofline.KernelCost`` at q's and k's shapes."""
+    B, Sq, H, hd = q.shape
+    return kernel_cost("flash_attention", B=B, Sq=Sq, Sk=k.shape[1], H=H,
+                       K=k.shape[2], hd=hd, causal=causal, window=window,
+                       dtype=str(q.dtype).removeprefix("torch."))
+
+
+def attend(q, k, v, causal, window, scale, impl: str) -> torch.Tensor:
+    """The forward of ``impl``: "cuda" (K6), "meta" (its shape-only
+    form) or "torch" (the plain version); the first two accounted to
+    the dry-run's counter when one is active."""
+    if impl == "torch":
+        return flash_attention_plain(q, k, v, causal, window, scale)
+    fn = flash_attention_cuda if impl == "cuda" else flash_attention_meta
+    return _account.run("flash_attention",
+                        lambda: cost(q, k, causal, window),
+                        lambda: fn(q, k, v, causal, window, scale))
+
+
 class FlashAttention(torch.autograd.Function):
-    """Attention whose forward is K6 (``impl="cuda"``) or the plain
-    version (``impl="torch"``), computed without a graph, and whose
-    backward recomputes the plain version from the saved q, k, v and
-    differentiates it.  Only the forward launches the kernel."""
+    """Attention whose forward is K6 (``impl="cuda"``), its shape-only
+    form (``"meta"``) or the plain version (``"torch"``), computed
+    without a graph, and whose backward recomputes the plain version
+    from the saved q, k, v and differentiates it.  Only the forward
+    launches the kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, impl):
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, scale)
-        if impl == "cuda":
-            return flash_attention_cuda(q, k, v, causal, window, scale)
-        return flash_attention_plain(q, k, v, causal, window, scale)
+        return attend(q, k, v, causal, window, scale, impl)
 
     @staticmethod
     def backward(ctx, grad_out):

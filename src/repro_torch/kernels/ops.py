@@ -3,24 +3,35 @@ plain PyTorch version.
 
 ``impl`` is ``"cuda"`` (the hand-written kernel), ``"torch"`` (the plain
 version) or ``None``.  ``None`` follows the tensor: a CUDA tensor goes
-to the CUDA kernel, a CPU tensor to the plain version.  ``"torch"`` on a
-CUDA tensor is an explicit choice (the chip check compares the two with
-it) and is never made automatically; ``"cuda"`` on a CPU tensor raises.
-A CUDA kernel that fails to build or launch raises — nothing falls back.
+to the CUDA kernel, a CPU tensor to the plain version, a ``meta`` tensor
+(the dry-run, ``launch.dryrun``) to the kernel's shape-only form, which
+returns empty outputs of the kernel's shapes and dtypes.  Only the
+kernels of the model and trainer paths have one (``flash_attention``,
+``sketch``, ``pairwise_relmax`` / ``vote``, ``batched_pairwise_relmax``
+/ ``batched_vote``); the others raise on a meta tensor.  ``"torch"`` on
+a CUDA tensor is an explicit choice (the chip check compares the two
+with it) and is never made automatically; ``"cuda"`` on a CPU tensor
+raises.  A CUDA kernel that fails to build or launch raises — nothing
+falls back.
 
 Each kernel wrapper counts the calls in which it launched its kernel
-(``launch_counts``), so a run can show that it went through them.
+(``launch_counts``), so a run can show that it went through them; a
+shape-only call launches nothing and is not counted.  While a dry-run
+counter is active, the kernels and shape-only forms of those paths
+report their own FLOPs and bytes to it (``kernels._account``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _account
 from repro_torch.kernels import coded_encode as _enc
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_step as _fs
 from repro_torch.kernels import gram as _gm
 from repro_torch.kernels import majority_vote as _mv
 from repro_torch.kernels import sketch as _sk
+from repro_torch.launch.roofline import kernel_cost
 
 IMPLS = ("cuda", "torch")
 
@@ -29,7 +40,7 @@ def resolve_impl(impl: str | None, device) -> str:
     """Resolve a kernel impl choice against the device the data lies on."""
     device = torch.device(device)
     if impl is None:
-        return "cuda" if device.type == "cuda" else "torch"
+        return device.type if device.type in ("cuda", "meta") else "torch"
     if impl not in IMPLS:
         raise ValueError(f"unknown kernel impl {impl!r}; allowed values: "
                          f"{list(IMPLS)} (or None to follow the device)")
@@ -63,7 +74,10 @@ def gram_factors(rows: torch.Tensor, W0: torch.Tensor | None, keys, *,
     """(rows (Ie, d) f32, W0 (B, d) f32 or None, keys (T,) uint32) ->
     (G (Ie, Ie) or None, S0 (B, Ie) or None, SK (T, Ie, k)); see
     :mod:`repro_torch.kernels.gram`."""
-    if resolve_impl(impl, rows.device) == "cuda":
+    use = resolve_impl(impl, rows.device)
+    if use == "meta":
+        _account.refuse_meta("gram_factors")
+    if use == "cuda":
         return _gm.gram_factors_cuda(rows, W0, keys, k, with_gram)
     return _gm.gram_factors_plain(rows, W0, keys, k, with_gram)
 
@@ -71,17 +85,32 @@ def gram_factors(rows: torch.Tensor, W0: torch.Tensor | None, keys, *,
 def batched_pairwise_relmax(replicas: torch.Tensor, *,
                             impl: str | None = None) -> torch.Tensor:
     """(B, R, d) -> (B, R, R) relative max-difference matrices."""
-    if resolve_impl(impl, replicas.device) == "cuda":
-        return _mv.pairwise_relmax_batched_cuda(replicas.to(torch.float32))
-    return _mv.pairwise_relmax_batched_plain(replicas)
+    use = resolve_impl(impl, replicas.device)
+    if use == "torch":
+        return _mv.pairwise_relmax_batched_plain(replicas)
+    x = replicas.to(torch.float32)
+    B, R, d = x.shape
+    fn = _mv.pairwise_relmax_batched_cuda if use == "cuda" else \
+        (lambda t: t.new_empty((B, R, R)))
+    return _account.run(
+        "pairwise_relmax_batched",
+        lambda: kernel_cost("pairwise_relmax_batched", B=B, R=R, d=d),
+        lambda: fn(x))
 
 
 def pairwise_relmax(replicas: torch.Tensor, *,
                     impl: str | None = None) -> torch.Tensor:
     """(R, d) -> (R, R) relative max-difference matrix (K3 at B = 1)."""
-    if resolve_impl(impl, replicas.device) == "cuda":
-        return _mv.pairwise_relmax_cuda(replicas.to(torch.float32))
-    return _mv.pairwise_relmax_plain(replicas)
+    use = resolve_impl(impl, replicas.device)
+    if use == "torch":
+        return _mv.pairwise_relmax_plain(replicas)
+    x = replicas.to(torch.float32)
+    R, d = x.shape
+    fn = _mv.pairwise_relmax_cuda if use == "cuda" else \
+        (lambda t: t.new_empty((R, R)))
+    return _account.run("pairwise_relmax",
+                        lambda: kernel_cost("pairwise_relmax", R=R, d=d),
+                        lambda: fn(x))
 
 
 def vote(replicas: torch.Tensor, tau: float = 1e-5, *,
@@ -192,7 +221,10 @@ def batched_detect_masked(symbols: torch.Tensor, keys: torch.Tensor,
 def batched_sketch(flat_g: torch.Tensor, key_scalar, k: int = 256, *,
                    impl: str | None = None) -> torch.Tensor:
     """(B, d) -> (B, k) CountSketches under one shared key."""
-    if resolve_impl(impl, flat_g.device) == "cuda":
+    use = resolve_impl(impl, flat_g.device)
+    if use == "meta":
+        _account.refuse_meta("batched_sketch")
+    if use == "cuda":
         return _sk.sketch_batched_cuda(flat_g.to(torch.float32), key_scalar, k)
     return _sk.sketch_batched_plain(flat_g, key_scalar, k)
 
@@ -200,15 +232,24 @@ def batched_sketch(flat_g: torch.Tensor, key_scalar, k: int = 256, *,
 def sketch(flat_g: torch.Tensor, key_scalar, k: int = 256, *,
            impl: str | None = None) -> torch.Tensor:
     """(d,) -> (k,) CountSketch (K4 at B = 1)."""
-    if resolve_impl(impl, flat_g.device) == "cuda":
-        return _sk.sketch_cuda(flat_g.to(torch.float32), key_scalar, k)
-    return _sk.sketch_plain(flat_g, key_scalar, k)
+    use = resolve_impl(impl, flat_g.device)
+    if use == "torch":
+        return _sk.sketch_plain(flat_g, key_scalar, k)
+    x = flat_g.to(torch.float32)
+    fn = _sk.sketch_cuda if use == "cuda" else \
+        (lambda t, key, kk: t.new_empty(kk))
+    return _account.run("sketch",
+                        lambda: kernel_cost("sketch", d=x.shape[0], k=k),
+                        lambda: fn(x, key_scalar, k))
 
 
 def batched_coded_encode(coeffs: torch.Tensor, grads: torch.Tensor, *,
                          impl: str | None = None) -> torch.Tensor:
     """(B, n_sym, m) @ (B, m, d) -> (B, n_sym, d) f32 per-trial encode."""
-    if resolve_impl(impl, grads.device) == "cuda":
+    use = resolve_impl(impl, grads.device)
+    if use == "meta":
+        _account.refuse_meta("batched_coded_encode")
+    if use == "cuda":
         return _enc.coded_encode_batched_cuda(coeffs.to(torch.float32),
                                               grads.to(torch.float32))
     return _enc.coded_encode_batched_plain(coeffs, grads)
@@ -217,7 +258,10 @@ def batched_coded_encode(coeffs: torch.Tensor, grads: torch.Tensor, *,
 def coded_encode(coeffs: torch.Tensor, grads: torch.Tensor, *,
                  impl: str | None = None) -> torch.Tensor:
     """(n_sym, m) @ (m, d) -> (n_sym, d) f32 (K5 at B = 1)."""
-    if resolve_impl(impl, grads.device) == "cuda":
+    use = resolve_impl(impl, grads.device)
+    if use == "meta":
+        _account.refuse_meta("coded_encode")
+    if use == "cuda":
         return _enc.coded_encode_cuda(coeffs.to(torch.float32),
                                       grads.to(torch.float32))
     return _enc.coded_encode_plain(coeffs, grads)
@@ -229,7 +273,10 @@ def fused_step(rows: torch.Tensor, W: torch.Tensor, cw: torch.Tensor,
     f32|bf16, W (B, d) f32, cw (B, Ie) f32, key) -> (W - cw @ rows,
     (W - cw @ rows) @ rows^T, CountSketch_k(rows)).  The CUDA route
     overwrites W with W' (see :mod:`repro_torch.kernels.fused_step`)."""
-    if resolve_impl(impl, W.device) == "cuda":
+    use = resolve_impl(impl, W.device)
+    if use == "meta":
+        _account.refuse_meta("fused_step")
+    if use == "cuda":
         return _fs.fused_step_cuda(rows, W, cw.to(torch.float32), key_scalar,
                                    k)
     return _fs.fused_step_plain(rows, W, cw, key_scalar, k)
@@ -249,6 +296,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _fa.FlashAttention.apply(q, k, v, causal, window, scale, use)
-    if use == "cuda":
-        return _fa.flash_attention_cuda(q, k, v, causal, window, scale)
-    return _fa.flash_attention_plain(q, k, v, causal, window, scale)
+    return _fa.attend(q, k, v, causal, window, scale, use)

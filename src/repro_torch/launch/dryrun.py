@@ -1,0 +1,472 @@
+"""Dry-run of every (arch x shape) cell on one H100: a step traced on
+``meta`` tensors, its FLOPs, bytes and peak memory, and its roofline.
+
+Port of ``repro.launch.dryrun``, redesigned for PyTorch.  The reference
+lowers and compiles each step with XLA over 512 forced host devices and
+reads ``cost_analysis`` and ``memory_analysis``.  Here the step runs
+eagerly on ``meta`` tensors (shapes and dtypes, no memory, no numbers)
+under ``StepCounter``, a ``TorchDispatchMode`` that counts, per
+operator:
+
+  - FLOPs by ``torch.utils.flop_counter``'s formulas (the matrix
+    products), split by the input dtype;
+  - bytes accessed: input plus output bytes of every operator that
+    moves data (views, aliases and empty allocations move none), the
+    eager counterpart of XLA's "bytes accessed", without fusion;
+  - live bytes: each storage the step creates is held by a weak
+    reference from its creation to its release, and their peak;
+  - the hand-written kernels as themselves: each reports its own FLOPs
+    and bytes (``launch.roofline.kernel_cost``), on ``meta`` tensors
+    through its shape-only form (``kernels.ops``), which makes none of
+    the buffers K6 never makes.
+
+The same counter runs on the card, so a meta trace and a real step can
+be compared count for count (``chip_smoke.py``'s ``phase_dryrun``).
+Eager tracing visits every layer, so ``run_cell`` uses the full trace
+(``"cost_method": "full_trace"``); the reference's decomposition into a
+stem plus repeats of each layer pattern is kept as a cross-check
+(``cost_by_decomposition``).  A train step updates the parameters and
+optimizer state in place, as the reference donates them.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --arch llama3.2-1b
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import traceback
+import weakref
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.utils import flop_counter
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from repro_torch.configs import (ASSIGNED, SHAPES, ShapeConfig, get_config,
+                                 layer_groups, layer_kinds)
+from repro_torch.configs.base import shape_applicable
+from repro_torch.kernels import _account
+from repro_torch.launch import roofline as RL
+from repro_torch.launch.specs import input_specs
+from repro_torch.optim import OptConfig
+from repro_torch.train.pjit_step import (make_decode_step, make_prefill_step,
+                                         make_train_step)
+
+_aten = torch.ops.aten
+# allocations that read and write nothing
+_NO_DATA = {_aten.empty, _aten.empty_strided, _aten.empty_like,
+            _aten.new_empty, _aten.new_empty_strided}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _tensors(x) -> list:
+    return [t for t in tree_flatten(x)[0] if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts the FLOPs, bytes and live storage of what runs under it
+    (see the module's docstring).  ``device`` ("meta", "cuda", "cpu")
+    picks the tensors that count: others (host values) are left out.
+    ``add_args`` registers the step's inputs, which count as arguments
+    and never as temporaries.  Use it on meta tensors and on the card
+    alike; time no wall inside it."""
+
+    def __init__(self, device: str):
+        super().__init__()
+        self.device = device
+        self.flops_by_dtype: dict[str, int] = defaultdict(int)
+        self.bytes = 0
+        self.kernels: dict[str, dict] = {}
+        self.arg_bytes = 0
+        self.live = 0
+        self.peak = 0
+        self._args: set[int] = set()
+        self._live: dict[int, tuple] = {}
+        self._in_kernel = 0
+
+    # -- inputs and storages --------------------------------------------
+    def _counts(self, t: torch.Tensor) -> bool:
+        return t.device.type == self.device
+
+    def add_args(self, *trees) -> None:
+        """Register the step's inputs.  A host int among them (the step,
+        the decode position) counts as the 0-d int32 the reference
+        passes to its compiled step."""
+        for x in tree_flatten(trees)[0]:
+            if isinstance(x, int) and not isinstance(x, bool):
+                self.arg_bytes += 4
+        for t in _tensors(trees):
+            if not self._counts(t):
+                continue
+            st = t.untyped_storage()
+            if id(st) not in self._args:
+                self._args.add(id(st))
+                self._live[id(st)] = (st, st.nbytes())   # held: an input
+                self.arg_bytes += st.nbytes()
+
+    def storage_bytes(self, x) -> int:
+        """Bytes of the distinct storages of ``x``'s tensors that are
+        not the step's inputs (an output that is an updated input
+        counts once, as an argument)."""
+        seen, total = set(), 0
+        for t in _tensors(x):
+            st = t.untyped_storage()
+            if self._counts(t) and id(st) not in self._args \
+                    and id(st) not in seen:
+                seen.add(id(st))
+                total += st.nbytes()
+        return total
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._live:
+            return
+        n = st.nbytes()
+
+        def freed(_ref, key=key, n=n):
+            if self._live.pop(key, None) is not None:
+                self.live -= n
+
+        self._live[key] = (weakref.ref(st, freed), n)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    # -- kernels ----------------------------------------------------------
+    def kernel(self, name: str, cost: RL.KernelCost):
+        """Context of one call of a hand-written kernel (or its meta
+        form): its own FLOPs and bytes count, the operators its wrapper
+        dispatches do not (their storages still do)."""
+        counter = self
+
+        class _Kernel:
+            def __enter__(self):
+                k = counter.kernels.setdefault(
+                    name, {"calls": 0, "flops": 0, "bytes": 0})
+                k["calls"] += 1
+                k["flops"] += cost.flops
+                k["bytes"] += cost.bytes
+                counter.flops_by_dtype[cost.dtype] += cost.flops
+                counter.bytes += cost.bytes
+                counter._in_kernel += 1
+
+            def __exit__(self, *exc):
+                counter._in_kernel -= 1
+
+        return _Kernel()
+
+    def __enter__(self):
+        if _account.COUNTER is not None:
+            raise RuntimeError("a StepCounter is already active")
+        _account.COUNTER = self
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _account.COUNTER = None
+        return super().__exit__(*exc)
+
+    # -- the operators ----------------------------------------------------
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        ins = [t for t in _tensors((args, kwargs)) if self._counts(t)]
+        outs = [t for t in _tensors(out) if self._counts(t)]
+        if not (ins or outs):
+            return out
+        for t in outs:
+            self._track(t)
+        if self._in_kernel or func.overloadpacket in _NO_DATA \
+                or self._moves_nothing(func, ins, outs):
+            return out
+        self.bytes += sum(_nbytes(t) for t in ins) + sum(
+            _nbytes(t) for t in outs)
+        formula = flop_counter.flop_registry.get(func.overloadpacket)
+        if formula is not None:
+            flops = formula(*args, **kwargs, out_val=out)
+            first = ins[0] if ins else outs[0]
+            self.flops_by_dtype[_dtype_name(first.dtype)] += int(flops)
+        return out
+
+    @staticmethod
+    def _moves_nothing(func, ins, outs) -> bool:
+        """A view or alias: every output lies in an input's storage and
+        the operator mutates nothing."""
+        if func.is_view:
+            return True
+        if func._schema.is_mutable or not outs:
+            return False
+        inputs = {id(t.untyped_storage()) for t in ins}
+        return all(id(t.untyped_storage()) in inputs for t in outs)
+
+    # -- the readings -----------------------------------------------------
+    @property
+    def flops(self) -> int:
+        return sum(self.flops_by_dtype.values())
+
+    def result(self, outputs=None) -> dict:
+        return {
+            "flops": float(self.flops),
+            "flops_by_dtype": {k: float(v) for k, v in
+                               sorted(self.flops_by_dtype.items())},
+            "bytes": float(self.bytes),
+            "arg_bytes": self.arg_bytes,
+            "out_bytes": self.storage_bytes(outputs),
+            "temp_bytes": self.peak,
+            "peak_bytes": self.arg_bytes + self.peak,
+            "kernels": {k: dict(v) for k, v in sorted(self.kernels.items())},
+        }
+
+
+def count_step(step, args, device: str):
+    """Run ``step(*args)`` under a ``StepCounter`` counting ``device``'s
+    tensors; returns (the step's outputs, the counter's readings with
+    ``compile_s``, the trace's seconds)."""
+    counter = StepCounter(device)
+    counter.add_args(args)
+    t0 = time.perf_counter()
+    with counter:
+        out = step(*args)
+    seconds = time.perf_counter() - t0
+    res = counter.result(out)
+    res["compile_s"] = seconds
+    return out, res
+
+
+def step_args(specs: dict, kind: str) -> tuple:
+    """The step's positional arguments from ``input_specs``; the step
+    and the decode position are host ints in the port's steps."""
+    if kind == "train":
+        return (specs["params"], specs["opt_state"], specs["batch"],
+                int(specs["step"]))
+    if kind == "prefill":
+        return (specs["params"], specs["batch"])
+    return (specs["params"], specs["token"], int(specs["pos"]),
+            specs["cache"])
+
+
+def step_for(cfg, kind: str, opt: OptConfig, impl: str | None = None):
+    if kind == "train":
+        return make_train_step(cfg, opt, impl=impl)
+    if kind == "prefill":
+        return make_prefill_step(cfg, impl=impl)
+    return make_decode_step(cfg)
+
+
+def lower_compile(cfg, shape: ShapeConfig,
+                  opt: OptConfig | None = None) -> dict:
+    """Trace one step on meta tensors; the reference's keys (no
+    collectives on one card), plus ``flops_by_dtype`` and ``kernels``."""
+    opt = opt or OptConfig()
+    specs = input_specs(cfg, shape, opt)
+    _, res = count_step(step_for(cfg, shape.kind, opt),
+                        step_args(specs, shape.kind), "meta")
+    res.update(collective_bytes=0.0, collective_detail={},
+               collective_counts={k: 0 for k in RL.COLLECTIVES})
+    return res
+
+
+def cost_by_decomposition(cfg, shape: ShapeConfig,
+                          opt: OptConfig | None = None) -> dict:
+    """The reference's cost(stem) + sum over layer groups of repeats x
+    (cost(one pattern) - cost(stem)), each part traced in full (the
+    encoder's layer likewise); a cross-check of the full trace, which
+    eager tracing makes exact already."""
+    keys = ("flops", "bytes", "collective_bytes")
+    for g in layer_groups(cfg):
+        if tuple(layer_kinds(cfg, len(g.pattern))) != g.pattern:
+            c = lower_compile(cfg, shape, opt)
+            c["method"] = "full_trace_fallback"
+            return c
+    stem = lower_compile(
+        dataclasses.replace(cfg, num_layers=0, encoder_layers=0), shape, opt)
+    out = {k: stem[k] for k in keys}
+    for g in layer_groups(cfg):
+        gc = lower_compile(dataclasses.replace(
+            cfg, num_layers=len(g.pattern), encoder_layers=0), shape, opt)
+        for k in keys:
+            out[k] += g.repeats * max(0.0, gc[k] - stem[k])
+    if cfg.encoder_layers:
+        ec = lower_compile(dataclasses.replace(
+            cfg, num_layers=0, encoder_layers=1), shape, opt)
+        for k in keys:
+            out[k] += cfg.encoder_layers * max(0.0, ec[k] - stem[k])
+    out["method"] = "period_decomposition"
+    return out
+
+
+def tokens_of(shape: ShapeConfig) -> int:
+    return shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                 else 1)
+
+
+def roofline_of(cfg, shape: ShapeConfig, cost: dict) -> RL.Roofline:
+    return RL.Roofline(
+        flops_per_device=cost["flops"], bytes_per_device=cost["bytes"],
+        collective_bytes_per_device=cost.get("collective_bytes", 0.0),
+        model_flops_total=RL.model_flops(cfg, tokens=tokens_of(shape),
+                                         training=shape.kind == "train"),
+        chips=1, flops_by_dtype=cost.get("flops_by_dtype"))
+
+
+def run_cell(arch: str, shape_name: str, *, opt: OptConfig | None = None,
+             with_cost: bool = True) -> dict:
+    """One (arch x shape) cell on one card: the full trace, whether its
+    peak fits the card's memory, and its roofline."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    ok, reason = shape_applicable(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "skipped": reason}
+    full = lower_compile(cfg, shape, opt)
+    res = {"arch": arch, "shape": shape_name, "mesh": "1xH100", "chips": 1,
+           "full": full, "fits_hbm": full["peak_bytes"] <= RL.HBM_PER_CARD}
+    if with_cost:
+        res["cost_method"] = "full_trace"
+        res["roofline"] = roofline_of(cfg, shape, full).as_dict()
+        res["collective_detail"] = {}
+    return res
+
+
+def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
+                  global_batch: int | None = None,
+                  seq_len: int | None = None,
+                  opt: OptConfig | None = None) -> dict:
+    """The BFT steps (fast, check with sketch and with full detection,
+    identify) traced on meta tensors with n workers and the protocol's
+    assignments (``core.assignment``), at ``train_4k`` unless a global
+    batch and sequence are given.  Every worker is honest and every host read of
+    a meta tensor reads as no fault and no mismatch: the common branch
+    (``"assumed": "honest"``).  A model that attends to a context
+    raises: the steps never pass one, as the reference's do not."""
+    from repro_torch.core.assignment import (check_assignment,
+                                             fast_assignment, group_members,
+                                             identify_assignment)
+    from repro_torch.core import prngkey
+    from repro_torch.data.pipeline import worker_batches
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import uses_context
+    from repro_torch.optim import abstract_opt_state
+    from repro_torch.train.steps import (AttackConfig, StepConfig,
+                                         make_check_step, make_fast_step,
+                                         make_identify_step)
+
+    cfg = get_config(arch)
+    if uses_context(cfg):
+        raise ValueError(f"{cfg.name} attends to a context, which the BFT "
+                         f"steps never pass")
+    opt = opt or OptConfig()
+    train = SHAPES["train_4k"]
+    B = train.global_batch if global_batch is None else global_batch
+    S = train.seq_len if seq_len is None else seq_len
+    shape = ShapeConfig("bft", S, B, "train")
+    params = M.abstract_params(cfg)
+    opt_state = abstract_opt_state(opt, params)
+    sc, attack = StepConfig(detection="sketch"), AttackConfig("sign_flip")
+    active = np.ones(n, bool)
+    byz = np.zeros(n, bool)
+    key = prngkey.PRNGKey(0)
+    host = {"tokens": np.zeros((B, S), np.int32),
+            "labels": np.zeros((B, S), np.int32)}
+    out = {"arch": arch, "mesh": "1xH100", "n": n, "f": f,
+           "global_batch": B, "seq_len": S, "assumed": "honest"}
+    for mode in ("fast", "check", "check_full", "identify"):
+        if mode == "fast":
+            a = fast_assignment(active)
+            fn = make_fast_step(cfg, opt, sc, attack)
+        elif mode.startswith("check"):
+            a = check_assignment(active, f)
+            sc_m = sc if mode == "check" else dataclasses.replace(
+                sc, detection="full")
+            fn = make_check_step(cfg, opt, sc_m, attack, a.num_shards)
+        else:
+            a = identify_assignment(active, f)
+            fn = make_identify_step(cfg, opt, sc, attack,
+                                    np.stack(group_members(a)))
+        args = (params, opt_state, worker_batches(host, a), a.weight, byz)
+        if mode.startswith("check"):
+            args = args + (a.group_of_worker,)
+        _, c = count_step(fn, args + (key, 0), "meta")
+        rl = roofline_of(cfg, shape, c)
+        out[mode] = {
+            "compile_s": c["compile_s"], "flops": c["flops"],
+            "flops_by_dtype": c["flops_by_dtype"], "bytes": c["bytes"],
+            "collective_bytes": 0.0,
+            "collective_counts": {k: 0 for k in RL.COLLECTIVES},
+            "peak_bytes": c["peak_bytes"], "kernels": c["kernels"],
+            "replication": int(a.replication),
+            "num_shards": int(a.num_shards),
+            "roofline": rl.as_dict(), "bound_s": rl.bound_s}
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--mesh", default="single",
+                    help="only 'single' (one card) until multi-card "
+                         "training is ported")
+    ap.add_argument("--bft", action="store_true",
+                    help="dry-run the BFT steps instead")
+    ap.add_argument("--out", default="results/dryrun")
+    ap.add_argument("--no-cost", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    args = ap.parse_args(argv)
+    if args.mesh != "single":
+        raise SystemExit(f"--mesh {args.mesh!r}: only 'single' (one H100) "
+                         f"is ported; multi-card meshes come with the "
+                         f"port's multi-card training")
+    archs = ASSIGNED if args.arch == "all" else args.arch.split(",")
+    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
+    os.makedirs(args.out, exist_ok=True)
+
+    def write(tag: str, base: dict, fn) -> None:
+        path = os.path.join(args.out, tag + ".json")
+        if os.path.exists(path) and not args.force:
+            print(f"[skip] {tag}")
+            return
+        t0 = time.time()
+        try:
+            res = fn()
+        except Exception as e:  # noqa: BLE001 - recorded in the cell
+            res = {**base, "mesh": "1xH100", "error": str(e),
+                   "traceback": traceback.format_exc()}
+            print(f"[FAIL] {tag}: {e}")
+        with open(path, "w") as fh:
+            json.dump(res, fh, indent=1)
+        status = res.get("skipped") or res.get("error") or (
+            " ".join(f"{m}={res[m]['bound_s'] * 1e3:.1f}ms" for m in
+                     ("fast", "check", "check_full", "identify"))
+            if "fast" in res else
+            f"fits={res.get('fits_hbm')} "
+            f"dom={res.get('roofline', {}).get('dominant', '-')}")
+        print(f"[done] {tag} ({time.time() - t0:.1f}s) {status}",
+              flush=True)
+
+    if args.bft:
+        for arch in archs:
+            write(f"bft_{arch}_single", {"arch": arch},
+                  lambda arch=arch: run_bft_cells(arch))
+        return
+    for arch in archs:
+        for name in shapes:
+            write(f"{arch}_{name}_single", {"arch": arch, "shape": name},
+                  lambda arch=arch, name=name: run_cell(
+                      arch, name, with_cost=not args.no_cost))
+
+if __name__ == "__main__":
+    main()

@@ -9,6 +9,8 @@ from repro_torch.models.convert import (  # noqa: F401
     from_jax_train_params,
 )
 from repro_torch.models.model import (  # noqa: F401
+    abstract_cache,
+    abstract_params,
     allocate_cache,
     decode_step,
     forward,

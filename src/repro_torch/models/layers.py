@@ -18,7 +18,10 @@ def dtype_of(cfg) -> torch.dtype:
 
 def init_weight(shape, dtype, gen: torch.Generator, device) -> torch.Tensor:
     """The reference's ``materialize`` for a matrix: truncated normal on
-    [-2, 2] times 1/sqrt(fan_in), fan_in = shape[-2], drawn in f32."""
+    [-2, 2] times 1/sqrt(fan_in), fan_in = shape[-2], drawn in f32; on
+    the ``meta`` device only its shape and dtype."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     w *= 1.0 / math.sqrt(max(1, shape[-2]))

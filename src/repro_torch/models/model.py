@@ -98,10 +98,12 @@ def init(cfg: ModelConfig, seed: int = 0, device=None):
     1/sqrt(fan_in), norm scales one, ``gate_attn`` zero; drawn from a
     ``torch.Generator`` on the target device seeded with ``seed`` (other
     numbers than JAX's); mamba mixers as ``ssm.init_mamba``, MoE ffns as
-    ``moe.init_moe``."""
+    ``moe.init_moe``.  On the ``meta`` device nothing is drawn
+    (``abstract_params``)."""
     tfm.require_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg)
     D, F = cfg.d_model, cfg.d_ff
 
@@ -206,6 +208,13 @@ def init_train(cfg: ModelConfig, seed: int = 0, device=None):
     return out
 
 
+def abstract_params(cfg: ModelConfig):
+    """``init_train``'s tree as ``meta`` tensors: every leaf's shape and
+    dtype (the reference's ``abstract_params``) without memory or random
+    draws, so a 400 B-parameter model costs nothing."""
+    return init_train(cfg, device="meta")
+
+
 def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
     """Mean next-token cross-entropy of the stacked-layout ``params`` on
     {tokens, labels (B, S)[, ctx]} (labels < 0 ignored) plus
@@ -276,14 +285,15 @@ def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
     return unembed(params["embed"], x, cfg), kv_all, aux
 
 
-def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
-    """Zero decode cache in the reference's ``abstract_cache`` layout:
-    {"k", "v"} (L_attn, B, seq_len, K*hd) in the config's dtype when the
-    model has attention layers; {"mamba": ``ssm.allocate_mamba_cache``}
-    when it has mamba layers; {"cross_k", "cross_v"} (n_cross, B, Tctx,
-    K*hd) in the config's dtype when it attends to a context: n_cross
-    its ``cross_attn`` layers plus, for an encoder-decoder model, every
-    decoder layer; Tctx ``num_encoder_positions`` (encoder-decoder) or
+def cache_layout(cfg: ModelConfig, batch: int, seq_len: int):
+    """The decode cache's tree with a (shape, dtype) for each tensor (the
+    reference's ``abstract_cache``): {"k", "v"} (L_attn, B, seq_len,
+    K*hd) in the config's dtype when the model has attention layers;
+    {"mamba": ``ssm.mamba_cache_layout``} when it has mamba layers;
+    {"cross_k", "cross_v"} (n_cross, B, Tctx, K*hd) in the config's
+    dtype when it attends to a context: n_cross its ``cross_attn`` layers
+    plus, for an encoder-decoder model, every decoder layer; Tctx
+    ``num_encoder_positions`` (encoder-decoder) or
     ``num_vision_tokens``."""
     tfm.require_ported(cfg)
     cache = {}
@@ -291,20 +301,35 @@ def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
     n_attn = len(tfm.attn_layer_indices(cfg))
     if n_attn:
         for n in ("k", "v"):
-            cache[n] = torch.zeros((n_attn, batch, seq_len, KH), dtype=dt,
-                                   device=device)
+            cache[n] = ((n_attn, batch, seq_len, KH), dt)
     n_mamba = len(tfm.mamba_layer_indices(cfg))
     if n_mamba:
-        cache["mamba"] = ssm_mod.allocate_mamba_cache(cfg, batch, n_mamba,
-                                                      device)
+        cache["mamba"] = ssm_mod.mamba_cache_layout(cfg, batch, n_mamba)
     n_cross = tfm.num_cross(cfg)
     if n_cross:
         T = (cfg.num_encoder_positions if cfg.is_encoder_decoder
              else cfg.num_vision_tokens)
         for n in ("cross_k", "cross_v"):
-            cache[n] = torch.zeros((n_cross, batch, T, KH), dtype=dt,
-                                   device=device)
+            cache[n] = ((n_cross, batch, T, KH), dt)
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                   long_context: bool = False):
+    """``cache_layout`` as ``meta`` tensors.  ``long_context`` changes
+    only the reference's sharding of the sequence axis; one device holds
+    the same tree."""
+    del long_context
+    return map_params(lambda leaf: torch.empty(leaf[0], dtype=leaf[1],
+                                               device="meta"),
+                      cache_layout(cfg, batch, seq_len))
+
+
+def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
+    """``cache_layout`` filled with zeros on ``device``."""
+    return map_params(lambda leaf: torch.zeros(leaf[0], dtype=leaf[1],
+                                               device=device),
+                      cache_layout(cfg, batch, seq_len))
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int | None = None, *,

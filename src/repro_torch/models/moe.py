@@ -99,7 +99,10 @@ def routing(params, xt: torch.Tensor, cfg):
     probs = torch.softmax(logits, dim=-1)
     gates, expert_idx = torch.topk(probs, K, dim=-1)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
-    flat = torch.nn.functional.one_hot(expert_idx, E).reshape(N * K, E)
+    # the one-hots by a compare: ``one_hot`` takes other operators on
+    # each device (the dry-run holds meta and card counts equal)
+    flat = (expert_idx[..., None] == torch.arange(E, device=xt.device)).to(
+        torch.int64).reshape(N * K, E)
     slot = ((flat.cumsum(dim=0) - flat) * flat).sum(dim=-1).reshape(N, K)
     keep = slot < C
     gates = gates * keep.to(gates.dtype)
@@ -140,8 +143,11 @@ def moe(params, x: torch.Tensor, cfg):
     if m.shared_expert:
         y = y + mlp(params["shared"], xt)
 
-    # every top-k choice counts, dropped ones included
-    frac = torch.bincount(expert_idx.reshape(-1), minlength=E).to(
-        torch.float32) / (N * K)
+    # every top-k choice counts, dropped ones included; a scatter-add of
+    # ones, not ``bincount``, whose output length waits on the host
+    choices = expert_idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, choices, torch.ones_like(choices))
+    frac = counts.to(torch.float32) / (N * K)
     aux = E * torch.sum(frac * probs.mean(dim=0))
     return y.reshape(B, S, D), aux

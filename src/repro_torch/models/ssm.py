@@ -163,22 +163,27 @@ def mamba(params, xin: torch.Tensor, cfg, initial_state=None,
 # decode
 # ---------------------------------------------------------------------------
 
-def allocate_mamba_cache(cfg, batch: int, num_layers: int, device):
-    """Zero decode cache (the reference's ``abstract_mamba_cache``):
-    state (L_m, B, H, N, P) f32, conv_x (L_m, B, d_conv-1, d_inner) and
-    conv_B, conv_C (L_m, B, d_conv-1, G*N) in the config's dtype."""
+def mamba_cache_layout(cfg, batch: int, num_layers: int) -> dict:
+    """{name: (shape, dtype)} of the decode cache (the reference's
+    ``abstract_mamba_cache``): state (L_m, B, H, N, P) f32, conv_x (L_m,
+    B, d_conv-1, d_inner) and conv_B, conv_C (L_m, B, d_conv-1, G*N) in
+    the config's dtype."""
     d_inner, H, G, N = dims(cfg)
     W, dt = cfg.ssm.d_conv - 1, dtype_of(cfg)
     return {
-        "state": torch.zeros(num_layers, batch, H, N, cfg.ssm.head_dim,
-                             dtype=torch.float32, device=device),
-        "conv_x": torch.zeros(num_layers, batch, W, d_inner, dtype=dt,
-                              device=device),
-        "conv_B": torch.zeros(num_layers, batch, W, G * N, dtype=dt,
-                              device=device),
-        "conv_C": torch.zeros(num_layers, batch, W, G * N, dtype=dt,
-                              device=device),
+        "state": ((num_layers, batch, H, N, cfg.ssm.head_dim),
+                  torch.float32),
+        "conv_x": ((num_layers, batch, W, d_inner), dt),
+        "conv_B": ((num_layers, batch, W, G * N), dt),
+        "conv_C": ((num_layers, batch, W, G * N), dt),
     }
+
+
+def allocate_mamba_cache(cfg, batch: int, num_layers: int, device):
+    """Zero decode cache in ``mamba_cache_layout``."""
+    return {n: torch.zeros(shape, dtype=dt, device=device)
+            for n, (shape, dt) in mamba_cache_layout(cfg, batch,
+                                                     num_layers).items()}
 
 
 def _conv_step(x_new: torch.Tensor, conv_cache: torch.Tensor,

@@ -1,8 +1,8 @@
 """Optimizers (SGD / momentum / AdamW) and gradient compression of the
-port; the exports of ``repro.optim``, without ``abstract_opt_state``
-(the reference's dry-run shapes, not ported: ROADMAP M11)."""
+port; the exports of ``repro.optim``."""
 from repro_torch.optim.optimizer import (  # noqa: F401
     OptConfig,
+    abstract_opt_state,
     global_norm,
     init_opt_state,
     lr_at,

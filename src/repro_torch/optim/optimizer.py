@@ -50,6 +50,14 @@ def lr_at(opt: OptConfig, step) -> np.float32:
                              + f((1 - opt.min_lr_ratio) * 0.5) * cos)
 
 
+def abstract_opt_state(opt: OptConfig, abstract_params):
+    """The state's shapes without memory: ``{}`` (sgd), ``{"mu"}``
+    (momentum) or ``{"mu", "nu"}`` (adamw), f32 meta tensors shaped like
+    the parameters (the reference's ``abstract_opt_state``)."""
+    meta = tree.tree_map(lambda p: p.to("meta"), abstract_params)
+    return init_opt_state(opt, meta)
+
+
 def init_opt_state(opt: OptConfig, params):
     if opt.kind == "sgd":
         return {}

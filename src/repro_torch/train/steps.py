@@ -180,6 +180,12 @@ def make_fast_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
     return step_fn
 
 
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``; a ``meta`` tensor (the dry-run, ``launch.dryrun``)
+    reads as zeros, i.e. no fault and no mismatch: the common branch."""
+    return torch.zeros(t.shape, dtype=t.dtype) if t.is_meta else t.cpu()
+
+
 def _detect_full(full: dict, group_of_worker, num_groups: int, tau: float):
     """Paper-faithful detection: ``detect_groups`` on each leaf's full
     gradients (n, d), idle workers' rows zero (masked), the flags OR'ed
@@ -194,8 +200,8 @@ def _detect_full(full: dict, group_of_worker, num_groups: int, tau: float):
         for w, leaves_w in full.items():
             g_all[w] = leaves_w[i].reshape(-1)
         f_leaf, m_leaf = detection.detect_groups(g_all, gow, num_groups, tau)
-        fault |= f_leaf.cpu()
-        mism |= m_leaf.cpu()
+        fault |= _to_host(f_leaf)
+        mism |= _to_host(m_leaf)
     return fault, mism
 
 
@@ -235,7 +241,7 @@ def make_check_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
             else:
                 group_fault, mismatch = _detect_full(full, gow, num_groups,
                                                      sc.tau)
-            any_fault = bool(group_fault.any())
+            any_fault = not group_fault.is_meta and bool(group_fault.any())
         del full
         if any_fault:
             zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -300,7 +306,7 @@ def make_identify_step(cfg, opt: OptConfig, sc: StepConfig,
                 faulty_all |= faulty
                 voted.append(value.reshape(leaf.shape))
         byz = np.zeros(n, bool)
-        byz[order] = faulty_all.reshape(-1).cpu().numpy()
+        byz[order] = _to_host(faulty_all.reshape(-1)).numpy()
         params, opt_state, om = _update(opt, tree.unflatten(params, voted),
                                         opt_state, params, step, clock)
         return params, opt_state, {"loss": run.loss, "byz": byz, **om}

@@ -1099,3 +1099,71 @@ def test_moe_honest_replicas_are_bitwise_equal_on_card(cuda, monkeypatch):
         assert torch.equal(a, b) and bool(torch.isfinite(a).all())
     s = [detection.sketch_tree(g, 12345) for g in grads]
     assert torch.equal(s[0], s[1])
+
+
+def test_dryrun_matches_train_step_on_card(cuda):
+    """The meta dry-run of a two-layer llama3.2-1b train step at full
+    width (K6's shape-only form) against the same step on the card
+    under the same counter (K6 itself): FLOPs, bytes and arguments
+    exact, K6's launches the counter's calls, the measured peak within
+    10% of the prediction."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import memprobe
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
+    B, S = 2, 128
+    opt = OptConfig()
+    pred = D.lower_compile(cfg, ShapeConfig("t", S, B, "train"), opt)
+    params = M.init_train(cfg, 0, cuda)
+    state = init_opt_state(opt, params)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {n: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                              device=cuda, dtype=torch.int32)
+             for n in ("tokens", "labels")}
+    step = D.step_for(cfg, "train", opt)
+    step(params, state, batch, 0)               # libraries' workspaces
+    ops.reset_launch_counts()
+    (_, got), mem = memprobe.measure_peak(
+        lambda *a: D.count_step(step, a, "cuda"), (params, state, batch, 0),
+        cuda)
+    for key in ("flops", "flops_by_dtype", "bytes", "arg_bytes",
+                "out_bytes", "kernels"):
+        assert got[key] == pred[key], key
+    assert ops.launch_counts()["flash_attention"] == \
+        pred["kernels"]["flash_attention"]["calls"] == 2
+    assert abs(mem["peak_bytes"] / pred["peak_bytes"] - 1) <= 0.10
+
+
+def test_moe_layer_makes_no_host_sync_on_card(cuda):
+    """The MoE layer's forward and backward on the card never wait on
+    the host (its expert counts are a scatter-add, not ``bincount``),
+    and its aux is bitwise the ``bincount`` formula's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.init_moe(cfg, gen, cuda)
+    for p in params.values():
+        p.requires_grad_(True)
+    x = torch.randn((2, 48, cfg.d_model), generator=gen, device=cuda).to(
+        torch.bfloat16).requires_grad_(True)
+    moe.moe(params, x, cfg)                      # warm: lazy inits
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe(params, x, cfg)
+        (y.float().sum() + aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    probs, idx, *_ = moe.routing(params, x.detach().reshape(-1, cfg.d_model),
+                                 cfg)
+    E, NK = cfg.moe.num_experts, idx.numel()
+    frac = torch.bincount(idx.reshape(-1), minlength=E).to(torch.float32) / NK
+    assert torch.equal(aux, E * torch.sum(frac * probs.mean(dim=0)))
