@@ -105,6 +105,21 @@ Phases, in order; any failed check exits nonzero:
      planted control without the protocol, whose update takes the
      Byzantine gradients, caught by them); reduced llama3.2-1b in f32
      trained on the card against the CPU (control exact, 1e-4);
+   - the training cell's workers as ranks of a ``torch.distributed``
+     group over the ``data`` axis (``phase_train_ranks``, through
+     ``launch.train.rank_main``): (a) one NCCL rank in this process at
+     full width and depth, its history, parameters and AdamW state
+     bitwise the one-process ``Trainer``'s and its K6 / K4s / K3
+     launches the protocol's; (b) two gloo ranks sharing the card
+     (operands staged through host memory), depth cut to 2 layers,
+     against the one-process run of the cut model: decisions equal,
+     step 0 (a faulty check, the identify update) bitwise by checksum,
+     the fast steps within one rounding plus 2 lr a weight and 0.1 of
+     the update a leaf (a run missing the last update caught), a check
+     with a Byzantine member leaving every rank unchanged, every rank
+     bitwise rank 0's (``Ranks.agree``; one planted ulp caught); (c)
+     one NCCL rank a card where more than one is visible, the same
+     checks at full depth and an all-reduce's bus bandwidth;
    - the launch tools (``phase_dryrun``, ``DRYRUN``): llama3.2-1b's
      plain train (16 x 256, AdamW), prefill (4 x 4096) and decode (one
      token against a 4 x 4128 cache) steps at full width, each traced
@@ -177,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3408,6 +3424,359 @@ def phase_train(torch, spec, tag: str):
         phase_s=phase_s)
 
 
+# the training cell's workers as ranks (phase_train_ranks): TRAIN's run
+# (a) as one NCCL rank at full depth, (b) as two gloo ranks sharing the
+# card with the depth cut to RANKS_CUT layers, (c) as one NCCL rank a
+# card where more than one is visible.  Until the first fast step the
+# ranks' run is bitwise the one-process run (nothing is summed across
+# ranks: the check's flags and the identify vote read gathered bits).
+# A fast step's gradient sum differs only in order: each rank sums its
+# workers' f32 gradients in worker order, then the ranks' partial sums
+# are added, where one process adds all n in turn, (n - 1) f32 rounding
+# errors (2^-24 relative each) of the summed magnitudes.  AdamW turns
+# that into a weight's move of lr * u, |u| <= 1 in these first steps
+# (|m^| <= sqrt(v^) by Cauchy-Schwarz over the bias-corrected
+# averages), so a fast step can change a bf16 weight by one rounding,
+# one ulp at its scale (its magnitude plus the updates' reach), plus,
+# where its gradient is no larger than the sum's rounding, up to 2 lr:
+# each weight is held to fast x (ulp + 2 lr).  Most weights' u moves by
+# about 1e-6 of itself, so per leaf ||ranks - one|| is a small share of
+# the fast steps' update, RANKS_UPDATE_REL (set from the readings of
+# (b), 0.012, PERF.md section 6), which a run that lost the last fast
+# step's update (the planted control) exceeds.  The losses, sums of n
+# f32 terms in another order ((n - 1) 2^-24 = 4.2e-7 relative) on
+# weights an ulp apart in places, within RANKS_LOSS_REL.
+RANKS_CUT = 2
+RANKS_UPDATE_REL = 0.1
+RANKS_LOSS_REL = 1e-5
+
+
+def ranks_job(torch, cfg, opt, tc, attack, spec, seed, mask, **kw):
+    from repro_torch.launch.train import Job
+    from repro_torch.train import StepConfig
+
+    n, f = spec["n"], spec["f"]
+    _, _, _, _, BFTConfig = train_cfg_objects(spec)
+    kw.setdefault("actions", (("run", spec["steps"]),))
+    return Job(cfg, opt, BFTConfig(n=n, f=f, mode="deterministic",
+                                   seed=seed), tc, attack, StepConfig(),
+               mask, **kw)
+
+
+def one_process_run(torch, job, keep_steps: bool = False) -> dict:
+    """``job``'s run with every worker in this process: history, the
+    per-step checksums of params and AdamW state, the expected launches,
+    the step walls, the final leaves and, with ``keep_steps``, the
+    params after each step (CPU copies)."""
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import attn_layer_indices
+    from repro_torch.train import Trainer
+    from repro_torch.train.ranks import checksums
+
+    t = Trainer(job.cfg, job.opt, job.bft, job.tc, attack=job.attack,
+                sc=job.sc, true_byzantine=job.true_byzantine)
+    L = len(attn_layer_indices(job.cfg))
+    leaves = len(tree.leaves(t.params))
+    want = dict.fromkeys(("flash_attention", "sketch",
+                          "pairwise_relmax_batched"), 0)
+    sums, walls, steps = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(job.actions[0][1]):
+        f_t, n_act = t.state.f_t, int(t.state.active.sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = t.train_step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        sums.append(checksums(t.params, t.opt_state).cpu())
+        if keep_steps:
+            steps.append([x.detach().cpu() for x in tree.leaves(t.params)])
+        for k, v in expected_train_launches(f_t, n_act, "identified" in rec,
+                                            L, leaves).items():
+            want[k] += v
+    out = dict(history=t.history, checksums=sums, steps=steps, want=want,
+               walls=walls,
+               launches=ops.launch_counts(),
+               final=[x.detach().cpu() for x in tree.leaves(t.params)
+                      + tree.leaves(t.opt_state)],
+               n_params=leaves)
+    del t
+    return out
+
+
+def ranks_vs_one(torch, results, one, label: str, lr: float) -> dict:
+    """(b) and (c)'s checks of W ranks' results against the one-process
+    run: decisions equal; after step 0 (a faulty check, then the
+    identify update: nothing summed across ranks) params and AdamW state
+    bitwise, by checksum; the final weights within the fast steps'
+    ulps; losses within RANKS_LOSS_REL; a check step with a Byzantine
+    member leaving every rank's state unchanged; every rank bitwise rank
+    0's, and the planted ulp caught; K6 and K4s launches summing to the
+    one-process run's, K3 the same on every rank."""
+    def ctl(h):
+        return [{k: v for k, v in r.items() if k != "loss"} for r in h]
+
+    r0 = results[0]
+    hist = r0["main"]["history"]
+    same_ctl = all(ctl(r["main"]["history"]) == ctl(one["history"])
+                   for r in results)
+    step0 = all(torch.equal(r["checksums"][0], one["checksums"][0])
+                for r in results)
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(hist, one["history"]))
+    fast = sum("identified" not in r and r["f_t"] == 0 for r in hist[1:])
+    n_p = one["n_params"]
+    # the fast steps' updates, from the weights after step 0 (bitwise
+    # the same in both runs); the planted control: the one-process
+    # weights with the last fast step's update missing
+    first = next(i for i, r in enumerate(hist) if i > 0 and
+                 r["f_t"] == 0 and "identified" not in r)
+    excess, worst, leaf_diffs = 0.0, 0.0, []
+    planted_rel = []
+    for i, (a, b, p0, p1) in enumerate(zip(
+            r0["params"]["main"], one["final"][:n_p],
+            one["steps"][first - 1], one["steps"][-2])):
+        a, b, p0, p1 = (x.cuda().float() for x in (a, b, p0, p1))
+        moved = float((b - p0).norm())
+        if moved:
+            worst = max(worst, float((a - b).norm()) / moved)
+            planted_rel.append(float((p1 - b).norm()) / moved)
+        bits = 7 if r0["params"]["main"][i].dtype == torch.bfloat16 else 23
+        bound = fast * (torch.exp2(torch.floor(torch.log2(
+            torch.maximum(a.abs(), b.abs()) + 2 * lr * fast)) - bits)
+            + 2 * lr)
+        d = (a - b).abs()
+        excess = max(excess, float((d / bound).max()))
+        if bool((d > 0).any()):
+            j = int(d.reshape(-1).argmax())
+            leaf_diffs.append((i, tuple(a.shape), int((d > 0).sum()),
+                               float(d.reshape(-1)[j]),
+                               float(a.reshape(-1)[j]),
+                               float(b.reshape(-1)[j])))
+        del a, b, p0, p1, d, bound
+    print(f"{label}: leaves that differ after the fast steps (leaf, shape, "
+          f"elements, max |d|, the ranks' and the one process's value "
+          f"there): {leaf_diffs}")
+    probes = [{k: v for k, v in p.items() if k != "launches"}
+              for r in results for p in r["check_fault"]]
+    agree = all(r["agree"] for r in results) and all(
+        all(torch.equal(a, b) for a, b in zip(r["params"]["main"],
+                                               r0["params"]["main"]))
+        for r in results)
+    planted = all(r["plant"]["caught"] and r["plant"]["restored"]
+                  for r in results)
+    k6 = sum(r["launches"]["flash_attention"] for r in results)
+    k4 = sum(r["launches"]["sketch"] for r in results)
+    k3 = [r["launches"]["pairwise_relmax_batched"] for r in results]
+    launches_ok = (k6, k4) == (one["launches"]["flash_attention"],
+                               one["launches"]["sketch"]) and \
+        set(k3) == {one["launches"]["pairwise_relmax_batched"]} and k3[0] > 0
+    print(f"{label}: decisions equal {same_ctl} ({ctl(hist)}); params and "
+          f"AdamW state after step 0 (check with a fault, identify update) "
+          f"bitwise the one-process run's on every rank: {step0}; after "
+          f"{fast} fast steps each weight within {excess:.4f} of its bound "
+          f"(limit 1), each leaf's ||ranks - one|| / ||the fast steps' "
+          f"update|| at most {worst:.4e} (limit {RANKS_UPDATE_REL}; the "
+          f"planted control, the last fast step's update missing, "
+          f"{min(planted_rel):.4f}..{max(planted_rel):.4f}); losses rel diff "
+          f"{loss_rel:.3e} (limit {RANKS_LOSS_REL}); a check with a "
+          f"Byzantine member: {probes}; every rank bitwise rank 0's: "
+          f"{agree}; one ulp planted on rank {len(results) - 1} caught: "
+          f"{planted} (table {results[0]['plant']['table']}); launches "
+          f"K6 {k6} K4s {k4} (one process {one['launches']}), K3 by rank "
+          f"{k3}; staged through the host: {r0['staged']}, "
+          f"{[r['counts'] for r in results]}; step walls by rank "
+          f"{[[round(w, 3) for w in r['walls']] for r in results]} s "
+          f"(one process {[round(w, 3) for w in one['walls']]} s); peak "
+          f"memory by rank {[r['peak_bytes'] for r in results]} bytes")
+    check(same_ctl and step0 and agree and planted and launches_ok,
+          f"{label}: the ranks differ from the one-process run")
+    check(fast > 0 and excess <= 1.0 and worst <= RANKS_UPDATE_REL and
+          loss_rel <= RANKS_LOSS_REL,
+          f"{label}: after the fast steps the ranks drift beyond the "
+          f"summation order's bound")
+    check(min(planted_rel) > RANKS_UPDATE_REL,
+          f"{label}: the planted control (an update missing) is not caught")
+    check(probes and all(p["any_fault"] and p["unchanged"] for p in probes),
+          f"{label}: a faulty check changed a rank's state")
+    return dict(control_equal=same_ctl, step0_bitwise=step0,
+                fast_steps=fast, bound_excess=excess, update_rel_max=worst,
+                planted_update_rel=planted_rel, leaf_diffs=leaf_diffs,
+                loss_rel=loss_rel,
+                check_fault=probes, ranks_agree=agree, planted=planted,
+                launches=[r["launches"] for r in results],
+                counts=[r["counts"] for r in results],
+                walls=[r["walls"] for r in results],
+                one_process_walls=one["walls"],
+                peak_bytes=[r["peak_bytes"] for r in results])
+
+
+def spawn_ranks(torch, job, world: int) -> list:
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch
+
+    out = Path(tempfile.mkdtemp(prefix="ranks_", dir=ROOT / "build"))
+    try:
+        return launch.spawn(dataclasses.replace(job, out=str(out)), world)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def ranks_a(torch, spec, seed, mask, training: dict) -> tuple:
+    """(a) one NCCL rank in this process at full width and depth,
+    bitwise the one-process run."""
+    import gc
+
+    from repro_torch.core import tree
+    from repro_torch.launch import train as launch
+
+    cfg, opt, tc, attack, _ = train_cfg_objects(spec)
+    job = ranks_job(torch, cfg, opt, tc, attack, spec, seed, mask,
+                    device="cuda", backend="nccl")
+    one = one_process_run(torch, job)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, tr = launch.rank_main(0, 1, dataclasses.replace(
+        job, init_method=f"tcp://localhost:{launch.free_port()}"))
+    launches = res["launches"]
+    got = tree.leaves(tr.params) + tree.leaves(tr.opt_state)
+    bitwise = len(got) == len(one["final"]) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(got, one["final"]))
+    same_hist = res["main"]["history"] == one["history"]
+    print(f"ranks (a) one NCCL rank, {cfg.name} full width and depth: "
+          f"history (decisions and losses) equal {same_hist}; params and "
+          f"AdamW state bitwise the one-process run's: {bitwise} "
+          f"({len(got)} leaves); launches {launches} (expected "
+          f"{one['want']}); collectives {res['counts']}; step walls "
+          f"{[round(w, 4) for w in res['walls']]} s, one process "
+          f"{[round(w, 4) for w in one['walls']]} s, phase_train's "
+          f"{[round(w, 4) for w in training.get('step_walls_s', [])]} s")
+    check(same_hist and bitwise, "ranks (a): one NCCL rank differs from "
+                                 "the one-process run")
+    check(all(launches[k] == v for k, v in one["want"].items()) and
+          launches["pairwise_relmax_batched"] > 0,
+          "ranks (a): launches differ from the protocol's count")
+    check(res["counts"]["all_reduce"] > 0 and res["counts"]["all_gather"] > 0,
+          "ranks (a): the collectives were not reached")
+    out = dict(history_equal=same_hist, bitwise=bitwise, launches=launches,
+               expected=one["want"], counts=res["counts"],
+               walls=res["walls"], one_process_walls=one["walls"])
+    del tr, got, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def ranks_b(torch, spec, seed, mask) -> dict:
+    """(b) two gloo ranks sharing the card, RANKS_CUT layers."""
+    import gc
+
+    cut = dict(spec, layers=RANKS_CUT)
+    cfg, opt, tc, attack, _ = train_cfg_objects(cut)
+    job = ranks_job(torch, cfg, opt, tc, attack, cut, seed, mask,
+                    device="cuda", backend="gloo", keep_params=True,
+                    plant=True, actions=(("run", spec["steps"]),
+                                         ("check_fault", 3)))
+    n = spec["n"]
+    print(f"ranks (b): depth cut from {get_layers(spec)} to {RANKS_CUT} "
+          f"layers, full width; two gloo ranks of {n // 2} workers on "
+          f"cuda:0")
+    one = one_process_run(torch, job, keep_steps=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = spawn_ranks(torch, job, 2)
+    out = ranks_vs_one(torch, results, one, "ranks (b) two gloo ranks on "
+                                            "one card", opt.peak_lr)
+    del results, one
+    gc.collect()
+    return out
+
+
+def get_layers(spec) -> int:
+    return cell_cfg(spec).num_layers
+
+
+def ranks_c(torch, spec, seed, mask, training: dict, world: int) -> dict:
+    """(c) one NCCL rank a card, full depth, with an all-reduce's bus
+    bandwidth."""
+    import gc
+
+    RL = roofline()
+    cfg, opt, tc, attack, _ = train_cfg_objects(spec)
+    job = ranks_job(torch, cfg, opt, tc, attack, spec, seed, mask,
+                    device="cuda", backend="nccl", keep_params=True,
+                    plant=True, actions=(("run", spec["steps"]),
+                                         ("check_fault", 3),
+                                         ("all_reduce_bw", 1 << 30)))
+    one = one_process_run(torch, job, keep_steps=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = spawn_ranks(torch, job, world)
+    out = ranks_vs_one(torch, results, one, f"ranks (c) {world} NCCL ranks",
+                       opt.peak_lr)
+    bw = results[0]["all_reduce_bw"]
+    print(f"ranks (c): all-reduce of {bw['bytes']} bytes f32 over {world} "
+          f"cards: {bw['seconds'] * 1e3:.3f} ms, bus bandwidth "
+          f"{bw['busbw'] / 1e9:.1f} GB/s (NVLINK_BYTES_S "
+          f"{RL.NVLINK_BYTES_S / 1e9:.0f} GB/s); phase_train's walls "
+          f"{training.get('step_walls_s')} s")
+    out["all_reduce_bw"] = bw
+    del results, one
+    gc.collect()
+    return out
+
+
+def phase_train_ranks(torch, spec, training: dict):
+    """The training cell's workers as ranks of a ``torch.distributed``
+    group over the ``data`` axis (``launch.train``): (a) one NCCL rank in
+    this process at full width and depth, bitwise the one-process
+    ``Trainer``'s run (params, AdamW state, losses, decisions) with the
+    protocol's K6 / K4s / K3 launches; (b) two gloo ranks sharing the
+    card (operands staged through host memory) at full width, RANKS_CUT
+    layers, against the one-process run of the same cut model
+    (``ranks_vs_one``); (c) one NCCL rank a card where more than one is
+    visible, the same checks at full depth, with an all-reduce's bus
+    bandwidth beside NVLink's rate."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.launch import train as launch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, f, byz = spec["n"], spec["f"], spec["byz"]
+    seed, mask = train_seed(n, f, byz), np.isin(np.arange(n), byz)
+    split = {}
+    t0 = time.perf_counter()
+    launches, out = ranks_a(torch, spec, seed, mask, training)
+    out = {"a": out}
+    split["a"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        out["b"] = ranks_b(torch, spec, seed, mask)
+        split["b"] = time.perf_counter() - t0
+        world = launch.default_nproc(n, "cuda")
+        if world < 2:
+            print(f"ranks (c): not run, {torch.cuda.device_count()} card "
+                  f"visible")
+        else:
+            t0 = time.perf_counter()
+            out["c"] = ranks_c(torch, spec, seed, mask, training, world)
+            split["c"] = time.perf_counter() - t0
+    finally:
+        launch.stop_rank_server()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["split_s"] = split
+    print(f"phase_train_ranks: {out['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items()) + ")")
+    return launches, out
+
+
 def train_run_diffs(torch, init, final, hist, ref_final, ref_hist) -> dict:
     """How far a training run lies from a reference run from the same
     initial leaves (CPU tensors): the first loss's relative difference,
@@ -3663,7 +4032,61 @@ def phase_dryrun(torch, training: dict | None):
     return out
 
 
+def child_processes() -> list[tuple[int, str]]:
+    """(pid, command line) of every live process whose parent is this
+    one, read from /proc."""
+    found = []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            cmd = (entry / "cmdline").read_bytes()
+        except OSError:  # it ended while we read
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == os.getpid():
+            found.append((int(entry.name),
+                          cmd.replace(b"\0", b" ").decode(errors="replace")))
+    return found
+
+
+def stop_children() -> None:
+    """End and reap every process this one started that is still alive
+    (the phases stop their own; this names and stops what one missed),
+    so that the script leaves no process behind, on failure too: the
+    fork server of the ranks and its resource tracker through their own
+    stop, which reaps them, and anything else by a signal."""
+    import signal
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    left = child_processes()
+    for pid, cmd in left:
+        print(f"chip_smoke: stopping left-over process {pid}: {cmd[:200]}",
+              file=sys.stderr)
+        os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + 10
+    for pid, _ in left:
+        try:
+            while os.waitpid(pid, os.WNOHANG) == (0, 0):
+                if time.monotonic() > deadline:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
+        except ChildProcessError:  # reaped by its owner meanwhile
+            pass
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:
+        stop_children()
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3698,6 +4121,8 @@ def main() -> int:
     launches["serving"], _, serving = phase_serving(torch, attention, SERVE)
     launches["training"], train_report, training = phase_train(
         torch, TRAIN, "train")
+    launches["training_ranks"], training_ranks = phase_train_ranks(
+        torch, TRAIN, training)
     dryrun = phase_dryrun(torch, training)
     launches["serving_mamba"], mserve_report, serving_mamba = \
         phase_serving_replayed(torch, attention, MAMBA_SERVE)
@@ -3738,6 +4163,7 @@ def main() -> int:
                      launches=launches,
                      small_vs_cpu_w_err=small, serving=serving,
                      attention=attention, training=training,
+                     training_ranks=training_ranks,
                      serving_mamba=serving_mamba,
                      training_mamba=training_mamba, serving_moe=serving_moe,
                      training_moe=training_moe,

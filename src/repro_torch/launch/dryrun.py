@@ -18,7 +18,17 @@ operator:
   - the hand-written kernels as themselves: each reports its own FLOPs
     and bytes (``launch.roofline.kernel_cost``), on ``meta`` tensors
     through its shape-only form (``kernels.ops``), which makes none of
-    the buffers K6 never makes.
+    the buffers K6 never makes;
+  - the collectives (``torch.distributed``'s c10d operators) by kind,
+    their calls and result bytes, priced as the bytes one rank puts on
+    the wire (``roofline.ring_bytes`` over the group), which move no
+    HBM bytes in the count.
+
+The BFT steps run on one card (``--mesh single``: every worker in one
+process) or as ranks (``--mesh workers``: n ranks on ``data``, one
+worker each, ``train.ranks``): one rank's step is traced under torch's
+``fake`` process group of world n, whose collectives reach the counter
+on ``meta`` tensors and move nothing.
 
 The same counter runs on the card, so a meta trace and a real step can
 be compared count for count (``chip_smoke.py``'s ``phase_dryrun``).
@@ -31,6 +41,7 @@ optimizer state in place, as the reference donates them.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --arch llama3.2-1b
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --mesh workers
 """
 from __future__ import annotations
 
@@ -63,6 +74,9 @@ _aten = torch.ops.aten
 # allocations that read and write nothing
 _NO_DATA = {_aten.empty, _aten.empty_strided, _aten.empty_like,
             _aten.new_empty, _aten.new_empty_strided}
+# the c10d collectives the steps issue (``train.ranks``); the first
+# argument holds the result
+_COLLECTIVES = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather"}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -78,18 +92,22 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class StepCounter(TorchDispatchMode):
-    """Counts the FLOPs, bytes and live storage of what runs under it
-    (see the module's docstring).  ``device`` ("meta", "cuda", "cpu")
-    picks the tensors that count: others (host values) are left out.
+    """Counts the FLOPs, bytes, collectives and live storage of what runs
+    under it (see the module's docstring).  ``device`` ("meta", "cuda",
+    "cpu") picks the tensors that count: others (host values) are left
+    out.  ``group``: the ranks a collective spans (the ``data`` axis).
     ``add_args`` registers the step's inputs, which count as arguments
     and never as temporaries.  Use it on meta tensors and on the card
     alike; time no wall inside it."""
 
-    def __init__(self, device: str):
+    def __init__(self, device: str, group: int = 1):
         super().__init__()
         self.device = device
+        self.group = group
         self.flops_by_dtype: dict[str, int] = defaultdict(int)
         self.bytes = 0
+        self.collectives: dict[str, dict] = {}
+        self.collective_bytes = 0.0
         self.kernels: dict[str, dict] = {}
         self.arg_bytes = 0
         self.live = 0
@@ -183,6 +201,9 @@ class StepCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if func.namespace == "c10d":
+            self._collective(func, args)
+            return out
         ins = [t for t in _tensors((args, kwargs)) if self._counts(t)]
         outs = [t for t in _tensors(out) if self._counts(t)]
         if not (ins or outs):
@@ -200,6 +221,25 @@ class StepCounter(TorchDispatchMode):
             first = ins[0] if ins else outs[0]
             self.flops_by_dtype[_dtype_name(first.dtype)] += int(flops)
         return out
+
+    def _collective(self, func, args) -> None:
+        """One c10d collective: its kind, its result's bytes, and the
+        bytes one rank puts on the wire for it (none in a group of
+        one)."""
+        name = func.overloadpacket.__name__
+        if name not in _COLLECTIVES:
+            raise NotImplementedError(f"the dry-run does not price c10d."
+                                      f"{name}")
+        kind = _COLLECTIVES[name]
+        nbytes = sum(_nbytes(t) for t in _tensors(args[0]))
+        c = self.collectives.setdefault(kind, {"calls": 0, "bytes": 0,
+                                               "wire_bytes": 0.0})
+        c["calls"] += 1
+        c["bytes"] += nbytes
+        wire = RL.ring_bytes(kind, nbytes, self.group) \
+            if self.group > 1 else 0.0
+        c["wire_bytes"] += wire
+        self.collective_bytes += wire
 
     @staticmethod
     def _moves_nothing(func, ins, outs) -> bool:
@@ -228,14 +268,22 @@ class StepCounter(TorchDispatchMode):
             "temp_bytes": self.peak,
             "peak_bytes": self.arg_bytes + self.peak,
             "kernels": {k: dict(v) for k, v in sorted(self.kernels.items())},
+            "collective_bytes": self.collective_bytes,
+            "collective_detail": {k: v["wire_bytes"] for k, v in
+                                  sorted(self.collectives.items())},
+            "collective_counts": {k: self.collectives.get(k, {}).get(
+                "calls", 0) for k in RL.COLLECTIVES},
+            "collective_result_bytes": {k: v["bytes"] for k, v in
+                                        sorted(self.collectives.items())},
         }
 
 
-def count_step(step, args, device: str):
+def count_step(step, args, device: str, group: int = 1):
     """Run ``step(*args)`` under a ``StepCounter`` counting ``device``'s
-    tensors; returns (the step's outputs, the counter's readings with
-    ``compile_s``, the trace's seconds)."""
-    counter = StepCounter(device)
+    tensors (collectives over ``group`` ranks); returns (the step's
+    outputs, the counter's readings with ``compile_s``, the trace's
+    seconds)."""
+    counter = StepCounter(device, group)
     counter.add_args(args)
     t0 = time.perf_counter()
     with counter:
@@ -274,8 +322,6 @@ def lower_compile(cfg, shape: ShapeConfig,
     specs = input_specs(cfg, shape, opt)
     _, res = count_step(step_for(cfg, shape.kind, opt),
                         step_args(specs, shape.kind), "meta")
-    res.update(collective_bytes=0.0, collective_detail={},
-               collective_counts={k: 0 for k in RL.COLLECTIVES})
     return res
 
 
@@ -313,13 +359,14 @@ def tokens_of(shape: ShapeConfig) -> int:
                                  else 1)
 
 
-def roofline_of(cfg, shape: ShapeConfig, cost: dict) -> RL.Roofline:
+def roofline_of(cfg, shape: ShapeConfig, cost: dict,
+                chips: int = 1) -> RL.Roofline:
     return RL.Roofline(
         flops_per_device=cost["flops"], bytes_per_device=cost["bytes"],
         collective_bytes_per_device=cost.get("collective_bytes", 0.0),
         model_flops_total=RL.model_flops(cfg, tokens=tokens_of(shape),
                                          training=shape.kind == "train"),
-        chips=1, flops_by_dtype=cost.get("flops_by_dtype"))
+        chips=chips, flops_by_dtype=cost.get("flops_by_dtype"))
 
 
 def run_cell(arch: str, shape_name: str, *, opt: OptConfig | None = None,
@@ -341,17 +388,25 @@ def run_cell(arch: str, shape_name: str, *, opt: OptConfig | None = None,
     return res
 
 
+MESHES = ("single", "workers")
+
+
 def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
                   global_batch: int | None = None,
                   seq_len: int | None = None,
-                  opt: OptConfig | None = None) -> dict:
+                  opt: OptConfig | None = None,
+                  mesh: str = "single") -> dict:
     """The BFT steps (fast, check with sketch and with full detection,
     identify) traced on meta tensors with n workers and the protocol's
     assignments (``core.assignment``), at ``train_4k`` unless a global
-    batch and sequence are given.  Every worker is honest and every host read of
-    a meta tensor reads as no fault and no mismatch: the common branch
-    (``"assumed": "honest"``).  A model that attends to a context
-    raises: the steps never pass one, as the reference's do not."""
+    batch and sequence are given.  ``mesh``: "single", every worker on
+    one card, or "workers", n ranks on ``data`` with one worker each,
+    rank 0's step traced under a ``fake`` process group of world n (its
+    collectives counted; ``roofline.collective_s`` at NVLink's rate).
+    Every worker is honest and every host read of a meta tensor reads as
+    no fault and no mismatch: the common branch (``"assumed":
+    "honest"``).  A model that attends to a context raises: the steps
+    never pass one, as the reference's do not."""
     from repro_torch.core.assignment import (check_assignment,
                                              fast_assignment, group_members,
                                              identify_assignment)
@@ -364,6 +419,8 @@ def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
                                          make_check_step, make_fast_step,
                                          make_identify_step)
 
+    if mesh not in MESHES:
+        raise ValueError(f"mesh {mesh!r}: one of {MESHES}")
     cfg = get_config(arch)
     if uses_context(cfg):
         raise ValueError(f"{cfg.name} attends to a context, which the BFT "
@@ -381,55 +438,85 @@ def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
     key = prngkey.PRNGKey(0)
     host = {"tokens": np.zeros((B, S), np.int32),
             "labels": np.zeros((B, S), np.int32)}
-    out = {"arch": arch, "mesh": "1xH100", "n": n, "f": f,
+    ranks, chips = None, 1
+    if mesh == "workers":
+        ranks, chips = _fake_ranks(n), n
+    out = {"arch": arch, "mesh": "1xH100" if ranks is None else
+           f"{n}x1 data,model", "chips": chips, "n": n, "f": f,
            "global_batch": B, "seq_len": S, "assumed": "honest"}
-    for mode in ("fast", "check", "check_full", "identify"):
-        if mode == "fast":
-            a = fast_assignment(active)
-            fn = make_fast_step(cfg, opt, sc, attack)
-        elif mode.startswith("check"):
-            a = check_assignment(active, f)
-            sc_m = sc if mode == "check" else dataclasses.replace(
-                sc, detection="full")
-            fn = make_check_step(cfg, opt, sc_m, attack, a.num_shards)
-        else:
-            a = identify_assignment(active, f)
-            fn = make_identify_step(cfg, opt, sc, attack,
-                                    np.stack(group_members(a)))
-        args = (params, opt_state, worker_batches(host, a), a.weight, byz)
-        if mode.startswith("check"):
-            args = args + (a.group_of_worker,)
-        _, c = count_step(fn, args + (key, 0), "meta")
-        rl = roofline_of(cfg, shape, c)
-        out[mode] = {
-            "compile_s": c["compile_s"], "flops": c["flops"],
-            "flops_by_dtype": c["flops_by_dtype"], "bytes": c["bytes"],
-            "collective_bytes": 0.0,
-            "collective_counts": {k: 0 for k in RL.COLLECTIVES},
-            "peak_bytes": c["peak_bytes"], "kernels": c["kernels"],
-            "replication": int(a.replication),
-            "num_shards": int(a.num_shards),
-            "roofline": rl.as_dict(), "bound_s": rl.bound_s}
+    try:
+        for mode in ("fast", "check", "check_full", "identify"):
+            kw = {"ranks": ranks}
+            if mode == "fast":
+                a = fast_assignment(active)
+                fn = make_fast_step(cfg, opt, sc, attack, **kw)
+            elif mode.startswith("check"):
+                a = check_assignment(active, f)
+                sc_m = sc if mode == "check" else dataclasses.replace(
+                    sc, detection="full")
+                fn = make_check_step(cfg, opt, sc_m, attack, a.num_shards,
+                                     **kw)
+            else:
+                a = identify_assignment(active, f)
+                fn = make_identify_step(cfg, opt, sc, attack,
+                                        np.stack(group_members(a)), **kw)
+            args = (params, opt_state, worker_batches(host, a), a.weight,
+                    byz)
+            if mode.startswith("check"):
+                args = args + (a.group_of_worker,)
+            _, c = count_step(fn, args + (key, 0), "meta", group=chips)
+            rl = roofline_of(cfg, shape, c, chips)
+            out[mode] = {
+                "compile_s": c["compile_s"], "flops": c["flops"],
+                "flops_by_dtype": c["flops_by_dtype"], "bytes": c["bytes"],
+                "collective_bytes": c["collective_bytes"],
+                "collective_counts": c["collective_counts"],
+                "collective_detail": c["collective_detail"],
+                "collective_result_bytes": c["collective_result_bytes"],
+                "peak_bytes": c["peak_bytes"], "kernels": c["kernels"],
+                "replication": int(a.replication),
+                "num_shards": int(a.num_shards),
+                "roofline": rl.as_dict(), "bound_s": rl.bound_s}
+    finally:
+        if ranks is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return out
+
+
+def _fake_ranks(n: int):
+    """Rank 0 of a ``fake`` process group of world n on ``meta``: its
+    collectives return at once and move nothing."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.train.ranks import Ranks
+
+    if dist.is_initialized():
+        raise RuntimeError("the workers dry-run needs its own process "
+                           "group; one is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    return Ranks(dist.group.WORLD, "meta")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
-    ap.add_argument("--mesh", default="single",
-                    help="only 'single' (one card) until multi-card "
-                         "training is ported")
+    ap.add_argument("--mesh", default="single", choices=MESHES,
+                    help="single: one card (every BFT worker in one "
+                         "process); workers (with --bft): n ranks on the "
+                         "data axis, one worker each, collectives counted")
     ap.add_argument("--bft", action="store_true",
                     help="dry-run the BFT steps instead")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--no-cost", action="store_true")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
-    if args.mesh != "single":
-        raise SystemExit(f"--mesh {args.mesh!r}: only 'single' (one H100) "
-                         f"is ported; multi-card meshes come with the "
-                         f"port's multi-card training")
+    if args.mesh == "workers" and not args.bft:
+        raise SystemExit("--mesh workers traces the BFT steps: add --bft")
     archs = ASSIGNED if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     os.makedirs(args.out, exist_ok=True)
@@ -443,7 +530,7 @@ def main(argv=None) -> None:
         try:
             res = fn()
         except Exception as e:  # noqa: BLE001 - recorded in the cell
-            res = {**base, "mesh": "1xH100", "error": str(e),
+            res = {**base, "mesh": args.mesh, "error": str(e),
                    "traceback": traceback.format_exc()}
             print(f"[FAIL] {tag}: {e}")
         with open(path, "w") as fh:
@@ -459,8 +546,8 @@ def main(argv=None) -> None:
 
     if args.bft:
         for arch in archs:
-            write(f"bft_{arch}_single", {"arch": arch},
-                  lambda arch=arch: run_bft_cells(arch))
+            write(f"bft_{arch}_{args.mesh}", {"arch": arch},
+                  lambda arch=arch: run_bft_cells(arch, mesh=args.mesh))
         return
     for arch in archs:
         for name in shapes:

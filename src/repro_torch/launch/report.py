@@ -4,7 +4,10 @@ dry-run matrix, the one-card roofline and the BFT steps.
 Port of ``repro.launch.report``; the same tables, for one H100: the fit
 column reads "fits 80G" (``roofline.HBM_PER_CARD``) and the roofline's
 figures are bounds from the card's constants, not measurements.
-``--kind summary`` folds every cell into one row an arch.
+``--kind summary`` folds every cell into one row an arch.  The BFT
+cells of ``--mesh workers`` (n ranks on ``data``) also get a table of
+their collectives: all-reduce and all-gather calls, result and wire
+bytes a rank, and the collective term at NVLink's rate.
 
     PYTHONPATH=src python -m repro_torch.launch.report --dir results/dryrun
 """
@@ -124,6 +127,36 @@ def bft_table(cells: list[dict]) -> str:
     return "\n".join(lines)
 
 
+def bft_collectives_table(cells: list[dict]) -> str:
+    """Each BFT step's collectives a rank: calls and result bytes of the
+    all-reduces (AR) and all-gathers (AG), the bytes on the wire
+    (``roofline.ring_bytes``), the collective term and the step's
+    bound."""
+    lines = [
+        "| arch | mesh | step | AR calls | AR bytes | AG calls | AG bytes "
+        "| wire bytes/rank | collective | bound | dominant |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in cells:
+        if "error" in r:
+            continue
+        for mode in ("fast", "check", "check_full", "identify"):
+            m = r.get(mode)
+            if m is None:
+                continue
+            c = m.get("collective_counts", {})
+            b = m.get("collective_result_bytes", {})
+            rl = m["roofline"]
+            lines.append(
+                f"| {r['arch']} | {r['mesh']} | {mode} "
+                f"| {c.get('all-reduce', 0)} | {fmt_b(b.get('all-reduce', 0))} "
+                f"| {c.get('all-gather', 0)} | {fmt_b(b.get('all-gather', 0))} "
+                f"| {fmt_b(m['collective_bytes'])} "
+                f"| {fmt_s(rl['collective_s'])} | {fmt_s(_bound(rl))} "
+                f"| {rl['dominant']} |")
+    return "\n".join(lines)
+
+
 def _bound(rl: dict) -> float:
     return max(rl["compute_s"], rl["memory_s"], rl["collective_s"])
 
@@ -188,6 +221,10 @@ def main(argv=None) -> None:
     if args.kind in ("all", "bft") and bft:
         print("### BFT step dry-runs\n")
         print(bft_table(bft))
+        print()
+        print("### BFT step collectives (a rank; bounds from the card's "
+              "constants, not measured)\n")
+        print(bft_collectives_table(bft))
     if args.kind == "summary":
         print("### One H100: predicted peak, fit and roofline bound a cell"
               " (bounds from the card's constants, not measured)\n")

@@ -1,0 +1,189 @@
+"""The rank layer: the BFT workers as ranks of a ``torch.distributed``
+process group over the mesh's ``data`` axis (``model`` = 1).
+
+The reference runs each worker as one device of the ``data`` axis and
+combines them with ``psum`` and ``all_gather`` inside a ``shard_map``
+(``repro.train.steps``).  Here rank r of W holds the contiguous block
+of n/W workers ``[r n/W, (r+1) n/W)`` (W = n is the reference's layout
+exactly) and runs them in order; the steps (``train.steps``) combine
+the ranks with the two collectives of this module:
+
+  all_reduce_sum   f32 sum over the group, in place (the reference's
+                   psum of the weighted gradients and the loss);
+  all_gather_rows  each rank's rows of its workers -> (n, ...) in
+                   worker order (the reference's all_gather of the
+                   sketches and of every leaf).
+
+The parameters are replicated: every rank builds the same ones and
+applies the same update from the same gathered or reduced bits, so
+they stay equal with no broadcast; ``Ranks.agree`` checks it by an
+all-gather of a per-leaf checksum.
+
+Backends are named at init (``init``): ``nccl`` for one rank per card,
+``gloo`` on the CPU.  Two ranks sharing one card run gloo on CUDA
+tensors; PyTorch's backend table lists only ``broadcast`` and
+``all_reduce`` for gloo on CUDA, so that form stages every operand
+through host memory.  The route is chosen once, from the backend and
+the device (``Ranks.staged``), and counted (``counts``).  The process
+group's timeout is finite, so a collective that a failed rank never
+joins ends the run instead of hanging it.
+"""
+from __future__ import annotations
+
+import datetime
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import tree
+
+TIMEOUT_S = 900
+BACKENDS = ("nccl", "gloo")
+
+# the same collective (c10d ``_allgather_base_``) under its current name
+_all_gather_into = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def rank_device(backend: str, device: str, local_rank: int) -> torch.device:
+    """A rank's device: the CPU, or card ``local_rank`` mod the visible
+    cards.  NCCL takes one card a rank and refuses two on one card, so
+    it raises when the ranks outnumber the cards; gloo ranks may share
+    one."""
+    if torch.device(device).type == "cpu":
+        if backend != "gloo":
+            raise ValueError(f"backend {backend!r} on the CPU; the CPU "
+                             f"runs gloo")
+        return torch.device("cpu")
+    cards = torch.cuda.device_count()
+    if cards == 0:
+        raise RuntimeError("no CUDA device is visible; pass device 'cpu' "
+                           "to run the ranks on the CPU under gloo")
+    if backend == "nccl" and local_rank >= cards:
+        raise ValueError(f"NCCL rank {local_rank} with {cards} visible "
+                         f"card(s): NCCL takes one card a rank; run gloo "
+                         f"to share a card")
+    return torch.device("cuda", local_rank % cards)
+
+
+def init(backend: str, rank: int, world_size: int, *,
+         init_method: str = "env://", timeout_s: float = TIMEOUT_S,
+         device: torch.device | None = None) -> None:
+    """``init_process_group`` with a named backend and a finite timeout;
+    a CUDA ``device`` becomes the current one first (NCCL's)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if backend == "nccl" and not dist.is_nccl_available():
+        raise RuntimeError("this torch build has no NCCL")
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as integers of its element size, flat."""
+    kind = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[t.element_size()]
+    return t.detach().contiguous().reshape(-1).view(kind)
+
+
+def checksums(*trees, chunk: int = 1 << 24) -> torch.Tensor:
+    """(leaves, 2) int64 on the leaves' device: per leaf the sum of its
+    bit words and their sum weighted by (position mod 65521) + 1 (both
+    modulo 2^64).  One ulp changed in one element changes the first."""
+    leaves = [t for tr in trees for t in tree.leaves(tr)]
+    out = torch.zeros((len(leaves), 2), dtype=torch.int64,
+                      device=leaves[0].device if leaves else "cpu")
+    for i, t in enumerate(leaves):
+        words = _words(t)
+        for s in range(0, words.numel(), chunk):
+            w = words[s:s + chunk].to(torch.int64)
+            pos = torch.arange(s, s + w.numel(), device=w.device) % 65521 + 1
+            out[i, 0] += w.sum()
+            out[i, 1] += (w * pos).sum()
+    return out
+
+
+class Ranks:
+    """This process's place on the ``data`` axis: its rank, the group's
+    size W, its device and its collectives.  ``counts`` holds the calls
+    of each collective, their result bytes, and the bytes staged through
+    host memory."""
+
+    def __init__(self, group, device):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world = dist.get_world_size(group)
+        self.backend = dist.get_backend(group)
+        self.device = torch.device(device)
+        self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        self.counts = {"all_reduce": 0, "all_gather": 0, "bytes": 0,
+                       "staged_bytes": 0}
+        self.disagree: torch.Tensor | None = None
+
+    @classmethod
+    def of(cls, mesh, device) -> "Ranks":
+        """The ``data`` axis of a ``launch.mesh.make_worker_mesh``."""
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        if sizes.get("model", 1) != 1:
+            raise ValueError("a model axis above 1 is ROADMAP item 7b")
+        return cls(mesh.get_group("data"), device)
+
+    def block(self, n: int) -> range:
+        """This rank's workers: n/W of them, contiguous."""
+        if n % self.world:
+            raise ValueError(f"{self.world} ranks do not divide n = {n} "
+                             f"workers")
+        b = n // self.world
+        return range(self.rank * b, (self.rank + 1) * b)
+
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        self.counts[kind] += 1
+        self.counts["bytes"] += t.numel() * t.element_size()
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group, in place; returns it."""
+        self._count("all_reduce", t)
+        if self.staged:
+            host = t.cpu()
+            self.counts["staged_bytes"] += 2 * host.numel() * \
+                host.element_size()
+            dist.all_reduce(host, group=self.group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, group=self.group)
+        return t
+
+    def all_gather_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """(b, ...) rows of this rank's workers -> (W b, ...) on every
+        rank, rank r's rows at [r b, (r+1) b)."""
+        shape = (self.world * rows.shape[0],) + tuple(rows.shape[1:])
+        if self.staged:
+            src = rows.contiguous().cpu()
+            out = torch.empty(shape, dtype=rows.dtype)
+            _all_gather_into(out, src, group=self.group)
+            self._count("all_gather", out)
+            self.counts["staged_bytes"] += (src.numel() + out.numel()) * \
+                src.element_size()
+            return out.to(self.device)
+        out = rows.new_empty(shape)
+        _all_gather_into(out, rows.contiguous(), group=self.group)
+        self._count("all_gather", out)
+        return out
+
+    def barrier(self) -> None:
+        if self.backend == "nccl":
+            dist.barrier(group=self.group, device_ids=[self.device.index])
+        else:
+            dist.barrier(group=self.group)
+
+    def agree(self, *trees) -> bool:
+        """True when every rank holds the same bits in every leaf of
+        ``trees``: an all-gather of ``checksums``; the (W, leaves) table
+        of leaves that differ from rank 0's is kept in ``disagree``."""
+        local = checksums(*trees).to(self.device)
+        table = self.all_gather_rows(local[None]).cpu()
+        self.disagree = (table != table[0]).any(dim=-1)
+        return not bool(self.disagree.any())

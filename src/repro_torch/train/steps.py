@@ -2,9 +2,17 @@
 
 Port of ``repro.train.steps``.  The reference runs each worker as one
 shard of a ``shard_map`` over the ``data`` mesh axis and combines them
-with ``psum`` / ``all_gather``; here the n workers run one after another
-on one device, and what the reference sums over the axis is a weighted
-f32 sum in worker order, what it gathers is a stack.
+with ``psum`` / ``all_gather``.  Here the workers run as ranks of a
+``torch.distributed`` group over that axis (``ranks=train.ranks.Ranks``):
+each rank runs its block of n/W workers one after another on its
+device; what the reference psums is a weighted f32 sum over the block
+in worker order, then an all-reduce per leaf; what it gathers is each
+rank's rows, all-gathered to (n, d) in worker order, one leaf at a
+time.  Every rank then detects and votes on the same gathered bits, as
+every device does in the reference, so the replicated parameters stay
+equal with no broadcast.  With ``ranks=None`` one process runs all n
+workers in order on one device, and the sums and stacks need no
+collective.
 
   fast_step      plain parallelized SGD (efficiency 1).
   check_step     replicated computation (r = f_t+1) + detection; the
@@ -116,26 +124,38 @@ def per_worker_grad(params, tokens, labels, byz, key, cfg, attack, *,
 
 
 class _Workers:
-    """Runs the workers of one step in order and sums what the
-    reference psums: w * loss and w * g (f32), in worker order."""
+    """Runs this rank's workers of one step in order and sums what the
+    reference psums: w * loss and w * g (f32), in worker order; with
+    ``ranks``, ``reduce_loss`` and ``aggregate`` then sum the ranks'
+    partial sums and ``gather_rows`` gathers what the reference
+    gathers."""
 
     def __init__(self, params, wbatch, weights, byz_mask, key, step, cfg,
-                 attack, impl, clock):
+                 attack, impl, clock, ranks=None):
         dev = tree.leaves(params)[0].device
         self.params, self.cfg, self.attack = params, cfg, attack
         self.impl, self.clock, self.key, self.step = impl, clock, key, step
-        self.tokens = torch.as_tensor(np.asarray(wbatch["tokens"]),
+        self.ranks = ranks
+        n = len(weights)
+        self.mine = range(n) if ranks is None else ranks.block(n)
+        lo, hi = self.mine.start, self.mine.stop
+        self.tokens = torch.as_tensor(np.asarray(wbatch["tokens"])[lo:hi],
                                       device=dev)
-        self.labels = torch.as_tensor(np.asarray(wbatch["labels"]),
+        self.labels = torch.as_tensor(np.asarray(wbatch["labels"])[lo:hi],
                                       device=dev)
         self.weights = np.asarray(weights, np.float32)
         self.byz = np.asarray(byz_mask, bool)
         self.loss = torch.zeros((), dtype=torch.float32, device=dev)
         self.gagg = None
 
+    def local(self, workers) -> list[int]:
+        """The ones of ``workers`` this rank runs, in order."""
+        return [int(w) for w in workers if int(w) in self.mine]
+
     def grad(self, w: int):
+        i = w - self.mine.start
         loss, g, _ = per_worker_grad(
-            self.params, self.tokens[w], self.labels[w], self.byz[w],
+            self.params, self.tokens[i], self.labels[i], self.byz[w],
             worker_key(self.key, self.step, w), self.cfg, self.attack,
             impl=self.impl, clock=self.clock)
         self.loss += float(self.weights[w]) * loss
@@ -151,8 +171,33 @@ class _Workers:
                 for a, s in zip(self.gagg, scaled):
                     a.add_(s)
 
+    def reduce_loss(self) -> torch.Tensor:
+        """The loss summed over the ranks (in place)."""
+        if self.ranks is not None:
+            with _phase(self.clock, "collective"):
+                self.ranks.all_reduce_sum(self.loss.view(1))
+        return self.loss
+
     def aggregate(self):
+        """The weighted gradient sum, over the ranks one leaf at a time
+        (a rank whose workers all sit out adds zeros)."""
+        if self.ranks is not None:
+            if self.gagg is None:
+                self.gagg = [torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device)
+                             for p in tree.leaves(self.params)]
+            with _phase(self.clock, "collective"):
+                for leaf in self.gagg:
+                    self.ranks.all_reduce_sum(leaf)
         return tree.unflatten(self.params, self.gagg)
+
+    def gather_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """(n/W, ...) rows of this rank's workers -> (n, ...) in worker
+        order."""
+        if self.ranks is None:
+            return rows
+        with _phase(self.clock, "collective"):
+            return self.ranks.all_gather_rows(rows)
 
 
 def _members(weights) -> list[int]:
@@ -165,17 +210,20 @@ def _update(opt, gagg, opt_state, params, step, clock):
 
 
 def make_fast_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
-                   *, impl: str | None = None, clock: PhaseClock | None = None):
-    """step_fn(params, opt_state, wbatch, weights, byz_mask, key, step)."""
+                   *, impl: str | None = None, clock: PhaseClock | None = None,
+                   ranks=None):
+    """step_fn(params, opt_state, wbatch, weights, byz_mask, key, step):
+    each rank sums its workers' weighted gradients, then one all-reduce
+    a leaf."""
 
     def step_fn(params, opt_state, wbatch, weights, byz_mask, key, step):
         run = _Workers(params, wbatch, weights, byz_mask, key, step, cfg,
-                       attack, impl, clock)
-        for w in _members(weights):
+                       attack, impl, clock, ranks)
+        for w in run.local(_members(weights)):
             run.accumulate(w, run.grad(w))
         params, opt_state, om = _update(opt, run.aggregate(), opt_state,
                                         params, step, clock)
-        return params, opt_state, {"loss": run.loss, **om}
+        return params, opt_state, {"loss": run.reduce_loss(), **om}
 
     return step_fn
 
@@ -186,20 +234,33 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return torch.zeros(t.shape, dtype=t.dtype) if t.is_meta else t.cpu()
 
 
-def _detect_full(full: dict, group_of_worker, num_groups: int, tau: float):
+def _leaf_rows(grads: dict, i: int, workers, like: torch.Tensor):
+    """(len(workers), like.numel()) f32: row j is worker j's leaf ``i``
+    (``grads``: {worker: [leaves]}), zero for a worker not in
+    ``grads``; each copied leaf is released (one leaf at a time)."""
+    rows = torch.zeros((len(workers), like.numel()), dtype=torch.float32,
+                       device=like.device)
+    for j, w in enumerate(workers):
+        if w in grads:
+            rows[j] = grads[w][i].reshape(-1)
+            grads[w][i] = None
+    return rows
+
+
+def _detect_full(run, full: dict, group_of_worker, num_groups: int,
+                 tau: float):
     """Paper-faithful detection: ``detect_groups`` on each leaf's full
-    gradients (n, d), idle workers' rows zero (masked), the flags OR'ed
-    over the leaves.  ``full``: {worker: [f32 leaves]}."""
+    gradients gathered to (n, d), idle workers' rows zero (masked), the
+    flags OR'ed over the leaves.  ``full``: {worker: [leaves]} of this
+    rank's members."""
     n = len(group_of_worker)
     fault = torch.zeros(num_groups, dtype=torch.bool)
     mism = torch.zeros(n, dtype=torch.bool)
-    first = next(iter(full.values()))
-    gow = torch.as_tensor(group_of_worker, device=first[0].device)
-    for i, leaf in enumerate(first):
-        g_all = leaf.new_zeros((n, leaf.numel()))
-        for w, leaves_w in full.items():
-            g_all[w] = leaves_w[i].reshape(-1)
+    gow = torch.as_tensor(group_of_worker, device=run.loss.device)
+    for i, leaf in enumerate(tree.leaves(run.params)):
+        g_all = run.gather_rows(_leaf_rows(full, i, list(run.mine), leaf))
         f_leaf, m_leaf = detection.detect_groups(g_all, gow, num_groups, tau)
+        del g_all
         fault |= _to_host(f_leaf)
         mism |= _to_host(m_leaf)
     return fault, mism
@@ -207,42 +268,46 @@ def _detect_full(full: dict, group_of_worker, num_groups: int, tau: float):
 
 def make_check_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
                     num_groups: int, *, impl: str | None = None,
-                    clock: PhaseClock | None = None):
+                    clock: PhaseClock | None = None, ranks=None):
     """step_fn(params, opt_state, wbatch, weights, byz_mask,
     group_of_worker, key, step); metrics hold any_fault (bool),
-    group_fault (G,) and mismatch (n,)."""
+    group_fault (G,) and mismatch (n,).  Each rank sketches its members'
+    gradients; the (n, k) sketches (or, with full detection, each leaf's
+    (n, d) gradients) are gathered and every rank detects on them."""
 
     def step_fn(params, opt_state, wbatch, weights, byz_mask,
                 group_of_worker, key, step):
         run = _Workers(params, wbatch, weights, byz_mask, key, step, cfg,
-                       attack, impl, clock)
+                       attack, impl, clock, ranks)
         gow = np.asarray(group_of_worker)
-        n = len(gow)
         dev = run.loss.device
         ks = detection.key_scalar_for_step(prngkey.fold_in(key, step))
-        sketches = torch.zeros((n, sc.sketch_k), dtype=torch.float32,
-                               device=dev)
+        rows = torch.zeros((len(run.mine), sc.sketch_k),
+                           dtype=torch.float32, device=dev)
         full = {}
-        for w in [int(w) for w in np.flatnonzero(gow >= 0)]:
+        for w in run.local(np.flatnonzero(gow >= 0)):
             g = run.grad(w)
             if sc.detection == "sketch":
                 with _phase(clock, "sketch"):
-                    sketches[w] = detection.sketch_tree(g, ks, sc.sketch_k,
-                                                        impl=impl)
+                    rows[w - run.mine.start] = detection.sketch_tree(
+                        g, ks, sc.sketch_k, impl=impl)
             else:
                 full[w] = [leaf.to(torch.float32) for leaf in tree.leaves(g)]
             run.accumulate(w, g)
             del g
+        if sc.detection == "sketch":
+            sketches = run.gather_rows(rows)
         with _phase(clock, "detect"):
             if sc.detection == "sketch":
                 group_fault, mismatch = detection.detect_groups(
                     sketches, torch.as_tensor(gow, device=dev), num_groups,
                     sc.tau)
             else:
-                group_fault, mismatch = _detect_full(full, gow, num_groups,
-                                                     sc.tau)
+                group_fault, mismatch = _detect_full(run, full, gow,
+                                                     num_groups, sc.tau)
             any_fault = not group_fault.is_meta and bool(group_fault.any())
         del full
+        loss = run.reduce_loss()
         if any_fault:
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             om = {"grad_norm": zero, "lr": zero}
@@ -250,7 +315,7 @@ def make_check_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
             params, opt_state, om = _update(opt, run.aggregate(), opt_state,
                                             params, step, clock)
         return params, opt_state, {
-            "loss": run.loss, "any_fault": any_fault,
+            "loss": loss, "any_fault": any_fault,
             "group_fault": group_fault, "mismatch": mismatch, **om}
 
     return step_fn
@@ -279,29 +344,37 @@ def vote_leaf(reps: torch.Tensor, tau: float, *, impl: str | None = None):
 def make_identify_step(cfg, opt: OptConfig, sc: StepConfig,
                        attack: AttackConfig, members: np.ndarray, *,
                        impl: str | None = None,
-                       clock: PhaseClock | None = None):
+                       clock: PhaseClock | None = None, ranks=None):
     """``members``: (G, r) worker ids per replica group.  Metrics hold
     byz (n,) bool, the workers the vote found faulty.  The update uses
-    the voted (exact) gradient: the paper's recovery."""
+    the voted (exact) gradient: the paper's recovery.  Each leaf's
+    gradients are gathered to (n, d) and every rank votes on them."""
     members = np.asarray(members)
     G, r = members.shape
     order = members.reshape(-1)
 
     def step_fn(params, opt_state, wbatch, weights, byz_mask, key, step):
         run = _Workers(params, wbatch, weights, byz_mask, key, step, cfg,
-                       attack, impl, clock)
+                       attack, impl, clock, ranks)
         n = num_workers(weights)
-        grads = {int(w): tree.leaves(run.grad(int(w))) for w in sorted(order)}
-        faulty_all = torch.zeros((G, r), dtype=torch.bool,
-                                 device=run.loss.device)
+        grads = {w: tree.leaves(run.grad(w))
+                 for w in run.local(sorted(order))}
+        dev = run.loss.device
+        pick = torch.as_tensor(order, device=dev)
+        faulty_all = torch.zeros((G, r), dtype=torch.bool, device=dev)
         voted = []
         for i, leaf in enumerate(tree.leaves(params)):
             with _phase(clock, "vote"):
-                reps = torch.stack([grads[int(w)][i].reshape(-1).to(
-                    torch.float32) for w in order]).reshape(G, r, -1)
-                for w in order:
-                    grads[int(w)][i] = None       # one leaf's replicas at a time
-                value, faulty = vote_leaf(reps, sc.tau, impl=impl)
+                if ranks is None:
+                    reps = _leaf_rows(grads, i, [int(w) for w in order],
+                                      leaf)
+                else:
+                    g_all = run.gather_rows(
+                        _leaf_rows(grads, i, list(run.mine), leaf))
+                    reps = g_all[pick]
+                    del g_all
+                value, faulty = vote_leaf(reps.reshape(G, r, -1), sc.tau,
+                                          impl=impl)
                 del reps
                 faulty_all |= faulty
                 voted.append(value.reshape(leaf.shape))
@@ -309,36 +382,38 @@ def make_identify_step(cfg, opt: OptConfig, sc: StepConfig,
         byz[order] = _to_host(faulty_all.reshape(-1)).numpy()
         params, opt_state, om = _update(opt, tree.unflatten(params, voted),
                                         opt_state, params, step, clock)
-        return params, opt_state, {"loss": run.loss, "byz": byz, **om}
+        return params, opt_state, {"loss": run.reduce_loss(), "byz": byz,
+                                   **om}
 
     return step_fn
 
 
 def make_filter_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
                      filter_name: str, f: int, *, impl: str | None = None,
-                     clock: PhaseClock | None = None):
+                     clock: PhaseClock | None = None, ranks=None):
     """Gradient-filter baseline (paper §3 related work / §5 combo): every
     worker's gradient, robust-aggregated leafwise (KRUM / median /
     trimmed mean / GMoM / norm clip); no redundancy, no exact fault
     tolerance.  Every worker computes, as in the reference (an inactive
-    one reads shard 0's rows)."""
+    one reads shard 0's rows); each leaf's (n, d) gradients are gathered
+    and every rank filters them."""
     from repro_torch.core.filters import FILTERS
 
     fn_filter = FILTERS[filter_name]
 
     def step_fn(params, opt_state, wbatch, weights, byz_mask, key, step):
         run = _Workers(params, wbatch, weights, byz_mask, key, step, cfg,
-                       attack, impl, clock)
-        n = num_workers(weights)
-        grads = [tree.leaves(run.grad(w)) for w in range(n)]
+                       attack, impl, clock, ranks)
+        grads = {w: tree.leaves(run.grad(w)) for w in run.mine}
         filtered = []
         for i, leaf in enumerate(tree.leaves(params)):
             with _phase(clock, "aggregate"):
-                g_all = torch.stack([grads[w][i].reshape(-1).to(
-                    torch.float32) for w in range(n)])
+                g_all = run.gather_rows(
+                    _leaf_rows(grads, i, list(run.mine), leaf))
                 filtered.append(fn_filter(g_all, f).reshape(leaf.shape))
+                del g_all
         params, opt_state, om = _update(opt, tree.unflatten(params, filtered),
                                         opt_state, params, step, clock)
-        return params, opt_state, {"loss": run.loss, **om}
+        return params, opt_state, {"loss": run.reduce_loss(), **om}
 
     return step_fn

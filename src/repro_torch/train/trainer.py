@@ -13,9 +13,21 @@ Port of ``repro.train.trainer``.  Per iteration (paper §4.2):
 
 Modes: randomized (paper), deterministic (paper §4.1), draco (baseline:
 permanent 2f+1 voting), filter (gradient-filter baselines), none
-(vanilla parallelized SGD).  The n workers run one after another on one
-device (the card unless ``device="cpu"``); the reference's per-signature
-jit cache has no counterpart, the step functions are called directly.
+(vanilla parallelized SGD).  The reference's per-signature jit cache has
+no counterpart, the step functions are called directly.
+
+Layouts: with ``mesh=None`` the n workers run one after another in this
+process on one device (the card unless ``device="cpu"``).  With a
+``launch.mesh.make_worker_mesh`` (W ranks on ``data``, ``model`` = 1)
+every rank runs this same trainer: it builds the same parameters (the
+same seed, or the same ``params``) on its ``device``, draws the same
+global batch, runs its n/W workers and meets the other ranks in the
+steps' collectives (``train.ranks``), the reference's
+``worker_axes=("data",)`` with the parameters replicated.  The host
+control runs identically on every rank, since its inputs (flags,
+votes, the all-reduced loss) are the same bits everywhere.  Rank 0
+writes the checkpoints, the others wait at a barrier; every rank
+restores.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ from repro_torch.core.randomized import BFTConfig, ProtocolState
 from repro_torch.data import global_batch_for_step, worker_batches
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, init_opt_state
+from repro_torch.train.ranks import Ranks
 from repro_torch.train.steps import (
     AttackConfig,
     StepConfig,
@@ -57,13 +70,14 @@ class Trainer:
     parameters in the stacked training layout (``models.init_train``,
     or ``convert.from_jax_train_params``); by default random, from
     ``tc.seed``.  ``impl="torch"`` runs the kernels' plain versions on
-    the card."""
+    the card.  ``mesh``: the worker mesh whose ``data`` ranks share the
+    n workers (None: all n in this process)."""
 
     def __init__(self, cfg, opt: OptConfig, bft: BFTConfig, tc: TrainerConfig,
                  attack: AttackConfig | None = None,
                  sc: StepConfig | None = None,
                  true_byzantine: np.ndarray | None = None, *, device=None,
-                 params=None, impl: str | None = None):
+                 params=None, impl: str | None = None, mesh=None):
         self.cfg, self.opt, self.bft, self.tc = cfg, opt, bft, tc
         self.sc = sc or StepConfig()
         self.attack = attack or AttackConfig(kind="none")
@@ -79,6 +93,9 @@ class Trainer:
         self.last_loss: float = 1.0
         self.history: list[dict] = []
         self.device = M.resolve_device(device)
+        self.ranks = None if mesh is None else Ranks.of(mesh, self.device)
+        if self.ranks is not None:
+            self.ranks.block(n)         # raises unless W divides n
         if params is None:
             params = M.init_train(cfg, tc.seed, self.device)
         elif M.params_device(params).type != self.device.type:
@@ -90,7 +107,7 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _step_fn(self, mode: str, assignment: Assignment):
-        kw = dict(impl=self.impl)
+        kw = dict(impl=self.impl, ranks=self.ranks)
         args = (self.cfg, self.opt, self.sc, self.attack)
         if mode == "fast":
             return make_fast_step(*args, **kw)
@@ -169,16 +186,26 @@ class Trainer:
                       f_t=st.f_t, kappa=st.kappa)
         st.step += 1
         if self.ckpt:
+            self._save(st)
+        self.history.append(record)
+        return record
+
+    def _save(self, st) -> None:
+        """Rank 0 (or the one process) writes; with ranks, every rank
+        waits for it at a barrier after a checkpoint step."""
+        if self.ranks is None or self.ranks.rank == 0:
             self.ckpt.maybe_save(
                 st.step, params=self.params, opt_state=self.opt_state,
                 protocol_state=st, extra={"last_loss": self.last_loss})
-        self.history.append(record)
-        return record
+        if self.ranks is not None and self.ckpt.every > 0 \
+                and st.step % self.ckpt.every == 0:
+            self.ranks.barrier()
 
     def run(self, steps: int) -> list[dict]:
         for _ in range(steps):
             rec = self.train_step()
-            if self.tc.log_every and rec["step"] % self.tc.log_every == 0:
+            if self.tc.log_every and rec["step"] % self.tc.log_every == 0 \
+                    and (self.ranks is None or self.ranks.rank == 0):
                 print(
                     f"step {rec['step']:5d} loss {rec['loss']:.4f} "
                     f"eff {rec['efficiency']:.3f} q {rec['q']:.3f} "

@@ -1167,3 +1167,68 @@ def test_moe_layer_makes_no_host_sync_on_card(cuda):
     E, NK = cfg.moe.num_experts, idx.numel()
     frac = torch.bincount(idx.reshape(-1), minlength=E).to(torch.float32) / NK
     assert torch.equal(aux, E * torch.sum(frac * probs.mean(dim=0)))
+
+
+def _ranks_job(tmp_path, **kw):
+    """llama3.2-1b at full width, 2 layers, 8 workers (sign_flip on 2
+    and 5), deterministic mode, 3 steps, as a ``launch.train.Job``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.randomized import BFTConfig
+    from repro_torch.launch.train import Job
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import AttackConfig, StepConfig, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
+    return Job(cfg, OptConfig(kind="adamw", peak_lr=1e-4, warmup_steps=1,
+                              total_steps=100),
+               BFTConfig(n=8, f=2, mode="deterministic", seed=0),
+               TrainerConfig(seq_len=64, global_batch=16, log_every=0),
+               AttackConfig("sign_flip", 1.0, 10.0), StepConfig(),
+               np.isin(np.arange(8), [2, 5]), actions=(("run", 3),),
+               device="cuda", out=str(tmp_path), **kw)
+
+
+def _one_process(job):
+    from repro_torch.train import Trainer
+
+    t = Trainer(job.cfg, job.opt, job.bft, job.tc, attack=job.attack,
+                sc=job.sc, true_byzantine=job.true_byzantine)
+    t.run(job.actions[0][1])
+    return t
+
+
+def test_one_nccl_rank_is_bitwise_the_one_process_trainer(cuda, tmp_path):
+    import dataclasses
+
+    from repro_torch.core import tree
+    from repro_torch.launch import train as launch
+
+    job = _ranks_job(tmp_path, backend="nccl")
+    one = _one_process(job)
+    res, tr = launch.rank_main(0, 1, dataclasses.replace(
+        job, init_method=f"tcp://localhost:{launch.free_port()}"))
+    assert res["main"]["history"] == one.history
+    assert res["agree"] and res["counts"]["all_gather"] > 0
+    for a, b in zip(tree.leaves(tr.params) + tree.leaves(tr.opt_state),
+                    tree.leaves(one.params) + tree.leaves(one.opt_state)):
+        assert torch.equal(a, b)
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two ranks on one card under gloo (operands staged through host
+    memory): the one-process run's decisions, every rank bitwise rank
+    0's."""
+    from repro_torch.launch import train as launch
+
+    job = _ranks_job(tmp_path, backend="gloo")
+    one = _one_process(job)
+    results = launch.spawn(job, 2)
+
+    def ctl(h):
+        return [{k: v for k, v in r.items() if k != "loss"} for r in h]
+
+    for r in results:
+        assert ctl(r["main"]["history"]) == ctl(one.history)
+        assert r["agree"] and r["staged"] and r["counts"]["staged_bytes"] > 0
