@@ -57,6 +57,15 @@ Phases, in order; any failed check exits nonzero:
      schedule argument, each also against the CPU run; every run held
      against the plain versions on the card, the scan's sketch verdicts
      equal to the replay's identify decisions;
+   - the trials split (``phase_engine_split``): gram_sweep, fused_sweep
+     and the device plane's adaptive_sweep through
+     ``run_batch(mesh=...)`` at every device count up to the visible
+     cards (on one card a mesh of cuda:0 twice), each shard's pass as
+     many trials as the one-device run's, so control equal and W and
+     losses bitwise; every card of the mesh used; the walls by device
+     count; with two or more cards each engine kernel and K6 first run
+     on a card that is not current, bitwise the kernel on card 0 and
+     within its tolerance of its plain version;
    - each of those five engine paths once more with ``telemetry=True``:
      W, losses and detect flags bitwise those of the run without, the
      protocol counters equal to those of the plain versions' run on the
@@ -93,7 +102,10 @@ Phases, in order; any failed check exits nonzero:
      reruns bitwise; two honest workers' gradients and sketches bitwise
      equal; three ``train_step``s (check, vote eliminating both, fast
      steps) with K6 16 per worker forward, K4s 11 per check member and K3
-     11 per vote counted against the protocol's assignments; a check step
+     11 per vote counted against the protocol's assignments (K6 twice a
+     layer and worker: every layer is checkpointed under ``cfg.remat``,
+     so its backward runs the forward again; an MoE layer's recompute
+     routes as its forward, ``RoutingTape``); a check step
      with a Byzantine member leaving params and AdamW state bitwise
      unchanged; an identify step's update bitwise the update from an
      honest replica's gradient; each step kind's wall and its split
@@ -144,8 +156,8 @@ Phases, in order; any failed check exits nonzero:
      f32 on the card against the CPU (logits and cache 1e-4, tokens
      equal);
    - training mamba2-780m (``phase_train`` with ``MAMBA_TRAIN``): the
-     checks of llama3.2-1b's training at global batch 8 (no K6; K4s 16
-     per check member, K3 16 per vote, at (1, 5, 226492416));
+     checks of llama3.2-1b's training at its global batch 16, 24 of the
+     48 layers (no K6; K4s 16 per check member, K3 16 per vote);
    - serving phi3.5-moe-42b-a6.6b (``phase_serving(MOE_SERVE)``): at
      full width, 16 of its 32 layers, the llama cell's traffic and
      checks (K6 at its prefill shape, the qwen3-4b one, hd 128), plus
@@ -218,12 +230,13 @@ ADAPTIVE_D_FULL = 1 << 20
 # gathers each chunk's rows on the card by problem index)
 PER_PROBLEM = dict(B=8, T=3, n_data=64, d=1 << 20, problems=4)
 # the "oracle" schedule at production d: the numpy engine's host replay
-# holds a (B, 8, d) f64 gradient stack (512 MiB at B = 8) and reads the
+# holds a (B, 8, d) f64 gradient stack (256 MiB at B = 4) and reads the
 # (64, d) f64 problem twice a trial and step, about 4.5 s a trial on the
-# card's host; B = 8 in chunks of 4 (two chunks through the pipeline),
+# card's host; B = 4 in chunks of 2 (two chunks through the pipeline;
+# cut from 8 in chunks of 4 to keep the script inside its time limit),
 # the plain versions replay the first ORACLE_PLAIN_FULL trials only
-ORACLE_B_FULL = 8
-ORACLE_CHUNK_FULL = 4
+ORACLE_B_FULL = 4
+ORACLE_CHUNK_FULL = 2
 ORACLE_PLAIN_FULL = 2
 # the plain versions' run of adaptive_sweep under "oracle" at d = 2^13
 # takes the first 64 of the 256 trials (its replay is the cost)
@@ -920,7 +933,8 @@ def check_vs_plain(label, res, specs, n=None, **kw) -> float:
     1e-4*(1+max|W|)."""
     import repro_torch
 
-    plain = repro_torch.run_batch(specs[:n], kernel_impl="torch", **kw)
+    plain = repro_torch.run_batch(specs[:n], mesh=None, kernel_impl="torch",
+                                  **kw)
     check(same_control(res, plain),
           f"{label}: control differs between kernels and plain versions")
     err, tol = w_close(res, plain)
@@ -1016,7 +1030,8 @@ def profile_fused(specs) -> dict:
     pdir, label = ROOT / "chiprun_out" / "profile", "fused_sweep_fused"
     shutil.rmtree(pdir / label, ignore_errors=True)
     with obtrace.profile_trace(label, profile_dir=str(pdir)):
-        _, launches = counted(lambda: repro_torch.run_batch(specs, fused=True))
+        _, launches = counted(lambda: repro_torch.run_batch(
+            specs, mesh=None, fused=True))
     files = sorted((pdir / label).glob("*.pt.trace.json"))
     check(len(files) == 1, f"profile_trace wrote {len(files)} Chrome traces")
     events = json.loads(files[0].read_text())["traceEvents"]
@@ -1064,7 +1079,7 @@ def phase_gram(torch):
     specs = gram_sweep_specs(repro_torch.TrialSpec, **GRAM_SWEEP)
 
     def run(**kw):
-        return repro_torch.run_batch(specs, **kw)
+        return repro_torch.run_batch(specs, mesh=None, **kw)
 
     res, launches, info = run_path(
         "gram_sweep", run, ("gram_factors", "pairwise_relmax_batched"))
@@ -1117,7 +1132,7 @@ def phase_stream(torch):
     out, launches = {}, {}
 
     def run(**kw):
-        return repro_torch.run_batch(specs, **kw)
+        return repro_torch.run_batch(specs, mesh=None, **kw)
 
     fu, launches["fused"], out["fused"] = run_path(
         "fused_sweep fused=True", lambda: run(fused=True), ("fused_step",))
@@ -1166,9 +1181,10 @@ def phase_stream(torch):
         label = f"fused_sweep contractive {plane}"
         kw = dict(fused=plane == "fused")
         res, launches[f"contractive_{plane}"] = counted(
-            lambda: repro_torch.run_batch(c_specs, **kw))
+            lambda: repro_torch.run_batch(c_specs, mesh=None, **kw))
         require_launched(launches[f"contractive_{plane}"], (kernel,), label)
-        plain = repro_torch.run_batch(c_specs, kernel_impl="torch", **kw)
+        plain = repro_torch.run_batch(c_specs, mesh=None,
+                                      kernel_impl="torch", **kw)
         check(same_control(res, plain),
               f"{label}: control differs between kernels and plain versions")
         err = per_trial_close(res, plain)
@@ -1210,7 +1226,7 @@ def phase_stream(torch):
     pp_specs = fused_sweep_specs(TS, **PER_PROBLEM)
 
     def run_pp(**kw):
-        return repro_torch.run_batch(pp_specs, **kw)
+        return repro_torch.run_batch(pp_specs, mesh=None, **kw)
 
     pp, launches["per_problem"] = counted(run_pp)
     require_launched(launches["per_problem"],
@@ -1273,7 +1289,7 @@ def profile_device(label, specs, kw) -> dict:
     name = "device_" + "".join(c if c.isalnum() else "_" for c in label)
     shutil.rmtree(pdir / name, ignore_errors=True)
     with obtrace.profile_trace(name, profile_dir=str(pdir)):
-        res = repro_torch.run_batch(specs, schedule="device", **kw)
+        res = repro_torch.run_batch(specs, mesh=None, schedule="device", **kw)
     files = sorted((pdir / name).glob("*.pt.trace.json"))
     check(len(files) == 1, f"profile_trace wrote {len(files)} Chrome traces")
     events = json.loads(files[0].read_text())["traceEvents"]
@@ -1327,8 +1343,8 @@ def phase_device_control(torch):
     ]
     for label, specs, kw, kernels, reps, profiled in paths:
         def run(**more):
-            return repro_torch.run_batch(specs, schedule="device", **kw,
-                                         **more)
+            return repro_torch.run_batch(specs, mesh=None, schedule="device",
+                                         **kw, **more)
 
         res, launches[label], info = run_path(label, run, kernels, reps)
         plane = "gram" if kw else "stream"
@@ -1374,11 +1390,11 @@ def phase_device_control(torch):
     c_specs = adaptive_sweep_specs(TS, **cell,
                                    lr=cell["n_data"] / (4.0 * cell["d"]))
     res, launches["adaptive_sweep contractive"] = counted(
-        lambda: repro_torch.run_batch(c_specs, schedule="device"))
+        lambda: repro_torch.run_batch(c_specs, mesh=None, schedule="device"))
     require_launched(launches["adaptive_sweep contractive"],
                      ("sketch_batched", "pairwise_relmax_batched"),
                      "adaptive_sweep contractive")
-    plain = repro_torch.run_batch(c_specs, schedule="device",
+    plain = repro_torch.run_batch(c_specs, mesh=None, schedule="device",
                                   kernel_impl="torch")
     check(same_trace(res, plain), "adaptive_sweep contractive: the trace "
                                   "differs between kernels and plain versions")
@@ -1401,8 +1417,9 @@ def phase_device_control(torch):
         for plane, kw in (("stream", {}), ("gram", dict(data_plane="gram"))):
             specs = adaptive_sweep_specs(TS, B=8, T=cell["T"], n_data=64,
                                          d=4096, lr=lr)
-            on_card = repro_torch.run_batch(specs, schedule="device", **kw)
-            on_cpu = repro_torch.run_batch(specs, schedule="device",
+            on_card = repro_torch.run_batch(specs, mesh=None,
+                                            schedule="device", **kw)
+            on_cpu = repro_torch.run_batch(specs, mesh=None, schedule="device",
                                            device="cpu", **kw)
             label = f"small {plane}, {lr_name}"
             check(same_trace(on_card, on_cpu, q_exact=False),
@@ -1496,7 +1513,8 @@ def phase_oracle(torch, device_wall_s: float):
         # every kernel was built and run by the earlier phases: the first
         # run is warm (the replay is numpy), so it is the timed one
         res, launches[label] = counted(
-            lambda: repro_torch.run_batch(specs, schedule="oracle", **kw))
+            lambda: repro_torch.run_batch(specs, mesh=None,
+                                          schedule="oracle", **kw))
         require_launched(launches[label], oracle_kernels(res), label)
         check(res.plan.schedule_mode == "oracle"
               and res.plan.control == "host" and res.schedule.mode == "oracle"
@@ -1553,7 +1571,7 @@ def phase_oracle(torch, device_wall_s: float):
     for name, matrix in repro_torch.SCENARIOS.items():
         specs = matrix.expand()
         res, launches[f"scenario {name}"] = counted(
-            lambda: matrix.run(backend="torch"))
+            lambda: matrix.run(backend="torch", mesh=None))
         require_launched(launches[f"scenario {name}"], oracle_kernels(res),
                          f"scenario {name}")
         check(res.plan.schedule_mode == "oracle"
@@ -1565,8 +1583,9 @@ def phase_oracle(torch, device_wall_s: float):
               f"scenario {name}: non-finite W")
         errs = {}
         for other_name, other in (
-                ("plain", matrix.run(backend="torch", kernel_impl="torch")),
-                ("cpu", matrix.run(backend="torch", device="cpu"))):
+                ("plain", matrix.run(backend="torch", mesh=None,
+                                     kernel_impl="torch")),
+                ("cpu", matrix.run(backend="torch", mesh=None, device="cpu"))):
             check(same_control(res, other),
                   f"scenario {name}: control differs from the {other_name} "
                   f"run")
@@ -1590,6 +1609,192 @@ def phase_oracle(torch, device_wall_s: float):
     out["scenarios"] = scen
     out["phase_s"] = time.perf_counter() - t0
     print(f"phase_oracle: {out['phase_s']:.1f} s")
+    return launches, out
+
+
+# the trials split (``phase_engine_split``): gram_sweep, fused_sweep and
+# the device plane's adaptive_sweep through ``run_batch(mesh=...)``, a
+# chunk of SPLIT_PASS[path] x c trials split into c shards of
+# SPLIT_PASS[path], against one device's passes of as many trials (the
+# same step loop on the same rows: bitwise); on one card the mesh lists
+# cuda:0 twice
+SPLIT_PASS = {"gram_sweep": 8, "fused_sweep": FUSED_CHUNK,
+              "adaptive_sweep": 64}
+
+
+def allocations(torch, card: int) -> int:
+    """The caching allocator's allocations on ``card`` so far."""
+    return torch.cuda.memory_stats(card).get("allocation.all.allocated", 0)
+
+
+def split_mesh(count: int):
+    """A trials mesh of ``count`` shards over the visible cards in turn
+    (on one card: cuda:0 ``count`` times)."""
+    import torch
+
+    from repro_torch.sharding import TrialsMesh
+
+    n = torch.cuda.device_count()
+    return TrialsMesh(tuple(f"cuda:{i % n}" for i in range(count)))
+
+
+def other_card_kernels(torch, card: int) -> dict:
+    """Each engine kernel (K1, K2, K3, K3s, K4, K4s, K5, K5s) and K6 on
+    card ``card`` while card 0 is current: bitwise the same kernel on
+    card 0's copy of the inputs, and within the kernel's tolerance of its
+    plain version on ``card`` (the tolerances of ``phase_kernels``)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", card)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    keys = np.uint32(0x9E3779B9) * (np.arange(5, dtype=np.uint32) + 1)
+    x = r(6, 8, 4099)
+    x[:, 1] = x[:, 0]
+    qkv = (r(2, 320, 8, 64).bfloat16(), r(2, 320, 2, 64).bfloat16(),
+           r(2, 320, 2, 64).bfloat16())
+    sk = (2e-5, 1e-3)
+    # name: (call(impl, *args), args, [(rtol, atol) or "rel" per output])
+    cases = {
+        "gram_factors": (lambda impl, R, W: ops.gram_factors(
+            R, W, keys, impl=impl), (r(66, 70001), r(9, 70001)),
+            ["rel", "rel", sk]),
+        "fused_step": (lambda impl, R, W, cw: ops.fused_step(
+            R, W.clone(), cw, 7, impl=impl), (r(66, 70001), r(9, 70001),
+                                              r(9, 66)),
+            ["rel", "rel", sk]),
+        "pairwise_relmax_batched": (lambda impl, a: ops.
+                                    batched_pairwise_relmax(a, impl=impl),
+                                    (x,), [(1e-6, 0.0)]),
+        "pairwise_relmax": (lambda impl, a: ops.pairwise_relmax(
+            a, impl=impl), (x[0],), [(1e-6, 0.0)]),
+        "sketch_batched": (lambda impl, a: ops.batched_sketch(
+            a, 11, impl=impl), (r(66, 70001),), [sk]),
+        "sketch": (lambda impl, a: ops.sketch(a, 11, impl=impl),
+                   (r(513024),), [sk]),
+        "coded_encode_batched": (lambda impl, c, g: ops.batched_coded_encode(
+            c, g, impl=impl), (r(4, 3, 8), r(4, 8, 5003)), ["rel"]),
+        "coded_encode": (lambda impl, c, g: ops.coded_encode(
+            c, g, impl=impl), (r(4, 4), r(4, 20003)), ["rel"]),
+        "flash_attention": (lambda impl, q, k, v: ops.flash_attention(
+            q, k, v, impl=impl), qkv, [(2e-2, 2e-2)]),
+    }
+    out = {}
+    with torch.cuda.device(0):
+        for name, (call, args, tols) in cases.items():
+            check(torch.cuda.current_device() == 0, "card 0 is not current")
+            got = call("cuda", *args)
+            torch.cuda.synchronize(dev)
+            want = call("torch", *args)
+            on0 = call("cuda", *(a.to("cuda:0") for a in args))
+            got = [t for t in (got if isinstance(got, tuple) else (got,))
+                   if t is not None]
+            want = [t for t in (want if isinstance(want, tuple) else (want,))
+                    if t is not None]
+            on0 = [t for t in (on0 if isinstance(on0, tuple) else (on0,))
+                   if t is not None]
+            errs, ok = [], True
+            for a, b, c, tol in zip(got, want, on0, tols):
+                check(a.device == dev, f"{name} returned on {a.device}")
+                if tol == "rel":
+                    e = rel_err(a, b)
+                    ok &= e <= 1e-5
+                else:
+                    e = max_err(a.float(), b.float())
+                    ok &= close(a.float(), b.float(), *tol)
+                errs.append(e)
+                ok &= bitwise(a.cpu().numpy() if a.dtype != torch.bfloat16
+                              else a.view(torch.int16).cpu().numpy(),
+                              c.cpu().numpy() if c.dtype != torch.bfloat16
+                              else c.view(torch.int16).cpu().numpy())
+            print(f"{name} on cuda:{card}, cuda:0 current: vs plain "
+                  f"{max(errs):.3e}, bitwise the kernel on cuda:0")
+            check(ok, f"{name} on cuda:{card} with cuda:0 current differs "
+                      f"from its plain version or from the kernel on "
+                      f"cuda:0")
+            out[name] = max(errs)
+    return out
+
+
+def phase_engine_split(torch):
+    """The trials split over the cards (``run_batch(mesh=...)``): each
+    path at every device count in ``counts`` (1, 2, 4, ... up to the
+    cards; on one card 1 and cuda:0 twice), control equal to the
+    one-device run and W bitwise at matching passes, every card of the
+    mesh used, the walls by device count; with two or more cards each
+    engine kernel launched on a card that is not current against its
+    plain version first (those launches are not counted)."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    TS = repro_torch.TrialSpec
+    cards = torch.cuda.device_count()
+    counts = [1] + [c for c in (2, 4, 8) if c <= max(2, cards)]
+    if cards > 2 and cards not in counts:
+        counts.append(cards)
+    other = {f"cuda:{j}": other_card_kernels(torch, j)
+             for j in range(1, cards)}
+    paths = [
+        ("gram_sweep", gram_sweep_specs(TS, **GRAM_SWEEP), {},
+         ("gram_factors", "pairwise_relmax_batched")),
+        ("fused_sweep", fused_sweep_specs(TS, **FUSED_SWEEP),
+         dict(fused=True), ("fused_step", "pairwise_relmax_batched")),
+        ("adaptive_sweep", adaptive_sweep_specs(TS, **ADAPTIVE_SWEEP),
+         dict(schedule="device"), ("sketch_batched",
+                                   "pairwise_relmax_batched")),
+    ]
+    out = {"cards": cards, "counts": counts, "other_card_kernels": other,
+           "paths": {}}
+    ops.reset_launch_counts()
+    for label, specs, kw, _ in paths:
+        P = SPLIT_PASS[label]
+        one, walls = None, {}
+        for c in counts:
+            mesh = None if c == 1 else split_mesh(c)
+            allocs = [allocations(torch, j) for j in range(cards)]
+            runs = [repro_torch.run_batch(specs, mesh=mesh,
+                                          chunk_trials=P * c, **kw)
+                    for _ in range(2)]
+            res = runs[0]
+            check(res.plan.n_devices == c and res.plan.chunk_trials == P * c,
+                  f"{label}: the plan splits over {res.plan.n_devices}, "
+                  f"want {c}")
+            walls[c] = dict(wall_s=runs[1].elapsed_s,
+                            phases_s=runs[1].phase_s)
+            if c == 1:
+                one = res
+                continue
+            used = sorted({d.index for d in mesh.devices})
+            idle = [j for j in used if allocations(torch, j) == allocs[j]]
+            check(not idle, f"{label}: cards {idle} of the mesh unused")
+            same = same_trace(one, res) if res.plan.control == "device" \
+                else same_control(one, res)
+            exact = all(bitwise(a.w, b.w) and a.losses == b.losses
+                        for r in runs for a, b in zip(one, r))
+            where = ", ".join(str(d) for d in mesh.devices)
+            print(f"{label} split over {c} ({where}), passes of {P}: "
+                  f"control equal {same}, W and losses bitwise the "
+                  f"one-device run {exact}")
+            check(same and exact, f"{label}: the split over {c} differs "
+                                  f"from one device")
+        out["paths"][label] = walls
+        print(f"{label} walls by device count (s; the second of two runs):"
+              + ";".join(f" {c}: {w['wall_s']:.4f} (" + ", ".join(
+                  f"{k} {v:.4f}" for k, v in w["phases_s"].items()) + ")"
+                  for c, w in walls.items()))
+    launches = ops.launch_counts()
+    require_launched(launches, sorted({k for *_, ks in paths for k in ks}),
+                     "engine split")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase_engine_split: {out['phase_s']:.1f} s")
     return launches, out
 
 
@@ -1649,8 +1854,8 @@ def phase_small_vs_cpu(torch):
     }
     errs = {}
     for name, (specs, kw) in cases.items():
-        on_card = repro_torch.run_batch(specs, **kw)
-        on_cpu = repro_torch.run_batch(specs, device="cpu", **kw)
+        on_card = repro_torch.run_batch(specs, mesh=None, **kw)
+        on_cpu = repro_torch.run_batch(specs, mesh=None, device="cpu", **kw)
         check(on_card.plan == dataclasses.replace(
             on_cpu.plan, kernel_impl="cuda"), f"{name}: card vs CPU plan")
         check(same_control(on_card, on_cpu), f"{name}: card vs CPU control")
@@ -2030,10 +2235,24 @@ class RoutingTape:
     of its expert, so the plain versions' run is held against the
     kernels' with the kernels' routing, as it is fed their tokens.
     ``flips`` counts the replayed choices that the run's own routing
-    would have made otherwise (expert or rank), of ``choices``."""
+    would have made otherwise (expert or rank), of ``choices``.
+
+    Under ``cfg.remat`` the backward runs each layer's forward again
+    (``torch.utils.checkpoint``): a routing call made inside the backward
+    is that recompute, so it is neither recorded nor given the next
+    entry; it must equal, and is given, the choices of the same layer's
+    forward (the last call on its router)."""
 
     def __init__(self):
         self.calls, self.flips, self.choices = [], 0, 0
+        self.recomputes = 0
+        self._last: dict = {}
+
+    @staticmethod
+    def _recompute() -> bool:
+        import torch
+
+        return torch._C._current_graph_task_id() != -1
 
     @contextlib.contextmanager
     def _patched(self, fn):
@@ -2047,9 +2266,21 @@ class RoutingTape:
             moe_mod.routing = real
 
     def record(self):
+        import torch
+
         def fn(real, *a):
             out = real(*a)
-            self.calls.append((out[1], out[3], out[4]))
+            entry = (out[1], out[3], out[4])
+            key = a[0]["router"].data_ptr()
+            if self._recompute():
+                self.recomputes += 1
+                check(all(torch.equal(x, y) for x, y in
+                          zip(entry, self._last[key])),
+                      "a recomputed layer routed otherwise than its "
+                      "forward")
+            else:
+                self.calls.append(entry)
+                self._last[key] = entry
             return out
 
         return self._patched(fn)
@@ -2061,12 +2292,18 @@ class RoutingTape:
 
         def fn(real, *a):
             probs, idx, _, _, _, C = real(*a)
-            r_idx, r_slot, r_keep = next(calls, (None,) * 3)
-            check(r_idx is not None and r_idx.shape == idx.shape,
-                  "a routing replay does not match the recorded run's "
-                  "calls")
-            self.flips += int((idx != r_idx).sum())
-            self.choices += idx.numel()
+            key = a[0]["router"].data_ptr()
+            if self._recompute():
+                self.recomputes += 1
+                r_idx, r_slot, r_keep = self._last[key]
+            else:
+                r_idx, r_slot, r_keep = next(calls, (None,) * 3)
+                check(r_idx is not None and r_idx.shape == idx.shape,
+                      "a routing replay does not match the recorded run's "
+                      "calls")
+                self._last[key] = (r_idx, r_slot, r_keep)
+                self.flips += int((idx != r_idx).sum())
+                self.choices += idx.numel()
             g = probs.gather(1, r_idx)
             g = g / torch.clamp(g.sum(dim=-1, keepdim=True), min=1e-9)
             return probs, r_idx, g * r_keep.to(g.dtype), r_slot, r_keep, C
@@ -2823,14 +3060,16 @@ def phase_serving_ctx(torch, sv):
 # 2 and 5, which tamper every time (p_tamper 1)
 TRAIN = dict(arch="llama3.2-1b", n=8, f=2, seq_len=256, global_batch=16,
              byz=(2, 5), scale=10.0, lr=1e-4, steps=3)
-# the mamba training cell: mamba2-780m at full width (48 layers, d_model
-# 1536, d_inner 3072, 48 heads of 64, d_state 128, chunk 256, vocab
-# 50280 tied, bf16) in TRAIN's protocol, with the global batch cut from
-# 16 to 8: each layer keeps four or five (rows, 1, 48, 256, 256) f32
-# intra-chunk tensors for the backward (about 0.65 GB a layer at 8
-# rows, 31 GB over the 48), which the reference bounds with cfg.remat
-# and the port does not (ROADMAP)
-MAMBA_TRAIN = dict(TRAIN, arch="mamba2-780m", global_batch=8)
+# the mamba training cell: mamba2-780m at full width (d_model 1536,
+# d_inner 3072, 48 heads of 64, d_state 128, chunk 256, vocab 50280
+# tied, bf16) in TRAIN's protocol and batch: each layer's four or five
+# (rows, 1, 48, 256, 256) f32 intra-chunk tensors (about 1.3 GB a layer
+# at 16 rows) live only while that layer runs, as every layer is
+# checkpointed (cfg.remat).  Its depth is cut from 48 layers to 24 to
+# keep the script inside its time limit (its host-bound steps run about
+# 170,000 kernels at 48); ``scripts/chip_phases.py mamba_full`` runs all
+# 48
+MAMBA_TRAIN = dict(TRAIN, arch="mamba2-780m", layers=24)
 # the MoE training cell: phi3.5-moe-42b-a6.6b at full width (MOE_SERVE's
 # widths), its depth cut from 32 layers to 1 (1.56 B parameters with the
 # embeddings, 1.26x llama3.2-1b's 1.24 B), in TRAIN's protocol and batch;
@@ -2887,12 +3126,14 @@ def train_seed(n, f, byz) -> int:
 
 
 def expected_train_launches(f_t: int, n_active: int, identified: bool,
-                            L: int, leaves: int) -> dict:
+                            L: int, leaves: int, remat: bool = True) -> dict:
     """Launches of one deterministic-mode step from the state before it:
     a check (r = f_t+1) or, with f_t = 0, a fast step; an identify round
     (r = 2f_t+1) after a fault.  K6 once per layer per computing
-    worker's forward, K4s once per leaf per check member, K3 once per
-    leaf per identify round."""
+    worker's forward, and under ``remat`` once more in its backward (the
+    layer's forward recomputed); K4s once per leaf per check member, K3
+    once per leaf per identify round."""
+    L = 2 * L if remat else L
     out = {"flash_attention": 0, "sketch": 0, "pairwise_relmax_batched": 0}
     if f_t == 0:
         out["flash_attention"] = L * n_active
@@ -3315,7 +3556,7 @@ def phase_train(torch, spec, tag: str):
             walls.append(time.perf_counter() - t0)
             for k, v in expected_train_launches(
                     f_t, n_act, "identified" in rec, L_attn,
-                    len(sizes)).items():
+                    len(sizes), cfg.remat).items():
                 want[k] += v
         return want, walls
 
@@ -3493,7 +3734,7 @@ def one_process_run(torch, job, keep_steps: bool = False) -> dict:
         if keep_steps:
             steps.append([x.detach().cpu() for x in tree.leaves(t.params)])
         for k, v in expected_train_launches(f_t, n_act, "identified" in rec,
-                                            L, leaves).items():
+                                            L, leaves, job.cfg.remat).items():
             want[k] += v
     out = dict(history=t.history, checksums=sums, steps=steps, want=want,
                walls=walls,
@@ -4116,6 +4357,7 @@ def run() -> int:
     oracle_launches, oracle = phase_oracle(
         torch, device_ctl["adaptive_sweep"]["wall_s"])
     launches.update(oracle_launches)
+    launches["engine_split"], engine_split = phase_engine_split(torch)
     launches["single_vector_ops"] = phase_single_path(torch)
     small = phase_small_vs_cpu(torch)
     launches["serving"], _, serving = phase_serving(torch, attention, SERVE)
@@ -4159,7 +4401,7 @@ def run() -> int:
     for rows in by_shape.values():
         kernels.update(rows)
     main_path = dict(gram_sweep=gram, **stream, device_control=device_ctl,
-                     oracle=oracle,
+                     oracle=oracle, engine_split=engine_split,
                      launches=launches,
                      small_vs_cpu_w_err=small, serving=serving,
                      attention=attention, training=training,

@@ -68,7 +68,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     sub_quadratic: bool = False        # eligible for the long_500k shape
     unroll_layers: bool = False        # python-unroll scans (dry-run cost accounting)
-    remat: bool = True                 # activation checkpointing on layer groups
+    remat: bool = True                 # activation checkpointing, a layer at a time
     notes: str = ""
 
     def __post_init__(self):

@@ -38,7 +38,11 @@ at the cost of the thing it schedules).  "auto" picks "vector" when
 every trial is value-independent, else "oracle".
 
 The plan is resolved first (``engineplan.plan.resolve_plan``, the
-reference's pure planner).  The chunks stream through ``engineplan.pipeline.run_chunks``; with
+reference's pure planner).  ``mesh`` splits the trials over several
+devices (the reference's ``mesh="auto"``, ``engine_jax.py:304-317``):
+each device gets its copy of the problem rows and its own precompute,
+and each chunk one shard a device (``engineplan.shard``).  The chunks
+stream through ``engineplan.pipeline.run_chunks``; with
 ``telemetry=True`` the step loop adds up the protocol counters, returned
 as ``BatchResult.telemetry`` (``obs.telemetry.Telemetry``).  The facade
 emits the reference's spans (``engine.build_schedule``,
@@ -75,6 +79,7 @@ from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obmetrics
 from repro_torch.obs import trace as obtrace
 from repro_torch.obs.telemetry import Telemetry, zero_counts
+from repro_torch.sharding import TrialsMesh, mesh_num_devices, trials_mesh
 
 GRAM_CHUNK = 1 << 16          # columns per f32 product when forming G
 
@@ -202,17 +207,79 @@ def _problems(specs):
     return problems, pkeys, pid
 
 
+def resolve_mesh(mesh, device) -> TrialsMesh | None:
+    """``run_batch``'s ``mesh`` option -> a trials mesh, or None for one
+    device (``engine_jax.py:304-317``): "auto" is ``trials_mesh()``
+    (every local card) when ``device`` is the card without an index
+    (None or "cuda"), else one device; None is one device; a
+    ``TrialsMesh`` is used as given."""
+    if isinstance(mesh, TrialsMesh) or mesh is None:
+        return mesh
+    if isinstance(mesh, str) and mesh == "auto":
+        dev = resolve_device(device)
+        return trials_mesh() if dev.type == "cuda" and dev.index is None \
+            else None
+    raise ValueError(f"unknown mesh option {mesh!r}: mesh takes \"auto\", "
+                     f"None or a sharding.TrialsMesh")
+
+
+def _operands(rows_dev, y_dev, keys_t, *, plan, n_data: int, P: int,
+              impl: str) -> dict:
+    """The chunk-invariant operands of the step loop on one device (the
+    replicated ones of ``engineplan.shard``'s table): {"A", "y", "com",
+    "noise"}.  On a split each device computes its own K1 sketch tables
+    or K4 pre-sketches and G from its copy of the rows: the same kernels
+    on the same inputs, so the same bits on every device."""
+    T = keys_t.shape[0]
+    shared = plan.shared_problem
+    device = rows_dev.device
+    noise_dev = None
+    if plan.data_plane == "gram":
+        # the step sketch tables (kernel) and G, once
+        _, _, sk_rows = ops.gram_factors(rows_dev, None, keys_t, impl=impl,
+                                         with_gram=False)
+        A_dev = {"rows": rows_dev, "G": gram_matrix(rows_dev)}
+        com_dev = carry.sketch_tables(sk_rows, n_data, device)
+    elif plan.fused:
+        # the kernel sketches the rows in its pass: no pre-sketch
+        A_dev = (rows_dev.to(torch.bfloat16) if plan.stream_dtype == "bf16"
+                 else rows_dev)
+        com_dev = {"keys": keys_t}
+    else:
+        # the unfused plane's T hoisted pre-sketches (engine_jax.py:495)
+        sk_rows = torch.stack([ops.batched_sketch(rows_dev, int(keys_t[t]),
+                                                  impl=impl)
+                               for t in range(T)])
+        com_dev = carry.sketch_tables(sk_rows, n_data, device, n_problems=P)
+        d = rows_dev.shape[1]
+        A_dev = (rows_dev[:n_data] if shared
+                 else rows_dev[:P * n_data].view(P, n_data, d))
+        noise_dev = rows_dev[-1]
+    return {"A": A_dev, "y": y_dev, "com": com_dev, "noise": noise_dev}
+
+
 def run_batch(specs, *, device=None, schedule: str = "auto",
               data_plane: str | None = None,
               chunk_trials: int | None = None,
               kernel_impl: str | None = None,
               fused: bool | None = None, stream_dtype: str = "f32",
-              telemetry: bool = False) -> BatchResult:
-    """Run B protocol trials on ``device``.
+              telemetry: bool = False, mesh="auto") -> BatchResult:
+    """Run B protocol trials on ``device``, or split over the devices of
+    a trials mesh.
 
     device: None (the CUDA device; raises without one) | "cpu" | any
         torch device.  On a CUDA device the kernels are the hand-written
         ones; on the CPU their plain PyTorch versions run.
+    mesh: "auto" (default) splits the trials over every local card
+        (``sharding.trials_mesh``) when ``device`` is None or "cuda" and
+        more than one card is visible, else runs on ``device``; None
+        runs on ``device``; a ``sharding.TrialsMesh`` splits them over
+        its devices (``device`` is then ignored), which may repeat one
+        device (eight times "cpu", or "cuda:0" twice: the split on a
+        machine with fewer devices).  Anything else raises
+        ``ValueError``.  Each chunk of ``chunk_trials`` (rounded up to
+        a multiple of the device count) runs as one shard a device,
+        with no collective (``engineplan.shard``).
     kernel_impl: None (follow the device) | "cuda" | "torch" — "torch"
         on a CUDA device runs the plain versions there (a comparison
         run; never chosen automatically).
@@ -242,7 +309,10 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
     if not specs:
         return BatchResult([], [], 0.0, telemetry=_telemetry(
             zero_counts(0), specs, [], telemetry))
-    device = resolve_device(device)
+    tmesh = resolve_mesh(mesh, device)
+    devices = [resolve_device(device)] if tmesh is None \
+        else [resolve_device(dv) for dv in tmesh.devices]
+    device = devices[0]
     kernel_impl = ops.resolve_impl(kernel_impl, device)
     if device.type == "cuda":
         # TF32 would break the 1e-4 value contract on resid and W_T
@@ -253,9 +323,10 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
         plan = planlib.resolve_plan(
             specs, schedule=schedule, fused=fused, chunk_trials=chunk_trials,
             stream_dtype=stream_dtype, kernel_impl=kernel_impl,
-            data_plane=data_plane, telemetry=telemetry)
+            data_plane=data_plane, telemetry=telemetry,
+            n_devices=None if tmesh is None else mesh_num_devices(tmesh))
         planlib.warn_on_fallback(plan)
-    clock = PhaseClock(device)
+    clock = PhaseClock(devices)
     device_ctl = plan.control == "device"
     n_max = max(s.n for s in specs)
 
@@ -279,7 +350,6 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
     obmetrics.counter("engine.batches").inc()
     obmetrics.counter("engine.trials").inc(B)
     obmetrics.counter(f"engine.plan.{plan.data_plane}.{plan.control}").inc()
-    use_gram = plan.data_plane == "gram"
     shared = plan.shared_problem
 
     # -- the problems: one shared, or each trial's own (engine_jax.py:341)
@@ -321,40 +391,21 @@ def run_batch(specs, *, device=None, schedule: str = "auto",
     del problems
     # per-step sketch keys; the uint32 product wraps mod 2^32
     keys_t = np.uint32(0x9E3779B9) * (np.arange(T, dtype=np.uint32) + 1)
-    rows_dev = carry.to_device(rows_np, device)
+    staged = {dev: (carry.to_device(rows_np, dev), carry.to_device(y_np, dev))
+              for dev in dict.fromkeys(devices)}
     del rows_np
-    y_dev = carry.to_device(y_np, device)
     clock.mark("problem_setup")
-
-    noise_dev = None
-    if use_gram:
-        # the step sketch tables (kernel) and G, once
-        _, _, sk_rows = ops.gram_factors(rows_dev, None, keys_t,
-                                         impl=kernel_impl, with_gram=False)
-        A_dev = {"rows": rows_dev, "G": gram_matrix(rows_dev)}
-        com_dev = carry.sketch_tables(sk_rows, n_data, device)
-    elif plan.fused:
-        # the kernel sketches the rows in its pass: no pre-sketch
-        A_dev = (rows_dev.to(torch.bfloat16) if plan.stream_dtype == "bf16"
-                 else rows_dev)
-        com_dev = {"keys": keys_t}
-    else:
-        # the unfused plane's T hoisted pre-sketches (engine_jax.py:495)
-        sk_rows = torch.stack([ops.batched_sketch(rows_dev, int(keys_t[t]),
-                                                  impl=kernel_impl)
-                               for t in range(T)])
-        com_dev = carry.sketch_tables(sk_rows, n_data, device, n_problems=P)
-        A_dev = (rows_dev[:n_data] if shared
-                 else rows_dev[:P * n_data].view(P, n_data, d))
-        noise_dev = rows_dev[-1]
+    operands = {dev: _operands(rows_dev, y_dev, keys_t, plan=plan,
+                               n_data=n_data, P=P, impl=kernel_impl)
+                for dev, (rows_dev, y_dev) in staged.items()}
+    del staged
     clock.mark("precompute")
 
     with obtrace.span("engine.scan", B=B, T=T, data_plane=plan.data_plane,
                       control=plan.control):
         W, losses, det, counts, trace = run_chunks(
-            plan, B=B, T=T, d=d, device=device, A_dev=A_dev, y_dev=y_dev,
-            com_dev=com_dev, stat_np=stat_np, xs_np=xs_np,
-            impl=kernel_impl, clock=clock, noise_dev=noise_dev,
+            plan, B=B, T=T, d=d, devices=devices, operands=operands,
+            stat_np=stat_np, xs_np=xs_np, impl=kernel_impl, clock=clock,
             pid_np=pid_np, telemetry=telemetry)
     if device_ctl:
         # the whole host control plane from the decision trace: exact,

@@ -1,54 +1,68 @@
-"""Stream the trial batch through the step core in plan-sized chunks.
+"""Stream the trial batch through the step core in plan-sized chunks,
+each chunk split over the devices of a trials mesh.
 
-Port of ``repro.core.engineplan.pipeline.run_chunks`` for one device, an
-asynchronous pipeline of depth 1: chunk k+1 is staged and dispatched
-before chunk k is drained, so the host's dispatch of one chunk overlaps
-the device's work on the other, and at most two chunks' buffers are
-resident, which keeps the plan's ``chunk_trials`` memory bound.  The
-last chunk pads up to a device multiple with inert trials
-(``PAD_FILL``: live=False, weights 0, idle workers -1, no filter) and
-the padding is sliced off the results.  Every chunk starts from W0 = 0;
+Port of ``repro.core.engineplan.pipeline.run_chunks``, an asynchronous
+pipeline of depth 1: every shard of chunk k+1 is staged and dispatched
+before any shard of chunk k is drained, so the host's dispatch of one
+chunk overlaps the devices' work on the other, and at most two chunks'
+buffers are resident on each device, which keeps the plan's
+``chunk_trials`` memory bound.  The last chunk pads up to a multiple of
+the device count with inert trials (``PAD_FILL``: live=False, weights 0,
+idle workers -1, no filter) and the padding is sliced off the results.
+A chunk of ``bs`` trials splits into ``ndev`` shards of ceil(bs / ndev)
+consecutive trials (the reference's ``shard_map`` over the padded
+chunk); a shard that would hold padding alone is not run.  Which
+operand splits and which replicates is ``engineplan.shard``'s table:
+each device holds its own copy of the chunk-invariant operands (the
+caller's ``operands``), and a shard's statics, schedule and ``pid`` are
+cut from the batch's by their specs.  Every chunk starts from W0 = 0;
 the fused plane's pending-coefficient carry starts at cw0 = 0 (no
 update to apply on the first kernel call: the pipelined prologue), and
 the gram plane's S0 = W0 R^T is zero too.  Trials that do not share a
-problem upload their chunk's slice of ``pid`` and gather their
-(chunk, n_data, d) data rows and targets from the device-resident
+problem upload their shard's slice of ``pid`` and gather their
+(rows, n_data, d) data rows and targets from the device-resident
 per-problem stack by it.
 
-On a CUDA device, in place of the reference's asynchronous dispatch and
-buffer donation:
+Each shard has, in place of the reference's asynchronous dispatch and
+buffer donation on a CUDA device:
 
-* the per-chunk device buffers (W0, cw0) are two slots reused in turn,
+* its per-chunk device buffers (W0, cw0): two slots reused in turn,
   zeroed in place;
-* a chunk's schedule and statics go up from pinned memory without
+* its statics and schedule going up from pinned memory without
   blocking the host;
-* a chunk's W_T (f32), losses, detect flags and counters come back on
-  a copy stream that waits on an event recorded after the chunk's last
-  kernel, W_T into the slot's reused pinned buffer; the drain waits on
-  that copy's event alone, never on the whole device, so chunk k's
-  drain does not wait on chunk k+1's queued work;
-* one host pass then widens the chunk's W_T into its rows of the f64
+* its W_T (f32), losses, detect flags and counters coming back on its
+  own copy stream, which waits on an event recorded after the shard's
+  last kernel, W_T into the slot's reused pinned buffer; the drain
+  waits on that copy's event alone, never on a whole device, so chunk
+  k's drain does not wait on chunk k+1's queued work;
+* one host pass then widening the shard's W_T into its rows of the f64
   ``W`` (the values are exact: f32 -> f64 is lossless, as the
   reference's ``np.asarray(W, np.float64)``).
 
-Under the device control plane (``plan.control == "device"``) a chunk
+A shard's work is staged and dispatched with its device current, so
+its events, streams and kernels are that device's.  A mesh may list a
+device more than once: its shards then queue one after the other on it.
+
+Under the device control plane (``plan.control == "device"``) a shard
 stages only its statics (no schedule) and runs ``stepcore.device_scan``,
 and its decision trace (q, check, faulty2) comes back beside the losses
 and detect flags through the same copy stream and pinned buffers
 (``pipeline.py:115-132`` and ``:153-157`` of the reference).
 
 The spans ``pipeline.stage``, ``pipeline.dispatch`` and
-``pipeline.drain`` (each with ``lo`` and ``hi``) are the reference's.
+``pipeline.drain`` (each with ``lo`` and ``hi``, a shard's trials) are
+the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.core import carry
-from repro_torch.core.engineplan import stepcore
+from repro_torch.core.engineplan import shard, stepcore
 from repro_torch.obs import trace as obtrace
 from repro_torch.obs.telemetry import TEL_KEYS, zero_counts
 
@@ -57,29 +71,23 @@ from repro_torch.obs.telemetry import TEL_KEYS, zero_counts
 PAD_FILL = {"group1": -1, "group2": -1, "fcode": -1, "farr": 1}
 
 
-def pad_rows(arr: np.ndarray, axis: int, pad: int, fill=0) -> np.ndarray:
-    """Pad ``arr`` with ``fill`` along ``axis`` (idle-trial padding)."""
-    if pad == 0:
-        return arr
-    widths = [(0, 0)] * arr.ndim
-    widths[axis] = (0, pad)
-    return np.pad(arr, widths, constant_values=fill)
-
-
 class PhaseClock:
-    """Wall time per phase, synchronizing the device at each mark so a
-    phase's time includes its device work."""
+    """Wall time per phase, synchronizing the devices at each mark so a
+    phase's time includes their work."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, devices):
+        devices = [devices] if isinstance(devices, torch.device) \
+            else list(devices)
+        self.cuda = sorted({d for d in devices if d.type == "cuda"},
+                           key=str)
         self.seconds: dict[str, float] = {}
         self._t = time.perf_counter()
 
     def mark(self, phase: str, split: dict[str, float] | None = None) -> None:
         """Book the time since the last mark under ``phase``; ``split``
         ({phase: seconds}) books that much of it under other phases."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.cuda:
+            torch.cuda.synchronize(dev)
         now = time.perf_counter()
         elapsed = now - self._t
         for name, s in (split or {}).items():
@@ -107,10 +115,19 @@ def widen_into(dst: np.ndarray, src: torch.Tensor) -> None:
     torch.from_numpy(dst).copy_(src)
 
 
+def on_device(device: torch.device):
+    """``device`` made current for what the block queues (its events,
+    streams and kernels), on a CUDA device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class _Timer:
-    """The scan's time: CUDA events recorded at chunk boundaries on the
-    current stream (read once the pipeline is drained), or the host's
-    clock on the CPU, where the step loop runs synchronously."""
+    """A shard's scan time: CUDA events recorded at its chunk boundaries
+    on its device's current stream (read once the pipeline is drained),
+    or the host's clock on the CPU, where the step loop runs
+    synchronously."""
 
     def __init__(self, cuda: bool):
         self.cuda = cuda
@@ -137,8 +154,9 @@ class _Timer:
 
 
 class _Slot:
-    """One chunk's reused buffers: W0 and cw0 on the device and, on a
-    CUDA device, the pinned host buffer its W_T comes back through."""
+    """One chunk's reused buffers of a shard: W0 and cw0 on its device
+    and, on a CUDA device, the pinned host buffer its W_T comes back
+    through."""
 
     def __init__(self, rows: int, d: int, Ie: int | None, device):
         f32 = dict(dtype=torch.float32, device=device)
@@ -149,40 +167,71 @@ class _Slot:
                        if device.type == "cuda" else None)
 
 
-def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
-               com_dev, stat_np, xs_np, impl: str, clock: PhaseClock,
-               noise_dev=None, pid_np=None, telemetry: bool = False):
-    """Drive the step core over the batch.  ``A_dev``/``y_dev`` are the
-    chunk-invariant operands (gram: {"rows", "G"}; fused: the extended
-    rows; stream, shared: the data rows), or, when trials do not share a
-    problem, every problem's data rows (P, n_data, d) and targets
-    (P, n_data), which each chunk gathers by its slice of ``pid_np``
-    (B,).  ``xs_np`` is None under the device control plane.  Returns
-    (W (B, d) f64, losses (T, B) f64, det (T, B) bool, counters {key:
-    (B,) int64} or None, trace) as numpy arrays, where trace is the
-    device plane's {"q": (T, B) f32, "check": (T, B) bool, "faulty2":
-    (T, B, n) bool}, or None under host control; the scan's time goes
-    to ``clock`` as "scan", the rest of the pipeline's as
-    "post_scan"."""
+class _Shard:
+    """One entry of the mesh: its device, its two slots, its copy stream
+    and its timer."""
+
+    def __init__(self, device, rows: int, d: int, Ie: int | None,
+                 n_slots: int):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        with on_device(device):
+            self.slots = [_Slot(rows, d, Ie, device) for _ in range(n_slots)]
+            self.copy_stream = torch.cuda.Stream(device) if self.cuda \
+                else None
+        self.timer = _Timer(self.cuda)
+
+
+def scan_seconds(shards: list[_Shard]) -> float:
+    """The scan's time: each device's shards queue one after the other,
+    the devices run side by side, so the longest device's sum."""
+    per_device: dict = {}
+    for sh in shards:
+        per_device[sh.device] = per_device.get(sh.device, 0.0) \
+            + sh.timer.seconds()
+    return max(per_device.values(), default=0.0)
+
+
+def run_chunks(plan, *, B: int, T: int, d: int, devices, operands,
+               stat_np, xs_np, impl: str, clock: PhaseClock, pid_np=None,
+               telemetry: bool = False):
+    """Drive the step core over the batch.  ``devices`` lists the
+    shards' devices (one entry: unsplit; ``plan.n_devices`` of them);
+    ``operands`` maps each distinct device to its chunk-invariant
+    operands {"A", "y", "com", "noise"}: A and y are, on the gram plane,
+    {"rows", "G"}; fused, the extended rows; stream and shared, the
+    data rows; or, when trials do not share a problem, every problem's
+    data rows (P, n_data, d) and targets (P, n_data), which each shard
+    gathers by its slice of ``pid_np`` (B,).  ``xs_np`` is None under
+    the device control plane.  Returns (W (B, d) f64, losses (T, B)
+    f64, det (T, B) bool, counters {key: (B,) int64} or None, trace) as
+    numpy arrays, where trace is the device plane's {"q": (T, B) f32,
+    "check": (T, B) bool, "faulty2": (T, B, n) bool}, or None under
+    host control; the scan's time goes to ``clock`` as "scan", the rest
+    of the pipeline's as "post_scan"."""
+    devices = [torch.device(dv) for dv in devices]
+    ndev = len(devices)
     chunk_trials = plan.chunk_trials
-    ndev = plan.n_devices
     fused = plan.fused
     gram = plan.data_plane == "gram"
     shared = plan.shared_problem
     device_ctl = plan.control == "device"
+    first = operands[devices[0]]
     Ie = None
     if gram:
-        Ie = A_dev["rows"].shape[0]
+        Ie = first["A"]["rows"].shape[0]
     elif fused:
-        Ie = A_dev.shape[0]
+        Ie = first["A"].shape[0]
     flags = dict(fused=fused, gram=gram)
-    cuda = device.type == "cuda"
-    copy_stream = torch.cuda.Stream(device) if cuda else None
-    timer = _Timer(cuda)
+    ins = shard.in_specs(plan, stat_sig=shard.signature(stat_np),
+                         xs_sig=shard.signature(xs_np),
+                         com_sig=shard.signature(first["com"]))
+    outs = shard.out_specs(plan)
     rows = min(chunk_trials, B)
     rows += (-rows) % ndev
     n_chunks = -(-B // chunk_trials)
-    slots = [_Slot(rows, d, Ie, device) for _ in range(min(2, n_chunks))]
+    shards = [_Shard(dv, rows // ndev, d, Ie, min(2, n_chunks))
+              for dv in devices]
 
     W = np.empty((B, d), np.float64)
     losses = np.empty((T, B))
@@ -194,39 +243,40 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
         trace = dict(q=np.empty((T, B), np.float32),
                      check=np.empty((T, B), bool),
                      faulty2=np.empty((T, B, n), bool))
+    small_names = ["losses", "det"] + (["q", "check", "faulty2"]
+                                       if device_ctl else [])
+    dest = dict(losses=losses, det=det, **(trace or {}))
 
-    def stage(lo: int, slot: _Slot):
-        """The chunk's per-trial operands on the device."""
-        hi = min(lo + chunk_trials, B)
+    def stage(sh: _Shard, slot: _Slot, lo: int, hi: int, per: int):
+        """The shard's per-trial operands on its device: the trials
+        [lo, hi), padded to ``per``."""
         with obtrace.span("pipeline.stage", lo=lo, hi=hi):
-            bs = hi - lo
-            pad = (-bs) % ndev
-            stat_c = {k: pad_rows(v[lo:hi], 0, pad, PAD_FILL.get(k, 0))
-                      for k, v in stat_np.items()}
-            W0 = slot.W0[:bs + pad].zero_()
-            cw0 = None if Ie is None else slot.cw0[:bs + pad].zero_()
-            A_c, y_c, pid_c = A_dev, y_dev, None
+            dev = sh.device
+            op = operands[dev]
+            stat_c = shard.take(stat_np, ins[4], lo, hi, per, PAD_FILL)
+            W0 = slot.W0[:per].zero_()
+            cw0 = None if Ie is None else slot.cw0[:per].zero_()
+            A_c, y_c, pid_c = op["A"], op["y"], None
             if not (fused or gram):
-                pid_c = upload(pad_rows(pid_np[lo:hi], 0, pad).astype(
-                    np.int64), device)
+                pid_c = upload(shard.take(pid_np, ins[8], lo, hi, per)
+                               .astype(np.int64), dev)
                 if not shared:
-                    A_c, y_c = A_dev[pid_c], y_dev[pid_c]
+                    A_c, y_c = A_c[pid_c], y_c[pid_c]
             if device_ctl:
-                args = (A_c, y_c, W0, cw0, upload(stat_c, device), com_dev,
-                        noise_dev, pid_c)
-                return lo, hi, args, None
-            xs_c = {k: pad_rows(v[:, lo:hi], 1, pad, PAD_FILL.get(k, 0))
-                    for k, v in xs_np.items()}
-            args = (A_c, y_c, W0, cw0, upload(stat_c, device),
-                    upload(xs_c, device), com_dev, noise_dev, pid_c)
-            return lo, hi, args, carry.gates_from_xs(xs_c)
+                args = (A_c, y_c, W0, cw0, upload(stat_c, dev), op["com"],
+                        op["noise"], pid_c)
+                return args, None
+            xs_c = shard.take(xs_np, ins[5], lo, hi, per, PAD_FILL)
+            args = (A_c, y_c, W0, cw0, upload(stat_c, dev),
+                    upload(xs_c, dev), op["com"], op["noise"], pid_c)
+            return args, carry.gates_from_xs(xs_c)
 
-    def dispatch(lo: int, hi: int, args, gates, slot: _Slot):
-        """Queue the chunk's scan, W_T and, on a CUDA device, its copies
+    def dispatch(sh: _Shard, slot: _Slot, lo: int, hi: int, args, gates):
+        """Queue the shard's scan, W_T and, on a CUDA device, its copies
         to the host; returns what the drain needs."""
         bs = hi - lo
         with obtrace.span("pipeline.dispatch", lo=lo, hi=hi):
-            timer.start()
+            sh.timer.start()
             if device_ctl:
                 out = stepcore.device_scan(
                     *args, impl=impl, gram=gram, shared=shared,
@@ -239,19 +289,19 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
                     has_filter=plan.has_filter, has_bias=plan.has_bias,
                     telemetry=telemetry, **flags)
                 small = list(out[1:3])
-            timer.stop()
+            sh.timer.stop()
             A_c, W0 = args[0], args[2]
             Wc = stepcore.finish(A_c, W0, out[0], **flags)[:bs]
             # losses, det, the trace and the counters keep their padding
             # columns until the drain
             if telemetry:
                 small.append(torch.stack([out[-1][k] for k in TEL_KEYS]))
-            if not cuda:
-                return lo, hi, None, Wc, small
+            if not sh.cuda:
+                return None, Wc, small
             done = torch.cuda.Event()
             done.record()
-            with torch.cuda.stream(copy_stream):
-                copy_stream.wait_event(done)
+            with torch.cuda.stream(sh.copy_stream):
+                sh.copy_stream.wait_event(done)
                 W_host = slot.W_host[:bs]
                 W_host.copy_(Wc, non_blocking=True)
                 small_host = []
@@ -263,35 +313,41 @@ def run_chunks(plan, *, B: int, T: int, d: int, device, A_dev, y_dev,
             # the copies read these on the copy stream: their memory must
             # not go back to the allocator's pool before the copies end
             for t in [Wc] + small:
-                t.record_stream(copy_stream)
-            return lo, hi, copied, W_host, small_host
+                t.record_stream(sh.copy_stream)
+            return copied, W_host, small_host
 
     def drain(lo: int, hi: int, copied, W_host, small_host):
-        """Wait for the chunk's copies alone; write its rows."""
+        """Wait for the shard's copies alone; write its trials' rows."""
         with obtrace.span("pipeline.drain", lo=lo, hi=hi):
             if copied is not None:
                 copied.synchronize()
             widen_into(W[lo:hi], W_host)
-            bs = hi - lo
-            losses[:, lo:hi] = small_host[0][:, :bs].numpy()
-            det[:, lo:hi] = small_host[1][:, :bs].numpy()
-            if device_ctl:
-                for key, h in zip(("q", "check", "faulty2"),
-                                  small_host[2:5]):
-                    trace[key][:, lo:hi] = h[:, :bs].numpy()
+            for name, h in zip(small_names, small_host):
+                shard.put(dest[name], outs[name], lo, h.numpy())
             if telemetry:
-                tel = small_host[-1][:, :bs].numpy()
+                tel = small_host[-1].numpy()
                 for i, k in enumerate(TEL_KEYS):
-                    counts[k][lo:hi] = tel[i]
+                    shard.put(counts[k], outs[k], lo, tel[i])
 
-    inflight = None
-    for i, lo in enumerate(range(0, B, chunk_trials)):
-        slot = slots[i % len(slots)]
-        staged = dispatch(*stage(lo, slot), slot)
-        if inflight is not None:
-            drain(*inflight)
-        inflight = staged
-    if inflight is not None:
-        drain(*inflight)
-    clock.mark("post_scan", split={"scan": timer.seconds()})
+    inflight: list = []
+    for c, lo in enumerate(range(0, B, chunk_trials)):
+        hi = min(lo + chunk_trials, B)
+        per = -(-(hi - lo) // ndev)        # the padded chunk / ndev
+        queued = []
+        for s, sh in enumerate(shards):
+            s_lo = lo + s * per
+            s_hi = min(s_lo + per, hi)
+            if s_lo >= s_hi:               # padding alone: nothing to run
+                continue
+            slot = sh.slots[c % len(sh.slots)]
+            with on_device(sh.device):
+                args, gates = stage(sh, slot, s_lo, s_hi, per)
+                queued.append((s_lo, s_hi,
+                               *dispatch(sh, slot, s_lo, s_hi, args, gates)))
+        for item in inflight:
+            drain(*item)
+        inflight = queued
+    for item in inflight:
+        drain(*item)
+    clock.mark("post_scan", split={"scan": scan_seconds(shards)})
     return W, losses, det, counts, trace

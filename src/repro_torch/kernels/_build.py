@@ -15,6 +15,7 @@ in the relmax kernel must match the plain versions bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -108,6 +109,24 @@ def raw_stream(index: int) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_operand_device(fn):
+    """Run a CUDA wrapper with the device of its first argument (a
+    tensor) current.  A launch through ``ctypes`` goes to the current
+    device, which is where the kernels' per-device state (the SM count,
+    the shared-memory opt-in) is read too, so an operand on a card that
+    is not current would otherwise be launched on the wrong one."""
+    import torch
+
+    @functools.wraps(fn)
+    def run(x, *args, **kwargs):
+        if x.is_cuda and x.get_device() != torch.cuda.current_device():
+            with torch.cuda.device(x.device):
+                return fn(x, *args, **kwargs)
+        return fn(x, *args, **kwargs)
+
+    return run
 
 
 def require_cuda_tensor(x, name: str, ndim: int, dtypes) -> None:

@@ -54,6 +54,7 @@ def _ok(x: torch.Tensor, ndim: int) -> bool:
         and x.is_contiguous()
 
 
+@_build.on_operand_device
 def _encode_cuda(c: torch.Tensor, g: torch.Tensor, ndim: int,
                  form: str) -> torch.Tensor:
     """c (B, n_sym, m), g (B, m, d); or, ndim = 2, the single form's

@@ -437,33 +437,26 @@ constexpr int f32_smem() {
 
 template <int HD>
 cudaError_t launch(const Params& p, int bf16, cudaStream_t stream) {
-  // the dynamic shared memory cap is raised once per instantiation
-  static bool raised[2] = {false, false};
+  // the dynamic shared memory cap is raised once per instantiation and
+  // device
+  static bool raised_bf16[KERNEL_MAX_DEVICES] = {};
+  static bool raised_f32[KERNEL_MAX_DEVICES] = {};
   if (bf16) {
     // bf16 at hd >= 64 runs flash_hopper_kernel
     if constexpr (HD > 32) {
       return cudaErrorInvalidValue;
     } else {
       const int smem = bf16_smem<HD>();
-      if (!raised[1]) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            flash_bf16_kernel<HD>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return e;
-        raised[1] = true;
-      }
+      const cudaError_t e =
+          opt_in_smem(raised_bf16, flash_bf16_kernel<HD>, smem);
+      if (e != cudaSuccess) return e;
       const dim3 grid((p.Sq + M_BQ - 1) / M_BQ, p.H, p.B);
       flash_bf16_kernel<HD><<<grid, M_THREADS, smem, stream>>>(p);
     }
   } else {
     const int smem = f32_smem<HD>();
-    if (!raised[0]) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (e != cudaSuccess) return e;
-      raised[0] = true;
-    }
+    const cudaError_t e = opt_in_smem(raised_f32, flash_f32_kernel<HD>, smem);
+    if (e != cudaSuccess) return e;
     const dim3 grid((p.Sq + F_BQ - 1) / F_BQ, p.H, p.B);
     flash_f32_kernel<HD><<<grid, F_THREADS, smem, stream>>>(p);
   }
@@ -1193,14 +1186,10 @@ cudaError_t launch_hopper(const HParams& hp, int items,
   constexpr int smem = 1024 + 64 * NC * HD * 2 + 2 * ST * BK * HD * 2 +
                        8 * (1 + 4 * ST);
   static_assert(smem <= 232448, "shared memory");
-  static bool raised = false;
-  if (!raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_hopper_kernel<HD, BK, ST, NC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    raised = true;
-  }
+  static bool raised[KERNEL_MAX_DEVICES] = {};   // once per device
+  const cudaError_t e =
+      opt_in_smem(raised, flash_hopper_kernel<HD, BK, ST, NC>, smem);
+  if (e != cudaSuccess) return e;
   flash_hopper_kernel<HD, BK, ST, NC>
       <<<(unsigned)items, 128 * (NC + 1), smem, stream>>>(hp);
   return cudaGetLastError();

@@ -504,14 +504,11 @@ int launch_t(const RowT* rows, int Ie, long long d, float* W, const float* cw,
   while (stages > 2 && G::total_b(nc, stages) > SMEM_FIT) --stages;
   const size_t smem = G::total_b(nc, stages);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static bool sized = false;           // the opt-in, once per instantiation
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_step_kernel<RowT, TC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  // the opt-in, once per instantiation and device
+  static bool sized[KERNEL_MAX_DEVICES] = {};
+  const cudaError_t e =
+      opt_in_smem(sized, fused_step_kernel<RowT, TC>, (int)SMEM_MAX);
+  if (e != cudaSuccess) return (int)e;
   const int vec_rows = d % G::VEC == 0 &&
                        reinterpret_cast<uintptr_t>(rows) % 16 == 0;
   const int vec_w = d % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;

@@ -131,6 +131,7 @@ def _readable(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+@_build.on_operand_device
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int | None = None,
                          scale: float | None = None) -> torch.Tensor:

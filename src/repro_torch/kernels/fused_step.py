@@ -47,6 +47,7 @@ def _lib():
     return lib
 
 
+@_build.on_operand_device
 def fused_step_cuda(rows: torch.Tensor, W: torch.Tensor, cw: torch.Tensor,
                     key_scalar, k: int = DEFAULT_K):
     """The hand-written kernel on CUDA tensors: W (contiguous f32) is

@@ -88,6 +88,7 @@ def _rowdot(lib, X: torch.Tensor, Y: torch.Tensor, stream: int) -> torch.Tensor:
     return out
 
 
+@_build.on_operand_device
 def gram_factors_cuda(rows: torch.Tensor, W0: torch.Tensor | None, keys,
                       k: int = DEFAULT_K, with_gram: bool = True):
     """The hand-written kernels (``csrc/gram.cu``) on CUDA tensors:

@@ -52,6 +52,7 @@ def _lib():
     return lib
 
 
+@_build.on_operand_device
 def _relmax_cuda(x: torch.Tensor, form: str) -> torch.Tensor:
     """x (B, R, d) f32 on the card -> (B, R, R).  The host work per call
     is kept to the checks that raise: the vote's launch costs less."""

@@ -12,7 +12,9 @@ kernels of the model and trainer paths have one (``flash_attention``,
 a CUDA tensor is an explicit choice (the chip check compares the two
 with it) and is never made automatically; ``"cuda"`` on a CPU tensor
 raises.  A CUDA kernel that fails to build or launch raises — nothing
-falls back.
+falls back.  A kernel runs on the device of its operands, whichever
+device is current (``_build.on_operand_device``), so the trials split
+(``core.engineplan.shard``) needs no rule of its own for the kernels.
 
 Each kernel wrapper counts the calls in which it launched its kernel
 (``launch_counts``), so a run can show that it went through them; a

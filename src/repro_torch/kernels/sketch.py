@@ -62,6 +62,7 @@ def _contig(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous() if x.is_cuda else x
 
 
+@_build.on_operand_device
 def sketch_batched_cuda(flat_g: torch.Tensor, key_scalar,
                         k: int = DEFAULT_K) -> torch.Tensor:
     """The hand-written kernel on a CUDA tensor (B, d) f32; runs on
@@ -97,6 +98,7 @@ def _single_workspace(lib, device: torch.device, stream: int, k: int):
     return ws
 
 
+@_build.on_operand_device
 def sketch_cuda(flat_g: torch.Tensor, key_scalar,
                 k: int = DEFAULT_K) -> torch.Tensor:
     """The single form (d,) -> (k,) on a CUDA tensor: one launch of

@@ -15,6 +15,10 @@ operator:
     eager counterpart of XLA's "bytes accessed", without fusion;
   - live bytes: each storage the step creates is held by a weak
     reference from its creation to its release, and their peak;
+  - a layer checkpointed under ``cfg.remat`` as it runs: its forward
+    once in the forward pass and again, up to what the backward needs,
+    in the backward (``torch.utils.checkpoint``), and the activations
+    it drops in between;
   - the hand-written kernels as themselves: each reports its own FLOPs
     and bytes (``launch.roofline.kernel_cost``), on ``meta`` tensors
     through its shape-only form (``kernels.ops``), which makes none of

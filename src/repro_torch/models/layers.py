@@ -51,10 +51,12 @@ def l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """1 / theta^(2i / head_dim) in f32; theta enters as a number, so no
+    host tensor is made (the dry-run counts the same storages on every
+    device)."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(float(theta), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -8,12 +8,25 @@ Python list run in order.  A ``cross_attn`` layer (llama-3.2-vision)
 attends from the sequence to the context without rope and gates its
 output by tanh(gate_attn); every decoder layer of an encoder-decoder
 model (whisper) has a ``cross`` sub-block after its mixer, ungated.
+
+Under ``cfg.remat``, when autograd records, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+after the forward and the backward runs the layer's forward again, as
+far as the tensors the backward needs (PyTorch's early stop: a layer's
+last projection is not run again), so a stack keeps one layer's
+activations at a time beside the layer inputs.  The reference's unit is
+one repeat of a group's pattern, which is one layer for the
+decoder-only families the port trains; the recompute is the same
+computation on the same inputs, so the gradients are bitwise those
+without remat.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerKind, ModelConfig, layer_kinds
+from repro_torch.core import tree as _tree
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -119,6 +132,19 @@ def apply_ffn(kind: LayerKind, p, x: torch.Tensor, cfg: ModelConfig):
     return x + f, aux
 
 
+def remat_active(cfg: ModelConfig, layers, x: torch.Tensor,
+                 ctx: torch.Tensor | None = None) -> bool:
+    """Whether ``run_stack`` checkpoints its layers: ``cfg.remat`` and
+    autograd recording through the stack (grad enabled and the input,
+    the context or a layer's parameter requiring grad), so serving and
+    a forward under ``no_grad`` run as before."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return False
+    if x.requires_grad or (ctx is not None and ctx.requires_grad):
+        return True
+    return any(t.requires_grad for t in _tree.leaves(layers))
+
+
 def run_stack(layers, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, kinds: list[LayerKind] | None = None,
               ctx: torch.Tensor | None = None, causal: bool = True,
@@ -126,13 +152,20 @@ def run_stack(layers, x: torch.Tensor, cfg: ModelConfig, *,
     """All layers in order (``kinds``: theirs, the decoder's by default);
     returns (x, [(k, v) per attention layer], aux): aux () f32 the MoE
     layers' aux losses summed in layer order from 0, as the reference's
-    scan carries it."""
+    scan carries it.  Each layer is checkpointed when ``remat_active``."""
     kv_all = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat_active(cfg, layers, x, ctx)
     for kind, p in zip(layer_kinds(cfg) if kinds is None else kinds, layers):
-        x, kv, aux = apply_layer(kind, p, x, cfg, positions=positions,
-                                 ctx=ctx, causal=causal,
-                                 collect_kv=collect_kv, impl=impl)
+        kw = dict(positions=positions, ctx=ctx, causal=causal,
+                  collect_kv=collect_kv, impl=impl)
+        if remat:
+            # the forward draws no random numbers: no RNG state to keep
+            x, kv, aux = checkpoint(apply_layer, kind, p, x, cfg,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False, **kw)
+        else:
+            x, kv, aux = apply_layer(kind, p, x, cfg, **kw)
         if kv is not None:
             kv_all.append(kv)
         if aux is not None:

@@ -83,7 +83,10 @@ def opt_update(opt: OptConfig, grads, state, params, step):
     (params, state, {"grad_norm", "lr"}) with 0-d f32 tensors."""
     gnorm = global_norm(grads)
     dev = gnorm.device
-    lr = torch.tensor(lr_at(opt, step), dtype=torch.float32, device=dev)
+    # an operator on the device (not a host tensor lifted and copied), so
+    # the dry-run counts it on every device alike
+    lr = torch.full((), float(lr_at(opt, step)), dtype=torch.float32,
+                    device=dev)
     if opt.grad_clip:
         scale = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)

@@ -16,10 +16,14 @@ are, which ``spec_for`` resolves without a process group.
 
 The port's trainer runs its workers as ranks of the ``data`` axis with
 ``model`` = 1 (``train.ranks``): the parameters are replicated on every
-rank, which ``tp_only_rules`` states.  What of the reference waits:
-``trials_mesh``, ``trial_partition_spec`` and ``mesh_num_devices`` for
-M9 (the trials split over local cards, ROADMAP item 8); ``Annotated``,
-``tree_specs``, ``tree_shardings``, ``constrain`` and
+rank, which ``tp_only_rules`` states.
+
+The scenario engine splits its trials over the local cards of one
+process (``core.engineplan.shard``): ``trials_mesh`` gives a
+``TrialsMesh``, a 1-D ``("trials",)`` mesh that is only a list of
+devices, ``trial_partition_spec`` the placement of one operand on it
+and ``mesh_num_devices`` its size.  What of the reference waits:
+``Annotated``, ``tree_specs``, ``tree_shardings``, ``constrain`` and
 ``constrain_here`` for ROADMAP item 7b, which gives the port's
 parameter leaves their logical names and a ``model`` axis above 1.
 """
@@ -52,6 +56,72 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
 
     return init_device_mesh(device_type, tuple(axis_shapes),
                             mesh_dim_names=tuple(axis_names))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrialsMesh:
+    """The scenario engine's 1-D ``("trials",)`` mesh: the devices its
+    trial shards run on, in shard order.  A device may be listed more
+    than once (eight times ``cpu``, or ``cuda:0`` twice): each entry is
+    a shard of its own, so the split runs on a machine with fewer
+    devices than shards."""
+
+    devices: tuple
+    axis_names = ("trials",)
+
+    def __post_init__(self):
+        import torch
+
+        devs = tuple(torch.device(d) for d in self.devices)
+        if not devs:
+            raise ValueError("a trials mesh needs at least one device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"a trials mesh takes devices of one type, got "
+                             f"{[str(d) for d in devs]}")
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"trials": len(self.devices)}
+
+
+def trials_mesh(max_devices: int | None = None) -> TrialsMesh | None:
+    """1-D ``("trials",)`` mesh over the local CUDA devices (at most
+    ``max_devices``), the scenario engine's data-parallel axis (trials
+    are embarrassingly parallel).  Returns None with one device or
+    fewer (a single device is strictly cheaper unsplit).  Sets the gauge
+    ``sharding.local_devices`` to the devices it counted."""
+    import torch
+
+    from repro_torch.obs import metrics as obmetrics
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if max_devices is not None:
+        n = min(n, max(1, max_devices))
+    obmetrics.gauge("sharding.local_devices").set(n)
+    if n <= 1:
+        return None
+    return TrialsMesh(tuple(f"cuda:{i}" for i in range(n)))
+
+
+def mesh_num_devices(mesh) -> int:
+    """Device count of a trials mesh (its shards): the chunk-rounding
+    granularity the plan records as ``n_devices``."""
+    n = 1
+    for size in mesh.shape.values():
+        n *= int(size)
+    return n
+
+
+def trial_partition_spec(ndim: int, axis: int | None) -> tuple:
+    """Full-rank placement sharding ``axis`` over the ``"trials"`` mesh
+    axis (``None`` = fully replicated), a tuple like ``spec_for``'s.
+    Every per-trial operand of the scenario engine's step loop shards on
+    its trial axis, so the loop needs no collective."""
+    spec: list[Any] = [None] * ndim
+    if axis is not None:
+        spec[axis] = "trials"
+    return tuple(spec)
 
 
 def mesh_axis_sizes(mesh) -> dict[str, int]:

@@ -812,8 +812,9 @@ def test_trainer_on_card_matches_cpu(cuda):
         assert float((a.cpu() - b).abs().max()) <= \
             1e-4 * (1 + float(b.abs().max()))
     n_leaves = len(tree.leaves(init))
-    assert counts["flash_attention"] == cfg.num_layers * \
-        card.state.meter.computed
+    # under cfg.remat each layer's forward runs again in its backward
+    assert counts["flash_attention"] == (2 if cfg.remat else 1) * \
+        cfg.num_layers * card.state.meter.computed
     assert counts["pairwise_relmax_batched"] == \
         n_leaves * card.state.meter.identify_iterations
     assert counts["sketch"] > 0 and counts["sketch"] % n_leaves == 0
@@ -1094,7 +1095,9 @@ def test_moe_honest_replicas_are_bitwise_equal_on_card(cuda, monkeypatch):
     att = steps.AttackConfig("none")
     grads = [steps.per_worker_grad(params, tok, lab, False, (0, w), cfg,
                                    att)[1] for w in range(2)]
-    assert len(dropped) == 2 * cfg.num_layers and min(dropped) > 0
+    # under cfg.remat each layer routes again in its backward
+    assert len(dropped) == 2 * cfg.num_layers * (2 if cfg.remat else 1)
+    assert min(dropped) > 0
     for a, b in zip(tree.leaves(grads[0]), tree.leaves(grads[1])):
         assert torch.equal(a, b) and bool(torch.isfinite(a).all())
     s = [detection.sketch_tree(g, 12345) for g in grads]
@@ -1136,7 +1139,8 @@ def test_dryrun_matches_train_step_on_card(cuda):
                 "out_bytes", "kernels"):
         assert got[key] == pred[key], key
     assert ops.launch_counts()["flash_attention"] == \
-        pred["kernels"]["flash_attention"]["calls"] == 2
+        pred["kernels"]["flash_attention"]["calls"] == \
+        (2 if cfg.remat else 1) * cfg.num_layers
     assert abs(mem["peak_bytes"] / pred["peak_bytes"] - 1) <= 0.10
 
 
@@ -1232,3 +1236,108 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     for r in results:
         assert ctl(r["main"]["history"]) == ctl(one.history)
         assert r["agree"] and r["staged"] and r["counts"]["staged_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the trials split and launches on a card that is not current
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(fused=False),
+                                dict(data_plane="gram"),
+                                dict(schedule="device", telemetry=True)],
+                         ids=["fused", "unfused", "gram", "device"])
+def test_split_over_the_card_twice_is_bitwise_one_device(cuda, kw):
+    """A mesh that lists the card twice (every card in turn with more):
+    each shard's pass holds as many trials as the one-device run's, so
+    control, W, losses and counters are the same bits."""
+    from repro_torch.sharding import TrialsMesh
+
+    n = torch.cuda.device_count()
+    specs = [repro_torch.TrialSpec(byz=(2, 5), attack="drift",
+                                   q=None if kw.get("schedule") else 0.3,
+                                   steps=20, seed=s, n_data=64, d=4096)
+             for s in range(16)]
+    one = repro_torch.run_batch(specs, mesh=None, chunk_trials=4, **kw)
+    mesh = TrialsMesh(tuple(f"cuda:{i % n}" for i in range(max(2, n))))
+    split = repro_torch.run_batch(specs, mesh=mesh,
+                                  chunk_trials=4 * max(2, n), **kw)
+    assert split.plan.n_devices == max(2, n)
+    for a, b in zip(one.results, split.results):
+        assert np.array_equal(a.w, b.w) and a.losses == b.losses
+        assert (a.identify_step, a.q_trace, a.efficiency) == \
+            (b.identify_step, b.q_trace, b.efficiency)
+    assert np.array_equal(one.detect_flags, split.detect_flags)
+    if kw.get("telemetry"):
+        for k, v in one.telemetry.counters.items():
+            assert np.array_equal(v, split.telemetry.counters[k])
+
+
+def test_auto_mesh_uses_every_card(cuda):
+    from repro_torch.sharding import trials_mesh
+
+    spec = repro_torch.TrialSpec(byz=(2,), attack="drift", steps=5, q=0.5,
+                                 d=64, n_data=64)
+    res = repro_torch.run_batch([spec] * 4)
+    n = torch.cuda.device_count()
+    assert res.plan.n_devices == (n if n > 1 else 1)
+    assert (trials_mesh() is None) == (n == 1)
+
+
+def _other_card_cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    keys = _keys(4)
+    x = r(5, 6, 3001)
+    x[:, 1] = x[:, 0]
+    qkv = (r(2, 200, 4, 64).bfloat16(), r(2, 200, 2, 64).bfloat16(),
+           r(2, 200, 2, 64).bfloat16())
+    return {
+        "gram_factors": (lambda impl, R, W: ops.gram_factors(
+            R, W, keys, impl=impl), (r(10, 9001), r(3, 9001))),
+        "fused_step": (lambda impl, R, W, cw: ops.fused_step(
+            R, W.clone(), cw, 5, impl=impl),
+            (r(10, 9001), r(3, 9001), r(3, 10))),
+        "pairwise_relmax_batched": (lambda impl, a: ops.
+                                    batched_pairwise_relmax(a, impl=impl),
+                                    (x,)),
+        "sketch_batched": (lambda impl, a: ops.batched_sketch(
+            a, 9, impl=impl), (r(10, 9001),)),
+        "sketch": (lambda impl, a: ops.sketch(a, 9, impl=impl),
+                   (r(70001),)),
+        "coded_encode_batched": (lambda impl, c, g: ops.batched_coded_encode(
+            c, g, impl=impl), (r(3, 2, 6), r(3, 6, 3001))),
+        "flash_attention": (lambda impl, q, k, v: ops.flash_attention(
+            q, k, v, impl=impl), qkv),
+    }
+
+
+@pytest.mark.parametrize("name", ["gram_factors", "fused_step",
+                                  "pairwise_relmax_batched",
+                                  "sketch_batched", "sketch",
+                                  "coded_encode_batched", "flash_attention"])
+def test_kernel_on_a_card_that_is_not_current(cuda, name):
+    """The kernel on cuda:1 while cuda:0 is current: its outputs on
+    cuda:1, bitwise the kernel on cuda:0's copy of the inputs, close to
+    the plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    call, args = _other_card_cases(dev)[name]
+
+    def outs(x):
+        return [t for t in (x if isinstance(x, tuple) else (x,))
+                if t is not None]
+
+    with torch.cuda.device(0):
+        got = outs(call("cuda", *args))
+        torch.cuda.synchronize(dev)
+        want = outs(call("torch", *args))
+        on0 = outs(call("cuda", *(a.to("cuda:0") for a in args)))
+    for a, b, c in zip(got, want, on0):
+        assert a.device == dev
+        assert torch.equal(a.cpu(), c.cpu())
+        tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-3
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)

@@ -283,6 +283,119 @@ def check_scenario(name, ref, tmp_path) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# the port with its workers as ranks (launch.train.spawn: W gloo ranks on
+# the CPU, one thread each, n/W workers a rank), held against the same
+# reference runs: every control quantity exactly, losses within 1e-4
+# relative, final parameters within 1e-4 * (1 + max|p|) per leaf, every
+# rank's parameters bitwise rank 0's (``Ranks.agree``, and the leaves)
+# ---------------------------------------------------------------------------
+
+def ranked_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                               dtype="float32")
+
+
+def job_of(name: str, tmp_path, params=None, **kw):
+    """A ``launch.train.Job`` of scenario ``name`` on gloo CPU ranks,
+    built as ``drive`` builds its trainers."""
+    from repro_torch.core.randomized import BFTConfig
+    from repro_torch.launch.train import Job
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import AttackConfig, StepConfig, TrainerConfig
+
+    spec = SCENARIOS[name]
+    mask = np.zeros(N, bool)
+    mask[spec["byz"]] = True
+    tc = TrainerConfig(
+        seq_len=SEQ, global_batch=BATCH, log_every=0,
+        checkpoint_dir=str(tmp_path / "ckpt")
+        if spec.get("checkpoint_every") else None,
+        checkpoint_every=spec.get("checkpoint_every", 0),
+        filter_name=spec.get("filter_name", "median"))
+    return Job(
+        ranked_cfg(), OptConfig(**OPTS[spec["opt"]]),
+        BFTConfig(n=N, f=F, mode=spec["mode"], q=spec.get("q"),
+                  p_assumed=0.6, seed=spec["seed"]),
+        tc, AttackConfig(spec["attack"], 0.6, 5.0),
+        StepConfig(detection=spec.get("detection", "sketch")), mask,
+        actions=tuple(tuple(a) for a in spec["actions"]), device="cpu",
+        backend="gloo", params=params, out=str(tmp_path), keep_params=True,
+        threads=1, timeout_s=120, **kw)
+
+
+def init_from(arrays, tmp_path) -> str:
+    """The reference's initial parameters as the port's tree, saved."""
+    import torch
+
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    template = M.abstract_params(ranked_cfg())
+    init = tree.unflatten(template, [
+        torch.from_numpy(np.array(arrays[f"init/{p}"]))
+        for p, _ in tree.leaves_with_paths(template)])
+    path = tmp_path / "init.pt"
+    torch.save(init, path)
+    return str(path)
+
+
+def ranks_bitwise(results, which="main") -> None:
+    """Every rank agrees (checksums) and holds rank 0's leaves bitwise,
+    and every rank's control and losses are rank 0's."""
+    import torch
+
+    r0 = results[0]
+    for r in results:
+        assert r["agree"] and r["backend"] == "gloo" and not r["staged"]
+        assert r[which] == r0[which]
+        assert all(torch.equal(a, b) for a, b in
+                   zip(r["params"][which], r0["params"][which]))
+
+
+def params_close(leaves, arrays, prefix: str) -> None:
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    paths = [p for p, _ in tree.leaves_with_paths(
+        M.abstract_params(ranked_cfg()))]
+    for path, leaf in zip(paths, leaves):
+        want = arrays[f"{prefix}/{path}"]
+        err = float(np.abs(leaf.numpy() - want).max())
+        mag = float(np.abs(want).max())
+        assert err <= 1e-4 * (1.0 + mag), (path, err, mag)
+
+
+def run_ranked(name, ref, tmp_path, world: int) -> tuple:
+    """Scenario ``name`` as ``world`` ranks from the reference's initial
+    parameters, held against the reference run ``ref[name]``."""
+    from repro_torch.launch.train import spawn
+
+    summ, arrays = ref[name]
+    results = spawn(job_of(name, tmp_path, init_from(arrays, tmp_path)),
+                    world)
+    ranks_bitwise(results)
+    r0 = results[0]
+    assert_same_control(r0["main"], summ["main"])
+    assert r0["resumed"] == summ["resumed"]
+    params_close(r0["params"]["main"], arrays, "final")
+    return results, summ, arrays
+
+
+@pytest.fixture(scope="module", autouse=True)
+def rank_server():
+    """Stops the ranks' fork server (``launch.train.spawn``) when the
+    module's tests are done."""
+    yield
+    import sys as _sys
+
+    launch = _sys.modules.get("repro_torch.launch.train")
+    if launch is not None:
+        launch.stop_rank_server()
+
+
+# ---------------------------------------------------------------------------
 # tests of this file's scenarios
 # ---------------------------------------------------------------------------
 
@@ -316,6 +429,16 @@ def test_draco_votes_every_step(ref, tmp_path):
     tr, _, summ, arrays = check_scenario("draco", ref, tmp_path)
     assert_params_close(tr, arrays)
     assert summ["main"]["identified"][3]
+
+
+def test_randomized_four_ranks(ref, tmp_path):
+    """Check (sketches gathered) and identify (each leaf gathered, the
+    vote on every rank) steps, two workers a rank."""
+    results, summ, _ = run_ranked("randomized", ref, tmp_path, 4)
+    ident = sorted(w for r in summ["main"]["history"]
+                   for w in r.get("identified", []))
+    assert ident and set(ident) <= {2, 5}
+    assert all(r["counts"]["all_gather"] > 0 for r in results)
 
 
 if __name__ == "__main__":

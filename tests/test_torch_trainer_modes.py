@@ -1,12 +1,14 @@
 """The port's ``Trainer`` against the JAX package's, on the CPU: the
-filter, full-detection, none and adaptive-q scenarios.  The scenarios,
+filter, full-detection, none and adaptive-q scenarios, and the filter
+and full-detection ones with the workers as ranks.  The scenarios,
 the reference subprocess and the tolerances are those of
 ``tests/test_torch_trainer.py``, which holds them."""
 import numpy as np
 import pytest
 
 from test_torch_trainer import (assert_params_close, check_scenario, port,
-                                reference)
+                                rank_server,  # noqa: F401
+                                reference, run_ranked)
 
 NAMES = ["filter", "full", "none", "adaptive"]
 
@@ -63,3 +65,14 @@ def test_adaptive_q_trace(ref, tmp_path):
           f"{margin:.3e}")
     assert margin > np.abs(q_got - q_want).max()
     assert_params_close(tr, arrays)
+
+
+def test_filter_median_two_ranks(ref, tmp_path):
+    _, summ, _ = run_ranked("filter", ref, tmp_path, 2)
+    assert all(r["efficiency"] == 1.0 for r in summ["main"]["history"])
+
+
+def test_full_detection_four_ranks(ref, tmp_path):
+    """Each leaf's (n, d) gradients gathered, detection on every rank."""
+    _, summ, _ = run_ranked("full", ref, tmp_path, 4)
+    assert any("identified" in r for r in summ["main"]["history"])

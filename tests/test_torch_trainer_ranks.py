@@ -1,156 +1,28 @@
 """The port's ``Trainer`` with its workers as ranks
 (``launch.train.spawn``: W gloo ranks on the CPU, one thread each, n/W
-workers a rank) against the JAX package's ``Trainer`` with 8 host
-devices, one worker a device, on the CPU.
-
-The reference runs the scenarios of ``tests/test_torch_trainer.py``
-(``SCENARIOS``, its model, tolerances and helpers), one subprocess a
-scenario, all started when this file's first test starts, so that the
-tests which need no reference run while they compile.  Held, for
-``randomized`` and ``full`` at W = 4 (two workers a rank; check and
-identify steps), ``filter`` and ``restart`` (rank 0 writes the
-checkpoints, every rank restores) at W = 2: every control quantity
-exactly, losses within 1e-4 relative, final parameters within
-1e-4 * (1 + max|p|) per leaf, every rank's parameters bitwise rank 0's
-(``Ranks.agree``, and the leaves themselves).  Also: one gloo rank is
+workers a rank), the cases that need no reference run: one gloo rank is
 bitwise the one-process ``Trainer``; a rank count that does not divide
 n raises; a rank that raises ends the spawn with an error at once; the
 torch example at W = 2.
+
+The ranked runs against the JAX package's ``Trainer`` (``randomized``
+and ``full`` at W = 4, ``filter`` and ``restart`` at W = 2) are in the
+files whose module fixture already runs that reference scenario:
+``tests/test_torch_trainer.py`` (which holds the helpers,
+``run_ranked``), ``_modes.py`` and ``_restart.py``.
 """
-import dataclasses
 import importlib.util
-import json
-import os
-import subprocess
-import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
-from test_torch_trainer import (BATCH, F, N, OPTS, SCENARIOS, SEQ,
-                                assert_same_control)
+from test_torch_trainer import SCENARIOS, job_of
+from test_torch_trainer import rank_server  # noqa: F401 (its teardown)
+from test_torch_trainer import ranked_cfg as _cfg
 
 ROOT = Path(__file__).resolve().parents[1]
-# scenario -> ranks W
-RANKED = {"filter": 2, "restart": 2, "full": 4, "randomized": 4}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def refs(tmp_path_factory):
-    """The reference's scenarios, one subprocess each, started now;
-    ``refs(name)`` waits for one and returns (summary, arrays)."""
-    out = tmp_path_factory.mktemp("ref")
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-    procs = {name: subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "test_torch_trainer.py"),
-         str(out), name], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env=env) for name in RANKED}
-
-    def get(name):
-        stdout, stderr = procs[name].communicate(timeout=900)
-        assert procs[name].returncode == 0 and "REFERENCE_DONE" in stdout, \
-            stderr[-4000:]
-        with open(out / f"{name}.json") as fh:
-            summ = json.load(fh)
-        return summ, dict(np.load(out / f"{name}.npz"))
-
-    yield get
-    for p in procs.values():
-        if p.poll() is None:
-            p.kill()
-            p.communicate()
-    from repro_torch.launch.train import stop_rank_server
-
-    stop_rank_server()
-
-
-def _cfg():
-    from repro_torch.configs import get_config
-
-    return dataclasses.replace(get_config("llama3.2-1b").reduced(),
-                               dtype="float32")
-
-
-def job_of(name: str, tmp_path, params=None, **kw):
-    """A ``launch.train.Job`` of scenario ``name`` on gloo CPU ranks,
-    built as ``test_torch_trainer.drive`` builds its trainers."""
-    from repro_torch.core.randomized import BFTConfig
-    from repro_torch.launch.train import Job
-    from repro_torch.optim import OptConfig
-    from repro_torch.train import AttackConfig, StepConfig, TrainerConfig
-
-    spec = SCENARIOS[name]
-    mask = np.zeros(N, bool)
-    mask[spec["byz"]] = True
-    tc = TrainerConfig(
-        seq_len=SEQ, global_batch=BATCH, log_every=0,
-        checkpoint_dir=str(tmp_path / "ckpt")
-        if spec.get("checkpoint_every") else None,
-        checkpoint_every=spec.get("checkpoint_every", 0),
-        filter_name=spec.get("filter_name", "median"))
-    return Job(
-        _cfg(), OptConfig(**OPTS[spec["opt"]]),
-        BFTConfig(n=N, f=F, mode=spec["mode"], q=spec.get("q"),
-                  p_assumed=0.6, seed=spec["seed"]),
-        tc, AttackConfig(spec["attack"], 0.6, 5.0),
-        StepConfig(detection=spec.get("detection", "sketch")), mask,
-        actions=tuple(tuple(a) for a in spec["actions"]), device="cpu",
-        backend="gloo", params=params, out=str(tmp_path), keep_params=True,
-        threads=1, timeout_s=120, **kw)
-
-
-def init_from(arrays, tmp_path) -> str:
-    """The reference's initial parameters as the port's tree, saved."""
-    from repro_torch.core import tree
-    from repro_torch.models import model as M
-
-    template = M.abstract_params(_cfg())
-    init = tree.unflatten(template, [
-        torch.from_numpy(np.array(arrays[f"init/{p}"]))
-        for p, _ in tree.leaves_with_paths(template)])
-    path = tmp_path / "init.pt"
-    torch.save(init, path)
-    return str(path)
-
-
-def ranks_bitwise(results, which="main") -> None:
-    """Every rank agrees (checksums) and holds rank 0's leaves bitwise,
-    and every rank's control and losses are rank 0's."""
-    r0 = results[0]
-    for r in results:
-        assert r["agree"] and r["backend"] == "gloo" and not r["staged"]
-        assert r[which] == r0[which]
-        assert all(torch.equal(a, b) for a, b in
-                   zip(r["params"][which], r0["params"][which]))
-
-
-def params_close(leaves, arrays, prefix: str) -> None:
-    from repro_torch.core import tree
-    from repro_torch.models import model as M
-
-    paths = [p for p, _ in tree.leaves_with_paths(M.abstract_params(_cfg()))]
-    for path, leaf in zip(paths, leaves):
-        want = arrays[f"{prefix}/{path}"]
-        err = float(np.abs(leaf.numpy() - want).max())
-        mag = float(np.abs(want).max())
-        assert err <= 1e-4 * (1.0 + mag), (path, err, mag)
-
-
-def run_ranked(name, refs, tmp_path) -> tuple:
-    from repro_torch.launch.train import spawn
-
-    summ, arrays = refs(name)
-    results = spawn(job_of(name, tmp_path, init_from(arrays, tmp_path)),
-                    RANKED[name])
-    ranks_bitwise(results)
-    r0 = results[0]
-    assert_same_control(r0["main"], summ["main"])
-    assert r0["resumed"] == summ["resumed"]
-    params_close(r0["params"]["main"], arrays, "final")
-    return results, summ, arrays
 
 
 # ---------------------------------------------------------------------------
@@ -253,44 +125,3 @@ def test_torch_example_two_ranks(capsys):
     assert "8 workers as 2 gloo ranks of 4 on cpu" in out
     assert "ranks agree bitwise   : True" in out
     print(f"example at W = 2: {seconds:.1f} s")
-
-
-# ---------------------------------------------------------------------------
-# against the reference
-# ---------------------------------------------------------------------------
-
-def test_filter_median_two_ranks(refs, tmp_path):
-    _, summ, _ = run_ranked("filter", refs, tmp_path)
-    assert all(r["efficiency"] == 1.0 for r in summ["main"]["history"])
-
-
-def test_restart_two_ranks(refs, tmp_path):
-    """Rank 0 writes the checkpoints (every 3 steps), every rank waits
-    at a barrier; a second trainer on every rank restores step 6."""
-    results, summ, arrays = run_ranked("restart", refs, tmp_path)
-    ranks_bitwise(results, "restarted")
-    r0 = results[0]
-    assert r0["resumed"] == summ["resumed"] == 6
-    assert sorted(os.listdir(tmp_path / "ckpt")) == [
-        "step_00000003", "step_00000006"]
-    assert_same_control(r0["restarted"], summ["restarted"])
-    params_close(r0["params"]["restarted"], arrays, "restarted")
-    # the resumed run replays the first run's last steps bitwise
-    assert all(torch.equal(a, b) for a, b in
-               zip(r0["params"]["main"], r0["params"]["restarted"]))
-
-
-def test_full_detection_four_ranks(refs, tmp_path):
-    """Each leaf's (n, d) gradients gathered, detection on every rank."""
-    _, summ, _ = run_ranked("full", refs, tmp_path)
-    assert any("identified" in r for r in summ["main"]["history"])
-
-
-def test_randomized_four_ranks(refs, tmp_path):
-    """Check (sketches gathered) and identify (each leaf gathered, the
-    vote on every rank) steps, two workers a rank."""
-    results, summ, _ = run_ranked("randomized", refs, tmp_path)
-    ident = sorted(w for r in summ["main"]["history"]
-                   for w in r.get("identified", []))
-    assert ident and set(ident) <= {2, 5}
-    assert all(r["counts"]["all_gather"] > 0 for r in results)
