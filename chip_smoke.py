@@ -132,6 +132,20 @@ Phases, in order; any failed check exits nonzero:
      bitwise rank 0's (``Ranks.agree``; one planted ulp caught); (c)
      one NCCL rank a card where more than one is visible, the same
      checks at full depth and an all-reduce's bus bandwidth;
+   - the training cell's workers split over a model axis
+     (``phase_train_tp``, tensor and expert parallel): K4s's shard form
+     at every split leaf's shard and ragged blocks against its plain
+     version, reruns bitwise, timed beside ``index_add_``; K6 at a
+     rank's heads beside SDPA; (a) two gloo ranks sharing the card at
+     model 2, 2 layers, against the one-process run (control equal,
+     losses within 1e-4, each leaf's update within 0.1 of the update,
+     every rank's gathered parameters bitwise rank 0's, launches by
+     model rank as the protocol's, a fast step counted on the card equal
+     to the ``--mesh tp`` dry-run's FLOPs and bytes); (b) where more
+     than one card is visible, one NCCL rank a card (llama3.2-1b at full
+     depth, model 2 x W 2 and model 4; phi3.5-moe at one layer, model 4,
+     routed as the one-process run, ``RoutingTape``), the same checks
+     and a model all-reduce's bus bandwidth;
    - the launch tools (``phase_dryrun``, ``DRYRUN``): llama3.2-1b's
      plain train (16 x 256, AdamW), prefill (4 x 4096) and decode (one
      token against a 4 x 4128 cache) steps at full width, each traced
@@ -2285,22 +2299,34 @@ class RoutingTape:
 
         return self._patched(fn)
 
-    def replay(self):
+    def replay(self, then_own: bool = False):
+        """``then_own``: once the recorded calls are spent, the run routes
+        as its own routing says (a run that goes on past the recorded
+        one)."""
         import torch
 
         calls = iter(self.calls)
 
         def fn(real, *a):
-            probs, idx, _, _, _, C = real(*a)
+            out = real(*a)
+            probs, idx, _, _, _, C = out
             key = a[0]["router"].data_ptr()
             if self._recompute():
                 self.recomputes += 1
+                if self._last[key] is None:
+                    return out
                 r_idx, r_slot, r_keep = self._last[key]
             else:
-                r_idx, r_slot, r_keep = next(calls, (None,) * 3)
+                entry = next(calls, None)
+                if entry is None and then_own:
+                    self._last[key] = None
+                    return out
+                r_idx, r_slot, r_keep = entry or (None,) * 3
                 check(r_idx is not None and r_idx.shape == idx.shape,
                       "a routing replay does not match the recorded run's "
                       "calls")
+                r_idx, r_slot, r_keep = (t.to(idx.device) for t in
+                                         (r_idx, r_slot, r_keep))
                 self._last[key] = (r_idx, r_slot, r_keep)
                 self.flips += int((idx != r_idx).sum())
                 self.choices += idx.numel()
@@ -3065,11 +3091,11 @@ TRAIN = dict(arch="llama3.2-1b", n=8, f=2, seq_len=256, global_batch=16,
 # tied, bf16) in TRAIN's protocol and batch: each layer's four or five
 # (rows, 1, 48, 256, 256) f32 intra-chunk tensors (about 1.3 GB a layer
 # at 16 rows) live only while that layer runs, as every layer is
-# checkpointed (cfg.remat).  Its depth is cut from 48 layers to 24 to
+# checkpointed (cfg.remat).  Its depth is cut from 48 layers to 16 to
 # keep the script inside its time limit (its host-bound steps run about
 # 170,000 kernels at 48); ``scripts/chip_phases.py mamba_full`` runs all
 # 48
-MAMBA_TRAIN = dict(TRAIN, arch="mamba2-780m", layers=24)
+MAMBA_TRAIN = dict(TRAIN, arch="mamba2-780m", layers=16)
 # the MoE training cell: phi3.5-moe-42b-a6.6b at full width (MOE_SERVE's
 # widths), its depth cut from 32 layers to 1 (1.56 B parameters with the
 # embeddings, 1.26x llama3.2-1b's 1.24 B), in TRAIN's protocol and batch;
@@ -4018,6 +4044,409 @@ def phase_train_ranks(torch, spec, training: dict):
     return launches, out
 
 
+# the training cell split over the model axis (phase_train_tp): each BFT
+# worker is ``model`` ranks holding its shards of every leaf (tensor and
+# expert parallel, ``models.parallel``).  (a) two gloo ranks share the
+# card at model = 2, W = 1, TRAIN at full width cut to RANKS_CUT layers;
+# (b) where more cards are visible, one NCCL rank a card: llama3.2-1b at
+# full depth with model 2 x W 2 and model 4 x W 1, phi3.5-moe at one
+# layer with model 4 (4 of its 16 experts a card).  Each against the
+# one-process run of the same model: control equal, losses within
+# TP_LOSS_REL (the row-parallel sums and the vocab-parallel CE add in
+# another order, so a split run is not bitwise the one-process run, and
+# its bf16 activations round apart), each leaf's update within
+# RANKS_UPDATE_REL (``train_run_diffs``); every rank's gathered
+# parameters bitwise rank 0's; launches per rank as the protocol gives
+# them (K6 on the rank's heads for every worker, K4s's shard form once a
+# split leaf and check member, the single form for the replicated leaves
+# on model rank 0, K3 once a leaf and vote); and a fast step counted on
+# the card equal to the dry-run's meta trace of that rank (FLOPs and
+# bytes).  (a) runs two steps (a faulty check and its vote, then a fast
+# step); (b) three, and a check with a Byzantine member that must leave
+# every rank's state unchanged.
+TP_LOSS_REL = 1e-4
+TP_SPLIT = 2
+# (b)'s runs: (label, the cell, data ranks W, model)
+TP_CARDS = (("llama model 2 x W 2", "TRAIN", 2, 2),
+            ("llama model 4 x W 1", "TRAIN", 1, 4),
+            ("phi3.5-moe model 4 x W 1", "MOE_TRAIN", 1, 4))
+
+
+def tp_placements(cfg, W: int, model: int, m: int):
+    from repro_torch.core import tree
+    from repro_torch.models import convert
+    from repro_torch.sharding import MeshShape
+
+    return tree.leaves(convert.placements(
+        cfg, MeshShape(("data", "model"), (W, model)),
+        {"data": 0, "model": m}))
+
+
+def tp_want(one, cfg, W: int, model: int, m: int) -> dict:
+    """The launches of model rank m's W data ranks together in the run:
+    K6 as the one-process run's (every worker's forward on the rank's
+    heads), K4s's shard form once a split leaf and check member, the
+    single form once a replicated leaf and member on model rank 0, K3
+    once a leaf and vote on each data rank (each votes every leaf's
+    shard)."""
+    pls = tp_placements(cfg, W, model, m)
+    split = sum(pl.sharded for pl in pls)
+    members = one["want"]["sketch"] // len(pls)
+    return {"flash_attention": one["want"]["flash_attention"],
+            "sketch_shard": members * split,
+            "sketch": members * (len(pls) - split) if m == 0 else 0,
+            "pairwise_relmax_batched":
+                W * one["want"]["pairwise_relmax_batched"]}
+
+
+def tp_dryrun(torch, job, W: int, model: int, counted: dict) -> dict:
+    """The dry-run's meta trace of rank 0's fast step at W x ``model``
+    (``launch.dryrun.run_bft_cells(mesh="tp")``, the run's active
+    workers) against the step counted on the card: FLOPs, bytes (the
+    copies that stage gloo's operands through the host are no part of
+    either count) and collectives equal."""
+    from repro_torch.launch import dryrun as D
+
+    tc = job.tc
+    meta = D.run_bft_cells(
+        job.cfg.name, job.bft.n, job.bft.f, global_batch=tc.global_batch,
+        seq_len=tc.seq_len, opt=job.opt, mesh="tp", model=model,
+        cfg=job.cfg, data_ranks=W, active=counted["active"],
+        modes=("fast",))["fast"]
+    same = (meta["flops"] == counted["flops"] and
+            meta["bytes"] == counted["bytes"] and
+            meta["collective_result_bytes"] ==
+            counted["collective_result_bytes"] and
+            meta["collective_by_axis"] == counted["collective_by_axis"])
+    print(f"tp dry-run (meta, rank 0 of {W} x {model}) vs the card's fast "
+          f"step: flops {meta['flops']:.6e} / {counted['flops']:.6e}, bytes "
+          f"{meta['bytes']:.6e} / {counted['bytes']:.6e} (the card's host "
+          f"staging, {counted['staged_bytes']} bytes, left out), "
+          f"collectives by axis {meta['collective_by_axis']} / "
+          f"{counted['collective_by_axis']}; peak {meta['peak_bytes']} / "
+          f"{counted['peak_bytes']} bytes: equal {same}")
+    check(same, f"tp dry-run differs from the card's step at {W} x {model}")
+    return dict(meta=meta, card={k: v for k, v in counted.items()
+                                 if k != "active"}, equal=same)
+
+
+def tp_vs_one(torch, results, one, init, job, W: int, model: int,
+              label: str) -> dict:
+    """A split run's ranks against the one-process run of the same job
+    (see the note above TP_LOSS_REL)."""
+    import numpy as np
+
+    def ctl(h):
+        return [{k: v for k, v in r.items() if k != "loss"} for r in h]
+
+    r0 = results[0]
+    hist = r0["main"]["history"]
+    same_ctl = all(ctl(r["main"]["history"]) == ctl(one["history"])
+                   for r in results)
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(hist, one["history"]))
+    byz = sorted(int(w) for w in np.flatnonzero(job.true_byzantine))
+    caught = sorted(w for r in hist for w in r.get("identified", []))
+    n_p = one["n_params"]
+    d = train_run_diffs(torch, init, r0["params"]["main"], hist,
+                        one["final"][:n_p], one["history"])
+    agree = all(r["agree"] for r in results) and all(
+        all(torch.equal(a, b) for a, b in zip(r["params"]["main"],
+                                               r0["params"]["main"]))
+        for r in results)
+    want = [tp_want(one, job.cfg, W, model, m) for m in range(model)]
+    got = [{k: sum(r["launches"][k] for r in results if r["model_rank"] == m)
+            for k in want[m]} for m in range(model)]
+    probes = [{k: v for k, v in p.items() if k != "launches"}
+              for r in results for p in r["check_fault"]]
+    planted = [r["plant"] for r in results if "plant" in r]
+    print(f"{label}: decisions equal {same_ctl} ({ctl(hist)}); Byzantine "
+          f"{byz} identified {caught}; losses rel diff {loss_rel:.3e} "
+          f"(limit {TP_LOSS_REL}); {train_diff_text(d)}; every rank's "
+          f"gathered params bitwise rank 0's: {agree}; launches by model "
+          f"rank over its data ranks {got} (want {want}); a check with a Byzantine member: {probes}; "
+          f"planted ulp {planted}; step walls by rank "
+          f"{[[round(w, 3) for w in r['walls']] for r in results]} s (one "
+          f"process {[round(w, 3) for w in one['walls']]} s); peak memory by "
+          f"rank {[r['peak_bytes'] for r in results]} bytes; data "
+          f"collectives {[r['counts'] for r in results]}; model collectives "
+          f"{[r['model_counts'] for r in results]}; seconds by action "
+          f"{[[(a, round(t, 1)) for a, t in r['action_s']] for r in results]}")
+    check(same_ctl and caught == byz and agree,
+          f"{label}: the split run's decisions or ranks differ")
+    check(loss_rel <= TP_LOSS_REL and d["update_rel_max"] <= RANKS_UPDATE_REL
+          and d["still_equal"],
+          f"{label}: the split run drifts from the one-process run")
+    check(got == want, f"{label}: launches differ from the protocol's")
+    check(all(p["any_fault"] and p["unchanged"] for p in probes),
+          f"{label}: a faulty check changed a rank's state")
+    check(all(p["caught"] and p["restored"] for p in planted),
+          f"{label}: a planted ulp was not caught")
+    return dict(control_equal=same_ctl, identified=caught,
+                loss_rel=loss_rel, diffs=d, ranks_agree=agree,
+                launches=got, want=want, check_fault=probes,
+                planted=planted, walls=[r["walls"] for r in results],
+                one_process_walls=one["walls"],
+                peak_bytes=[r["peak_bytes"] for r in results],
+                data_counts=[r["counts"] for r in results],
+                model_counts=[r["model_counts"] for r in results],
+                model_all_reduce_bw=r0.get("model_all_reduce_bw"))
+
+
+def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
+           label: str, base: dict | None = None) -> tuple:
+    """One split run against the one-process run of the same job (taken
+    from ``base`` when it holds this cell's, and kept there): (report,
+    the ranks' launches summed)."""
+    import gc
+
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    base = {} if base is None else base
+    cfg, opt, tc, attack, _ = train_cfg_objects(spec)
+    tape = RoutingTape() if cfg.moe else None
+    if backend == "gloo":           # (a): every model sum staged via host
+        actions = (("run", 2), ("count_fast", None),
+                   ("model_all_reduce_bw", 1 << 26))
+    else:
+        actions = (("run", spec["steps"]), ("check_fault", 3),
+                   ("count_fast", None), ("model_all_reduce_bw", 1 << 30))
+    job = ranks_job(torch, cfg, opt, tc, attack, spec, seed, mask,
+                    device="cuda", backend=backend, keep_params=True,
+                    plant=W > 1, model=model, actions=actions)
+    if base.get("cell") != cfg.name:
+        base.clear()
+        with tape.record() if tape else contextlib.nullcontext():
+            one = one_process_run(torch, job, keep_steps=True)
+        base.update(cell=cfg.name, one=one, tape=tape and [
+            tuple(t.cpu() for t in e) for e in tape.calls],
+                    init=[x.detach().cpu() for x in tree.leaves(
+                        M.init_train(cfg, tc.seed, "cuda"))])
+    one, init = base["one"], base["init"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if base["tape"] is None:
+        results = spawn_ranks(torch, job, W * model)
+    else:
+        check(W == 1, "the routing replay follows one rank's worker order")
+        results = spawn_replayed(torch, job, W * model, base["tape"])
+        flips = [(r["flips"], r["choices"]) for r in results]
+        print(f"{label}: the ranks route as the one-process run "
+              f"(RoutingTape); their own routing would have flipped "
+              f"(flips, choices) {flips}")
+    spawn_s = time.perf_counter() - t0
+    out = tp_vs_one(torch, results, one, init, job, W, model, label)
+    out["spawn_s"] = spawn_s
+    out["dryrun"] = tp_dryrun(torch, job, W, model, results[0]["count_fast"])
+    bw = results[0]["model_all_reduce_bw"]
+    print(f"{label}: a model all-reduce of {bw['bytes']} bytes f32 over "
+          f"{model} ranks ({backend}): {bw['seconds'] * 1e3:.3f} ms, bus "
+          f"bandwidth {bw['busbw'] / 1e9:.2f} GB/s; the ranks' run "
+          f"{spawn_s:.1f} s with start-up")
+    launches = {k: sum(r["launches"][k] for r in results)
+                for k in results[0]["launches"]}
+    del results, one, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def tp_rank_replayed(rank: int, world: int, job, tape_path: str) -> None:
+    """A split run's rank whose MoE layers take the one-process run's
+    routing (``RoutingTape.replay``; the rank's own after the recorded
+    steps): a top-k choice flips where a router margin lies under the
+    rounding that the split's sums move, and a flip moves every later
+    slot of its expert, so the split run is held against the one-process
+    run with that run's routing.  Writes the flips beside the result."""
+    import torch
+
+    from repro_torch.launch import train as launch
+
+    tape = RoutingTape()
+    tape.calls = torch.load(tape_path)
+    with tape.replay(then_own=True):
+        launch.rank_main(rank, world, job)
+    Path(job.out, f"flips{rank}.json").write_text(json.dumps(
+        {"flips": tape.flips, "choices": tape.choices}))
+
+
+def spawn_replayed(torch, job, world: int, calls) -> list:
+    """``spawn_ranks`` with every rank replaying ``calls`` (a
+    ``RoutingTape``'s, on the CPU)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch
+
+    out = Path(tempfile.mkdtemp(prefix="ranks_", dir=ROOT / "build"))
+    try:
+        tape_path = out / "tape.pt"
+        torch.save(calls, tape_path)
+        job = dataclasses.replace(
+            job, out=str(out),
+            init_method=f"tcp://localhost:{launch.free_port()}")
+        launch.start_ranks(tp_rank_replayed, (world, job, str(tape_path)),
+                           world)
+        return [torch.load(out / f"rank{r}.pt") | json.loads(
+            (out / f"flips{r}.json").read_text()) for r in range(world)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def tp_kernels(torch, cfg, spec, model: int) -> dict:
+    """K4s's shard form at every split leaf's shard on the last model
+    rank (a nonzero offset) of the cut model, a ragged block (odd
+    columns, offset), reruns bitwise, and timed at the largest shard with
+    its plain version and ``index_add_`` over the signed values; K6 at
+    the rank's head count (H / model query heads, K / model kv heads) at
+    the training rows, timed beside SDPA.  Rows ``sketch_shard`` and
+    ``flash_attention_tp``."""
+    from repro_torch.core.detection import shard_block
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as _ref
+    from repro_torch.kernels import sketch as sk
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    kk, key = 256, 0x2545F491
+    report, worst, big = {}, 0.0, None
+    for pl in tp_placements(cfg, 1, model, model - 1):
+        if not pl.sharded:
+            continue
+        x = torch.randn(pl.local_shape, generator=gen, device=dev)
+        block, cfull, c0 = shard_block(x, pl)
+        got = sk.sketch_block_cuda(block, key, kk, cfull, c0)
+        want = sk.sketch_block_plain(block, key, kk, cfull, c0)
+        rel = rel_err(got, want)
+        worst = max(worst, max_err(got, want))
+        check(rel <= 1e-5, f"K4s shard form disagrees at {pl.local_shape}")
+        check(bool(torch.equal(got, sk.sketch_block_cuda(block, key, kk,
+                                                         cfull, c0))),
+              f"K4s shard form rerun differs at {pl.local_shape}")
+        print(f"K4s shard form at the shard {pl.local_shape} of {pl.shape} "
+              f"(block {tuple(block.shape)}, row {cfull}, column {c0}): "
+              f"max|kernel-plain| / max(1, max|plain|) = {rel:.3e} "
+              f"(tolerance 1e-5); rerun bitwise equal")
+        if big is None or block.numel() > big[0].numel():
+            big = (block, cfull, c0)
+        del x
+    for rows, cols, cfull, c0 in ((3, 1001, 4097, 3095), (1, 70001, 200000,
+                                                          129999)):
+        b = torch.randn(rows, cols, generator=gen, device=dev)
+        got = sk.sketch_block_cuda(b, key, kk, cfull, c0)
+        want = sk.sketch_block_plain(b, key, kk, cfull, c0)
+        check(rel_err(got, want) <= 1e-5,
+              f"K4s shard form disagrees at ({rows}, {cols}) from {c0}")
+    block, cfull, c0 = big
+    d = block.numel()
+    ms = median_ms(torch, lambda: sk.sketch_block_cuda(block, key, kk, cfull,
+                                                       c0), launches=10)
+    plain_ms = median_ms(torch, lambda: sk.sketch_block_plain(
+        block, key, kk, cfull, c0), reps=3, warm=1)
+    r = torch.arange(block.shape[0], device=dev, dtype=torch.int64)
+    pos = (r[:, None] * cfull + c0 + torch.arange(
+        block.shape[1], device=dev, dtype=torch.int64)[None]).reshape(-1)
+    signed = block.reshape(-1) * _ref.hash_signs_ref(pos, key)
+    bucket = pos % kk
+    out = torch.zeros(kk, device=dev)
+    library_ms = median_ms(torch, lambda: out.zero_().index_add_(
+        0, bucket, signed), launches=10)
+    b_ms, b_by = kernel_bound("sketch_shard", d=d, k=kk)
+    report["sketch_shard"] = entry(
+        "sketch_shard", "sketch.cu", "src/repro/kernels/sketch.py:25",
+        worst, ms, plain_ms, b_ms, b_by, library_ms)
+    print(f"K4s shard form at the largest shard ({d} elements): kernel_ms="
+          f"{ms:.4f} plain_ms={plain_ms:.4f} index_add_ms={library_ms:.4f} "
+          f"(over the signed values) bound_ms={b_ms:.4f} ({b_by}); "
+          f"{b_ms / ms:.1%} of bound")
+    del block, pos, signed, bucket, r, big
+
+    S, H, K, hd = spec["seq_len"], cfg.num_heads // model, \
+        max(1, cfg.num_kv_heads // model), cfg.head_dim
+    B = spec["global_batch"] // max(1, spec["n"] // (spec["f"] + 1))
+    q, k, v = [torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
+               for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
+    got, want = fa.flash_attention_cuda(q, k, v), fa.flash_attention_plain(
+        q, k, v)
+    err, tile = max_err(got.float(), want.float()), tile_rel_err(got, want)
+    check(close(got.float(), want.float(), 2e-2, 2e-2) and tile <= 1e-2,
+          f"K6 disagrees at the split shape ({B}, {S}, {H}, {K})")
+    check(bool(torch.equal(got, fa.flash_attention_cuda(q, k, v))),
+          "K6 rerun differs at the split shape")
+    ms = median_ms(torch, lambda: fa.flash_attention_cuda(q, k, v),
+                   launches=20)
+    plain_ms = median_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
+                         reps=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), launches=20)
+    b_ms, b_by = attn_bound(B, S, S, H, K, hd, True, None, 2)
+    report["flash_attention_tp"] = entry(
+        "flash_attention_tp", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:33", err, ms, plain_ms, b_ms,
+        b_by, library_ms)
+    print(f"K6 at a rank's heads (B={B}, S={S}, H={H}, K={K}, hd={hd}) bf16: "
+          f"max|kernel-plain| = {err:.3e}, worst 64-row block {tile:.3e}; "
+          f"rerun bitwise equal; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"sdpa_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    del q, k, v, qt, kt, vt, got, want
+    return report
+
+
+def tp_cards(torch, seed, mask, cards: int) -> dict:
+    """(b): one NCCL rank a card, the runs of TP_CARDS that fit."""
+    out, base = {}, {}
+    for label, cell, W, model in TP_CARDS:
+        if W * model > cards:
+            print(f"tp (b) {label}: not run, {cards} cards visible")
+            continue
+        spec = globals()[cell]
+        out[label] = tp_run(torch, spec, seed, mask, W, model, "nccl",
+                            f"tp (b) {label}", base)[0]
+    return out
+
+
+def phase_train_tp(torch, spec):
+    """The training cell's workers split over the model axis (see the
+    note above TP_LOSS_REL): (a) two gloo ranks sharing the card at
+    model 2, RANKS_CUT layers, with the shard form's and the split K6's
+    rows; (b) one NCCL rank a card where more than one is visible.
+    Returns (the (a) run's launches summed over its ranks, the kernels
+    line's rows, the report)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.launch import train as launch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, f, byz = spec["n"], spec["f"], spec["byz"]
+    seed, mask = train_seed(n, f, byz), np.isin(np.arange(n), byz)
+    cut = dict(spec, layers=RANKS_CUT)
+    rows = tp_kernels(torch, cell_cfg(cut), cut, TP_SPLIT)
+    out = {}
+    try:
+        out["a"], launches = tp_run(
+            torch, cut, seed, mask, 1, TP_SPLIT, "gloo",
+            f"tp (a) two gloo ranks on one card, model {TP_SPLIT}, "
+            f"{RANKS_CUT} layers")
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            out["b"] = tp_cards(torch, seed, mask, cards)
+        else:
+            print("tp (b): not run, 1 card visible")
+    finally:
+        launch.stop_rank_server()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase_train_tp: {out['phase_s']:.1f} s")
+    return launches, rows, out
+
+
 def train_run_diffs(torch, init, final, hist, ref_final, ref_hist) -> dict:
     """How far a training run lies from a reference run from the same
     initial leaves (CPU tensors): the first loss's relative difference,
@@ -4365,6 +4794,8 @@ def run() -> int:
         torch, TRAIN, "train")
     launches["training_ranks"], training_ranks = phase_train_ranks(
         torch, TRAIN, training)
+    launches["training_tp"], tp_report, training_tp = phase_train_tp(
+        torch, TRAIN)
     dryrun = phase_dryrun(torch, training)
     launches["serving_mamba"], mserve_report, serving_mamba = \
         phase_serving_replayed(torch, attention, MAMBA_SERVE)
@@ -4391,9 +4822,15 @@ def run() -> int:
            "serving_moe": ("_moe_serving", moe_serve_report),
            "training_moe": ("_moe_train", moe_train_report),
            "serving_hybrid": ("_jamba_serving", hybrid_report)}
+    # the split path's rows: the shard form's launches are summed with
+    # the other paths' below (only the split path launches it); K6 at a
+    # rank's heads counts the split path's K6 launches (also in K6's row)
+    kernels.update(tp_report)
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for path, run in launches.items()
                              if path not in own and path not in by_shape)
+    kernels["flash_attention_tp"]["launches"] = \
+        launches["training_tp"]["flash_attention"]
     for path, (suffix, report) in own.items():
         for key, kv in report.items():
             kv["launches"] = launches[path][key.removesuffix(suffix)]
@@ -4405,7 +4842,7 @@ def run() -> int:
                      launches=launches,
                      small_vs_cpu_w_err=small, serving=serving,
                      attention=attention, training=training,
-                     training_ranks=training_ranks,
+                     training_ranks=training_ranks, training_tp=training_tp,
                      serving_mamba=serving_mamba,
                      training_mamba=training_mamba, serving_moe=serving_moe,
                      training_moe=training_moe,

@@ -13,8 +13,17 @@ Port of ``repro.core.detection``.
    group's mean within a RELATIVE tolerance tau.
  * ``hash_sign_sketch`` and ``key_scalar_for_seed`` are also the sketch
    and key of the serving audit (``repro_torch.serving``).
+
+With a worker split over the model axis (``train.ranks.ModelAxis``),
+``sketch_tree`` sketches each split leaf's shard under the full leaf's
+flat index (K4s's shard form, ``ops.sketch_shard``), the replicated
+leaves on the axis's rank 0 only, and sums the partial symbols over the
+axis: the reference's symbol of the whole tree (its ``iota`` over each
+full flat leaf), up to the order of the sums.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,19 +44,45 @@ def hash_sign_sketch(flat_g: torch.Tensor, key_scalar, k: int = DEFAULT_K, *,
     return ops.sketch(flat_g.reshape(-1), key_scalar, k, impl=impl)
 
 
+def shard_block(leaf: torch.Tensor, pl) -> tuple:
+    """A split leaf's shard as K4s's shard form reads it: (block (rows,
+    cols), cfull, c0), the block of the full leaf's (rows, cfull) view
+    from column c0 (``sharding.Placement`` ``pl``)."""
+    j = pl.split_dim
+    local = pl.local_shape
+    inner = math.prod(local[j + 1:])
+    rows = math.prod(local[:j])
+    cols = local[j] * inner
+    return (leaf.reshape(rows, cols), pl.shape[j] * inner,
+            pl.index[j] * cols)
+
+
 def sketch_tree(grad_tree, key_scalar, k: int = DEFAULT_K, *,
-                impl: str | None = None) -> torch.Tensor:
+                impl: str | None = None, axis=None) -> torch.Tensor:
     """One (k,) float32 symbol for a whole gradient tree: leaf i (in
     ``core.tree`` order, the reference's ``jax.tree.leaves``) sketched
     over its flat layout under the key ``key_scalar + 0x9E3779B9 (i+1)``
     mod 2^32, so equal values in different leaves do not cancel, and the
     leaf sketches summed in order.  Linear: equal gradients give equal
-    symbols."""
+    symbols.  ``axis``: the worker's model axis (its ``placements``, one
+    per leaf): the shards' partial symbols summed over it."""
     total = None
     for i, leaf in enumerate(leaves(grad_tree)):
         key = (int(key_scalar) + LEAF_KEY_STEP * (i + 1)) & 0xFFFFFFFF
-        s = hash_sign_sketch(leaf.reshape(-1), key, k, impl=impl)
+        pl = None if axis is None else axis.placements[i]
+        if pl is not None and pl.sharded:
+            block, cfull, c0 = shard_block(leaf, pl)
+            s = ops.sketch_shard(block, key, k, cfull, c0, impl=impl)
+        elif axis is not None and axis.rank != 0:
+            continue                   # a replicated leaf: rank 0 adds it
+        else:
+            s = hash_sign_sketch(leaf.reshape(-1), key, k, impl=impl)
         total = s if total is None else total + s
+    if axis is not None:
+        if total is None:
+            total = torch.zeros(k, dtype=torch.float32,
+                                device=leaves(grad_tree)[0].device)
+        axis.all_reduce_sum(total)
     return total
 
 

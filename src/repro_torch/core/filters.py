@@ -9,6 +9,12 @@ engines hand them float32, as the reference's JAX filters compute.
 
 A median over an even count averages the two middle values, as
 ``jnp.median`` does (``torch.median`` would return the lower one).
+
+``reduce``: where the columns are one shard of a leaf split over the
+model axis, the filters that need a distance or a norm over the whole
+leaf (``krum``, ``gmom``, ``norm_clip``) sum their partial sums of
+squares with it (the trainer passes the axis's all-reduce); the others
+are coordinate-wise and need nothing.
 """
 from __future__ import annotations
 
@@ -45,12 +51,18 @@ def trimmed_mean(grads: torch.Tensor, f: int) -> torch.Tensor:
     return s[f: n - f].mean(dim=0)
 
 
-def krum(grads: torch.Tensor, f: int, m: int = 1) -> torch.Tensor:
+def _whole(reduce):
+    return (lambda t: t) if reduce is None else reduce
+
+
+def krum(grads: torch.Tensor, f: int, m: int = 1, *,
+         reduce=None) -> torch.Tensor:
     """(Multi-)KRUM (Blanchard et al., 2017): score each worker by the
     sum of squared distances to its n-f-2 closest peers and return the
     mean of the m best-scored gradients (ties to the lower index)."""
     n = grads.shape[0]
-    d2 = ((grads[:, None, :] - grads[None, :, :]) ** 2).sum(dim=-1)
+    d2 = _whole(reduce)(
+        ((grads[:, None, :] - grads[None, :, :]) ** 2).sum(dim=-1))
     d2 = d2 + torch.eye(n, dtype=grads.dtype, device=grads.device) * 1e30
     kth = max(1, n - f - 2)
     nearest = torch.sort(d2, dim=1).values[:, :kth]
@@ -60,7 +72,8 @@ def krum(grads: torch.Tensor, f: int, m: int = 1) -> torch.Tensor:
 
 
 def geometric_median_of_means(grads: torch.Tensor, num_buckets: int,
-                              iters: int = 16) -> torch.Tensor:
+                              iters: int = 16, *,
+                              reduce=None) -> torch.Tensor:
     """Geometric median of bucket means (Chen et al., 2017), ``iters``
     Weiszfeld steps."""
     n, d = grads.shape
@@ -69,31 +82,35 @@ def geometric_median_of_means(grads: torch.Tensor, num_buckets: int,
     means = grads[:usable].reshape(b, -1, d).mean(dim=1)       # (b, d)
     z = means.mean(dim=0)
     for _ in range(iters):
-        dist = torch.linalg.vector_norm(means - z[None], dim=1)
+        dist = torch.sqrt(_whole(reduce)(
+            (means - z[None]).square().sum(dim=1))) if reduce is not None \
+            else torch.linalg.vector_norm(means - z[None], dim=1)
         w = 1.0 / torch.clamp(dist, min=1e-8)
         z = (means * w[:, None]).sum(dim=0) / w.sum()
     return z
 
 
-def norm_clip(grads: torch.Tensor, clip: float | None = None) -> torch.Tensor:
+def norm_clip(grads: torch.Tensor, clip: float | None = None, *,
+              reduce=None) -> torch.Tensor:
     """Norm clipping (Gupta & Vaidya, 2019): scale each gradient to at
     most the median norm (or a fixed clip), then average."""
-    norms = torch.linalg.vector_norm(grads, dim=1)
+    norms = torch.sqrt(reduce(grads.square().sum(dim=1))) \
+        if reduce is not None else torch.linalg.vector_norm(grads, dim=1)
     ref = _median(norms) if clip is None else clip
     factor = torch.clamp(ref / torch.clamp(norms, min=1e-12), max=1.0)
     return (grads * factor[:, None]).mean(dim=0)
 
 
 FILTERS = {
-    "mean": lambda g, f: mean(g),
-    "median": lambda g, f: coordinate_median(g),
-    "trimmed_mean": trimmed_mean,
-    "krum": krum,
+    "mean": lambda g, f, reduce=None: mean(g),
+    "median": lambda g, f, reduce=None: coordinate_median(g),
+    "trimmed_mean": lambda g, f, reduce=None: trimmed_mean(g, f),
+    "krum": lambda g, f, reduce=None: krum(g, f, reduce=reduce),
     # >= 2f+1 buckets so corrupted buckets are a strict minority
-    "gmom": lambda g, f: geometric_median_of_means(
-        g, min(g.shape[0], 2 * f + 1) if f else g.shape[0]
+    "gmom": lambda g, f, reduce=None: geometric_median_of_means(
+        g, min(g.shape[0], 2 * f + 1) if f else g.shape[0], reduce=reduce
     ),
-    "norm_clip": lambda g, f: norm_clip(g),
+    "norm_clip": lambda g, f, reduce=None: norm_clip(g, reduce=reduce),
 }
 
 

@@ -10,7 +10,11 @@ active the wrappers pay one test of this module's global.
 """
 from __future__ import annotations
 
+import contextlib
+
 COUNTER = None      # the active launch.dryrun.StepCounter, or None
+AXIS = None         # (mesh axis, group size) of the collective under way
+STAGING = False     # gloo on a card: the operand's round trip to the host
 
 
 def run(name: str, cost, fn):
@@ -29,3 +33,28 @@ def refuse_meta(name: str) -> None:
         f"covers the model and trainer paths, whose kernels are "
         f"flash_attention, sketch and the pairwise_relmax votes; pass "
         f'impl="torch" to trace its plain version on meta tensors')
+
+
+@contextlib.contextmanager
+def collective(axis: str, size: int):
+    """Marks the collectives issued inside as over mesh axis ``axis`` of
+    ``size`` ranks, so the counter prices each over its own group."""
+    global AXIS
+    prev, AXIS = AXIS, (axis, size)
+    try:
+        yield
+    finally:
+        AXIS = prev
+
+
+@contextlib.contextmanager
+def staging():
+    """Marks the copies that take a collective's operand to host memory
+    and back (gloo on a card, ``train.ranks``): the counter leaves them
+    out, as they are no part of the step (``Ranks.counts`` holds them)."""
+    global STAGING
+    prev, STAGING = STAGING, True
+    try:
+        yield
+    finally:
+        STAGING = prev

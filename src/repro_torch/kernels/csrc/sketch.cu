@@ -40,6 +40,18 @@
 // partials in f64 in a fixed order and writes out.  Blocks: about one an
 // SM.  The caller gives each stream its own ticket and partials.
 //
+// The shard form: a block of a row-major leaf, (rows, cols) of its
+// (rows, C_full) view starting at column c0, sketched under the FULL
+// leaf's flat index p = r * C_full + c0 + c (bucket p % k, sign
+// hash(p)), so the ranks' partial sketches of a leaf split over the
+// model axis sum to the whole leaf's sketch (a split on dim 0 is the
+// view with one row and c0 the shard's offset).  Thread b owns bucket b;
+// each block takes a run of the block's elements in local row-major
+// order and, row segment by row segment, walks the global positions of
+// its bucket (stride k): the lanes of a warp read consecutive floats.
+// The blocks' partials are added by the last block in f64 in a fixed
+// order (the single form's ticket), so reruns are bitwise.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math: the hash compare is exact).
 #include <cuda_runtime.h>
@@ -217,6 +229,70 @@ sketch_single_kernel(const float* __restrict__ g, long long d, int k,
   }
 }
 
+constexpr int B_THREADS = 256;
+
+// part[blockIdx.x, b] = sum over this block's elements e in [e0, e1) of
+// the (rows, cols) block whose global position p has p % k == b of
+// sign(p) * g[e]; the last block adds the partials into out.
+__global__ void __launch_bounds__(B_THREADS)
+sketch_block_kernel(const float* __restrict__ g, long long rows,
+                    long long cols, long long cfull, long long c0, int k,
+                    long long per_block, uint32_t key,
+                    float* __restrict__ part, int kp,
+                    unsigned* __restrict__ ticket, float* __restrict__ out) {
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const long long n = rows * cols;
+  const long long e0 = (long long)blockIdx.x * per_block;
+  const long long e1 = e0 + per_block < n ? e0 + per_block : n;
+  float* mine = part + (long long)blockIdx.x * kp;
+  for (int b = tid; b < k; b += B_THREADS) {
+    float acc = 0.0f;
+    long long e = e0;
+    while (e < e1) {
+      const long long r = e / cols, c = e - r * cols;
+      const long long len = cols - c < e1 - e ? cols - c : e1 - e;
+      const long long gbase = r * cfull + c0;   // global position of col 0
+      const long long lo = gbase + c, hi = lo + len;
+      long long p = lo + (((long long)b - lo % k) % k + k) % k;
+      const float* row = g + r * cols;
+      // batches of 8 loads in flight, then their adds in order
+      for (; p + 7LL * k < hi; p += 8LL * k) {
+        float x[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          x[j] = __ldcs(row + (p + (long long)j * k - gbase));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc = fmaf(hash_sign((uint32_t)(p + (long long)j * k), key), x[j],
+                     acc);
+      }
+      for (; p < hi; p += k)
+        acc = fmaf(hash_sign((uint32_t)p, key), __ldcs(row + (p - gbase)),
+                   acc);
+      e += len;
+    }
+    mine[b] = acc;
+  }
+  for (int b = k + tid; b < kp; b += B_THREADS) mine[b] = 0.0f;
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) *ticket = 0u;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int b = tid; b < k; b += B_THREADS) {
+    double s = 0.0;
+    for (unsigned q = 0; q < gridDim.x; ++q)
+      s += (double)__ldcg(part + (long long)q * kp + b);
+    out[b] = (float)s;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -283,6 +359,34 @@ int sketch_single(const float* g, long long d, int k, unsigned int key,
   else
     sketch_single_kernel<1><<<(unsigned)nb, S_THREADS, 0, s>>>(
         g, d, k, spb, (uint32_t)key, part, kp, ticket, out);
+  return (int)cudaGetLastError();
+}
+
+// out (k,) f32: the sketch of a (rows, cols) block of a row-major leaf
+// viewed as (rows, cfull), starting at column c0, under the full leaf's
+// flat index (see the header); g is the block, contiguous.  part and
+// ticket as sketch_single's (the same workspace serves both forms on
+// one stream).  Returns cudaGetLastError().
+int sketch_block(const float* g, long long rows, long long cols,
+                 long long cfull, long long c0, int k, unsigned int key,
+                 float* part, unsigned int* ticket, float* out,
+                 void* stream) {
+  if (k < 1 || cols < 0 || rows < 0 || c0 < 0 || c0 + cols > cfull)
+    return (int)cudaErrorInvalidValue;
+  const int kp = (k + 3) / 4 * 4;
+  const long long n = rows * cols;
+  // about four blocks an SM, each at least 32 buckets' worth of elements
+  const long long floor_elems = 32LL * k;
+  long long nb = 4LL * sm_count() < 1024 ? 4LL * sm_count() : 1024;
+  if (n / floor_elems < nb) nb = n / floor_elems;
+  if (nb < 1) nb = 1;
+  long long per_block = (n + nb - 1) / nb;
+  if (per_block < 1) per_block = 1;
+  nb = n > 0 ? (n + per_block - 1) / per_block : 1;
+  sketch_block_kernel<<<(unsigned)nb, B_THREADS, 0, (cudaStream_t)stream>>>(
+      g, cols > 0 ? rows : 0, cols > 0 ? cols : 1, cfull, c0, k, per_block,
+      (uint32_t)key,
+      part, kp, ticket, out);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,8 @@ to the CUDA kernel, a CPU tensor to the plain version, a ``meta`` tensor
 (the dry-run, ``launch.dryrun``) to the kernel's shape-only form, which
 returns empty outputs of the kernel's shapes and dtypes.  Only the
 kernels of the model and trainer paths have one (``flash_attention``,
-``sketch``, ``pairwise_relmax`` / ``vote``, ``batched_pairwise_relmax``
+``sketch``, ``sketch_shard``, ``pairwise_relmax`` / ``vote``,
+``batched_pairwise_relmax``
 / ``batched_vote``); the others raise on a meta tensor.  ``"torch"`` on
 a CUDA tensor is an explicit choice (the chip check compares the two
 with it) and is never made automatically; ``"cuda"`` on a CPU tensor
@@ -243,6 +244,22 @@ def sketch(flat_g: torch.Tensor, key_scalar, k: int = 256, *,
     return _account.run("sketch",
                         lambda: kernel_cost("sketch", d=x.shape[0], k=k),
                         lambda: fn(x, key_scalar, k))
+
+
+def sketch_shard(block: torch.Tensor, key_scalar, k: int, cfull: int,
+                 c0: int, *, impl: str | None = None) -> torch.Tensor:
+    """(rows, cols) block of a leaf viewed as (rows, cfull) from column
+    c0 -> (k,) CountSketch under the full leaf's flat index (K4s's shard
+    form): the shards' sketches of a leaf sum to its ``sketch``."""
+    use = resolve_impl(impl, block.device)
+    if use == "torch":
+        return _sk.sketch_block_plain(block, key_scalar, k, cfull, c0)
+    x = block.to(torch.float32)
+    fn = _sk.sketch_block_cuda if use == "cuda" else \
+        (lambda t, key, kk, cf, c: t.new_empty(kk))
+    return _account.run("sketch_shard",
+                        lambda: kernel_cost("sketch_shard", d=x.numel(), k=k),
+                        lambda: fn(x, key_scalar, k, cfull, c0))
 
 
 def batched_coded_encode(coeffs: torch.Tensor, grads: torch.Tensor, *,

@@ -55,6 +55,27 @@ def sketch_ref(flat_g: torch.Tensor, key_scalar, k: int) -> torch.Tensor:
     return (g * hash_signs_ref(idx, key_scalar)).reshape(-1, k).sum(dim=0)
 
 
+def block_sketch_ref(block: torch.Tensor, key_scalar, k: int, cfull: int,
+                     c0: int) -> torch.Tensor:
+    """CountSketch of a (rows, cols) block of a row-major leaf viewed as
+    (rows, cfull) from column c0, under the full leaf's flat index
+    p = r * cfull + c0 + c: bucket p % k, sign hash(p).  The blocks of a
+    leaf's shards sum to ``sketch_ref`` of the whole leaf.  Each row's
+    signed values are placed at their bucket's column of a zero-padded
+    (rows, m, k) array, which is summed as ``sketch_ref`` sums: no
+    atomic adds, the same bits on every run."""
+    rows, cols = block.shape
+    dev = block.device
+    start = torch.arange(rows, device=dev, dtype=torch.int64)[:, None] \
+        * cfull + c0
+    col = torch.arange(cols, device=dev, dtype=torch.int64)[None]
+    vals = block.to(torch.float32) * hash_signs_ref(start + col, key_scalar)
+    width = -(-(k - 1 + cols) // k) * k
+    padded = torch.zeros((rows, width), dtype=torch.float32, device=dev)
+    padded.scatter_(1, (start % k + col).expand(rows, cols), vals)
+    return padded.reshape(rows, -1, k).sum(dim=(0, 1))
+
+
 def batched_sketch_ref(flat_g: torch.Tensor, key_scalar, k: int) -> torch.Tensor:
     """(B, d) -> (B, k): per-row ``sketch_ref`` under one shared key."""
     g = _bucketed(flat_g, k)

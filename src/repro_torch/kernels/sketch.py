@@ -4,7 +4,12 @@ plain PyTorch versions.
 ``sketch_batched(g (B, d), key) -> (B, k)``: out[b, c] = sum over
 columns p = c (mod k) of sign(p, key) * g[b, p], one shared key for all
 rows (``ref.batched_sketch_ref``).  ``sketch(g (d,), key) -> (k,)`` is
-the single form (``ref.sketch_ref``), one launch of its own kernel.  The
+the single form (``ref.sketch_ref``), one launch of its own kernel.
+``sketch_block(block (rows, cols), key, k, cfull, c0) -> (k,)`` is the
+shard form (``ref.block_sketch_ref``): one rank's shard of a leaf split
+over the model axis, viewed as a (rows, cols) block of the leaf's
+(rows, cfull) view from column c0, hashed and bucketed by the full
+leaf's flat index, one launch.  The
 CUDA kernels live in ``csrc/sketch.cu``, whose header note says which
 TPU kernels they replace (src/repro/kernels/sketch.py:77 and :25), what
 bounds them on the H100 and what their design does about it.
@@ -21,7 +26,7 @@ from repro_torch.kernels import ref as _ref
 DEFAULT_K = 256
 
 # wrapper calls that launched the CUDA kernel, per form
-LAUNCHES = {"sketch_batched": 0, "sketch": 0}
+LAUNCHES = {"sketch_batched": 0, "sketch": 0, "sketch_shard": 0}
 
 # the single form's partials and ticket, per (device, stream, k): calls on
 # one stream run in order, so they can share them; two streams never do
@@ -38,6 +43,11 @@ def sketch_plain(flat_g: torch.Tensor, key_scalar,
     return _ref.sketch_ref(flat_g, key_scalar, k)
 
 
+def sketch_block_plain(block: torch.Tensor, key_scalar, k: int, cfull: int,
+                       c0: int) -> torch.Tensor:
+    return _ref.block_sketch_ref(block, key_scalar, k, cfull, c0)
+
+
 def _lib():
     lib = _build.load("sketch")
     if not getattr(lib, "_typed", False):
@@ -52,6 +62,9 @@ def _lib():
         lib.sketch_single.argtypes = [vp, ll, i, ctypes.c_uint32, vp, vp, vp,
                                       vp]
         lib.sketch_single.restype = i
+        lib.sketch_block.argtypes = [vp, ll, ll, ll, ll, i, ctypes.c_uint32,
+                                     vp, vp, vp, vp]
+        lib.sketch_block.restype = i
         lib.sketch_error_string.argtypes = [i]
         lib.sketch_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -118,4 +131,32 @@ def sketch_cuda(flat_g: torch.Tensor, key_scalar,
         part.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream),
         "sketch_single")
     LAUNCHES["sketch"] += 1
+    return out
+
+
+@_build.on_operand_device
+def sketch_block_cuda(block: torch.Tensor, key_scalar, k: int, cfull: int,
+                      c0: int) -> torch.Tensor:
+    """The shard form on a CUDA (rows, cols) f32 block: one launch of
+    ``sketch_block`` on PyTorch's current stream, no synchronization."""
+    if block.dim() != 2:
+        raise TypeError(f"block must be 2-D (rows, cols), got "
+                        f"{tuple(block.shape)}")
+    g = _contig(block)
+    _build.require_cuda_tensor(g, "block", 2, (torch.float32,))
+    if k < 1:
+        raise ValueError(f"sketch width k must be >= 1, got {k}")
+    rows, cols = g.shape
+    if c0 < 0 or c0 + cols > cfull:
+        raise ValueError(f"columns [{c0}, {c0 + cols}) outside a row of "
+                         f"{cfull}")
+    lib = _lib()
+    stream = _build.raw_stream(g.device.index)
+    part, ticket = _single_workspace(lib, g.device, stream, k)
+    out = torch.empty(k, dtype=torch.float32, device=g.device)
+    _build.check_status(lib.sketch_error_string, lib.sketch_block(
+        g.data_ptr(), rows, cols, cfull, c0, k, int(key_scalar) & 0xFFFFFFFF,
+        part.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream),
+        "sketch_block")
+    LAUNCHES["sketch_shard"] += 1
     return out

@@ -26,13 +26,22 @@ operator:
   - the collectives (``torch.distributed``'s c10d operators) by kind,
     their calls and result bytes, priced as the bytes one rank puts on
     the wire (``roofline.ring_bytes`` over the group), which move no
-    HBM bytes in the count.
+    HBM bytes in the count; the copies that stage a gloo collective's
+    operand through host memory on a card are left out (``Ranks.counts``
+    holds them), so a staged step counts as an NCCL one.
 
 The BFT steps run on one card (``--mesh single``: every worker in one
 process) or as ranks (``--mesh workers``: n ranks on ``data``, one
-worker each, ``train.ranks``): one rank's step is traced under torch's
-``fake`` process group of world n, whose collectives reach the counter
-on ``meta`` tensors and move nothing.
+worker each, ``train.ranks``; ``--mesh tp``: n ranks on ``data`` times
+``--model`` ranks splitting each worker; ``--mesh production``: the
+reference's 16x16 cell, 16 workers of 16 ``model`` ranks, and its
+2x16x16 cell, 32 workers (``pod`` x ``data``) of 16, f = 3, at
+``train_4k``): rank 0's step is traced under torch's ``fake`` process
+group sized to the mesh's world, whose collectives reach the counter on
+``meta`` tensors and move nothing; each collective is priced over its
+own axis's group and reported per axis (``collective_by_axis``).  An
+arch the model axis cannot split yet (mamba, cross-attention, a split
+that cuts a head) is reported as skipped, with the reason.
 
 The same counter runs on the card, so a meta trace and a real step can
 be compared count for count (``chip_smoke.py``'s ``phase_dryrun``).
@@ -46,6 +55,8 @@ optimizer state in place, as the reference donates them.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --arch llama3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --mesh workers
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --mesh tp --model 2
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --mesh production
 """
 from __future__ import annotations
 
@@ -112,6 +123,7 @@ class StepCounter(TorchDispatchMode):
         self.bytes = 0
         self.collectives: dict[str, dict] = {}
         self.collective_bytes = 0.0
+        self.by_axis: dict[str, float] = defaultdict(float)
         self.kernels: dict[str, dict] = {}
         self.arg_bytes = 0
         self.live = 0
@@ -214,8 +226,9 @@ class StepCounter(TorchDispatchMode):
             return out
         for t in outs:
             self._track(t)
-        if self._in_kernel or func.overloadpacket in _NO_DATA \
-                or self._moves_nothing(func, ins, outs):
+        if self._in_kernel or _account.STAGING or \
+                func.overloadpacket in _NO_DATA or \
+                self._moves_nothing(func, ins, outs):
             return out
         self.bytes += sum(_nbytes(t) for t in ins) + sum(
             _nbytes(t) for t in outs)
@@ -229,21 +242,23 @@ class StepCounter(TorchDispatchMode):
     def _collective(self, func, args) -> None:
         """One c10d collective: its kind, its result's bytes, and the
         bytes one rank puts on the wire for it (none in a group of
-        one)."""
+        one), over the group of the axis it runs on (``train.ranks``
+        marks it, ``_account.collective``; ``group`` otherwise)."""
         name = func.overloadpacket.__name__
         if name not in _COLLECTIVES:
             raise NotImplementedError(f"the dry-run does not price c10d."
                                       f"{name}")
         kind = _COLLECTIVES[name]
+        axis, size = _account.AXIS or ("data", self.group)
         nbytes = sum(_nbytes(t) for t in _tensors(args[0]))
         c = self.collectives.setdefault(kind, {"calls": 0, "bytes": 0,
                                                "wire_bytes": 0.0})
         c["calls"] += 1
         c["bytes"] += nbytes
-        wire = RL.ring_bytes(kind, nbytes, self.group) \
-            if self.group > 1 else 0.0
+        wire = RL.ring_bytes(kind, nbytes, size) if size > 1 else 0.0
         c["wire_bytes"] += wire
         self.collective_bytes += wire
+        self.by_axis[axis] += wire
 
     @staticmethod
     def _moves_nothing(func, ins, outs) -> bool:
@@ -279,6 +294,7 @@ class StepCounter(TorchDispatchMode):
                 "calls", 0) for k in RL.COLLECTIVES},
             "collective_result_bytes": {k: v["bytes"] for k, v in
                                         sorted(self.collectives.items())},
+            "collective_by_axis": dict(sorted(self.by_axis.items())),
         }
 
 
@@ -392,25 +408,39 @@ def run_cell(arch: str, shape_name: str, *, opt: OptConfig | None = None,
     return res
 
 
-MESHES = ("single", "workers")
+MESHES = ("single", "workers", "tp", "production")
+# the reference's production BFT cells: (label, workers, model, f)
+PRODUCTION = (("16x16", 16, 16, 3), ("2x16x16", 32, 16, 3))
 
 
 def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
                   global_batch: int | None = None,
                   seq_len: int | None = None,
                   opt: OptConfig | None = None,
-                  mesh: str = "single") -> dict:
+                  mesh: str = "single", model: int = 2,
+                  label: str | None = None, cfg=None,
+                  data_ranks: int | None = None, active=None,
+                  modes: tuple = ("fast", "check", "check_full",
+                                  "identify"),
+                  impl: str | None = None) -> dict:
     """The BFT steps (fast, check with sketch and with full detection,
     identify) traced on meta tensors with n workers and the protocol's
     assignments (``core.assignment``), at ``train_4k`` unless a global
     batch and sequence are given.  ``mesh``: "single", every worker on
-    one card, or "workers", n ranks on ``data`` with one worker each,
-    rank 0's step traced under a ``fake`` process group of world n (its
-    collectives counted; ``roofline.collective_s`` at NVLink's rate).
-    Every worker is honest and every host read of a meta tensor reads as
-    no fault and no mismatch: the common branch (``"assumed":
-    "honest"``).  A model that attends to a context raises: the steps
-    never pass one, as the reference's do not."""
+    one card; "workers", n ranks on ``data`` with one worker each; "tp",
+    n ranks on ``data`` times ``model`` ranks splitting each worker
+    (``label`` names the mesh); rank 0's step traced under a ``fake``
+    process group of the mesh's world (its collectives counted per axis;
+    ``roofline.collective_s`` at NVLink's rate).  Every worker is honest
+    and every host read of a meta tensor reads as no fault and no
+    mismatch: the common branch (``"assumed": "honest"``).  A model that
+    attends to a context raises: the steps never pass one, as the
+    reference's do not; under "tp" an arch the model axis cannot split
+    returns ``{"skipped": reason}``.  ``cfg`` replaces ``arch``'s config
+    (a cut one), ``data_ranks`` the n data ranks of "tp" (W, each then
+    running n / W workers), ``active`` the active workers (all), and
+    ``modes`` the steps traced; ``impl="torch"`` traces the kernels'
+    plain versions (what a CPU rank runs)."""
     from repro_torch.core.assignment import (check_assignment,
                                              fast_assignment, group_members,
                                              identify_assignment)
@@ -423,9 +453,18 @@ def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
                                          make_check_step, make_fast_step,
                                          make_identify_step)
 
-    if mesh not in MESHES:
-        raise ValueError(f"mesh {mesh!r}: one of {MESHES}")
-    cfg = get_config(arch)
+    from repro_torch.models.transformer import require_splittable
+
+    if mesh not in MESHES[:3]:
+        raise ValueError(f"mesh {mesh!r}: one of {MESHES[:3]}")
+    cfg = cfg or get_config(arch)
+    W = n if data_ranks is None else data_ranks
+    if mesh == "tp":
+        try:
+            require_splittable(cfg, model)
+        except ValueError as e:
+            return {"arch": arch, "mesh": label or f"{n}x{model} data,model",
+                    "skipped": str(e)}
     if uses_context(cfg):
         raise ValueError(f"{cfg.name} attends to a context, which the BFT "
                          f"steps never pass")
@@ -437,7 +476,7 @@ def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
     params = M.abstract_params(cfg)
     opt_state = abstract_opt_state(opt, params)
     sc, attack = StepConfig(detection="sketch"), AttackConfig("sign_flip")
-    active = np.ones(n, bool)
+    active = np.ones(n, bool) if active is None else np.asarray(active, bool)
     byz = np.zeros(n, bool)
     key = prngkey.PRNGKey(0)
     host = {"tokens": np.zeros((B, S), np.int32),
@@ -445,12 +484,25 @@ def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
     ranks, chips = None, 1
     if mesh == "workers":
         ranks, chips = _fake_ranks(n), n
+    elif mesh == "tp":
+        ranks, chips = _fake_ranks(W, model), W * model
+        from repro_torch.core import tree as tree_mod
+        from repro_torch.models import convert
+        from repro_torch.sharding import (tp_only_rules, tree_structs)
+
+        ann = M.annotated_params(cfg)
+        params = tree_structs(ann, ranks.mesh, tp_only_rules())
+        opt_state = abstract_opt_state(opt, params)
+        ranks.model.placements = tree_mod.leaves(
+            convert.placements(cfg, ranks.mesh))
     out = {"arch": arch, "mesh": "1xH100" if ranks is None else
-           f"{n}x1 data,model", "chips": chips, "n": n, "f": f,
+           label or f"{W}x{model if mesh == 'tp' else 1} data,model",
+           "chips": chips, "n": n, "f": f, "model": model
+           if mesh == "tp" else 1,
            "global_batch": B, "seq_len": S, "assumed": "honest"}
     try:
-        for mode in ("fast", "check", "check_full", "identify"):
-            kw = {"ranks": ranks}
+        for mode in modes:
+            kw = {"ranks": ranks, "impl": impl}
             if mode == "fast":
                 a = fast_assignment(active)
                 fn = make_fast_step(cfg, opt, sc, attack, **kw)
@@ -468,7 +520,8 @@ def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
                     byz)
             if mode.startswith("check"):
                 args = args + (a.group_of_worker,)
-            _, c = count_step(fn, args + (key, 0), "meta", group=chips)
+            _, c = count_step(fn, args + (key, 0), "meta",
+                              group=chips if mesh != "tp" else W)
             rl = roofline_of(cfg, shape, c, chips)
             out[mode] = {
                 "compile_s": c["compile_s"], "flops": c["flops"],
@@ -477,6 +530,7 @@ def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
                 "collective_counts": c["collective_counts"],
                 "collective_detail": c["collective_detail"],
                 "collective_result_bytes": c["collective_result_bytes"],
+                "collective_by_axis": c["collective_by_axis"],
                 "peak_bytes": c["peak_bytes"], "kernels": c["kernels"],
                 "replication": int(a.replication),
                 "num_shards": int(a.num_shards),
@@ -489,20 +543,41 @@ def run_bft_cells(arch: str, n: int = 8, f: int = 2, *,
     return out
 
 
-def _fake_ranks(n: int):
-    """Rank 0 of a ``fake`` process group of world n on ``meta``: its
-    collectives return at once and move nothing."""
+def _fake_ranks(n: int, model: int = 1):
+    """Rank 0 of a ``fake`` process group of world n x ``model`` on
+    ``meta``: its collectives return at once and move nothing.  With
+    ``model`` above 1 its ``Ranks`` hold both axes of an n x ``model``
+    worker mesh (``ranks.mesh``)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    from repro_torch.launch.mesh import make_worker_mesh
     from repro_torch.train.ranks import Ranks
 
     if dist.is_initialized():
         raise RuntimeError("the workers dry-run needs its own process "
                            "group; one is already initialized")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=n)
-    return Ranks(dist.group.WORLD, "meta")
+                            world_size=n * model)
+    if model == 1:
+        return Ranks(dist.group.WORLD, "meta")
+    return Ranks.of(make_worker_mesh(n, model, device_type="cpu"), "meta")
+
+
+def run_production_cells(arch: str, *, global_batch: int | None = None,
+                         seq_len: int | None = None,
+                         opt: OptConfig | None = None) -> dict:
+    """The reference's ``run_bft_cells`` on the production meshes
+    (``PRODUCTION``: 16x16 with the workers on ``data``, n = 16, and
+    2x16x16 with the workers on (``pod``, ``data``), n = 32; ``model`` =
+    16, f = 3, ``train_4k``), rank 0 of each traced as ``tp``; an arch
+    that cannot split is listed as skipped with its reason."""
+    out = {"arch": arch, "cells": {}}
+    for label, n, model, f in PRODUCTION:
+        out["cells"][label] = run_bft_cells(
+            arch, n, f, global_batch=global_batch, seq_len=seq_len,
+            opt=opt, mesh="tp", model=model, label=label)
+    return out
 
 
 def main(argv=None) -> None:
@@ -512,15 +587,20 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="single", choices=MESHES,
                     help="single: one card (every BFT worker in one "
                          "process); workers (with --bft): n ranks on the "
-                         "data axis, one worker each, collectives counted")
+                         "data axis, one worker each, collectives counted; "
+                         "tp: n x --model ranks; production: the "
+                         "reference's 16x16 and 2x16x16 BFT cells")
+    ap.add_argument("--model", type=int, default=2,
+                    help="ranks a worker is split over (--mesh tp)")
     ap.add_argument("--bft", action="store_true",
                     help="dry-run the BFT steps instead")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--no-cost", action="store_true")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
-    if args.mesh == "workers" and not args.bft:
-        raise SystemExit("--mesh workers traces the BFT steps: add --bft")
+    if args.mesh != "single" and not args.bft:
+        raise SystemExit(f"--mesh {args.mesh} traces the BFT steps: add "
+                         f"--bft")
     archs = ASSIGNED if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     os.makedirs(args.out, exist_ok=True)
@@ -543,6 +623,8 @@ def main(argv=None) -> None:
             " ".join(f"{m}={res[m]['bound_s'] * 1e3:.1f}ms" for m in
                      ("fast", "check", "check_full", "identify"))
             if "fast" in res else
+            " ".join(f"{k}: {v.get('skipped') or 'traced'}"
+                     for k, v in res["cells"].items()) if "cells" in res else
             f"fits={res.get('fits_hbm')} "
             f"dom={res.get('roofline', {}).get('dominant', '-')}")
         print(f"[done] {tag} ({time.time() - t0:.1f}s) {status}",
@@ -550,8 +632,12 @@ def main(argv=None) -> None:
 
     if args.bft:
         for arch in archs:
-            write(f"bft_{arch}_{args.mesh}", {"arch": arch},
-                  lambda arch=arch: run_bft_cells(arch, mesh=args.mesh))
+            if args.mesh == "production":
+                fn = lambda arch=arch: run_production_cells(arch)  # noqa
+            else:
+                fn = lambda arch=arch: run_bft_cells(  # noqa: E731
+                    arch, mesh=args.mesh, model=args.model)
+            write(f"bft_{arch}_{args.mesh}", {"arch": arch}, fn)
         return
     for arch in archs:
         for name in shapes:

@@ -4,7 +4,8 @@ Port of ``repro.launch.mesh``.  Functions (never module-level
 constants), so importing this module touches no process group.
 
 ``make_worker_mesh`` is the trainer's: n ranks on the ``data`` axis,
-one BFT worker block each (``train.ranks``), over the initialized
+one BFT worker block each, times ``model`` ranks that split each
+worker's leaves (``train.ranks``), over the initialized
 ``torch.distributed`` process group.  The production meshes are
 shape-only (``sharding.MeshShape``): no process group spans 256 cards
 here; ``sharding.spec_for`` and the dry-run's report name them.
@@ -25,16 +26,12 @@ def make_worker_mesh(n_ranks: int, model: int = 1, *,
                      device_type: str | None = None):
     """The BFT trainer's ``DeviceMesh``: ``n_ranks`` on ``data`` x
     ``model``, over the initialized process group (whose world size must
-    be ``n_ranks * model``).  ``device_type`` defaults to "cuda" under
-    NCCL and "cpu" otherwise (two gloo ranks sharing one card pass
-    "cuda")."""
+    be ``n_ranks * model``); global rank d * model + m sits at (d, m),
+    the reference's row-major ``make_mesh((n, model))``.
+    ``device_type`` defaults to "cuda" under NCCL and "cpu" otherwise
+    (two gloo ranks sharing one card pass "cuda")."""
     import torch.distributed as dist
 
-    if model != 1:
-        raise ValueError(
-            f"make_worker_mesh(model={model}): a model axis above 1 "
-            f"(tensor parallelism inside a worker) is ROADMAP item 7b; "
-            f"the port's workers hold full replicas (model = 1)")
     if not dist.is_initialized():
         raise RuntimeError("make_worker_mesh needs an initialized "
                            "process group (train.ranks.init)")

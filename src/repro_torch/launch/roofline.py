@@ -104,6 +104,7 @@ def kernel_cost(name: str, **d) -> KernelCost:
       pairwise_relmax          R, d: the same at B = 1
       sketch_batched           B, d, k: one signed add per element
       sketch                   d, k: the same at B = 1
+      sketch_shard             d, k: the same on a shard of d elements
       coded_encode_batched     B, n_sym, m, d: 2 B n_sym m d f32
       coded_encode             n_sym, m, d: the same at B = 1
       flash_attention          B, Sq, Sk, H, K, hd, causal, window,
@@ -128,7 +129,7 @@ def kernel_cost(name: str, **d) -> KernelCost:
         B, R, dd = d.get("B", 1), d["R"], d["d"]
         return KernelCost(B * R * R * dd, B * R * dd * 4 + B * R * R * 4,
                           f32)
-    if name in ("sketch_batched", "sketch"):
+    if name in ("sketch_batched", "sketch", "sketch_shard"):
         B, dd, k = d.get("B", 1), d["d"], d["k"]
         return KernelCost(2 * B * dd, B * dd * 4 + B * k * 4, f32)
     if name in ("coded_encode_batched", "coded_encode"):

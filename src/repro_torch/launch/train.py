@@ -12,6 +12,9 @@ rank running its n/W workers, as the reference runs one worker a
 device.  By default W is the largest count of visible cards that
 divides n (one NCCL rank a card); ``--nproc 1``, and the default on the
 CPU, runs all n workers in this process with no process group.
+``--model M`` splits each worker over M ranks (tensor and expert
+parallel, the dense and MoE decoders): the world is W x M ranks, global
+rank d * M + m, one NCCL rank a card or gloo ranks sharing one.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch llama3.2-1b --steps 50 --mode randomized --f 2 \\
@@ -24,6 +27,9 @@ CPU, runs all n workers in this process with no process group.
     # two gloo ranks sharing one card (operands staged through the host):
     PYTHONPATH=src python -m repro_torch.launch.train --nproc 2 \\
         --backend gloo ...
+    # each worker split over 2 ranks: 2 x 2 NCCL ranks on four cards
+    PYTHONPATH=src python -m repro_torch.launch.train --nproc 2 \
+        --model 2 ...
     # under torchrun (RANK, WORLD_SIZE, LOCAL_RANK from the environment):
     PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
         repro_torch.launch.train --arch llama3.2-1b ...
@@ -31,7 +37,8 @@ CPU, runs all n workers in this process with no process group.
 The flags are the reference's (``repro.launch.train``); ``--workers``
 is the worker count n, ``--nproc`` the rank count W, ``--backend`` the
 process group's backend (nccl on the card, gloo on the CPU by default),
-``--device`` the device.  ``rank_main`` is one rank's body: this
+``--device`` the device, ``--model`` the ranks of a worker.
+``rank_main`` is one rank's body: this
 launcher, the tests and ``chip_smoke.py`` spawn it with a ``Job``.
 """
 from __future__ import annotations
@@ -71,8 +78,10 @@ class Job:
     the path of a ``torch.save``'d parameter tree (CPU) to start from,
     else random from ``tc.seed``.  ``out``: a directory for each rank's result
     (``rank<r>.pt``).  ``keep_params``: the results carry the final
-    parameter leaves.  ``plant``: after the run, one ulp changed on the
-    last rank must fail ``Ranks.agree``."""
+    parameter leaves (whole, gathered over the model axis).  ``plant``:
+    after the run, one ulp changed on the last rank must fail
+    ``Ranks.agree``.  ``model``: the ranks of a worker (the world is W x
+    ``model``)."""
 
     cfg: Any
     opt: OptConfig
@@ -91,6 +100,7 @@ class Job:
     keep_params: bool = False
     plant: bool = False
     threads: int = 0
+    model: int = 1
 
 
 def free_port() -> int:
@@ -171,6 +181,39 @@ def _all_reduce_bw(ranks, nbytes: int, device) -> dict:
             "busbw": 2 * (w - 1) / w * buf.numel() * 4 / s}
 
 
+def _count_fast(tr, device) -> dict:
+    """One fast step on ``tr``'s state under the dry-run's counter, its
+    state restored after: what a rank of this mesh computes and moves in
+    a fast step, to hold the meta trace (``launch.dryrun``) against."""
+    from repro_torch.core import tree
+    from repro_torch.core.assignment import fast_assignment
+    from repro_torch.data import global_batch_for_step, worker_batches
+    from repro_torch.launch.dryrun import count_step
+
+    a = fast_assignment(tr.state.active)
+    batch = global_batch_for_step(
+        tr.cfg, global_batch=tr.tc.global_batch, seq_len=tr.tc.seq_len,
+        step=tr.state.step, seed=tr.tc.seed)
+    keep = [t.clone() for t in tree.leaves(tr.params)
+            + tree.leaves(tr.opt_state)]
+    axes = [tr.ranks] + ([tr.ranks.model] if tr.ranks.model else [])
+    staged0 = sum(x.counts["staged_bytes"] for x in axes)
+    args = (tr.params, tr.opt_state, worker_batches(batch, a), a.weight,
+            tr.true_byz & tr.state.active, tr.key, tr.state.step)
+    _sync(device)
+    _, res = count_step(tr._step_fn("fast", a), args, device.type,
+                        group=tr.ranks.world)
+    _sync(device)
+    for t, k in zip(tree.leaves(tr.params) + tree.leaves(tr.opt_state),
+                    keep):
+        t.copy_(k)
+    del keep
+    res["staged_bytes"] = sum(x.counts["staged_bytes"] for x in axes) - \
+        staged0             # beside the count, which leaves them out
+    res["active"] = tr.state.active.tolist()
+    return res
+
+
 def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
     """The actions of ``job`` on this rank: (result, the last trainer)."""
     from repro_torch.core import tree
@@ -188,7 +231,7 @@ def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
 
     ops.reset_launch_counts()
     tr, tr_b, resumed = new(), None, None
-    walls, sums, probes, extra = [], [], [], {}
+    walls, sums, probes, aside, extra = [], [], [], [], {}
 
     def steps(t, k):
         for _ in range(k):
@@ -199,7 +242,9 @@ def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
             walls.append(time.perf_counter() - t0)
             sums.append(R.checksums(t.params, t.opt_state).cpu())
 
+    action_s = []
     for act, arg in job.actions:
+        t_act = time.perf_counter()
         if act == "run":
             steps(tr, arg)
         elif act == "restart":
@@ -215,11 +260,24 @@ def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
             _run(tr, arg)
         elif act == "all_reduce_bw":
             extra["all_reduce_bw"] = _all_reduce_bw(tr.ranks, arg, device)
+        elif act == "model_all_reduce_bw":
+            extra["model_all_reduce_bw"] = _all_reduce_bw(tr.ranks.model,
+                                                          arg, device)
+        elif act == "count_fast":
+            before = ops.launch_counts()
+            extra["count_fast"] = _count_fast(tr_b or tr, device)
+            aside.append({k: v - before[k] for k, v in
+                          ops.launch_counts().items()})
         else:
             raise ValueError(f"unknown action {act!r}")
+        action_s.append((act, time.perf_counter() - t_act))
     last = tr_b or tr
+    full = {"main": tr.full_state()[0] if job.keep_params else None,
+            "restarted": tr_b.full_state()[0] if job.keep_params and tr_b
+            else None}
     # the training's launches: the probes' own are kept apart
-    launches = {k: v - sum(p["launches"][k] for p in probes)
+    aside += [p["launches"] for p in probes]
+    launches = {k: v - sum(a[k] for a in aside)
                 for k, v in ops.launch_counts().items()}
     result = {
         "rank": last.ranks.rank, "world": last.ranks.world,
@@ -227,7 +285,12 @@ def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
         "staged": last.ranks.staged, "main": summary(tr),
         "restarted": summary(tr_b) if tr_b else None, "resumed": resumed,
         "walls": walls, "checksums": sums, "check_fault": probes,
+        "action_s": action_s,
         "launches": launches, "counts": dict(last.ranks.counts),
+        "model": job.model, "model_rank": last.ranks.model.rank
+        if last.ranks.model else 0,
+        "model_counts": dict(last.ranks.model.counts)
+        if last.ranks.model else None,
         "agree": last.ranks.agree(last.params, last.opt_state),
         "peak_bytes": torch.cuda.max_memory_allocated(device)
         if device.type == "cuda" else None, **extra}
@@ -235,9 +298,9 @@ def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
         result["plant"] = _plant(last)
     if job.keep_params:
         result["params"] = {
-            "main": [t.detach().cpu() for t in tree.leaves(tr.params)],
-            "restarted": [t.detach().cpu() for t in tree.leaves(tr_b.params)]
-            if tr_b else None}
+            k: None if v is None else [t.detach().cpu()
+                                       for t in tree.leaves(v)]
+            for k, v in full.items()}
     return result, last
 
 
@@ -258,7 +321,11 @@ def rank_main(rank: int, world: int, job: Job,
                            rank if local_rank is None else local_rank)
     R.init(job.backend, rank, world, init_method=job.init_method,
            timeout_s=job.timeout_s, device=device)
-    mesh = make_worker_mesh(world, device_type=device.type)
+    if world % job.model:
+        raise ValueError(f"a model axis of {job.model} does not divide a "
+                         f"world of {world}")
+    mesh = make_worker_mesh(world // job.model, job.model,
+                            device_type=device.type)
     result, trainer = run_job(job, mesh, device)
     if job.out:
         torch.save(result, os.path.join(job.out, f"rank{rank}.pt"))
@@ -308,13 +375,14 @@ def spawn(job: Job, world: int) -> list[dict] | None:
             for r in range(world)]
 
 
-def default_nproc(n: int, device: str) -> int:
+def default_nproc(n: int, device: str, model: int = 1) -> int:
     """The reference takes every device: one rank a visible card, the
-    largest such count that divides n; 1 on the CPU."""
+    largest count W of data ranks that divides n with W x ``model``
+    cards; 1 on the CPU."""
     if torch.device(device).type == "cpu":
         return 1
-    cards = torch.cuda.device_count()
-    return max(w for w in range(1, max(1, cards) + 1) if n % w == 0)
+    cards = max(1, torch.cuda.device_count() // model)
+    return max(w for w in range(1, cards + 1) if n % w == 0)
 
 
 def main(argv=None) -> None:
@@ -341,6 +409,9 @@ def main(argv=None) -> None:
                     help="ranks W on the data axis (0: one a visible card "
                          "that divides n; 1 on the CPU); 1 runs every "
                          "worker in this process")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks a worker is split over (tensor and expert "
+                         "parallel); the world is nproc x model")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "nccl", "gloo"],
                     help="auto: nccl on the card, gloo on the CPU; gloo "
@@ -386,34 +457,39 @@ def main(argv=None) -> None:
         StepConfig(detection=args.detection),
         np.isin(np.arange(workers), byz))
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
-    nproc = int(os.environ["WORLD_SIZE"]) if torchrun else (
-        args.nproc or default_nproc(workers, device))
+    model = max(1, args.model)
+    if torchrun and int(os.environ["WORLD_SIZE"]) % model:
+        raise SystemExit(f"--model {model} does not divide the world "
+                         f"{os.environ['WORLD_SIZE']}")
+    nproc = int(os.environ["WORLD_SIZE"]) // model if torchrun else (
+        args.nproc or default_nproc(workers, device, model))
     if workers % nproc:
         raise SystemExit(f"--nproc {nproc} does not divide --workers "
                          f"{workers}")
     backend = args.backend if args.backend != "auto" else (
         "gloo" if torch.device(device).type == "cpu" else "nccl")
     print(f"[launch] {cfg.name}: {workers} workers on {device}"
-          + ("" if nproc == 1 and not torchrun else
-             f" as {nproc} {backend} ranks of {workers // nproc}"))
+          + ("" if nproc * model == 1 and not torchrun else
+             f" as {nproc} x {model} {backend} ranks, "
+             f"{workers // nproc} workers a data rank"))
 
-    if nproc == 1 and not torchrun:
+    if nproc * model == 1 and not torchrun:
         trainer = Trainer(*trainer_args[:4], attack=trainer_args[4],
                           sc=trainer_args[5], true_byzantine=trainer_args[6],
                           device=args.device)
         _run(trainer, args)
         return
     # CPU ranks share the host's cores
-    threads = max(1, (os.cpu_count() or 1) // nproc) \
+    threads = max(1, (os.cpu_count() or 1) // (nproc * model)) \
         if torch.device(device).type == "cpu" else 0
     job = Job(*trainer_args, device=device, backend=backend,
-              actions=(("launch", args),), threads=threads)
+              actions=(("launch", args),), threads=threads, model=model)
     if torchrun:
-        rank_main(int(os.environ["RANK"]), nproc,
+        rank_main(int(os.environ["RANK"]), nproc * model,
                   dataclasses.replace(job, init_method="env://"),
                   local_rank=int(os.environ.get("LOCAL_RANK", 0)))
     else:
-        spawn(job, nproc)
+        spawn(job, nproc * model)
         stop_rank_server()
 
 

@@ -8,7 +8,18 @@ reference's flash-style prefill attention; here it is
 on a CPU tensor (or with ``impl="torch"``) its plain version, the port
 of the reference's blockwise loop.  ``decode_attention`` stays plain
 PyTorch, as the reference computes it outside any kernel.
-``shard_heads_for_tp`` is the identity on one device and is not ported.
+
+``self_attention`` is a layer's projections, K6 and output projection.
+When wq's columns are split over the ambient ``model`` axis (the
+reference's ``heads`` on ``model``; ``shard_heads_for_tp``), each rank
+computes its H / model query heads with their kv heads, K6 runs on
+them and the row-parallel wo's outputs are summed over ``model``.  The
+kv heads: split with the query heads when ``model`` divides K; when it
+divides K * hd only (wk's columns cut a head) the rank's columns are
+all-gathered and the rank keeps its query heads' kv heads; when wk and
+wv are replicated (``spec_for``'s fallback) every rank projects all K
+heads and keeps its own.  A split that would cut a query head
+(``heads_forced``) raises.
 """
 from __future__ import annotations
 
@@ -17,8 +28,10 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import parallel
 from repro_torch.models.layers import (apply_rope, dtype_of, init_weight,
                                        l2norm)
+from repro_torch.sharding import constrain_here
 
 
 def init_attention(cfg, gen: torch.Generator, device,
@@ -44,7 +57,7 @@ def init_attention(cfg, gen: torch.Generator, device,
 def project_q(params, x: torch.Tensor, cfg, positions=None,
               rope: bool = True) -> torch.Tensor:
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = (x @ params["wq"]).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = l2norm(q) * params["q_norm"].to(q.dtype)
     if rope and positions is not None:
@@ -55,19 +68,97 @@ def project_q(params, x: torch.Tensor, cfg, positions=None,
 def project_kv(params, x: torch.Tensor, cfg, positions=None,
                rope: bool = True):
     B, S, _ = x.shape
-    K, hd = cfg.num_kv_heads, cfg.head_dim
-    k = (x @ params["wk"]).reshape(B, S, K, hd)
-    v = (x @ params["wv"]).reshape(B, S, K, hd)
+    hd = cfg.head_dim
+    k = (x @ params["wk"]).reshape(B, S, -1, hd)
+    v = (x @ params["wv"]).reshape(B, S, -1, hd)
+    return _finish_k(params, k, cfg, positions, rope), v
+
+
+def _finish_k(params, k: torch.Tensor, cfg, positions, rope: bool):
     if cfg.qk_norm:
         k = l2norm(k) * params["k_norm"].to(k.dtype)
     if rope and positions is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
-    return k, v
+    return k
 
 
 def output_proj(params, o: torch.Tensor) -> torch.Tensor:
     B, S = o.shape[:2]
     return o.reshape(B, S, -1) @ params["wo"]
+
+
+def heads_split(params, cfg) -> bool:
+    """Whether wq's columns are split over the model axis."""
+    return params["wq"].shape[-1] != cfg.num_heads * cfg.head_dim
+
+
+def _local_kv_heads(k, v, first: int, Hl: int, G: int):
+    """Of all K kv heads, those of query heads [first, first + Hl) (query
+    head h reads kv head h // G): a contiguous run when G divides Hl or
+    Hl divides G (GQA on the run), else one kv head per query head."""
+    if Hl % G == 0 or G % Hl == 0:
+        lo, n = first // G, max(1, Hl // G)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.arange(first, first + Hl, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _split_qkv(p, h, cfg, positions):
+    """This rank's q (B, S, H / model, hd) and the k, v its heads read,
+    under the ambient model axis."""
+    ax = parallel.require_axis()
+    tp = ax.world
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if H % tp:
+        raise ValueError(
+            f"{cfg.name}: {H} query heads over a model axis of {tp} cut a "
+            f"head (heads_forced, ROADMAP item 7b)")
+    B, S, _ = h.shape
+    Hl, G = H // tp, H // K
+    # replicated leaves read by this rank's heads only: partial gradients
+    pp = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            pp[name] = parallel.copy(p[name], ax)
+    hf = parallel.copy(h, ax)
+    q = constrain_here(project_q(pp, hf, cfg, positions),
+                       ("batch", None, "heads", None), (B, S, H, hd))
+    kcols = p["wk"].shape[-1]
+    if kcols == K * hd:                        # wk, wv replicated
+        pp["wk"], pp["wv"] = parallel.copy(p["wk"], ax),             parallel.copy(p["wv"], ax)
+        k, v = project_kv(pp, hf, cfg, positions)
+    elif K % tp == 0:                          # kv heads split with q's
+        k, v = project_kv(pp, hf, cfg, positions)
+        k = constrain_here(k, ("batch", None, "kv", None), (B, S, K, hd))
+        return q, k, v
+    else:                                      # wk's columns cut a head
+        k = parallel.gather_scatter(hf @ p["wk"], -1, ax).reshape(
+            B, S, K, hd)
+        v = parallel.gather_scatter(hf @ p["wv"], -1, ax).reshape(
+            B, S, K, hd)
+        k = _finish_k(pp, k, cfg, positions, True)
+    k, v = _local_kv_heads(k, v, ax.rank * Hl, Hl, G)
+    return q, k, v
+
+
+def self_attention(p, h: torch.Tensor, cfg, positions, *, causal: bool,
+                   window: int | None, impl: str | None = None):
+    """A self-attention sub-block on h (B, S, D): (output (B, S, D),
+    (k, v) as K6 read them).  Split over the model axis when wq's
+    columns are (``heads_split``)."""
+    if not heads_split(p, cfg):
+        q = project_q(p, h, cfg, positions)
+        k, v = project_kv(p, h, cfg, positions)
+        o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                impl=impl)
+        return output_proj(p, o), (k, v)
+    q, k, v = _split_qkv(p, h, cfg, positions)
+    o = blockwise_attention(q, k, v, causal=causal, window=window,
+                            impl=impl)
+    B, S = o.shape[:2]
+    o = constrain_here(o.reshape(B, S, -1), ("batch", None, "heads"),
+                       (B, S, cfg.num_heads * cfg.head_dim))
+    return parallel.reduce(output_proj(p, o)), (k, v)
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True,

@@ -14,6 +14,11 @@ dtype), an MoE layer's ``ffn`` leaves (``router``, ``gate``, ``up``,
 ``gate_attn`` (row r of an (R,) leaf: a 0-d tensor) and an
 encoder-decoder model's ``ln_cross`` and ``cross`` as the dense layers'
 do; its ``encoder`` stack the same way, and ``encoder_norm``.
+
+``shard_params`` keeps one rank's shard of a full tree (each leaf's
+``sharding.Placement``, ``placements``) and ``gather_params`` joins the
+shards of a worker's ``model`` ranks back into the full tree, so a
+checkpoint has one layout whatever the ``model`` axis.
 """
 from __future__ import annotations
 
@@ -57,3 +62,34 @@ def from_jax_params(cfg: ModelConfig, tree, device=None):
             for pos in range(len(group.pattern))]
     assert len(params["layers"]) == cfg.num_layers
     return M.map_params(lambda a: to_tensor(a).to(dev), params)
+
+
+def placements(cfg: ModelConfig, mesh, coords=None):
+    """Each leaf's ``sharding.Placement`` on one rank of ``mesh`` (this
+    rank of a ``DeviceMesh`` unless ``coords``) under the trainer's
+    ``tp_only_rules``."""
+    from repro_torch.sharding import tp_only_rules, tree_shardings
+
+    return tree_shardings(M.annotated_params(cfg), mesh, tp_only_rules(),
+                          coords)
+
+
+def shard_params(tree, shardings):
+    """Full tree -> this rank's shards (``shardings``: ``placements``),
+    each a tensor of its own; a replicated leaf is the same tensor."""
+    from repro_torch.core import tree as tree_mod
+
+    return tree_mod.tree_map(
+        lambda leaf, pl: pl.take(leaf).clone() if pl.sharded else leaf,
+        tree, shardings)
+
+
+def gather_params(tree, shardings, axis):
+    """This rank's shards -> the full tree, gathered over the ``model``
+    axis (``train.ranks.ModelAxis``) along each leaf's split dim; every
+    rank of the axis calls it, in the same leaf order."""
+    from repro_torch.core import tree as tree_mod
+
+    return tree_mod.tree_map(
+        lambda leaf, pl: axis.gather_dim(leaf, pl.split_dim)
+        if pl.sharded else leaf, tree, shardings)

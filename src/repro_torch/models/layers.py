@@ -4,12 +4,20 @@ Port of ``repro.models.layers``: pure functions over explicit parameter
 dictionaries, with the reference's precision rules — norms, rotary
 angles and the SiLU in f32, cast back to the input's dtype; logits in
 f32 from an f32 copy of the tied table.
+
+A leaf split over the ambient ``model`` axis (``models.parallel``) is
+read as it lies: the embedding table's rows by vocab (a masked local
+lookup, then a sum over ``model``), the unembedding's columns by vocab
+(the f32 logits stay split, (..., V / model) on each rank), the MLP's
+gate / up columns and down rows by ffn (then a sum over ``model``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.models import parallel
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -78,12 +86,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return params["tokens"].to(dtype_of(cfg))[tokens]
+    table = params["tokens"].to(dtype_of(cfg))
+    if table.shape[0] == cfg.vocab_size:       # the vocab is not split
+        return table[tokens]
+    ax = parallel.require_axis()
+    n = table.shape[0]
+    local = tokens - ax.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return parallel.reduce(torch.where(inside[..., None], rows, 0.0), ax)
 
 
 def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Logits in f32: x and the (tied) table both cast to f32."""
+    """Logits in f32: x and the (tied) table both cast to f32.  Under a
+    vocab split, this rank's columns of them."""
     w = params["tokens"].T if cfg.tie_embeddings else params["head"]
+    if w.shape[-1] != cfg.vocab_size:
+        x = parallel.copy(x)
     return x.to(torch.float32) @ w.to(torch.float32)
 
 
@@ -91,8 +110,15 @@ def unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
-def mlp(params, x: torch.Tensor) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, d_ff: int | None = None) -> torch.Tensor:
+    """SwiGLU; when ``params``' ffn width is below ``d_ff``, its slice of
+    the ffn over the model axis: column-parallel gate / up, row-parallel
+    down, the outputs summed over ``model``."""
+    split = d_ff is not None and params["gate"].shape[-1] != d_ff
+    if split:
+        x = parallel.copy(x)
     g = x @ params["gate"]
     u = x @ params["up"]
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
-    return h @ params["down"]
+    y = h @ params["down"]
+    return parallel.reduce(y) if split else y

@@ -53,10 +53,12 @@ from repro_torch.configs.base import (LayerGroup, ModelConfig, layer_groups,
 from repro_torch.core import tree as tree_mod
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (dtype_of, embed, init_weight,
                                        rmsnorm, unembed)
+from repro_torch.sharding import constrain_here
 
 MOE_AUX_COEF = 0.01
 
@@ -215,6 +217,64 @@ def abstract_params(cfg: ModelConfig):
     return init_train(cfg, device="meta")
 
 
+# logical axes of each leaf by its key (the reference's ``abstract_*``):
+# the dense and cross-attention projections, the MLP, the MoE layer and
+# the mamba mixer; the stacked layers add "layers" in front
+_LOGICAL = {
+    "wq": ("embed", "heads"), "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+    "wo": ("heads", "embed"), "q_norm": ("norm",), "k_norm": ("norm",),
+    "gate_attn": (), "scale": ("norm",),
+    "router": ("embed_no_fsdp", "experts"),
+    "in_z": ("embed", "ssm_inner"), "in_x": ("embed", "ssm_inner"),
+    "in_B": ("embed", "ssm_state"), "in_C": ("embed", "ssm_state"),
+    "in_dt": ("embed", "ssm_heads"), "conv_x": ("conv", "ssm_inner"),
+    "conv_B": ("conv", "ssm_state"), "conv_C": ("conv", "ssm_state"),
+    "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",), "D": ("ssm_heads",),
+    "norm": ("norm",), "out": ("ssm_inner", "embed"),
+}
+# the ffn's gate / up / down: a dense MLP's (2-d) or the experts' (3-d)
+_FFN_LOGICAL = {
+    2: {"gate": ("embed", "ffn"), "up": ("embed", "ffn"),
+        "down": ("ffn", "embed")},
+    3: {"gate": ("experts", "embed", "expert_ffn"),
+        "up": ("experts", "embed", "expert_ffn"),
+        "down": ("experts", "expert_ffn", "embed")},
+}
+_INIT = {"scale": "ones", "q_norm": "ones", "k_norm": "ones",
+         "norm": "ones", "D": "ones", "gate_attn": "zeros",
+         "A_log": "ssm_a", "dt_bias": "ssm_dt"}
+
+
+def _logical_of(path: str, shape: tuple) -> tuple:
+    """The reference's logical axes of the leaf at ``path`` (a
+    ``core.tree`` path of the stacked training layout)."""
+    parts = path.split("/")
+    key = parts[-1]
+    stacked = parts[0] in ("decoder", "encoder")
+    if parts[0] == "embed":
+        return ("vocab", "embed") if key == "tokens" else ("embed", "vocab")
+    rank = len(shape) - stacked
+    if key in ("gate", "up", "down"):
+        names = _FFN_LOGICAL[rank][key]
+    else:
+        names = _LOGICAL[key]
+    return (("layers",) if stacked else ()) + names
+
+
+def annotated_params(cfg: ModelConfig):
+    """``abstract_params``'s tree with each leaf an ``Annotated``: its
+    shape, the reference's logical axes (``layers`` first on a stacked
+    leaf), dtype and initializer; ``sharding.tree_specs`` /
+    ``tree_shardings`` place it on a mesh."""
+    from repro_torch.sharding import Annotated
+
+    meta = abstract_params(cfg)
+    return tree_mod.unflatten(meta, [
+        Annotated(tuple(t.shape), _logical_of(path, tuple(t.shape)),
+                  t.dtype, _INIT.get(path.split("/")[-1], "normal"))
+        for path, t in tree_mod.leaves_with_paths(meta)])
+
+
 def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
     """Mean next-token cross-entropy of the stacked-layout ``params`` on
     {tokens, labels (B, S)[, ctx]} (labels < 0 ignored) plus
@@ -227,12 +287,33 @@ def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
                              impl=impl)
     labels = _tokens(batch["labels"], logits.device)
     valid = labels >= 0
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    if logits.shape[-1] == cfg.vocab_size:
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, labels.clamp(min=0)[..., None])[
+            ..., 0]
+    else:
+        lse, label_logit = _split_ce_terms(logits, labels)
     nll = lse - label_logit
     denom = torch.clamp(valid.sum(), min=1)
     ce = torch.where(valid, nll, 0.0).sum() / denom
     return ce + MOE_AUX_COEF * aux, {"ce": ce, "moe_aux": aux}
+
+
+def _split_ce_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, label logit) of vocab-split f32 logits (..., V / model):
+    the row max and the sum of exponentials reduced over ``model``, the
+    label's logit from the rank that holds it; no rank holds (..., V)."""
+    ax = parallel.require_axis()
+    n = logits.shape[-1]
+    top = logits.detach().amax(dim=-1)
+    ax.all_reduce_max(top)
+    sumexp = parallel.reduce(torch.exp(logits - top[..., None]).sum(dim=-1),
+                             ax)
+    local = labels.clamp(min=0) - ax.rank * n
+    inside = (local >= 0) & (local < n)
+    picked = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    label_logit = parallel.reduce(torch.where(inside, picked, 0.0), ax)
+    return torch.log(sumexp) + top, label_logit
 
 
 def _tokens(tokens, device) -> torch.Tensor:
@@ -274,7 +355,8 @@ def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
     dev = params_device(params)
     tokens = _tokens(batch["tokens"], dev)
     S = tokens.shape[1]
-    x = embed(params["embed"], tokens, cfg)
+    x = constrain_here(embed(params["embed"], tokens, cfg),
+                       ("batch", "seq", "embed"))
     positions = torch.arange(S, device=dev)[None]
     x, kv_all, aux = tfm.run_stack(params["layers"], x, cfg,
                                    positions=positions, ctx=ctx,
@@ -282,7 +364,10 @@ def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), kv_all, aux
+    logits = unembed(params["embed"], x, cfg)
+    logits = constrain_here(logits, ("batch", "seq", "vocab"),
+                            logits.shape[:-1] + (cfg.vocab_size,))
+    return logits, kv_all, aux
 
 
 def cache_layout(cfg: ModelConfig, batch: int, seq_len: int):

@@ -3,9 +3,15 @@ dispatch.
 
 Port of ``repro.models.moe``: its global path (``_moe_global``), which
 the reference takes on one device and inside the trainer's worker
-bodies.  Its ``LOCAL_DISPATCH`` path, a nested ``shard_map`` over the
-batch shards, is off by default there and waits here for multi-card
-training (ROADMAP Queue 1 item 7).
+bodies (``LOCAL_DISPATCH`` below).
+
+Expert-parallel over the ambient ``model`` axis (``models.parallel``)
+when the expert leaves are split (the reference's ``experts`` on
+``model``): each rank holds E / model experts and its columns of the
+router; the router's logits (N, E / model) are all-gathered, so every
+rank routes alike and assigns the same slots; each rank fills and runs
+its own experts' buffers, combines their choices in f32 and the
+partial outputs are summed over ``model``.
 
 Each (token, choice) gets a slot in its expert's capacity buffer from
 an exclusive cumulative sum over the routing one-hots, token-major and
@@ -28,7 +34,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import dtype_of, init_weight, mlp
+
+#: opt-in local (per-batch-shard) dispatch, the reference's constant:
+#: each batch shard of a pure-pjit step routes its own tokens under a
+#: nested ``shard_map``, so only the expert contraction crosses chips.
+#: Off there by default (the XLA CPU partitioner fails on nested
+#: shard_map + scan + remat at 256 devices); inside a BFT worker body,
+#: the trainer's path, the reference takes the global dispatch either
+#: way, as this port does.  The local path waits for FSDP inside a worker
+#: (ROADMAP item 7b).
+LOCAL_DISPATCH = False
 
 
 def capacity(cfg, num_tokens: int) -> int:
@@ -91,17 +108,24 @@ def routing(params, xt: torch.Tensor, cfg):
     """The routing pass of ``xt`` (N, D): (probs (N, E) f32, expert_idx
     (N, K), gates (N, K) f32 renormalized and zeroed where dropped, slot
     (N, K) within the expert, keep (N, K) bool, C)."""
+    logits = xt.to(torch.float32) @ params["router"].to(torch.float32)
+    if logits.shape[-1] != cfg.moe.num_experts:       # router columns split
+        logits = parallel.gather(logits, -1)
+    return route_logits(logits, cfg)
+
+
+def route_logits(logits: torch.Tensor, cfg):
+    """``routing`` from the router's f32 logits (N, E)."""
     m = cfg.moe
-    N = xt.shape[0]
+    N = logits.shape[0]
     E, K = m.num_experts, m.top_k
     C = capacity(cfg, N)
-    logits = xt.to(torch.float32) @ params["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gates, expert_idx = torch.topk(probs, K, dim=-1)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
     # the one-hots by a compare: ``one_hot`` takes other operators on
     # each device (the dry-run holds meta and card counts equal)
-    flat = (expert_idx[..., None] == torch.arange(E, device=xt.device)).to(
+    flat = (expert_idx[..., None] == torch.arange(E, device=logits.device)).to(
         torch.int64).reshape(N * K, E)
     slot = ((flat.cumsum(dim=0) - flat) * flat).sum(dim=-1).reshape(N, K)
     keep = slot < C
@@ -116,32 +140,46 @@ def moe(params, x: torch.Tensor, cfg):
     B, S, D = x.shape
     N = B * S
     E, K = m.num_experts, m.top_k
+    El = params["gate"].shape[0]
+    split = El != E                    # experts split over the model axis
     xt = x.reshape(N, D)
+    if split:
+        ax = parallel.require_axis()
+        xt = parallel.copy(xt, ax)
     probs, expert_idx, gates, slot, keep, C = routing(params, xt, cfg)
 
-    # (token, choice) -> its row of the (E*C) buffer, E*C where dropped;
-    # and each row's token (N where empty) and (token, choice) (N*K)
-    dest = torch.where(keep, expert_idx * C + slot, E * C).reshape(-1)
+    # (token, choice) -> its row of this rank's (El*C) buffer, El*C where
+    # dropped or another rank's; each row's token (N where empty) and
+    # (token, choice) (N*K)
+    dest = torch.where(keep, expert_idx * C + slot, E * C)
+    if split:
+        dest = dest - ax.rank * El * C
+        dest = torch.where((dest >= 0) & (dest < El * C), dest, El * C)
+    dest = dest.reshape(-1)
     ids = torch.arange(N * K, device=x.device)
-    src = torch.full((E * C + 1,), N * K, dtype=ids.dtype, device=x.device)
+    src = torch.full((El * C + 1,), N * K, dtype=ids.dtype, device=x.device)
     src.scatter_(0, dest, ids)
-    src = src[:E * C]
+    src = src[:El * C]
     token_of_row = torch.where(src < N * K, src // K, N)
 
     xe = _Gather.apply(xt, token_of_row, dest.reshape(N, K))
-    xe = xe.reshape(E, C, D)
+    xe = xe.reshape(El, C, D)
     g = torch.bmm(xe, params["gate"])
     u = torch.bmm(xe, params["up"])
     h = torch.nn.functional.silu(g.to(torch.float32)).to(xe.dtype) * u
-    ye = torch.bmm(h, params["down"]).reshape(E * C, D)
+    ye = torch.bmm(h, params["down"]).reshape(El * C, D)
 
     ytk = _Gather.apply(ye, dest, src[:, None]).reshape(N, K, D)
-    y = ytk[:, 0].to(torch.float32) * gates[:, :1]
+    # the gates' gradient from this rank's choices only: summed over model
+    gw = parallel.copy(gates, ax) if split else gates
+    y = ytk[:, 0].to(torch.float32) * gw[:, :1]
     for k in range(1, K):
-        y = y + ytk[:, k].to(torch.float32) * gates[:, k:k + 1]
+        y = y + ytk[:, k].to(torch.float32) * gw[:, k:k + 1]
+    if split:
+        y = parallel.reduce(y, ax)
     y = y.to(x.dtype)
     if m.shared_expert:
-        y = y + mlp(params["shared"], xt)
+        y = y + mlp(params["shared"], x.reshape(N, D), m.d_ff)
 
     # every top-k choice counts, dropped ones included; a scatter-add of
     # ones, not ``bincount``, whose output length waits on the host

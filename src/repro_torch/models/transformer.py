@@ -38,6 +38,28 @@ FFNS = ("mlp", "moe", "none")
 ENCODER_KIND = LayerKind("attn", "mlp")
 
 
+def require_splittable(cfg: ModelConfig, model: int) -> None:
+    """Raise unless the stack runs split over a model axis of ``model``
+    ranks: the dense and MoE decoders, whose query heads ``model``
+    divides (or does not divide H * hd, so wq stays whole).  Mamba
+    mixers, cross-attention (whisper, the VLM) and a split that cuts a
+    head wait for ROADMAP item 7b."""
+    if model <= 1:
+        return
+    kinds = layer_kinds(cfg)
+    if cfg.is_encoder_decoder or any(
+            k.mixer not in ATTN_MIXERS for k in kinds):
+        raise ValueError(
+            f"{cfg.name}: a model axis above 1 splits the dense and MoE "
+            f"decoders; mamba and cross-attention layers wait for ROADMAP "
+            f"item 7b")
+    H, hd = cfg.num_heads, cfg.head_dim
+    if H % model and (H * hd) % model == 0:
+        raise ValueError(
+            f"{cfg.name}: {H} query heads over a model axis of {model} cut "
+            f"a head (heads_forced, ROADMAP item 7b)")
+
+
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a config with a layer kind the stack does not run (its
     branches take any mixer but mamba and cross_attn for attention)."""
@@ -105,11 +127,10 @@ def apply_layer(kind: LayerKind, p, x: torch.Tensor, cfg: ModelConfig, *,
         mix = cross_attention(p["mixer"], h, ctx, cfg, impl)
         x = x + mix * torch.tanh(p["mixer"]["gate_attn"].to(mix.dtype))
     else:
-        q = attn.project_q(p["mixer"], h, cfg, positions)
-        k, v = attn.project_kv(p["mixer"], h, cfg, positions)
-        o = attn.blockwise_attention(q, k, v, causal=causal,
-                                     window=window_of(kind, cfg), impl=impl)
-        x = x + attn.output_proj(p["mixer"], o)
+        mix, (k, v) = attn.self_attention(
+            p["mixer"], h, cfg, positions, causal=causal,
+            window=window_of(kind, cfg), impl=impl)
+        x = x + mix
         if collect_kv:
             B, S = k.shape[:2]
             kv = (k.reshape(B, S, -1), v.reshape(B, S, -1))
@@ -127,7 +148,7 @@ def apply_ffn(kind: LayerKind, p, x: torch.Tensor, cfg: ModelConfig):
         return x, None
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind.ffn == "mlp":
-        return x + mlp(p["ffn"], h), None
+        return x + mlp(p["ffn"], h, cfg.d_ff), None
     f, aux = moe_mod.moe(p["ffn"], h, cfg)
     return x + f, aux
 

@@ -71,17 +71,30 @@ def init_opt_state(opt: OptConfig, params):
             "nu": tree.tree_map(zeros, params)}
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(torch.stack([g.to(torch.float32).square().sum()
-                                   for g in tree.leaves(grads)]).sum())
+def global_norm(grads, axis=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+    ``axis``: the worker's model axis when the leaves are its shards
+    (``axis.placements``): the split leaves' squares summed over it,
+    each replicated leaf's counted once."""
+    sq = [g.to(torch.float32).square().sum() for g in tree.leaves(grads)]
+    if axis is None:
+        return torch.sqrt(torch.stack(sq).sum())
+    split = [s for s, pl in zip(sq, axis.placements) if pl.sharded]
+    whole = [s for s, pl in zip(sq, axis.placements) if not pl.sharded]
+    total = torch.stack(split).sum().reshape(1) if split else \
+        torch.zeros(1, dtype=torch.float32, device=sq[0].device)
+    axis.all_reduce_sum(total)
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return torch.sqrt(total[0])
 
 
 @torch.no_grad()
-def opt_update(opt: OptConfig, grads, state, params, step):
+def opt_update(opt: OptConfig, grads, state, params, step, *, axis=None):
     """Update ``params`` and ``state`` in place from ``grads``; returns
-    (params, state, {"grad_norm", "lr"}) with 0-d f32 tensors."""
-    gnorm = global_norm(grads)
+    (params, state, {"grad_norm", "lr"}) with 0-d f32 tensors.  ``axis``
+    as ``global_norm``'s: the clip reads the whole worker's norm."""
+    gnorm = global_norm(grads, axis)
     dev = gnorm.device
     # an operator on the device (not a host tensor lifted and copied), so
     # the dry-run counts it on every device alike

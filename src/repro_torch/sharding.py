@@ -14,22 +14,38 @@ over an initialized process group) or a ``MeshShape``: axis names and
 sizes with no devices, as the production meshes of ``launch.mesh``
 are, which ``spec_for`` resolves without a process group.
 
-The port's trainer runs its workers as ranks of the ``data`` axis with
-``model`` = 1 (``train.ranks``): the parameters are replicated on every
-rank, which ``tp_only_rules`` states.
+Every parameter leaf of the port's models carries the reference's
+logical names (``Annotated``, built by ``models.model.annotated_params``);
+``tree_specs`` resolves a tree of them to placements, ``tree_shardings``
+to each leaf's ``Placement`` on one rank (the dims split over a mesh
+axis and the rank's slice of them) and ``tree_structs`` to ``meta``
+tensors of the rank's local shard.  The port's trainer runs its workers
+as ranks of the ``data`` axis and each worker as ``model`` ranks
+(``train.ranks``), with the parameters placed by ``tp_only_rules``:
+replicated over ``data``, split over ``model`` by heads, kv, ffn, vocab
+and experts.
+
+Inside a worker the model code reads the ambient ``model`` axis: a
+``set_mesh`` context installs it (``train.ranks.ModelAxis``: its size,
+this rank's coordinate and its collectives), ``ambient_mesh`` reads
+it, and ``constrain`` / ``constrain_here``
+check that a local activation has the shard shape its logical names
+give under ``ACT_RULES``.  The reference's ``with_sharding_constraint``
+places an array; here every rank computes its shard explicitly, so the
+constraint is a check that raises on a wrong shape, and outside a mesh
+context ``constrain_here`` is a no-op, as in the reference.
 
 The scenario engine splits its trials over the local cards of one
 process (``core.engineplan.shard``): ``trials_mesh`` gives a
 ``TrialsMesh``, a 1-D ``("trials",)`` mesh that is only a list of
 devices, ``trial_partition_spec`` the placement of one operand on it
-and ``mesh_num_devices`` its size.  What of the reference waits:
-``Annotated``, ``tree_specs``, ``tree_shardings``, ``constrain`` and
-``constrain_here`` for ROADMAP item 7b, which gives the port's
-parameter leaves their logical names and a ``model`` axis above 1.
+and ``mesh_num_devices`` its size.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Any, Mapping, Sequence
 
 from repro_torch.core import tree as _tree
@@ -125,9 +141,10 @@ def trial_partition_spec(ndim: int, axis: int | None) -> tuple:
 
 
 def mesh_axis_sizes(mesh) -> dict[str, int]:
-    """{axis name: size} of a ``DeviceMesh`` or a ``MeshShape``."""
-    if isinstance(mesh, MeshShape):
-        return mesh.shape
+    """{axis name: size} of a ``DeviceMesh``, a ``MeshShape`` or any
+    mesh whose ``shape`` is that dict (the ambient model axis)."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
@@ -228,9 +245,214 @@ def spec_for(logical_axes: Sequence[str | None], mesh,
 
 
 def param_bytes(params) -> int:
-    """Bytes of a tree of tensors (real or ``meta``)."""
-    return sum(t.numel() * t.element_size() for t in _tree.leaves(params))
+    """Bytes of a tree of tensors (real or ``meta``) or of ``Annotated``
+    leaves."""
+    total = 0
+    for t in _tree.leaves(params):
+        if _is_annotated(t):
+            import torch
+
+            total += math.prod(t.shape) * torch.empty(
+                (), dtype=t.dtype).element_size()
+        else:
+            total += t.numel() * t.element_size()
+    return total
 
 
 def param_count(params) -> int:
-    return sum(t.numel() for t in _tree.leaves(params))
+    return sum(math.prod(t.shape) if _is_annotated(t) else t.numel()
+               for t in _tree.leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# annotated parameter trees
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Annotated:
+    """A leaf's shape with its logical axes, dtype (a ``torch.dtype``)
+    and initializer (normal | ones | zeros | ssm_a | ssm_dt), as the
+    reference's parameter trees hold them."""
+
+    shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
+    dtype: Any
+    init: str = "normal"
+
+    def spec(self, mesh, rules: Mapping[str, Any] | None = None) -> tuple:
+        return spec_for(self.logical, mesh, self.shape, rules)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """One leaf on one rank: the full ``shape``, the shards of each dim
+    (``parts``, from ``spec_for``'s placement) and this rank's shard of
+    each (``index``)."""
+
+    shape: tuple[int, ...]
+    parts: tuple[int, ...]
+    index: tuple[int, ...]
+
+    @property
+    def local_shape(self) -> tuple[int, ...]:
+        return tuple(n // p for n, p in zip(self.shape, self.parts))
+
+    @property
+    def sharded(self) -> bool:
+        return any(p > 1 for p in self.parts)
+
+    @property
+    def split_dim(self) -> int | None:
+        """The one dim split over the mesh (None when replicated); a
+        leaf split on two dims raises."""
+        dims = [i for i, p in enumerate(self.parts) if p > 1]
+        if len(dims) > 1:
+            raise ValueError(f"a leaf split on dims {dims}: the port "
+                             f"splits at most one dim of a leaf")
+        return dims[0] if dims else None
+
+    @property
+    def slices(self) -> tuple[slice, ...]:
+        return tuple(slice(i * n, (i + 1) * n)
+                     for i, n in zip(self.index, self.local_shape))
+
+    def take(self, full):
+        """This rank's shard of the full leaf (a view)."""
+        return full[self.slices] if self.sharded else full
+
+
+def _is_annotated(x) -> bool:
+    return isinstance(x, Annotated)
+
+
+def _axes(entry) -> tuple:
+    """The mesh axes of one entry of a placement."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def tree_specs(annotated_tree, mesh, rules=None):
+    """A tree of ``Annotated`` -> the tree of their placements
+    (``spec_for`` leaf by leaf, with the divisibility fallback)."""
+    return _tree.tree_map(lambda a: a.spec(mesh, rules), annotated_tree)
+
+
+def mesh_coordinate(mesh) -> dict[str, int]:
+    """This rank's coordinate on each axis of a ``DeviceMesh`` (zeros on
+    a ``MeshShape``, which holds no rank)."""
+    names = tuple(mesh.axis_names if isinstance(mesh, MeshShape)
+                  else mesh.mesh_dim_names)
+    if isinstance(mesh, MeshShape):
+        return {n: 0 for n in names}
+    return dict(zip(names, mesh.get_coordinate()))
+
+
+def placement_of(a: Annotated, mesh, rules=None,
+                 coords: Mapping[str, int] | None = None) -> Placement:
+    """``a`` on the rank at ``coords`` (default: this rank of a
+    ``DeviceMesh``, the first of a ``MeshShape``).  A dim split over
+    several axes is split row-major over them, as JAX does."""
+    sizes = mesh_axis_sizes(mesh)
+    coords = mesh_coordinate(mesh) if coords is None else dict(coords)
+    spec = a.spec(mesh, rules)
+    parts, index = [], []
+    for entry in spec:
+        p, i = 1, 0
+        for ax in _axes(entry):
+            p, i = p * sizes[ax], i * sizes[ax] + int(coords.get(ax, 0))
+        parts.append(p)
+        index.append(i)
+    return Placement(tuple(a.shape), tuple(parts), tuple(index))
+
+
+def tree_shardings(annotated_tree, mesh, rules=None, coords=None):
+    """A tree of ``Annotated`` -> each leaf's ``Placement`` on one rank
+    of ``mesh``: the dims split over its axes and the rank's slice of
+    them (the reference's ``NamedSharding`` tree, for one rank)."""
+    return _tree.tree_map(lambda a: placement_of(a, mesh, rules, coords),
+                          annotated_tree)
+
+
+def tree_structs(annotated_tree, mesh=None, rules=None, coords=None):
+    """A tree of ``Annotated`` -> ``meta`` tensors of each leaf's shape,
+    or of the local shard's shape on one rank of ``mesh`` (a
+    ``DeviceMesh`` or a ``MeshShape``)."""
+    import torch
+
+    def struct(a: Annotated):
+        shape = a.shape if mesh is None else \
+            placement_of(a, mesh, rules, coords).local_shape
+        return torch.empty(shape, dtype=a.dtype, device="meta")
+
+    return _tree.tree_map(struct, annotated_tree)
+
+
+# ---------------------------------------------------------------------------
+# the ambient model axis
+# ---------------------------------------------------------------------------
+
+_AMBIENT: list = []
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Install ``mesh`` as the ambient mesh of the model code inside the
+    context (the reference's ``set_mesh``): an object with ``shape``
+    ({axis: size}); the trainer passes its ``model`` axis
+    (``train.ranks.ModelAxis``).  None installs nothing."""
+    if mesh is None:
+        yield
+        return
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def ambient_mesh():
+    """The ambient mesh, or None when no mesh is installed."""
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+def _local_of(full: Sequence[int], spec: tuple, sizes) -> tuple[int, ...]:
+    return tuple(n // math.prod(sizes[a] for a in _axes(entry))
+                 for n, entry in zip(full, spec))
+
+
+def constrain(x, mesh, logical: Sequence[str | None],
+              full: Sequence[int] | None = None):
+    """Check that ``x``, one rank's shard, has the shape ``ACT_RULES``
+    give the logical names on ``mesh`` for an activation of shape
+    ``full`` (default: ``x``'s own, i.e. a replicated activation);
+    returns ``x``.  A dim the mesh does not divide stays whole (the
+    divisibility fallback); ``heads_forced`` is refused, since no rank
+    computes a padded shard."""
+    full = tuple(x.shape) if full is None else tuple(full)
+    if len(full) != len(logical):
+        raise ValueError(f"{len(logical)} logical names for a "
+                         f"{len(full)}-d activation")
+    spec = spec_for(logical, mesh, full, ACT_RULES)
+    sizes = mesh_axis_sizes(mesh)
+    for n, entry, name in zip(full, spec, logical):
+        if name in FORCE_SHARD and n % math.prod(sizes[a]
+                                                 for a in _axes(entry)):
+            raise ValueError(
+                f"{name!r} pads a dim of {n} over the mesh: the port does "
+                f"not split a head (ROADMAP item 7b, heads_forced)")
+    want = _local_of(full, spec, sizes)
+    if tuple(x.shape) != want:
+        raise ValueError(f"activation {tuple(logical)} of full shape {full}"
+                         f": a rank holds {want}, got {tuple(x.shape)}")
+    return x
+
+
+def constrain_here(x, logical: Sequence[str | None],
+                   full: Sequence[int] | None = None):
+    """``constrain`` on the ambient mesh; a no-op outside one, so model
+    code calls it unconditionally."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return x
+    return constrain(x, mesh, logical, full)

@@ -1,5 +1,6 @@
 """The rank layer: the BFT workers as ranks of a ``torch.distributed``
-process group over the mesh's ``data`` axis (``model`` = 1).
+process group over the mesh's ``data`` axis, each worker split over the
+``model`` axis.
 
 The reference runs each worker as one device of the ``data`` axis and
 combines them with ``psum`` and ``all_gather`` inside a ``shard_map``
@@ -14,10 +15,22 @@ the ranks with the two collectives of this module:
                    worker order (the reference's all_gather of the
                    sketches and of every leaf).
 
-The parameters are replicated: every rank builds the same ones and
-applies the same update from the same gathered or reduced bits, so
-they stay equal with no broadcast; ``Ranks.agree`` checks it by an
-all-gather of a per-leaf checksum.
+The parameters are replicated over ``data``: every rank builds the
+same ones and applies the same update from the same gathered or reduced
+bits, so they stay equal with no broadcast; ``Ranks.agree`` checks it
+by an all-gather of a per-leaf checksum over ``data`` (the ranks of one
+``model`` coordinate hold the same shards).
+
+With a ``model`` axis above 1 (``launch.mesh.make_worker_mesh(W,
+model)``, global rank d * model + m) a BFT worker is a group of
+``model`` ranks, each holding its shard of every leaf
+(``sharding.tree_shardings`` under ``tp_only_rules``); ``Ranks.model``
+is that axis (``ModelAxis``), which the model code reads as the
+ambient mesh (``sharding.set_mesh``) for its collectives:
+
+  all_reduce_sum   row-parallel outputs, partial gradients and sketches;
+  all_reduce_max   the vote's relative differences, the CE's row max;
+  all_gather_rows  the router's logits, kv columns.
 
 Backends are named at init (``init``): ``nccl`` for one rank per card,
 ``gloo`` on the CPU.  Two ranks sharing one card run gloo on CUDA
@@ -36,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import tree
+from repro_torch.kernels import _account
 
 TIMEOUT_S = 900
 BACKENDS = ("nccl", "gloo")
@@ -107,10 +121,14 @@ def checksums(*trees, chunk: int = 1 << 24) -> torch.Tensor:
 
 
 class Ranks:
-    """This process's place on the ``data`` axis: its rank, the group's
-    size W, its device and its collectives.  ``counts`` holds the calls
-    of each collective, their result bytes, and the bytes staged through
-    host memory."""
+    """This process's place on one mesh axis (``axis``, ``data`` by
+    default): its rank, the group's size W, its device and its
+    collectives.  ``counts`` holds the calls of each collective, their
+    result bytes, and the bytes staged through host memory.  ``model``
+    is the worker's ``model`` axis (a ``ModelAxis``), None when it is
+    1."""
+
+    axis = "data"
 
     def __init__(self, group, device):
         self.group = group
@@ -122,14 +140,19 @@ class Ranks:
         self.counts = {"all_reduce": 0, "all_gather": 0, "bytes": 0,
                        "staged_bytes": 0}
         self.disagree: torch.Tensor | None = None
+        self.model: ModelAxis | None = None
+        self.mesh = None
 
     @classmethod
     def of(cls, mesh, device) -> "Ranks":
-        """The ``data`` axis of a ``launch.mesh.make_worker_mesh``."""
+        """The ``data`` axis of a ``launch.mesh.make_worker_mesh``, with
+        its ``model`` axis when that is above 1."""
         sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        if sizes.get("model", 1) != 1:
-            raise ValueError("a model axis above 1 is ROADMAP item 7b")
-        return cls(mesh.get_group("data"), device)
+        out = cls(mesh.get_group("data"), device)
+        out.mesh = mesh
+        if sizes.get("model", 1) > 1:
+            out.model = ModelAxis(mesh.get_group("model"), device)
+        return out
 
     def block(self, n: int) -> range:
         """This rank's workers: n/W of them, contiguous."""
@@ -145,31 +168,44 @@ class Ranks:
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group, in place; returns it."""
+        return self._all_reduce(t, dist.ReduceOp.SUM)
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Max of ``t`` over the group, in place; returns it."""
+        return self._all_reduce(t, dist.ReduceOp.MAX)
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         self._count("all_reduce", t)
-        if self.staged:
-            host = t.cpu()
-            self.counts["staged_bytes"] += 2 * host.numel() * \
-                host.element_size()
-            dist.all_reduce(host, group=self.group)
-            t.copy_(host)
-        else:
-            dist.all_reduce(t, group=self.group)
+        with _account.collective(self.axis, self.world):
+            if self.staged:
+                with _account.staging():
+                    host = t.cpu()
+                self.counts["staged_bytes"] += 2 * host.numel() * \
+                    host.element_size()
+                dist.all_reduce(host, op=op, group=self.group)
+                with _account.staging():
+                    t.copy_(host)
+            else:
+                dist.all_reduce(t, op=op, group=self.group)
         return t
 
     def all_gather_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """(b, ...) rows of this rank's workers -> (W b, ...) on every
         rank, rank r's rows at [r b, (r+1) b)."""
         shape = (self.world * rows.shape[0],) + tuple(rows.shape[1:])
-        if self.staged:
-            src = rows.contiguous().cpu()
-            out = torch.empty(shape, dtype=rows.dtype)
-            _all_gather_into(out, src, group=self.group)
-            self._count("all_gather", out)
-            self.counts["staged_bytes"] += (src.numel() + out.numel()) * \
-                src.element_size()
-            return out.to(self.device)
-        out = rows.new_empty(shape)
-        _all_gather_into(out, rows.contiguous(), group=self.group)
+        with _account.collective(self.axis, self.world):
+            if self.staged:
+                with _account.staging():
+                    src = rows.contiguous().cpu()
+                out = torch.empty(shape, dtype=rows.dtype)
+                _all_gather_into(out, src, group=self.group)
+                self._count("all_gather", out)
+                self.counts["staged_bytes"] += (src.numel() + out.numel()) \
+                    * src.element_size()
+                with _account.staging():
+                    return out.to(self.device)
+            out = rows.new_empty(shape)
+            _all_gather_into(out, rows.contiguous(), group=self.group)
         self._count("all_gather", out)
         return out
 
@@ -179,6 +215,13 @@ class Ranks:
         else:
             dist.barrier(group=self.group)
 
+    def world_barrier(self) -> None:
+        """A barrier over every rank of the process group (both axes)."""
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
+
     def agree(self, *trees) -> bool:
         """True when every rank holds the same bits in every leaf of
         ``trees``: an all-gather of ``checksums``; the (W, leaves) table
@@ -187,3 +230,22 @@ class Ranks:
         table = self.all_gather_rows(local[None]).cpu()
         self.disagree = (table != table[0]).any(dim=-1)
         return not bool(self.disagree.any())
+
+
+class ModelAxis(Ranks):
+    """A worker's ``model`` axis: its ranks hold one shard each of every
+    leaf.  It is the ambient mesh of the model code (``sharding.set_mesh``):
+    ``shape`` is {"model": size} and ``rank`` this rank's coordinate."""
+
+    axis = "model"
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"model": self.world}
+
+    def gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in rank order."""
+        rows = self.all_gather_rows(t.movedim(dim, 0).contiguous())
+        parts = rows.reshape((self.world, t.shape[dim]) + tuple(
+            rows.shape[1:]))
+        return parts.reshape((-1,) + tuple(parts.shape[2:])).movedim(0, dim)

@@ -14,6 +14,18 @@ equal with no broadcast.  With ``ranks=None`` one process runs all n
 workers in order on one device, and the sums and stacks need no
 collective.
 
+With a ``model`` axis above 1 (``ranks.model``, a ``ModelAxis`` whose
+``placements`` give each leaf's shard) a worker is that axis's ranks:
+the model runs tensor- and expert-parallel over it (the ambient mesh,
+``sharding.set_mesh``; ``models.parallel``), every per-leaf collective
+over ``data`` moves this rank's shards, and what needs a whole leaf
+reduces over ``model``: the check's symbol (the shards' partial
+sketches, ``detection.sketch_tree``), the identify vote (K3 on the
+shard, then a max over ``model``: exact, max has no order), full
+detection's flags (an OR), the filters' distances and the clip's norm
+(sums).  The tamper coin and key are the worker's, the same on each of
+its ranks.
+
   fast_step      plain parallelized SGD (efficiency 1).
   check_step     replicated computation (r = f_t+1) + detection; the
                  update is applied iff NO fault is detected, otherwise
@@ -45,6 +57,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.core import byzantine, detection, prngkey, tree
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
@@ -103,23 +116,26 @@ def worker_key(key, step: int, w: int):
 
 
 def per_worker_grad(params, tokens, labels, byz, key, cfg, attack, *,
-                    impl=None, clock=None):
+                    impl=None, clock=None, axis=None):
     """(loss () f32, gradient tree, did_tamper) of one worker's rows:
     the loss's gradient with respect to every leaf of ``params``
     (detached aliases, so ``params`` themselves need no grad), tampered
-    as the worker's attack and coin say."""
+    as the worker's attack and coin say.  ``axis``: the worker's model
+    axis, over which ``params`` are shards."""
     req = [p.detach().requires_grad_() for p in tree.leaves(params)]
-    with _phase(clock, "forward"):
-        loss, _ = M.train_loss(tree.unflatten(params, req),
-                               {"tokens": tokens, "labels": labels}, cfg,
-                               impl=impl)
-    with _phase(clock, "backward"):
-        grads = torch.autograd.grad(loss, req)
+    with sharding.set_mesh(axis):
+        with _phase(clock, "forward"):
+            loss, _ = M.train_loss(tree.unflatten(params, req),
+                                   {"tokens": tokens, "labels": labels}, cfg,
+                                   impl=impl)
+        with _phase(clock, "backward"):
+            grads = torch.autograd.grad(loss, req)
     del req
     with _phase(clock, "tamper"):
         gtree, did = byzantine.maybe_tamper(
             tree.unflatten(params, list(grads)), is_byz=byz, key=key,
-            attack=attack.kind, p_tamper=attack.p_tamper, scale=attack.scale)
+            attack=attack.kind, p_tamper=attack.p_tamper, scale=attack.scale,
+            placements=None if axis is None else axis.placements)
     return loss.detach(), gtree, did
 
 
@@ -136,6 +152,7 @@ class _Workers:
         self.params, self.cfg, self.attack = params, cfg, attack
         self.impl, self.clock, self.key, self.step = impl, clock, key, step
         self.ranks = ranks
+        self.axis = None if ranks is None else ranks.model
         n = len(weights)
         self.mine = range(n) if ranks is None else ranks.block(n)
         lo, hi = self.mine.start, self.mine.stop
@@ -157,7 +174,7 @@ class _Workers:
         loss, g, _ = per_worker_grad(
             self.params, self.tokens[i], self.labels[i], self.byz[w],
             worker_key(self.key, self.step, w), self.cfg, self.attack,
-            impl=self.impl, clock=self.clock)
+            impl=self.impl, clock=self.clock, axis=self.axis)
         self.loss += float(self.weights[w]) * loss
         return g
 
@@ -199,14 +216,20 @@ class _Workers:
         with _phase(self.clock, "collective"):
             return self.ranks.all_gather_rows(rows)
 
+    def split(self, i: int):
+        """The model axis when leaf ``i`` is split over it, else None."""
+        if self.axis is not None and self.axis.placements[i].sharded:
+            return self.axis
+        return None
+
 
 def _members(weights) -> list[int]:
     return [int(w) for w in np.flatnonzero(np.asarray(weights) > 0)]
 
 
-def _update(opt, gagg, opt_state, params, step, clock):
+def _update(opt, gagg, opt_state, params, step, clock, run):
     with _phase(clock, "update"):
-        return opt_update(opt, gagg, opt_state, params, step)
+        return opt_update(opt, gagg, opt_state, params, step, axis=run.axis)
 
 
 def make_fast_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
@@ -222,7 +245,7 @@ def make_fast_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
         for w in run.local(_members(weights)):
             run.accumulate(w, run.grad(w))
         params, opt_state, om = _update(opt, run.aggregate(), opt_state,
-                                        params, step, clock)
+                                        params, step, clock, run)
         return params, opt_state, {"loss": run.reduce_loss(), **om}
 
     return step_fn
@@ -252,7 +275,8 @@ def _detect_full(run, full: dict, group_of_worker, num_groups: int,
     """Paper-faithful detection: ``detect_groups`` on each leaf's full
     gradients gathered to (n, d), idle workers' rows zero (masked), the
     flags OR'ed over the leaves.  ``full``: {worker: [leaves]} of this
-    rank's members."""
+    rank's members.  A split leaf's flags are OR'ed over the model
+    axis."""
     n = len(group_of_worker)
     fault = torch.zeros(num_groups, dtype=torch.bool)
     mism = torch.zeros(n, dtype=torch.bool)
@@ -261,6 +285,11 @@ def _detect_full(run, full: dict, group_of_worker, num_groups: int,
         g_all = run.gather_rows(_leaf_rows(full, i, list(run.mine), leaf))
         f_leaf, m_leaf = detection.detect_groups(g_all, gow, num_groups, tau)
         del g_all
+        ax = run.split(i)
+        if ax is not None:
+            flags = torch.cat([f_leaf, m_leaf]).to(torch.int32)
+            ax.all_reduce_max(flags)
+            f_leaf, m_leaf = flags[:num_groups] > 0, flags[num_groups:] > 0
         fault |= _to_host(f_leaf)
         mism |= _to_host(m_leaf)
     return fault, mism
@@ -290,7 +319,7 @@ def make_check_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
             if sc.detection == "sketch":
                 with _phase(clock, "sketch"):
                     rows[w - run.mine.start] = detection.sketch_tree(
-                        g, ks, sc.sketch_k, impl=impl)
+                        g, ks, sc.sketch_k, impl=impl, axis=run.axis)
             else:
                 full[w] = [leaf.to(torch.float32) for leaf in tree.leaves(g)]
             run.accumulate(w, g)
@@ -313,7 +342,7 @@ def make_check_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
             om = {"grad_norm": zero, "lr": zero}
         else:
             params, opt_state, om = _update(opt, run.aggregate(), opt_state,
-                                            params, step, clock)
+                                            params, step, clock, run)
         return params, opt_state, {
             "loss": loss, "any_fault": any_fault,
             "group_fault": group_fault, "mismatch": mismatch, **om}
@@ -321,7 +350,8 @@ def make_check_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
     return step_fn
 
 
-def vote_leaf(reps: torch.Tensor, tau: float, *, impl: str | None = None):
+def vote_leaf(reps: torch.Tensor, tau: float, *, impl: str | None = None,
+              axis=None):
     """Majority vote per replica group of one leaf: reps (G, r, d) f32 ->
     (value (d,): the mean over groups of each group's winner, faulty
     (G, r) bool).
@@ -331,9 +361,14 @@ def vote_leaf(reps: torch.Tensor, tau: float, *, impl: str | None = None):
     min(|a|, |b|)).  The reference tests |a - b| <= tau * (1 + min(|a|,
     |b|)) elementwise; the two agree except where a quotient lies within
     an ulp of tau.  The winner is the first row with a strict majority
-    (row 0 when none has one), faulty = not agree[winner]."""
+    (row 0 when none has one), faulty = not agree[winner].  ``axis``:
+    the model axis when ``reps`` hold one shard of the leaf: the shard's
+    (G, r, r) maxima are maxed over it, the whole leaf's exactly."""
     G, r = reps.shape[:2]
-    agree = ops.batched_pairwise_relmax(reps, impl=impl) <= tau
+    rel = ops.batched_pairwise_relmax(reps, impl=impl)
+    if axis is not None:
+        axis.all_reduce_max(rel)
+    agree = rel <= tau
     counts = agree.sum(dim=-1)
     winner = torch.argmax((counts > r // 2).to(torch.int8), dim=-1)
     rows = torch.arange(G, device=reps.device)
@@ -374,14 +409,14 @@ def make_identify_step(cfg, opt: OptConfig, sc: StepConfig,
                     reps = g_all[pick]
                     del g_all
                 value, faulty = vote_leaf(reps.reshape(G, r, -1), sc.tau,
-                                          impl=impl)
+                                          impl=impl, axis=run.split(i))
                 del reps
                 faulty_all |= faulty
                 voted.append(value.reshape(leaf.shape))
         byz = np.zeros(n, bool)
         byz[order] = _to_host(faulty_all.reshape(-1)).numpy()
         params, opt_state, om = _update(opt, tree.unflatten(params, voted),
-                                        opt_state, params, step, clock)
+                                        opt_state, params, step, clock, run)
         return params, opt_state, {"loss": run.reduce_loss(), "byz": byz,
                                    **om}
 
@@ -410,10 +445,13 @@ def make_filter_step(cfg, opt: OptConfig, sc: StepConfig, attack: AttackConfig,
             with _phase(clock, "aggregate"):
                 g_all = run.gather_rows(
                     _leaf_rows(grads, i, list(run.mine), leaf))
-                filtered.append(fn_filter(g_all, f).reshape(leaf.shape))
+                ax = run.split(i)
+                filtered.append(fn_filter(
+                    g_all, f, reduce=None if ax is None else
+                    ax.all_reduce_sum).reshape(leaf.shape))
                 del g_all
         params, opt_state, om = _update(opt, tree.unflatten(params, filtered),
-                                        opt_state, params, step, clock)
+                                        opt_state, params, step, clock, run)
         return params, opt_state, {"loss": run.reduce_loss(), **om}
 
     return step_fn

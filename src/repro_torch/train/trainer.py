@@ -18,16 +18,21 @@ no counterpart, the step functions are called directly.
 
 Layouts: with ``mesh=None`` the n workers run one after another in this
 process on one device (the card unless ``device="cpu"``).  With a
-``launch.mesh.make_worker_mesh`` (W ranks on ``data``, ``model`` = 1)
-every rank runs this same trainer: it builds the same parameters (the
-same seed, or the same ``params``) on its ``device``, draws the same
-global batch, runs its n/W workers and meets the other ranks in the
-steps' collectives (``train.ranks``), the reference's
-``worker_axes=("data",)`` with the parameters replicated.  The host
-control runs identically on every rank, since its inputs (flags,
-votes, the all-reduced loss) are the same bits everywhere.  Rank 0
-writes the checkpoints, the others wait at a barrier; every rank
-restores.
+``launch.mesh.make_worker_mesh`` (W ranks on ``data`` times ``model``)
+every rank runs this same trainer: it builds the same full parameters
+(the same seed, or the same ``params``) on its ``device`` and keeps its
+shard (``convert.shard_params`` by ``sharding.tree_shardings`` of the
+annotated tree under ``tp_only_rules``: replicated over ``data``,
+split over ``model``), draws the same global batch, runs its n/W
+workers and meets the other ranks in the steps' collectives
+(``train.ranks``), the reference's ``worker_axes=("data",)``.  At
+``model`` = 1 every leaf is whole and nothing changes.  The host
+control runs identically on every rank, since its inputs (flags, votes,
+the all-reduced loss) are the same bits everywhere.  A checkpoint has
+the one-process layout: the ranks of data coordinate 0 gather their
+shards over ``model`` and rank 0 writes, the others wait at a barrier;
+every rank restores the full tree and keeps its shard, so a run
+restarts at any ``model``.
 """
 from __future__ import annotations
 
@@ -41,7 +46,10 @@ from repro_torch.core import prngkey
 from repro_torch.core.assignment import Assignment, group_members
 from repro_torch.core.randomized import BFTConfig, ProtocolState
 from repro_torch.data import global_batch_for_step, worker_batches
+from repro_torch.core import tree
+from repro_torch.models import convert
 from repro_torch.models import model as M
+from repro_torch.models.transformer import require_splittable
 from repro_torch.optim import OptConfig, init_opt_state
 from repro_torch.train.ranks import Ranks
 from repro_torch.train.steps import (
@@ -71,7 +79,8 @@ class Trainer:
     or ``convert.from_jax_train_params``); by default random, from
     ``tc.seed``.  ``impl="torch"`` runs the kernels' plain versions on
     the card.  ``mesh``: the worker mesh whose ``data`` ranks share the
-    n workers (None: all n in this process)."""
+    n workers and whose ``model`` ranks split each (None: all n in this
+    process); ``params`` are the full tree either way."""
 
     def __init__(self, cfg, opt: OptConfig, bft: BFTConfig, tc: TrainerConfig,
                  attack: AttackConfig | None = None,
@@ -94,14 +103,19 @@ class Trainer:
         self.history: list[dict] = []
         self.device = M.resolve_device(device)
         self.ranks = None if mesh is None else Ranks.of(mesh, self.device)
+        self.placements = None
         if self.ranks is not None:
             self.ranks.block(n)         # raises unless W divides n
+            if self.ranks.model is not None:
+                require_splittable(cfg, self.ranks.model.world)
+                self.placements = convert.placements(cfg, mesh)
+                self.ranks.model.placements = tree.leaves(self.placements)
         if params is None:
             params = M.init_train(cfg, tc.seed, self.device)
         elif M.params_device(params).type != self.device.type:
             raise ValueError(f"params lie on {M.params_device(params)}, the "
                              f"trainer runs on {self.device}")
-        self.params = params
+        self.params = self._shard(params)
         self.opt_state = init_opt_state(opt, self.params)
         self.key = prngkey.PRNGKey(tc.seed + 1)
 
@@ -190,16 +204,42 @@ class Trainer:
         self.history.append(record)
         return record
 
+    def _shard(self, full):
+        """This rank's shard of a full parameter-shaped tree."""
+        if self.placements is None:
+            return full
+        return convert.shard_params(full, self.placements)
+
+    def _map_state(self, fn, state):
+        """``fn(tree)`` over the parameter-shaped trees of an optimizer
+        state (``{}``, ``{"mu"}`` or ``{"mu", "nu"}``)."""
+        return {k: fn(v) for k, v in state.items()}
+
+    def full_state(self):
+        """(params, opt_state) whole: gathered over the model axis (every
+        rank of it calls this), or this process's own at ``model`` = 1."""
+        if self.placements is None:
+            return self.params, self.opt_state
+        gather = lambda t: convert.gather_params(  # noqa: E731
+            t, self.placements, self.ranks.model)
+        return gather(self.params), self._map_state(gather, self.opt_state)
+
     def _save(self, st) -> None:
         """Rank 0 (or the one process) writes; with ranks, every rank
-        waits for it at a barrier after a checkpoint step."""
+        waits for it at a barrier after a checkpoint step.  With a model
+        axis the ranks of data coordinate 0 gather the whole tree first."""
+        if self.ckpt.every <= 0 or st.step % self.ckpt.every:
+            return
         if self.ranks is None or self.ranks.rank == 0:
-            self.ckpt.maybe_save(
-                st.step, params=self.params, opt_state=self.opt_state,
-                protocol_state=st, extra={"last_loss": self.last_loss})
-        if self.ranks is not None and self.ckpt.every > 0 \
-                and st.step % self.ckpt.every == 0:
-            self.ranks.barrier()
+            params, opt_state = self.full_state()
+            if self.ranks is None or self.ranks.model is None or \
+                    self.ranks.model.rank == 0:
+                self.ckpt.maybe_save(
+                    st.step, params=params, opt_state=opt_state,
+                    protocol_state=st, extra={"last_loss": self.last_loss})
+            del params, opt_state
+        if self.ranks is not None:
+            self.ranks.world_barrier()
 
     def run(self, steps: int) -> list[dict]:
         for _ in range(steps):
@@ -228,9 +268,11 @@ class Trainer:
         step = latest_step(self.tc.checkpoint_dir)
         if step is None:
             return None
-        self.params, self.opt_state, extra = restore(
+        params, opt_state, extra = restore(
             self.tc.checkpoint_dir, step,
             params_template=self.params, opt_template=self.opt_state,
             protocol_state=self.state)
+        self.params = self._shard(params)
+        self.opt_state = self._map_state(self._shard, opt_state)
         self.last_loss = extra.get("last_loss", 1.0)
         return step

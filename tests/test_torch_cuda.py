@@ -88,6 +88,54 @@ def test_sketch_single_matches_plain_and_reruns(cuda, d):
                                rtol=2e-5, atol=1e-3)
 
 
+# (rows, cols, row width, column offset): a column shard at an offset,
+# odd widths, a dim-0 shard (one row at an offset), a block narrower
+# than k, and a leaf's shard of 2^28 elements (a split embedding's)
+SHARD_BLOCKS = [(64, 4096, 8192, 4096), (3, 1001, 4097, 3095),
+                (1, 70001, 200000, 129999), (5, 100, 300, 7),
+                (1, 1 << 28, 1 << 29, 1 << 28)]
+
+
+@pytest.mark.parametrize("rows,cols,cfull,c0", SHARD_BLOCKS)
+def test_sketch_shard_form_matches_plain_and_reruns(cuda, rows, cols, cfull,
+                                                    c0):
+    """K4s's shard form (a block of a leaf's (rows, cfull) view from
+    column c0, hashed by the whole leaf's flat index) against its plain
+    version (and, at 2^28 elements, whose f32 atomic sums of a million
+    terms a bucket stray by about 1e-5, against the same sums in f64),
+    one launch a call, reruns bitwise."""
+    from repro_torch.kernels import ref
+
+    g = _randn(cuda, rows, cols, seed=cols)
+    before = ops.launch_counts()["sketch_shard"]
+    got = sketch.sketch_block_cuda(g, 0x9E3779B9, 256, cfull, c0)
+    assert ops.launch_counts()["sketch_shard"] == before + 1
+    if rows * cols < 1 << 24:
+        want = sketch.sketch_block_plain(g, 0x9E3779B9, 256, cfull, c0)
+    else:
+        want = torch.zeros(256, dtype=torch.float64, device=cuda)
+        for r in range(rows):
+            p = r * cfull + c0 + torch.arange(cols, device=cuda)
+            want.index_add_(0, p % 256, g[r].double() * ref.hash_signs_ref(
+                p, 0x9E3779B9).double())
+            del p
+    assert float((got.double() - want.double()).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+    assert torch.equal(got, sketch.sketch_block_cuda(g, 0x9E3779B9, 256,
+                                                     cfull, c0))
+
+
+def test_sketch_shards_sum_to_the_single_form(cuda):
+    """Two column shards of a (7, 3000) leaf: their sketches add up to the
+    single form's sketch of the whole flat leaf."""
+    full = _randn(cuda, 7, 3000, seed=3)
+    whole = sketch.sketch_cuda(full.reshape(-1), 21)
+    parts = sum(sketch.sketch_block_cuda(full[:, m * 1500:(m + 1) * 1500]
+                                         .contiguous(), 21, 256, 3000,
+                                         m * 1500) for m in range(2))
+    torch.testing.assert_close(parts, whole, rtol=1e-5, atol=1e-4)
+
+
 def test_sketch_single_on_two_streams(cuda):
     """Calls alternating between two streams, each stream's calls queued
     back to back: each stream has its own ticket and partials."""
@@ -1236,6 +1284,30 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     for r in results:
         assert ctl(r["main"]["history"]) == ctl(one.history)
         assert r["agree"] and r["staged"] and r["counts"]["staged_bytes"] > 0
+
+
+def test_model_axis_gloo_step_reruns_bitwise(cuda, tmp_path):
+    """Two gloo ranks sharing the card as one worker's model axis (model
+    = 2, W = 1): the same run twice gives the same bits (per-step
+    checksums of every rank's shards) and the one-process run's
+    decisions."""
+    import dataclasses
+
+    from repro_torch.launch import train as launch
+
+    job = dataclasses.replace(_ranks_job(tmp_path, backend="gloo"), model=2)
+    one = _one_process(job)
+    runs = [launch.spawn(job, 2) for _ in range(2)]
+
+    def ctl(h):
+        return [{k: v for k, v in r.items() if k != "loss"} for r in h]
+
+    for a, b in zip(*runs):
+        assert ctl(a["main"]["history"]) == ctl(one.history)
+        assert a["main"] == b["main"] and a["model"] == 2
+        assert all(torch.equal(x, y) for x, y in zip(a["checksums"],
+                                                     b["checksums"]))
+        assert a["model_counts"]["all_reduce"] > 0 and a["staged"]
 
 
 # ---------------------------------------------------------------------------

@@ -110,7 +110,8 @@ def test_param_bytes_and_count(arch):
 def test_meshes():
     """The production meshes as shapes; the worker mesh over a ``fake``
     process group of world 8, whose axis sizes ``spec_for`` reads as the
-    8x1 shape's."""
+    8x1 shape's; the 4 x 2 mesh forms over the same world, and a
+    world-size mismatch raises."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -125,8 +126,8 @@ def test_meshes():
     try:
         mesh = LM.make_worker_mesh(8)
         assert S.mesh_axis_sizes(mesh) == {"data": 8, "model": 1}
-        with pytest.raises(ValueError, match="item 7b"):
-            LM.make_worker_mesh(4, model=2)
+        assert S.mesh_axis_sizes(LM.make_worker_mesh(4, model=2)) == {
+            "data": 4, "model": 2}
         with pytest.raises(ValueError, match="world of 8"):
             LM.make_worker_mesh(4)
         for a in annotated_leaves("llama3.2-1b"):

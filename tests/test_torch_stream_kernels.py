@@ -189,6 +189,7 @@ def test_stream_dispatch_contract_on_cpu():
         lambda **kw: tops.fused_step(rows, W, cw, 1, **kw),
         lambda **kw: tops.batched_sketch(W, 1, **kw),
         lambda **kw: tops.sketch(W[0], 1, **kw),
+        lambda **kw: tops.sketch_shard(W, 1, 256, 128, 64, **kw),
         lambda **kw: tops.batched_coded_encode(C3, G3, **kw),
         lambda **kw: tops.coded_encode(C3[0], G3[0], **kw),
         lambda **kw: tops.pairwise_relmax(W, **kw),
@@ -203,6 +204,7 @@ def test_stream_dispatch_contract_on_cpu():
     for direct in (lambda: tfs.fused_step_cuda(rows, W, cw, 1),
                    lambda: tsk.sketch_batched_cuda(W, 1),
                    lambda: tsk.sketch_cuda(W[0], 1),
+                   lambda: tsk.sketch_block_cuda(W, 1, 256, 128, 64),
                    lambda: tenc.coded_encode_batched_cuda(C3, G3),
                    lambda: tenc.coded_encode_cuda(C3[0], G3[0]),
                    lambda: tmv.pairwise_relmax_cuda(W)):
@@ -210,5 +212,5 @@ def test_stream_dispatch_contract_on_cpu():
             direct()
     assert set(before) == {
         "gram_factors", "pairwise_relmax_batched", "pairwise_relmax",
-        "fused_step", "sketch_batched", "sketch", "coded_encode_batched",
-        "coded_encode", "flash_attention"}
+        "fused_step", "sketch_batched", "sketch", "sketch_shard",
+        "coded_encode_batched", "coded_encode", "flash_attention"}

@@ -31,8 +31,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_rank_count_must_divide_the_workers():
     """Three ranks for n = 8 workers raise, in the trainer (over a
-    ``fake`` process group of world 3) and in the launcher; a model axis
-    above 1 raises, naming ROADMAP item 7b."""
+    ``fake`` process group of world 3) and in the launcher; a 3 x 2 mesh
+    over a world of 3 raises (a model axis of 2 forms over a world of 8,
+    ``tests/test_torch_sharding.py::test_meshes``)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -44,7 +45,7 @@ def test_rank_count_must_divide_the_workers():
 
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=3)
     try:
-        with pytest.raises(ValueError, match="item 7b"):
+        with pytest.raises(ValueError, match="a 3 x 2 mesh over a world of 3"):
             make_worker_mesh(3, model=2)
         mesh = make_worker_mesh(3)
         with pytest.raises(ValueError, match="3 ranks do not divide n = 8"):
