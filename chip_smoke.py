@@ -132,20 +132,26 @@ Phases, in order; any failed check exits nonzero:
      bitwise rank 0's (``Ranks.agree``; one planted ulp caught); (c)
      one NCCL rank a card where more than one is visible, the same
      checks at full depth and an all-reduce's bus bandwidth;
-   - the training cell's workers split over a model axis
+   - the training cells' workers split over a model axis
      (``phase_train_tp``, tensor and expert parallel): K4s's shard form
-     at every split leaf's shard and ragged blocks against its plain
-     version, reruns bitwise, timed beside ``index_add_``; K6 at a
-     rank's heads beside SDPA; (a) two gloo ranks sharing the card at
-     model 2, 2 layers, against the one-process run (control equal,
+     at every split leaf's shard of llama3.2-1b and mamba2-780m and
+     ragged blocks against its plain version, reruns bitwise, timed
+     beside ``index_add_``; K6 at a rank's heads and at a ragged head
+     count (starcoder2-7b's rank of 5 heads at model 8) beside SDPA; (a)
+     two gloo ranks sharing the card at model 2, 2 layers, for
+     llama3.2-1b and for mamba2-780m (its mixer split by heads, the
+     gated RMSNorm's squares summed over the ranks), each against the
+     one-process run (control equal,
      losses within 1e-4, each leaf's update within 0.1 of the update,
      every rank's gathered parameters bitwise rank 0's, launches by
      model rank as the protocol's, a fast step counted on the card equal
      to the ``--mesh tp`` dry-run's FLOPs and bytes); (b) where more
      than one card is visible, one NCCL rank a card (llama3.2-1b at full
      depth, model 2 x W 2 and model 4; phi3.5-moe at one layer, model 4,
-     routed as the one-process run, ``RoutingTape``), the same checks
-     and a model all-reduce's bus bandwidth;
+     routed as the one-process run, ``RoutingTape``; mamba2-780m at
+     model 2 x W 2 and model 4), the same checks and a model
+     all-reduce's bus bandwidth; jamba at 5 layers, model 4, which one
+     process cannot hold, against its plain versions' split run;
    - the launch tools (``phase_dryrun``, ``DRYRUN``): llama3.2-1b's
      plain train (16 x 256, AdamW), prefill (4 x 4096) and decode (one
      token against a 4 x 4128 cache) steps at full width, each traced
@@ -246,11 +252,12 @@ PER_PROBLEM = dict(B=8, T=3, n_data=64, d=1 << 20, problems=4)
 # the "oracle" schedule at production d: the numpy engine's host replay
 # holds a (B, 8, d) f64 gradient stack (256 MiB at B = 4) and reads the
 # (64, d) f64 problem twice a trial and step, about 4.5 s a trial on the
-# card's host; B = 4 in chunks of 2 (two chunks through the pipeline;
-# cut from 8 in chunks of 4 to keep the script inside its time limit),
-# the plain versions replay the first ORACLE_PLAIN_FULL trials only
-ORACLE_B_FULL = 4
-ORACLE_CHUNK_FULL = 2
+# card's host; B = 2 in chunks of 1 (two chunks through the pipeline;
+# cut from 8 in chunks of 4, then 4 in chunks of 2, to keep the script
+# inside its time limit beside the model axis's phase), the plain
+# versions replay the first ORACLE_PLAIN_FULL trials
+ORACLE_B_FULL = 2
+ORACLE_CHUNK_FULL = 1
 ORACLE_PLAIN_FULL = 2
 # the plain versions' run of adaptive_sweep under "oracle" at d = 2^13
 # takes the first 64 of the 256 trials (its replay is the cost)
@@ -2282,8 +2289,14 @@ class RoutingTape:
     def record(self):
         import torch
 
+        from repro_torch.kernels import _account
+
         def fn(real, *a):
             out = real(*a)
+            if _account.COUNTER is not None:
+                # a step counted for the dry-run's comparison: the tape
+                # keeps and compares nothing there, so it counts no bytes
+                return out
             entry = (out[1], out[3], out[4])
             key = a[0]["router"].data_ptr()
             if self._recompute():
@@ -3091,11 +3104,11 @@ TRAIN = dict(arch="llama3.2-1b", n=8, f=2, seq_len=256, global_batch=16,
 # tied, bf16) in TRAIN's protocol and batch: each layer's four or five
 # (rows, 1, 48, 256, 256) f32 intra-chunk tensors (about 1.3 GB a layer
 # at 16 rows) live only while that layer runs, as every layer is
-# checkpointed (cfg.remat).  Its depth is cut from 48 layers to 16 to
-# keep the script inside its time limit (its host-bound steps run about
-# 170,000 kernels at 48); ``scripts/chip_phases.py mamba_full`` runs all
-# 48
-MAMBA_TRAIN = dict(TRAIN, arch="mamba2-780m", layers=16)
+# checkpointed (cfg.remat).  Its depth is cut from 48 layers to 8 to
+# keep the script inside its time limit beside the model axis's phase
+# (its host-bound steps run about 170,000 kernels at 48);
+# ``scripts/chip_phases.py mamba_full`` runs all 48
+MAMBA_TRAIN = dict(TRAIN, arch="mamba2-780m", layers=8)
 # the MoE training cell: phi3.5-moe-42b-a6.6b at full width (MOE_SERVE's
 # widths), its depth cut from 32 layers to 1 (1.56 B parameters with the
 # embeddings, 1.26x llama3.2-1b's 1.24 B), in TRAIN's protocol and batch;
@@ -3737,37 +3750,28 @@ def one_process_run(torch, job, keep_steps: bool = False) -> dict:
     params after each step (CPU copies)."""
     from repro_torch.core import tree
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import attn_layer_indices
     from repro_torch.train import Trainer
     from repro_torch.train.ranks import checksums
 
     t = Trainer(job.cfg, job.opt, job.bft, job.tc, attack=job.attack,
                 sc=job.sc, true_byzantine=job.true_byzantine)
-    L = len(attn_layer_indices(job.cfg))
-    leaves = len(tree.leaves(t.params))
-    want = dict.fromkeys(("flash_attention", "sketch",
-                          "pairwise_relmax_batched"), 0)
     sums, walls, steps = [], [], []
     ops.reset_launch_counts()
     for _ in range(job.actions[0][1]):
-        f_t, n_act = t.state.f_t, int(t.state.active.sum())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rec = t.train_step()
+        t.train_step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         sums.append(checksums(t.params, t.opt_state).cpu())
         if keep_steps:
             steps.append([x.detach().cpu() for x in tree.leaves(t.params)])
-        for k, v in expected_train_launches(f_t, n_act, "identified" in rec,
-                                            L, leaves, job.cfg.remat).items():
-            want[k] += v
-    out = dict(history=t.history, checksums=sums, steps=steps, want=want,
-               walls=walls,
+    out = dict(history=t.history, checksums=sums, steps=steps,
+               want=want_from_history(job, t.history), walls=walls,
                launches=ops.launch_counts(),
                final=[x.detach().cpu() for x in tree.leaves(t.params)
                       + tree.leaves(t.opt_state)],
-               n_params=leaves)
+               n_params=len(tree.leaves(t.params)))
     del t
     return out
 
@@ -4047,10 +4051,13 @@ def phase_train_ranks(torch, spec, training: dict):
 # the training cell split over the model axis (phase_train_tp): each BFT
 # worker is ``model`` ranks holding its shards of every leaf (tensor and
 # expert parallel, ``models.parallel``).  (a) two gloo ranks share the
-# card at model = 2, W = 1, TRAIN at full width cut to RANKS_CUT layers;
-# (b) where more cards are visible, one NCCL rank a card: llama3.2-1b at
-# full depth with model 2 x W 2 and model 4 x W 1, phi3.5-moe at one
-# layer with model 4 (4 of its 16 experts a card).  Each against the
+# card at model = 2, W = 1, TRAIN and MAMBA_TRAIN at full width cut to
+# RANKS_CUT layers; (b) where more cards are visible, one NCCL rank a
+# card: llama3.2-1b at full depth with model 2 x W 2 and model 4 x W 1,
+# phi3.5-moe at one layer with model 4 (4 of its 16 experts a card),
+# mamba2-780m (MAMBA_TRAIN) at model 2 x W 2 and 4 x W 1, jamba at 5
+# layers with model 4 (JAMBA_TRAIN; against its plain versions' split
+# run, ``tp_run``'s "plain" reference).  Each other against the
 # one-process run of the same model: control equal, losses within
 # TP_LOSS_REL (the row-parallel sums and the vocab-parallel CE add in
 # another order, so a split run is not bitwise the one-process run, and
@@ -4066,10 +4073,47 @@ def phase_train_ranks(torch, spec, training: dict):
 # every rank's state unchanged.
 TP_LOSS_REL = 1e-4
 TP_SPLIT = 2
+# (a)'s cells, each cut to RANKS_CUT layers: llama3.2-1b and mamba2-780m
+# (the mamba mixer split by heads, its gated RMSNorm over the split
+# d_inner)
+TP_A = ("TRAIN", "MAMBA_TRAIN")
+# the hybrid's training cell: jamba at full width (d_model 4096, 32 heads
+# and 8 kv heads of 128, 16 experts of 14336 top-2, d_inner 8192 in 128
+# ssm heads, vocab 65536 untied) cut to layers 0-4, the fewest that hold
+# each of its three layer kinds (mamba + mlp at 0 and 2, mamba + moe at 1
+# and 3, attn + mlp at 4): 7.15 B parameters, 14.3 GB in bf16, whose
+# AdamW moments (57.2 GB in f32) one process cannot hold beside them.
+# Split over model 4 (4 experts a card) the dry-run puts a rank's peak at
+# 34.2 GiB (fast, check) and 56.2 GiB (identify) on meta, so (b) holds
+# the split run against the same split run on the plain versions
+JAMBA_TRAIN = dict(TRAIN, arch="jamba-v0.1-52b", layers=5)
 # (b)'s runs: (label, the cell, data ranks W, model)
 TP_CARDS = (("llama model 2 x W 2", "TRAIN", 2, 2),
             ("llama model 4 x W 1", "TRAIN", 1, 4),
-            ("phi3.5-moe model 4 x W 1", "MOE_TRAIN", 1, 4))
+            ("phi3.5-moe model 4 x W 1", "MOE_TRAIN", 1, 4),
+            ("mamba2-780m model 2 x W 2", "MAMBA_TRAIN", 2, 2),
+            ("mamba2-780m model 4 x W 1", "MAMBA_TRAIN", 1, 4),
+            ("jamba 5 layers model 4 x W 1", "JAMBA_TRAIN", 1, 4))
+# the cells that one process cannot hold: held against the plain versions'
+# split run (``tp_run``'s "plain" reference)
+TP_SPLIT_ONLY = ("JAMBA_TRAIN",)
+# a split run's reference runs and the limits each is held to: the
+# one-process run (the losses and updates of the note above), the plain
+# versions' split run (the kernels-vs-plain limits of TRAIN_UPDATE_REL's
+# note: the first loss, the loss drops, the updates)
+REFERENCE_RUN = {"one": "one-process run",
+                 "plain": "plain versions' split run"}
+TP_LIMITS = {"one": {"loss_rel": TP_LOSS_REL,
+                     "update_rel_max": RANKS_UPDATE_REL},
+             "plain": {"loss0_rel": TRAIN_LOSS0_REL,
+                       "drop_rel": TRAIN_DROP_REL,
+                       "update_rel_max": TRAIN_UPDATE_REL}}
+# K6 at a ragged head count: starcoder2-7b (36 query heads, 4 kv heads of
+# 128) at model 8, where wq's even split cuts a head; rank 1 computes the
+# padded group's heads [5, 10) (``attention.head_group``), which read kv
+# heads 0, 0, 0, 0, 1 (nine query heads a kv head), so
+# ``attention._local_kv_heads`` gives its five query heads five kv heads
+TP_RAGGED = dict(arch="starcoder2-7b", model=8, rank=1)
 
 
 def tp_placements(cfg, W: int, model: int, m: int):
@@ -4099,12 +4143,14 @@ def tp_want(one, cfg, W: int, model: int, m: int) -> dict:
                 W * one["want"]["pairwise_relmax_batched"]}
 
 
-def tp_dryrun(torch, job, W: int, model: int, counted: dict) -> dict:
+def tp_dryrun(torch, job, W: int, model: int, counted: dict,
+              peaks: bool = False) -> dict:
     """The dry-run's meta trace of rank 0's fast step at W x ``model``
     (``launch.dryrun.run_bft_cells(mesh="tp")``, the run's active
     workers) against the step counted on the card: FLOPs, bytes (the
     copies that stage gloo's operands through the host are no part of
-    either count) and collectives equal."""
+    either count) and collectives equal.  With ``peaks`` also the
+    dry-run's peak a rank for each step kind (``predicted_peak_bytes``)."""
     from repro_torch.launch import dryrun as D
 
     tc = job.tc
@@ -4126,86 +4172,47 @@ def tp_dryrun(torch, job, W: int, model: int, counted: dict) -> dict:
           f"{counted['collective_by_axis']}; peak {meta['peak_bytes']} / "
           f"{counted['peak_bytes']} bytes: equal {same}")
     check(same, f"tp dry-run differs from the card's step at {W} x {model}")
-    return dict(meta=meta, card={k: v for k, v in counted.items()
-                                 if k != "active"}, equal=same)
-
-
-def tp_vs_one(torch, results, one, init, job, W: int, model: int,
-              label: str) -> dict:
-    """A split run's ranks against the one-process run of the same job
-    (see the note above TP_LOSS_REL)."""
-    import numpy as np
-
-    def ctl(h):
-        return [{k: v for k, v in r.items() if k != "loss"} for r in h]
-
-    r0 = results[0]
-    hist = r0["main"]["history"]
-    same_ctl = all(ctl(r["main"]["history"]) == ctl(one["history"])
-                   for r in results)
-    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                   for a, b in zip(hist, one["history"]))
-    byz = sorted(int(w) for w in np.flatnonzero(job.true_byzantine))
-    caught = sorted(w for r in hist for w in r.get("identified", []))
-    n_p = one["n_params"]
-    d = train_run_diffs(torch, init, r0["params"]["main"], hist,
-                        one["final"][:n_p], one["history"])
-    agree = all(r["agree"] for r in results) and all(
-        all(torch.equal(a, b) for a, b in zip(r["params"]["main"],
-                                               r0["params"]["main"]))
-        for r in results)
-    want = [tp_want(one, job.cfg, W, model, m) for m in range(model)]
-    got = [{k: sum(r["launches"][k] for r in results if r["model_rank"] == m)
-            for k in want[m]} for m in range(model)]
-    probes = [{k: v for k, v in p.items() if k != "launches"}
-              for r in results for p in r["check_fault"]]
-    planted = [r["plant"] for r in results if "plant" in r]
-    print(f"{label}: decisions equal {same_ctl} ({ctl(hist)}); Byzantine "
-          f"{byz} identified {caught}; losses rel diff {loss_rel:.3e} "
-          f"(limit {TP_LOSS_REL}); {train_diff_text(d)}; every rank's "
-          f"gathered params bitwise rank 0's: {agree}; launches by model "
-          f"rank over its data ranks {got} (want {want}); a check with a Byzantine member: {probes}; "
-          f"planted ulp {planted}; step walls by rank "
-          f"{[[round(w, 3) for w in r['walls']] for r in results]} s (one "
-          f"process {[round(w, 3) for w in one['walls']]} s); peak memory by "
-          f"rank {[r['peak_bytes'] for r in results]} bytes; data "
-          f"collectives {[r['counts'] for r in results]}; model collectives "
-          f"{[r['model_counts'] for r in results]}; seconds by action "
-          f"{[[(a, round(t, 1)) for a, t in r['action_s']] for r in results]}")
-    check(same_ctl and caught == byz and agree,
-          f"{label}: the split run's decisions or ranks differ")
-    check(loss_rel <= TP_LOSS_REL and d["update_rel_max"] <= RANKS_UPDATE_REL
-          and d["still_equal"],
-          f"{label}: the split run drifts from the one-process run")
-    check(got == want, f"{label}: launches differ from the protocol's")
-    check(all(p["any_fault"] and p["unchanged"] for p in probes),
-          f"{label}: a faulty check changed a rank's state")
-    check(all(p["caught"] and p["restored"] for p in planted),
-          f"{label}: a planted ulp was not caught")
-    return dict(control_equal=same_ctl, identified=caught,
-                loss_rel=loss_rel, diffs=d, ranks_agree=agree,
-                launches=got, want=want, check_fault=probes,
-                planted=planted, walls=[r["walls"] for r in results],
-                one_process_walls=one["walls"],
-                peak_bytes=[r["peak_bytes"] for r in results],
-                data_counts=[r["counts"] for r in results],
-                model_counts=[r["model_counts"] for r in results],
-                model_all_reduce_bw=r0.get("model_all_reduce_bw"))
+    out = dict(meta=meta, card={k: v for k, v in counted.items()
+                                if k != "active"}, equal=same)
+    if peaks:
+        modes = ("fast", "check", "identify")
+        steps = D.run_bft_cells(
+            job.cfg.name, job.bft.n, job.bft.f,
+            global_batch=tc.global_batch, seq_len=tc.seq_len, opt=job.opt,
+            mesh="tp", model=model, cfg=job.cfg, data_ranks=W, modes=modes)
+        out["predicted_peak_bytes"] = {m: steps[m]["peak_bytes"]
+                                       for m in modes}
+    return out
 
 
 def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
-           label: str, base: dict | None = None) -> tuple:
-    """One split run against the one-process run of the same job (taken
-    from ``base`` when it holds this cell's, and kept there): (report,
-    the ranks' launches summed)."""
+           label: str, base: dict | None = None,
+           ref: str = "one") -> tuple:
+    """One split run against a reference run of the same job (see the
+    note above TP_LOSS_REL): ``ref`` "one", the one-process run (taken
+    from ``base`` when it holds this cell's, and kept there), or
+    "plain", for a cell that one process cannot hold (TP_SPLIT_ONLY),
+    the same split run on the plain versions (``impl="torch"``) with the
+    kernels' run's routing (``RoutingTape``, model rank 0's, replayed on
+    every rank).  Held to: control equal and exactly the Byzantine
+    workers identified; every rank's gathered parameters bitwise alike
+    (their checksums, and the leaves where every rank brings them); the
+    losses and each leaf's update within ``TP_LIMITS[ref]``; launches
+    by model rank as the protocol gives them, none in the plain run; a
+    faulty check leaving every rank's state unchanged; a planted ulp
+    caught; the fast step counted on the card equal to the dry-run's
+    meta trace (against the plain run also the dry-run's peaks beside
+    the ranks' measured peak).  Returns (report, the ranks' launches
+    summed)."""
     import gc
+
+    import numpy as np
 
     from repro_torch.core import tree
     from repro_torch.models import model as M
 
     base = {} if base is None else base
     cfg, opt, tc, attack, _ = train_cfg_objects(spec)
-    tape = RoutingTape() if cfg.moe else None
     if backend == "gloo":           # (a): every model sum staged via host
         actions = (("run", 2), ("count_fast", None),
                    ("model_all_reduce_bw", 1 << 26))
@@ -4214,67 +4221,176 @@ def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
                    ("count_fast", None), ("model_all_reduce_bw", 1 << 30))
     job = ranks_job(torch, cfg, opt, tc, attack, spec, seed, mask,
                     device="cuda", backend=backend, keep_params=True,
-                    plant=W > 1, model=model, actions=actions)
-    if base.get("cell") != cfg.name:
-        base.clear()
-        with tape.record() if tape else contextlib.nullcontext():
-            one = one_process_run(torch, job, keep_steps=True)
-        base.update(cell=cfg.name, one=one, tape=tape and [
-            tuple(t.cpu() for t in e) for e in tape.calls],
-                    init=[x.detach().cpu() for x in tree.leaves(
-                        M.init_train(cfg, tc.seed, "cuda"))])
-    one, init = base["one"], base["init"]
+                    leaves_on=0 if ref == "plain" else None, plant=W > 1,
+                    model=model, actions=actions)
+    flips, plain = None, []
+    if ref == "one":
+        tape = RoutingTape() if cfg.moe else None
+        if base.get("cell") != cfg.name:
+            base.clear()
+            with tape.record() if tape else contextlib.nullcontext():
+                one = one_process_run(torch, job, keep_steps=True)
+            base.update(cell=cfg.name, one=one, tape=tape and [
+                tuple(t.cpu() for t in e) for e in tape.calls],
+                        init=[x.detach().cpu() for x in tree.leaves(
+                            M.init_train(cfg, tc.seed, "cuda"))])
+        one, init = base["one"], base["init"]
+        reference = dict(history=one["history"], walls=one["walls"],
+                         final=one["final"][:one["n_params"]])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if base["tape"] is None:
+            results = spawn_ranks(torch, job, W * model)
+        else:
+            check(W == 1, "the routing replay follows one rank's worker "
+                          "order")
+            results = spawn_routed(torch, job, W * model, base["tape"])[0]
+            flips = [(r["flips"], r["choices"]) for r in results]
+        spawn_s = time.perf_counter() - t0
+    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results, calls = spawn_routed(torch, job, W * model)
+        spawn_s = time.perf_counter() - t0
+        plain = spawn_routed(torch, dataclasses.replace(
+            job, impl="torch", plant=False, actions=actions[:1]),
+            W * model, calls)[0]
+        flips = [(r["flips"], r["choices"]) for r in plain]
+        init = [x.detach().cpu() for x in tree.leaves(
+            M.init_train(cfg, tc.seed, "cuda"))]
+        reference = dict(history=plain[0]["main"]["history"],
+                         walls=plain[0]["walls"],
+                         final=plain[0]["params"]["main"])
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    if base["tape"] is None:
-        results = spawn_ranks(torch, job, W * model)
-    else:
-        check(W == 1, "the routing replay follows one rank's worker order")
-        results = spawn_replayed(torch, job, W * model, base["tape"])
-        flips = [(r["flips"], r["choices"]) for r in results]
-        print(f"{label}: the ranks route as the one-process run "
-              f"(RoutingTape); their own routing would have flipped "
-              f"(flips, choices) {flips}")
-    spawn_s = time.perf_counter() - t0
-    out = tp_vs_one(torch, results, one, init, job, W, model, label)
-    out["spawn_s"] = spawn_s
-    out["dryrun"] = tp_dryrun(torch, job, W, model, results[0]["count_fast"])
-    bw = results[0]["model_all_reduce_bw"]
+
+    def ctl(h):
+        return [{k: v for k, v in r.items() if k != "loss"} for r in h]
+
+    r0, rhist = results[0], reference["history"]
+    hist = r0["main"]["history"]
+    same_ctl = all(ctl(r["main"]["history"]) == ctl(rhist)
+                   for r in results + plain)
+    byz = sorted(int(w) for w in np.flatnonzero(job.true_byzantine))
+    caught = sorted(w for r in hist for w in r.get("identified", []))
+    d = train_run_diffs(torch, init, r0["params"]["main"], hist,
+                        reference["final"], rhist, cfg)
+    d["loss_rel"] = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                        for a, b in zip(hist, rhist))
+    limits = TP_LIMITS[ref]
+    within = d["still_equal"] and all(d[k] <= v for k, v in limits.items())
+    agree = all(r["agree"] and torch.equal(r["params_sum"]["main"],
+                                           g[0]["params_sum"]["main"])
+                for g in (results, plain) for r in g) and all(
+        all(torch.equal(a, b) for a, b in zip(r["params"]["main"],
+                                               r0["params"]["main"]))
+        for r in results if "params" in r)
+    one_want = {"want": want_from_history(job, hist)}
+    want = [tp_want(one_want, cfg, W, model, m) for m in range(model)]
+    got = [{k: sum(r["launches"][k] for r in results if r["model_rank"] == m)
+            for k in want[m]} for m in range(model)]
+    plain_launches = sum(sum(r["launches"].values()) for r in plain)
+    probes = [{k: v for k, v in p.items() if k != "launches"}
+              for r in results for p in r["check_fault"]]
+    planted = [r["plant"] for r in results if "plant" in r]
+    bw = r0["model_all_reduce_bw"]
     print(f"{label}: a model all-reduce of {bw['bytes']} bytes f32 over "
           f"{model} ranks ({backend}): {bw['seconds'] * 1e3:.3f} ms, bus "
           f"bandwidth {bw['busbw'] / 1e9:.2f} GB/s; the ranks' run "
           f"{spawn_s:.1f} s with start-up")
+    dry = tp_dryrun(torch, job, W, model, r0["count_fast"],
+                    peaks=ref == "plain")
+    print(f"{label}: against the {REFERENCE_RUN[ref]} (routing replayed "
+          f"where it routes: its own would have flipped (flips, choices) "
+          f"{flips}): decisions equal {same_ctl} ({ctl(hist)}); Byzantine "
+          f"{byz} identified {caught}; losses rel diff {d['loss_rel']:.3e}; "
+          f"{train_diff_text(d, limits['update_rel_max'])}; held to "
+          f"{limits}; every rank's gathered params bitwise alike: {agree}; "
+          f"launches by model rank over its data ranks {got} (want "
+          f"{want}); the plain run's kernel launches {plain_launches}; a "
+          f"check with a Byzantine member: {probes}; planted ulp "
+          f"{planted}; step walls by rank "
+          f"{[[round(w, 3) for w in r['walls']] for r in results]} s "
+          f"(reference {[round(w, 3) for w in reference['walls']]} s); "
+          f"peak memory by rank {[r['peak_bytes'] for r in results]} "
+          f"bytes (the dry-run's a rank {dry.get('predicted_peak_bytes')}); "
+          f"data collectives {[r['counts'] for r in results]}; model "
+          f"collectives {[r['model_counts'] for r in results]}; seconds "
+          f"by action "
+          f"{[[(a, round(t, 1)) for a, t in r['action_s']] for r in results]}")
+    check(same_ctl and caught == byz and agree,
+          f"{label}: the split run's decisions or ranks differ")
+    check(within, f"{label}: the split run drifts from the "
+                  f"{REFERENCE_RUN[ref]}")
+    check(got == want and plain_launches == 0,
+          f"{label}: launches differ from the protocol's")
+    check(all(p["any_fault"] and p["unchanged"] for p in probes),
+          f"{label}: a faulty check changed a rank's state")
+    check(all(p["caught"] and p["restored"] for p in planted),
+          f"{label}: a planted ulp was not caught")
+    out = dict(reference=ref, control_equal=same_ctl, identified=caught,
+               loss_rel=d["loss_rel"], diffs=d, ranks_agree=agree,
+               launches=got, want=want, check_fault=probes, planted=planted,
+               flips=flips, walls=[r["walls"] for r in results],
+               reference_walls=reference["walls"],
+               peak_bytes=[r["peak_bytes"] for r in results],
+               data_counts=[r["counts"] for r in results],
+               model_counts=[r["model_counts"] for r in results],
+               model_all_reduce_bw=bw, spawn_s=spawn_s, dryrun=dry)
     launches = {k: sum(r["launches"][k] for r in results)
-                for k in results[0]["launches"]}
-    del results, one, init
+                for k in r0["launches"]}
+    del results, plain, init, reference
     gc.collect()
     torch.cuda.empty_cache()
     return out, launches
 
 
-def tp_rank_replayed(rank: int, world: int, job, tape_path: str) -> None:
-    """A split run's rank whose MoE layers take the one-process run's
-    routing (``RoutingTape.replay``; the rank's own after the recorded
-    steps): a top-k choice flips where a router margin lies under the
-    rounding that the split's sums move, and a flip moves every later
-    slot of its expert, so the split run is held against the one-process
-    run with that run's routing.  Writes the flips beside the result."""
+def expandable_segments() -> None:
+    """A rank of an MoE split run allocates from expandable segments:
+    the plain versions' run of jamba's experts left 25 GiB of a card
+    reserved and unallocated in blocks too small for the identify
+    step's 14 GiB gather.  Set before the rank's first CUDA call; the
+    peaks read (``max_memory_allocated``) are the same either way."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+
+
+def tp_rank_routed(rank: int, world: int, job, tape_path: str,
+                   replay: bool) -> None:
+    """A split run's rank whose MoE layers record their routing
+    (``RoutingTape``; model rank 0's is written to ``tape_path``: every
+    rank of a worker routes alike, the router's logits are gathered), or
+    with ``replay`` take the routing at ``tape_path`` (the rank's own
+    after the recorded steps) and write the flips beside the result: a
+    top-k choice flips where a router margin lies under the rounding
+    that the split's sums move, and a flip moves every later slot of its
+    expert, so a split run is held against its reference with one
+    routing."""
     import torch
 
     from repro_torch.launch import train as launch
 
+    expandable_segments()
     tape = RoutingTape()
-    tape.calls = torch.load(tape_path)
-    with tape.replay(then_own=True):
+    if replay:
+        tape.calls = torch.load(tape_path)
+    with tape.replay(then_own=True) if replay else tape.record():
         launch.rank_main(rank, world, job)
-    Path(job.out, f"flips{rank}.json").write_text(json.dumps(
-        {"flips": tape.flips, "choices": tape.choices}))
+    if replay:
+        Path(job.out, f"flips{rank}.json").write_text(json.dumps(
+            {"flips": tape.flips, "choices": tape.choices}))
+    elif rank == 0:
+        torch.save([tuple(t.cpu() for t in e) for e in tape.calls],
+                   tape_path)
 
 
-def spawn_replayed(torch, job, world: int, calls) -> list:
-    """``spawn_ranks`` with every rank replaying ``calls`` (a
-    ``RoutingTape``'s, on the CPU)."""
+def spawn_routed(torch, job, world: int, calls=None) -> tuple:
+    """``spawn_ranks`` with the MoE routing recorded, or with ``calls``
+    (a ``RoutingTape``'s, on the CPU) replayed on every rank
+    (``tp_rank_routed``): (results, with the flips where replayed; the
+    calls)."""
     import shutil
     import tempfile
 
@@ -4283,32 +4399,34 @@ def spawn_replayed(torch, job, world: int, calls) -> list:
     out = Path(tempfile.mkdtemp(prefix="ranks_", dir=ROOT / "build"))
     try:
         tape_path = out / "tape.pt"
-        torch.save(calls, tape_path)
+        if calls is not None:
+            torch.save(calls, tape_path)
         job = dataclasses.replace(
             job, out=str(out),
             init_method=f"tcp://localhost:{launch.free_port()}")
-        launch.start_ranks(tp_rank_replayed, (world, job, str(tape_path)),
-                           world)
-        return [torch.load(out / f"rank{r}.pt") | json.loads(
-            (out / f"flips{r}.json").read_text()) for r in range(world)]
+        launch.start_ranks(tp_rank_routed, (world, job, str(tape_path),
+                                            calls is not None), world)
+        results = [torch.load(out / f"rank{r}.pt") for r in range(world)]
+        if calls is not None:
+            for r, res in enumerate(results):
+                res.update(json.loads((out / f"flips{r}.json").read_text()))
+        return results, torch.load(tape_path)
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
 
-def tp_kernels(torch, cfg, spec, model: int) -> dict:
+def tp_kernels(torch, cfg, spec, model: int, tag: str = "") -> dict:
     """K4s's shard form at every split leaf's shard on the last model
     rank (a nonzero offset) of the cut model, a ragged block (odd
     columns, offset), reruns bitwise, and timed at the largest shard with
-    its plain version and ``index_add_`` over the signed values; K6 at
-    the rank's head count (H / model query heads, K / model kv heads) at
-    the training rows, timed beside SDPA.  Rows ``sketch_shard`` and
-    ``flash_attention_tp``."""
+    its plain version and ``index_add_`` over the signed values; K6, for
+    a model with attention, at the rank's head count (H / model query
+    heads, K / model kv heads) at the training rows, timed beside SDPA.
+    Rows ``sketch_shard<tag>`` and ``flash_attention_tp<tag>``."""
     from repro_torch.core.detection import shard_block
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as _ref
     from repro_torch.kernels import sketch as sk
 
-    F = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(27)
     kk, key = 256, 0x2545F491
@@ -4355,20 +4473,36 @@ def tp_kernels(torch, cfg, spec, model: int) -> dict:
     library_ms = median_ms(torch, lambda: out.zero_().index_add_(
         0, bucket, signed), launches=10)
     b_ms, b_by = kernel_bound("sketch_shard", d=d, k=kk)
-    report["sketch_shard"] = entry(
-        "sketch_shard", "sketch.cu", "src/repro/kernels/sketch.py:25",
+    report["sketch_shard" + tag] = entry(
+        "sketch_shard" + tag, "sketch.cu", "src/repro/kernels/sketch.py:25",
         worst, ms, plain_ms, b_ms, b_by, library_ms)
-    print(f"K4s shard form at the largest shard ({d} elements): kernel_ms="
-          f"{ms:.4f} plain_ms={plain_ms:.4f} index_add_ms={library_ms:.4f} "
-          f"(over the signed values) bound_ms={b_ms:.4f} ({b_by}); "
-          f"{b_ms / ms:.1%} of bound")
+    print(f"K4s shard form at the largest shard of {cfg.name} ({d} "
+          f"elements): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"index_add_ms={library_ms:.4f} (over the signed values) "
+          f"bound_ms={b_ms:.4f} ({b_by}); {b_ms / ms:.1%} of bound")
     del block, pos, signed, bucket, r, big
-
+    if not cfg.num_heads:
+        return report
     S, H, K, hd = spec["seq_len"], cfg.num_heads // model, \
         max(1, cfg.num_kv_heads // model), cfg.head_dim
     B = spec["global_batch"] // max(1, spec["n"] // (spec["f"] + 1))
     q, k, v = [torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
                for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
+    report["flash_attention_tp" + tag] = split_attention_row(
+        torch, q, k, v, "flash_attention_tp" + tag, "a rank's heads")
+    return report
+
+
+def split_attention_row(torch, q, k, v, name: str, what: str) -> dict:
+    """K6 on a rank's q (B, S, H, hd) and k, v (B, S, K, hd), bf16:
+    against its plain version (2e-2, each 64-row block within 1e-2),
+    reruns bitwise, timed beside the plain version and SDPA; the row
+    ``name``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    F = torch.nn.functional
+    B, S, H, hd = q.shape
+    K = k.shape[2]
     got, want = fa.flash_attention_cuda(q, k, v), fa.flash_attention_plain(
         q, k, v)
     err, tile = max_err(got.float(), want.float()), tile_rel_err(got, want)
@@ -4384,38 +4518,112 @@ def tp_kernels(torch, cfg, spec, model: int) -> dict:
     library_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), launches=20)
     b_ms, b_by = attn_bound(B, S, S, H, K, hd, True, None, 2)
-    report["flash_attention_tp"] = entry(
-        "flash_attention_tp", "flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:33", err, ms, plain_ms, b_ms,
-        b_by, library_ms)
-    print(f"K6 at a rank's heads (B={B}, S={S}, H={H}, K={K}, hd={hd}) bf16: "
+    row = entry(name, "flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:33", err, ms, plain_ms,
+                b_ms, b_by, library_ms)
+    print(f"K6 at {what} (B={B}, S={S}, H={H}, K={K}, hd={hd}) bf16: "
           f"max|kernel-plain| = {err:.3e}, worst 64-row block {tile:.3e}; "
           f"rerun bitwise equal; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"sdpa_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     del q, k, v, qt, kt, vt, got, want
-    return report
+    return row
 
 
-def tp_cards(torch, seed, mask, cards: int) -> dict:
-    """(b): one NCCL rank a card, the runs of TP_CARDS that fit."""
-    out, base = {}, {}
+def ragged_attention_row(torch, spec) -> dict:
+    """K6 at a ragged head count (TP_RAGGED): the rank's q heads from its
+    padded head group and its k, v from ``attention._local_kv_heads`` on
+    all of starcoder2-7b's kv heads, at TRAIN's rows; the row
+    ``flash_attention_ragged``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import _local_kv_heads, head_group
+
+    cfg = get_config(TP_RAGGED["arch"])
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    first, Hl = head_group(H, TP_RAGGED["model"], TP_RAGGED["rank"])
+    S = spec["seq_len"]
+    B = spec["global_batch"] // max(1, spec["n"] // (spec["f"] + 1))
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    q, kf, vf = [torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16) for s in ((B, S, Hl, hd), (B, S, K, hd),
+                                  (B, S, K, hd))]
+    k, v = _local_kv_heads(kf, vf, first, Hl, H // K)
+    check(tuple(k.shape) == (B, S, Hl, hd) and H % TP_RAGGED["model"] != 0,
+          f"the ragged rank's kv heads are {tuple(k.shape)}")
+    return split_attention_row(
+        torch, q, k.contiguous(), v.contiguous(), "flash_attention_ragged",
+        f"{cfg.name}'s rank {TP_RAGGED['rank']} of {TP_RAGGED['model']}, "
+        f"heads [{first}, {first + Hl})")
+
+
+def tp_cards(torch, seed, mask, cards: int, cells=None) -> dict:
+    """(b): one NCCL rank a card, the runs of TP_CARDS that fit (of
+    ``cells``, the cells' names, where given); a cell of TP_SPLIT_ONLY
+    against its plain versions' split run, with the kernels' rows at
+    its split shapes (the shard form at its leaves' shards, K6 at a
+    rank's heads) on this process's card.  A run whose check fails is
+    reported and the next runs go on; the failed checks are in the
+    report's ``failed``, which ``tp_cards_passed`` holds to none."""
+    out, base, failed = {}, {}, []
     for label, cell, W, model in TP_CARDS:
+        if cells is not None and cell not in cells:
+            continue
         if W * model > cards:
             print(f"tp (b) {label}: not run, {cards} cards visible")
             continue
         spec = globals()[cell]
-        out[label] = tp_run(torch, spec, seed, mask, W, model, "nccl",
-                            f"tp (b) {label}", base)[0]
+        ref = "plain" if cell in TP_SPLIT_ONLY else "one"
+        try:
+            out[label] = tp_run(torch, spec, seed, mask, W, model, "nccl",
+                                f"tp (b) {label}", base, ref)[0]
+            if ref == "plain":
+                cfg = cell_cfg(spec)
+                out[label]["kernels"] = tp_kernels(
+                    torch, cfg, spec, model, "_" + cfg.name.split("-")[0])
+        except SystemExit as e:
+            print(e, flush=True)
+            out[label] = {"failed": str(e)}
+            failed.append(str(e))
+    out["failed"] = failed
     return out
 
 
+def tp_cards_passed(report: dict) -> None:
+    check(not report["failed"], "; ".join(report["failed"]))
+
+
+def want_from_history(job, hist) -> dict:
+    """The protocol's launches of a run from its records: a check or a
+    fast step by the f_t before it (the last record's, the config's f
+    first), an identify round where a step identified, the active
+    workers less those identified before."""
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import attn_layer_indices
+
+    L = len(attn_layer_indices(job.cfg))
+    leaves = len(tree.leaves(M.abstract_params(job.cfg)))
+    want = dict.fromkeys(("flash_attention", "sketch",
+                          "pairwise_relmax_batched"), 0)
+    f_t, active = job.bft.f, job.bft.n
+    for rec in hist:
+        for k, v in expected_train_launches(
+                f_t, active, "identified" in rec, L, leaves,
+                job.cfg.remat).items():
+            want[k] += v
+        f_t = rec["f_t"]
+        active -= len(rec.get("identified", []))
+    return want
+
+
 def phase_train_tp(torch, spec):
-    """The training cell's workers split over the model axis (see the
+    """The training cells' workers split over the model axis (see the
     note above TP_LOSS_REL): (a) two gloo ranks sharing the card at
-    model 2, RANKS_CUT layers, with the shard form's and the split K6's
-    rows; (b) one NCCL rank a card where more than one is visible.
-    Returns (the (a) run's launches summed over its ranks, the kernels
-    line's rows, the report)."""
+    model 2, RANKS_CUT layers, for each cell of TP_A (``spec``, then
+    mamba2-780m), with the shard form's rows at each cell's leaves, the
+    split K6's and K6's at a ragged head count (TP_RAGGED); (b) one NCCL
+    rank a card where more than one is visible.  Returns ({the (a) runs'
+    launches summed over their ranks, by path}, the kernels line's rows,
+    the report)."""
     import gc
 
     import numpy as np
@@ -4427,17 +4635,23 @@ def phase_train_tp(torch, spec):
     torch.cuda.empty_cache()
     n, f, byz = spec["n"], spec["f"], spec["byz"]
     seed, mask = train_seed(n, f, byz), np.isin(np.arange(n), byz)
-    cut = dict(spec, layers=RANKS_CUT)
-    rows = tp_kernels(torch, cell_cfg(cut), cut, TP_SPLIT)
-    out = {}
+    cells = {"": spec, "_mamba": MAMBA_TRAIN}
+    rows, out, launches = {}, {}, {}
+    for tag, cell in cells.items():
+        cut = dict(cell, layers=RANKS_CUT)
+        rows.update(tp_kernels(torch, cell_cfg(cut), cut, TP_SPLIT, tag))
+    rows["flash_attention_ragged"] = ragged_attention_row(torch, spec)
     try:
-        out["a"], launches = tp_run(
-            torch, cut, seed, mask, 1, TP_SPLIT, "gloo",
-            f"tp (a) two gloo ranks on one card, model {TP_SPLIT}, "
-            f"{RANKS_CUT} layers")
+        for tag, cell in cells.items():
+            cut = dict(cell, layers=RANKS_CUT)
+            out["a" + tag], launches["training_tp" + tag] = tp_run(
+                torch, cut, seed, mask, 1, TP_SPLIT, "gloo",
+                f"tp (a) {cell['arch']}, two gloo ranks on one card, model "
+                f"{TP_SPLIT}, {RANKS_CUT} layers")
         cards = torch.cuda.device_count()
         if cards > 1:
             out["b"] = tp_cards(torch, seed, mask, cards)
+            tp_cards_passed(out["b"])
         else:
             print("tp (b): not run, 1 card visible")
     finally:
@@ -4447,39 +4661,50 @@ def phase_train_tp(torch, spec):
     return launches, rows, out
 
 
-def train_run_diffs(torch, init, final, hist, ref_final, ref_hist) -> dict:
+def train_run_diffs(torch, init, final, hist, ref_final, ref_hist,
+                    cfg=None) -> dict:
     """How far a training run lies from a reference run from the same
     initial leaves (CPU tensors): the first loss's relative difference,
     the largest difference of a later loss's drop from the first over
     the reference's drop, and per leaf ||final - ref|| / ||ref - init||
-    (f32 on the card) over the leaves the reference moves."""
+    (f32 on the card) over the leaves the reference moves; with ``cfg``
+    the path of the leaf where it is largest."""
     loss0_rel = abs(hist[0]["loss"] - ref_hist[0]["loss"]) / abs(
         ref_hist[0]["loss"])
     drop_rel = max(
         abs((a["loss"] - hist[0]["loss"]) - (b["loss"] - ref_hist[0]["loss"]))
         / abs(b["loss"] - ref_hist[0]["loss"])
         for a, b in zip(hist[1:], ref_hist[1:]))
-    rel, still = [], True
-    for p0, a, b in zip(init, final, ref_final):
+    rel, moving, still = [], [], True
+    for i, (p0, a, b) in enumerate(zip(init, final, ref_final)):
         p0, a, b = (t.to("cuda").float() for t in (p0, a, b))
         moved = float((b - p0).norm())
         if moved == 0.0:
             still = still and bool((a == p0).all())
         else:
             rel.append(float((a - b).norm()) / moved)
+            moving.append(i)
         del p0, a, b
+    worst = None
+    if cfg is not None:
+        from repro_torch.core import tree
+        from repro_torch.models import model as M
+
+        paths = [p for p, _ in tree.leaves_with_paths(M.abstract_params(cfg))]
+        worst = paths[moving[rel.index(max(rel))]]
     return dict(loss0_rel=loss0_rel, drop_rel=drop_rel, update_rel=rel,
                 update_rel_max=max(rel), update_rel_min=min(rel),
-                moving_leaves=len(rel), still_equal=still)
+                moving_leaves=len(rel), still_equal=still, worst_leaf=worst)
 
 
-def train_diff_text(d: dict) -> str:
+def train_diff_text(d: dict, update_limit: float = TRAIN_UPDATE_REL) -> str:
     return (f"first loss rel diff {d['loss0_rel']:.3e} (limit "
             f"{TRAIN_LOSS0_REL}), loss drops rel diff {d['drop_rel']:.3e} "
             f"(limit {TRAIN_DROP_REL}), leaf updates rel diff "
             f"{d['update_rel_min']:.4f}..{d['update_rel_max']:.4f} over "
-            f"{d['moving_leaves']} moving leaves (limit {TRAIN_UPDATE_REL}), "
-            f"unmoved leaves equal {d['still_equal']}")
+            f"{d['moving_leaves']} moving leaves (limit {update_limit}; "
+            f"the largest at {d['worst_leaf']}), unmoved leaves equal "
+            f"{d['still_equal']}")
 
 
 def train_small_vs_cpu(torch, arch: str, steps: int = 5) -> dict:
@@ -4794,8 +5019,8 @@ def run() -> int:
         torch, TRAIN, "train")
     launches["training_ranks"], training_ranks = phase_train_ranks(
         torch, TRAIN, training)
-    launches["training_tp"], tp_report, training_tp = phase_train_tp(
-        torch, TRAIN)
+    tp_launches, tp_report, training_tp = phase_train_tp(torch, TRAIN)
+    launches.update(tp_launches)
     dryrun = phase_dryrun(torch, training)
     launches["serving_mamba"], mserve_report, serving_mamba = \
         phase_serving_replayed(torch, attention, MAMBA_SERVE)
@@ -4822,15 +5047,21 @@ def run() -> int:
            "serving_moe": ("_moe_serving", moe_serve_report),
            "training_moe": ("_moe_train", moe_train_report),
            "serving_hybrid": ("_jamba_serving", hybrid_report)}
-    # the split path's rows: the shard form's launches are summed with
-    # the other paths' below (only the split path launches it); K6 at a
-    # rank's heads counts the split path's K6 launches (also in K6's row)
+    # the split paths' rows: the shard form's launches are summed with
+    # the other paths' below (only the split paths launch it), and its
+    # mamba row counts the mamba split's; K6 at a rank's heads counts the
+    # llama split's K6 launches (also in K6's row)
     kernels.update(tp_report)
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for path, run in launches.items()
                              if path not in own and path not in by_shape)
     kernels["flash_attention_tp"]["launches"] = \
         launches["training_tp"]["flash_attention"]
+    kernels["sketch_shard_mamba"]["launches"] = \
+        launches["training_tp_mamba"]["sketch_shard"]
+    # no path of this script splits a head: the ragged shape is checked
+    # and timed, and its row counts no launch
+    kernels["flash_attention_ragged"]["launches"] = 0
     for path, (suffix, report) in own.items():
         for key, kv in report.items():
             kv["launches"] = launches[path][key.removesuffix(suffix)]

@@ -5,26 +5,216 @@ first phase (the card's name and power limit, the kernels' build):
     python3 scripts/chip_phases.py split          # phase_engine_split
     python3 scripts/chip_phases.py kernels split train dryrun mamba moe
     python3 scripts/chip_phases.py tp             # phase_train_tp's (b)
+    python3 scripts/chip_phases.py tp_ssm         # its mamba, jamba runs
+    python3 scripts/chip_phases.py tp_dtype       # mamba's split in f32
+    python3 scripts/chip_phases.py tp_round tp_plain
 
 ``kernels`` runs ``phase_kernels`` and ``phase_stream_kernels``;
 ``split`` the trials split over every visible card (with two or more,
 each kernel launched on a card that is not current); ``train``,
 ``mamba`` and ``moe`` ``phase_train`` on the llama3.2-1b, mamba2-780m
 and phi3.5-moe cells; ``mamba_full`` the mamba2-780m cell at all 48
-layers (the script cuts it to 16); ``dryrun`` ``phase_dryrun``; ``tp``
+layers (the script cuts it to 8); ``dryrun`` ``phase_dryrun``; ``tp``
 ``phase_train_tp``'s (b) alone, the training cells split over the model
 axis with one NCCL rank a card (llama3.2-1b at model 2 x W 2 and model
-4, phi3.5-moe at one layer with model 4: four cards; its readings also
-go to ``chiprun_out/chip_phases_tp.json``), and ``tp_a`` the phase's
-one-card part (a).  Run from the root of a checkout; the phases print
-their readings and raise on a failed check.
+4, phi3.5-moe at one layer with model 4, mamba2-780m at model 2 x W 2
+and model 4, jamba at 5 layers with model 4 against its plain versions'
+split run: four cards; its readings also go to
+``chiprun_out/chip_phases_tp.json``), ``tp_ssm`` the mamba2-780m and
+jamba runs of (b) alone, and ``tp_a`` the phase's one-card part (a);
+``tp_dtype`` (``tp_dtype``) the mamba2-780m cell of (b) at model 2 x W 2
+as four gloo ranks on one card, against the one-process run, with the
+config in bfloat16, in float32, and in bfloat16 with the out
+projection's partial products summed in f32
+(``chiprun_out/chip_phases_tp_dtype.json``); ``tp_round`` the
+one-process run of that cell against itself with one rounding of the
+split's added (``tp_round``); ``tp_plain`` ``tp_run``'s plain-versions
+reference on one card (TRAIN at RANKS_CUT layers, two gloo ranks,
+model 2), the route (b) takes for jamba.
+Run from the root of a checkout; the phases print their readings and
+raise on a failed check.
 """
 import pathlib
 import sys
 import time
 
 PHASES = ("kernels", "split", "train", "dryrun", "mamba", "mamba_full",
-          "moe", "tp", "tp_a")
+          "moe", "tp", "tp_ssm", "tp_a", "tp_dtype", "tp_round",
+          "tp_plain")
+
+
+def _f32_out_rank(rank: int, world: int, job) -> None:
+    """A split run's rank whose mamba out projection forms each rank's
+    partial product in f32 and rounds once, after the sum over
+    ``model`` (as one process rounds its whole product once)."""
+    import torch.nn.functional as F
+
+    from repro_torch.launch import train as launch
+    from repro_torch.models import parallel, ssm
+    from repro_torch.models.layers import dtype_of, rmsnorm
+
+    whole = ssm._gate_out
+
+    def gate_out(params, y, z, cfg, ax=None):
+        if ax is None:
+            return whole(params, y, z, cfg)
+        y = y * F.silu(z.float())
+        y = rmsnorm({"scale": params["norm"]}, y.to(dtype_of(cfg)),
+                    cfg.norm_eps, width=ssm.dims(cfg)[0])
+        out = y.float() @ params["out"].float()
+        return parallel.reduce(out, ax).to(dtype_of(cfg))
+
+    ssm._gate_out = gate_out
+    launch.rank_main(rank, world, job)
+
+
+def tp_round(C, torch, seed, mask) -> dict:
+    """MAMBA_TRAIN's one-process run in bfloat16 against the same run
+    whose mamba out projection forms the products of d_inner's two
+    halves apart, each rounded to bfloat16, and rounds their f32 sum
+    again: the rounding a model axis of 2 adds to that product, with
+    nothing split.  Each leaf's ||halves - one|| / ||one's update||
+    (``train_run_diffs``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import dtype_of, rmsnorm
+
+    spec = C.MAMBA_TRAIN
+    cfg, opt, tc, attack, _ = C.train_cfg_objects(spec)
+    job = C.ranks_job(torch, cfg, opt, tc, attack, spec, seed, mask,
+                      device="cuda", actions=(("run", spec["steps"]),))
+    whole = ssm._gate_out
+
+    def gate_out(params, y, z, cfg, ax=None):
+        y = y * F.silu(z.float())
+        y = rmsnorm({"scale": params["norm"]}, y.to(dtype_of(cfg)),
+                    cfg.norm_eps)
+        h, w = y.shape[-1] // 2, params["out"]
+        out = (y[..., :h] @ w[:h]).float() + (y[..., h:] @ w[h:]).float()
+        return out.to(dtype_of(cfg))
+
+    one = C.one_process_run(torch, job)
+    ssm._gate_out = gate_out
+    try:
+        two = C.one_process_run(torch, job)
+    finally:
+        ssm._gate_out = whole
+    init = [x.detach().cpu() for x in tree.leaves(
+        M.init_train(cfg, tc.seed, "cuda"))]
+    n_p = one["n_params"]
+    d = C.train_run_diffs(torch, init, two["final"][:n_p], two["history"],
+                          one["final"][:n_p], one["history"], cfg)
+    ctl = [[{k: v for k, v in r.items() if k != "loss"} for r in x]
+           for x in (one["history"], two["history"])]
+    print(f"tp_round bfloat16: one process, the out product in two "
+          f"rounded halves, vs one process: control equal "
+          f"{ctl[0] == ctl[1]}, {C.train_diff_text(d, C.RANKS_UPDATE_REL)};"
+          f" per leaf {[round(x, 6) for x in d['update_rel']]}", flush=True)
+    return dict(control_equal=ctl[0] == ctl[1], update_rel=d["update_rel"],
+                update_rel_max=d["update_rel_max"],
+                worst_leaf=d["worst_leaf"], loss0_rel=d["loss0_rel"],
+                drop_rel=d["drop_rel"])
+
+
+def tp_dtype(C, torch, seed, mask) -> dict:
+    """MAMBA_TRAIN at model 2 x W 2 as four gloo ranks on this card
+    against the one-process run of the same job: for each of bfloat16,
+    float32 and bfloat16 with ``_f32_out_rank``, the control, the
+    identified workers and each leaf's ||split - one|| / ||one's
+    update|| (``train_run_diffs``); and each bfloat16 run's update
+    p_final - p_init against the float32 one-process run's, per leaf
+    ||upd - upd_f32|| / ||upd_f32||."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.core import tree
+    from repro_torch.launch import train as launch
+    from repro_torch.models import model as M
+
+    spec, W, model = C.MAMBA_TRAIN, 2, 2
+    out, finals = {}, {}
+
+    def upd_rel(a, a0, b, b0):
+        rel = []
+        for x, x0, y, y0 in zip(a, a0, b, b0):
+            x, x0, y, y0 = (t.cuda().float() for t in (x, x0, y, y0))
+            if bool((y != y0).any()):
+                rel.append(float(((x - x0) - (y - y0)).norm()
+                                 / (y - y0).norm()))
+        return rel
+
+    for dt, variants in (("bfloat16", ("as is", "f32 out partials")),
+                         ("float32", ("as is",))):
+        cfg, opt, tc, attack, _ = C.train_cfg_objects(spec)
+        cfg = dataclasses.replace(cfg, dtype=dt)
+        job = C.ranks_job(torch, cfg, opt, tc, attack, spec, seed, mask,
+                          device="cuda", backend="gloo", keep_params=True,
+                          model=model, actions=(("run", spec["steps"]),))
+        init = [x.detach().cpu() for x in tree.leaves(
+            M.init_train(cfg, tc.seed, "cuda"))]
+        t0 = time.perf_counter()
+        one = C.one_process_run(torch, job)
+        n_p = one["n_params"]
+        finals[dt, "one"] = (one["final"][:n_p], init)
+        print(f"tp_dtype {dt}: the one-process run "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for var in variants:
+            d = pathlib.Path(tempfile.mkdtemp(prefix="ranks_",
+                                              dir=C.ROOT / "build"))
+            t0 = time.perf_counter()
+            try:
+                j = dataclasses.replace(
+                    job, out=str(d),
+                    init_method=f"tcp://localhost:{launch.free_port()}")
+                fn = _f32_out_rank if var != "as is" else launch._spawned
+                launch.start_ranks(fn, (W * model, j), W * model)
+                res = [torch.load(d / f"rank{r}.pt")
+                       for r in range(W * model)]
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            hist = res[0]["main"]["history"]
+            ctl = [[{k: v for k, v in r.items() if k != "loss"} for r in
+                    x["main"]["history"]] for x in res]
+            diffs = C.train_run_diffs(torch, init, res[0]["params"]["main"],
+                                      hist, one["final"][:n_p],
+                                      one["history"], cfg)
+            finals[dt, var] = (res[0]["params"]["main"], init)
+            key = f"{dt}, {var}"
+            out[key] = dict(
+                control_equal=all(c == ctl[0] for c in ctl) and ctl[0] == [
+                    {k: v for k, v in r.items() if k != "loss"}
+                    for r in one["history"]],
+                identified=sorted(w for r in hist
+                                  for w in r.get("identified", [])),
+                loss_rel=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                             for a, b in zip(hist, one["history"])),
+                update_rel=diffs["update_rel"],
+                update_rel_max=diffs["update_rel_max"],
+                worst_leaf=diffs["worst_leaf"],
+                ranks_agree=all(r["agree"] for r in res),
+                seconds=time.perf_counter() - t0)
+            print(f"tp_dtype {key}: split vs one process: control equal "
+                  f"{out[key]['control_equal']}, identified "
+                  f"{out[key]['identified']}, losses rel diff "
+                  f"{out[key]['loss_rel']:.3e}, "
+                  f"{C.train_diff_text(diffs, C.RANKS_UPDATE_REL)}; per "
+                  f"leaf {[round(x, 6) for x in diffs['update_rel']]}; "
+                  f"{out[key]['seconds']:.1f} s", flush=True)
+        del one
+    ref, ref0 = finals["float32", "one"]
+    for (dt, var), (a, a0) in finals.items():
+        if dt == "bfloat16":
+            r = upd_rel(a, a0, ref, ref0)
+            out[f"bfloat16 {var} update vs float32 one process"] = r
+            print(f"tp_dtype bfloat16 {var}: each leaf's update against "
+                  f"the float32 one-process run's, ||upd - upd_f32|| / "
+                  f"||upd_f32||: {min(r):.4f}..{max(r):.4f} "
+                  f"({[round(x, 4) for x in r]})", flush=True)
+    return out
 
 
 def main(which) -> int:
@@ -64,7 +254,8 @@ def main(which) -> int:
                           "mamba_train")
         if "moe" in which:
             C.phase_train(torch, C.MOE_TRAIN, "moe_train")
-        if "tp" in which or "tp_a" in which:
+        if {"tp", "tp_ssm", "tp_a", "tp_dtype", "tp_round",
+                "tp_plain"} & set(which):
             import json
 
             import numpy as np
@@ -78,14 +269,29 @@ def main(which) -> int:
             try:
                 if "tp_a" in which:
                     out["a"] = C.phase_train_tp(torch, spec)[2]
-                if "tp" in which:
-                    out["b"] = C.tp_cards(torch, seed, mask,
-                                          torch.cuda.device_count())
+                if "tp_dtype" in which:
+                    out["dtype"] = tp_dtype(C, torch, seed, mask)
+                if "tp_round" in which:
+                    out["round"] = tp_round(C, torch, seed, mask)
+                if "tp_plain" in which:
+                    out["plain"] = C.tp_run(
+                        torch, dict(spec, layers=C.RANKS_CUT), seed, mask,
+                        1, C.TP_SPLIT, "gloo", "tp plain reference, two "
+                        "gloo ranks on one card", ref="plain")[0]
+                if "tp" in which or "tp_ssm" in which:
+                    out["b"] = C.tp_cards(
+                        torch, seed, mask, torch.cuda.device_count(),
+                        None if "tp" in which else ("MAMBA_TRAIN",
+                                                    "JAMBA_TRAIN"))
             finally:
                 launch.stop_rank_server()
-            path = root / "chiprun_out" / "chip_phases_tp.json"
+            name = ("chip_phases_tp.json" if {"tp", "tp_ssm", "tp_a"} &
+                    set(which) else f"chip_phases_{'_'.join(which)}.json")
+            path = root / "chiprun_out" / name
             path.parent.mkdir(exist_ok=True)
             path.write_text(json.dumps(out, indent=1, default=str))
+            if "b" in out:
+                C.tp_cards_passed(out["b"])
         print(f"chip_phases: {which} in {time.perf_counter() - t0:.1f} s")
     finally:
         C.stop_children()

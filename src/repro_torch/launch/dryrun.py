@@ -40,8 +40,9 @@ reference's 16x16 cell, 16 workers of 16 ``model`` ranks, and its
 group sized to the mesh's world, whose collectives reach the counter on
 ``meta`` tensors and move nothing; each collective is priced over its
 own axis's group and reported per axis (``collective_by_axis``).  An
-arch the model axis cannot split yet (mamba, cross-attention, a split
-that cuts a head) is reported as skipped, with the reason.
+arch the model axis cannot split yet (cross-attention, an
+encoder-decoder, a misaligned ssm split) is reported as skipped, with
+the reason.
 
 The same counter runs on the card, so a meta trace and a real step can
 be compared count for count (``chip_smoke.py``'s ``phase_dryrun``).
@@ -92,6 +93,11 @@ _NO_DATA = {_aten.empty, _aten.empty_strided, _aten.empty_like,
 # the c10d collectives the steps issue (``train.ranks``); the first
 # argument holds the result
 _COLLECTIVES = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather"}
+# operators whose CPU and CUDA kernels give the output the layout of the
+# argument at this index where the meta kernel returns a dense one (the
+# SSD's dt gradient arrives permuted, and the product after softplus's
+# backward then copies it on a card): on meta the output is laid out so
+_META_LAYOUT = {_aten.softplus_backward.default: 0}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -217,6 +223,8 @@ class StepCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if func in _META_LAYOUT and out.device.type == "meta":
+            out = torch.empty_like(args[_META_LAYOUT[func]], dtype=out.dtype)
         if func.namespace == "c10d":
             self._collective(func, args)
             return out
@@ -564,13 +572,22 @@ def _fake_ranks(n: int, model: int = 1):
     return Ranks.of(make_worker_mesh(n, model, device_type="cpu"), "meta")
 
 
+def decoder_only(archs) -> list:
+    """The archs that attend to no context: the ones the BFT steps run
+    (and every one a model axis splits)."""
+    from repro_torch.models.transformer import uses_context
+
+    return [a for a in archs if not uses_context(get_config(a))]
+
+
 def run_production_cells(arch: str, *, global_batch: int | None = None,
                          seq_len: int | None = None,
                          opt: OptConfig | None = None) -> dict:
     """The reference's ``run_bft_cells`` on the production meshes
     (``PRODUCTION``: 16x16 with the workers on ``data``, n = 16, and
     2x16x16 with the workers on (``pod``, ``data``), n = 32; ``model`` =
-    16, f = 3, ``train_4k``), rank 0 of each traced as ``tp``; an arch
+    16, f = 3, ``train_4k``), rank 0 of each traced as ``tp``: every
+    decoder-only arch splits (``--bft --arch all`` takes those); an arch
     that cannot split is listed as skipped with its reason."""
     out = {"arch": arch, "cells": {}}
     for label, n, model, f in PRODUCTION:
@@ -602,6 +619,8 @@ def main(argv=None) -> None:
         raise SystemExit(f"--mesh {args.mesh} traces the BFT steps: add "
                          f"--bft")
     archs = ASSIGNED if args.arch == "all" else args.arch.split(",")
+    if args.bft and args.arch == "all":       # the steps never pass a ctx
+        archs = decoder_only(archs)
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     os.makedirs(args.out, exist_ok=True)
 

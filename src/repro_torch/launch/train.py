@@ -78,10 +78,14 @@ class Job:
     the path of a ``torch.save``'d parameter tree (CPU) to start from,
     else random from ``tc.seed``.  ``out``: a directory for each rank's result
     (``rank<r>.pt``).  ``keep_params``: the results carry the final
-    parameter leaves (whole, gathered over the model axis).  ``plant``:
+    parameter leaves (whole, gathered over the model axis) and their
+    checksums (``params_sum``).  ``leaves_on``: with ``keep_params``, the
+    leaves on this global rank only (a model that fills a card cannot
+    bring every rank's home), the checksums on every rank.  ``plant``:
     after the run, one ulp changed on the last rank must fail
     ``Ranks.agree``.  ``model``: the ranks of a worker (the world is W x
-    ``model``)."""
+    ``model``).  ``impl``: the trainer's (``"torch"``, the kernels' plain
+    versions)."""
 
     cfg: Any
     opt: OptConfig
@@ -98,9 +102,11 @@ class Job:
     params: str | None = None
     out: str | None = None
     keep_params: bool = False
+    leaves_on: int | None = None
     plant: bool = False
     threads: int = 0
     model: int = 1
+    impl: str | None = None
 
 
 def free_port() -> int:
@@ -227,7 +233,8 @@ def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
             lambda x: x.to(device, copy=True), init)
         return Trainer(job.cfg, job.opt, job.bft, job.tc, attack=job.attack,
                        sc=job.sc, true_byzantine=job.true_byzantine,
-                       device=device, params=params, mesh=mesh)
+                       device=device, params=params, mesh=mesh,
+                       impl=job.impl)
 
     ops.reset_launch_counts()
     tr, tr_b, resumed = new(), None, None
@@ -272,8 +279,10 @@ def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
             raise ValueError(f"unknown action {act!r}")
         action_s.append((act, time.perf_counter() - t_act))
     last = tr_b or tr
-    full = {"main": tr.full_state()[0] if job.keep_params else None,
-            "restarted": tr_b.full_state()[0] if job.keep_params and tr_b
+    peak = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else None         # before the gathers
+    full = {"main": tr.full_params() if job.keep_params else None,
+            "restarted": tr_b.full_params() if job.keep_params and tr_b
             else None}
     # the training's launches: the probes' own are kept apart
     aside += [p["launches"] for p in probes]
@@ -292,16 +301,24 @@ def run_job(job: Job, mesh, device: torch.device) -> tuple[dict, Any]:
         "model_counts": dict(last.ranks.model.counts)
         if last.ranks.model else None,
         "agree": last.ranks.agree(last.params, last.opt_state),
-        "peak_bytes": torch.cuda.max_memory_allocated(device)
-        if device.type == "cuda" else None, **extra}
+        "peak_bytes": peak, **extra}
     if job.plant:
         result["plant"] = _plant(last)
     if job.keep_params:
+        result["params_sum"] = {k: None if v is None else
+                                R.checksums(v).cpu() for k, v in full.items()}
+    if job.keep_params and job.leaves_on in (None, _global_rank()):
         result["params"] = {
             k: None if v is None else [t.detach().cpu()
                                        for t in tree.leaves(v)]
             for k, v in full.items()}
     return result, last
+
+
+def _global_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def rank_main(rank: int, world: int, job: Job,

@@ -12,14 +12,20 @@ PyTorch, as the reference computes it outside any kernel.
 ``self_attention`` is a layer's projections, K6 and output projection.
 When wq's columns are split over the ambient ``model`` axis (the
 reference's ``heads`` on ``model``; ``shard_heads_for_tp``), each rank
-computes its H / model query heads with their kv heads, K6 runs on
-them and the row-parallel wo's outputs are summed over ``model``.  The
-kv heads: split with the query heads when ``model`` divides K; when it
-divides K * hd only (wk's columns cut a head) the rank's columns are
-all-gathered and the rank keeps its query heads' kv heads; when wk and
-wv are replicated (``spec_for``'s fallback) every rank projects all K
-heads and keeps its own.  A split that would cut a query head
-(``heads_forced``) raises.
+computes its query heads with their kv heads, K6 runs on them and the
+row-parallel wo's outputs are summed over ``model``.  When ``model``
+divides H a rank's heads are its H / model columns of wq.  When it
+divides H * hd only, wq's columns and wo's rows stay split evenly
+(``spec_for``'s placement, which cuts a head) and each rank computes
+the reference's padded head group (``heads_forced``, ``head_group``):
+q's columns are all-gathered and the rank keeps its heads, K6 runs on
+its real heads only (none on a rank past the last head), and the heads'
+outputs are all-gathered back to wo's row split.  The kv heads: split
+with the query heads when ``model`` divides K; when it divides K * hd
+only (wk's columns cut a head) the rank's columns are all-gathered and
+the rank keeps its query heads' kv heads; when wk and wv are
+replicated (``spec_for``'s fallback) every rank projects all K heads
+and keeps its own.
 """
 from __future__ import annotations
 
@@ -58,6 +64,10 @@ def project_q(params, x: torch.Tensor, cfg, positions=None,
               rope: bool = True) -> torch.Tensor:
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, -1, cfg.head_dim)
+    return _finish_q(params, q, cfg, positions, rope)
+
+
+def _finish_q(params, q: torch.Tensor, cfg, positions, rope: bool = True):
     if cfg.qk_norm:
         q = l2norm(q) * params["q_norm"].to(q.dtype)
     if rope and positions is not None:
@@ -92,40 +102,54 @@ def heads_split(params, cfg) -> bool:
     return params["wq"].shape[-1] != cfg.num_heads * cfg.head_dim
 
 
+def head_group(H: int, tp: int, rank: int) -> tuple[int, int]:
+    """(first, count) of the query heads that rank ``rank`` of ``tp``
+    computes: [r c, min(H, (r + 1) c)) with c = ceil(H / tp), the
+    reference's padded head group; H / tp each when tp divides H, and
+    none on a rank whose group starts past the last head."""
+    per = -(-H // tp)
+    first = min(H, rank * per)
+    return first, min(H, first + per) - first
+
+
 def _local_kv_heads(k, v, first: int, Hl: int, G: int):
     """Of all K kv heads, those of query heads [first, first + Hl) (query
-    head h reads kv head h // G): a contiguous run when G divides Hl or
-    Hl divides G (GQA on the run), else one kv head per query head."""
-    if Hl % G == 0 or G % Hl == 0:
-        lo, n = first // G, max(1, Hl // G)
-        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    head h reads kv head h // G): a contiguous run when the heads read
+    one kv head or whole groups of G (GQA on the run), else one kv head
+    per query head."""
+    lo, hi = first // G, (first + Hl - 1) // G + 1
+    if hi - lo == 1 or (first % G == 0 and Hl % G == 0):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
     idx = torch.arange(first, first + Hl, device=k.device) // G
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def _split_qkv(p, h, cfg, positions):
-    """This rank's q (B, S, H / model, hd) and the k, v its heads read,
-    under the ambient model axis."""
-    ax = parallel.require_axis()
+def _split_qkv(p, h, cfg, positions, ax):
+    """This rank's q (B, S, Hl, hd), its heads [first, first + Hl)
+    (``head_group``), and the k, v they read, under the model axis
+    ``ax``."""
     tp = ax.world
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if H % tp:
-        raise ValueError(
-            f"{cfg.name}: {H} query heads over a model axis of {tp} cut a "
-            f"head (heads_forced, ROADMAP item 7b)")
     B, S, _ = h.shape
-    Hl, G = H // tp, H // K
+    G = H // K
+    first, Hl = head_group(H, tp, ax.rank)
     # replicated leaves read by this rank's heads only: partial gradients
     pp = dict(p)
     for name in ("q_norm", "k_norm"):
         if name in p:
             pp[name] = parallel.copy(p[name], ax)
     hf = parallel.copy(h, ax)
-    q = constrain_here(project_q(pp, hf, cfg, positions),
-                       ("batch", None, "heads", None), (B, S, H, hd))
+    if H % tp == 0:
+        q = constrain_here(project_q(pp, hf, cfg, positions),
+                           ("batch", None, "heads", None), (B, S, H, hd))
+    else:                                      # wq's columns cut a head
+        q = parallel.gather_scatter(hf @ p["wq"], -1, ax)
+        q = q[..., first * hd:(first + Hl) * hd].reshape(B, S, Hl, hd)
+        q = _finish_q(pp, q, cfg, positions)
     kcols = p["wk"].shape[-1]
     if kcols == K * hd:                        # wk, wv replicated
-        pp["wk"], pp["wv"] = parallel.copy(p["wk"], ax),             parallel.copy(p["wv"], ax)
+        pp["wk"] = parallel.copy(p["wk"], ax)
+        pp["wv"] = parallel.copy(p["wv"], ax)
         k, v = project_kv(pp, hf, cfg, positions)
     elif K % tp == 0:                          # kv heads split with q's
         k, v = project_kv(pp, hf, cfg, positions)
@@ -137,28 +161,53 @@ def _split_qkv(p, h, cfg, positions):
         v = parallel.gather_scatter(hf @ p["wv"], -1, ax).reshape(
             B, S, K, hd)
         k = _finish_k(pp, k, cfg, positions, True)
-    k, v = _local_kv_heads(k, v, ax.rank * Hl, Hl, G)
+    if Hl == 0:
+        # no head here: empty k, v that keep the gathers' backward (a
+        # collective every rank joins) on this rank's graph
+        return q, k[:, :, :0], v[:, :, :0]
+    k, v = _local_kv_heads(k, v, first, Hl, G)
     return q, k, v
+
+
+def _to_wo_rows(o: torch.Tensor, p, cfg, ax) -> torch.Tensor:
+    """A rank's heads' outputs (B, S, Hl * hd) -> its rows of wo's even
+    split: each rank's head group padded to ceil(H / tp) heads with
+    zeros, all-gathered (the heads then lie in order), and the rank's
+    rows taken; the gradient is summed over ``model`` back to each
+    rank's heads."""
+    hd, per = cfg.head_dim, -(-cfg.num_heads // ax.world)
+    o = torch.nn.functional.pad(o, (0, per * hd - o.shape[-1]))
+    rows = p["wo"].shape[0]
+    return parallel.gather_scatter(o, -1, ax).narrow(-1, ax.rank * rows,
+                                                     rows)
 
 
 def self_attention(p, h: torch.Tensor, cfg, positions, *, causal: bool,
                    window: int | None, impl: str | None = None):
     """A self-attention sub-block on h (B, S, D): (output (B, S, D),
     (k, v) as K6 read them).  Split over the model axis when wq's
-    columns are (``heads_split``)."""
+    columns are (``heads_split``); a rank with no head (``head_group``)
+    launches no K6 and returns empty k, v."""
     if not heads_split(p, cfg):
         q = project_q(p, h, cfg, positions)
         k, v = project_kv(p, h, cfg, positions)
         o = blockwise_attention(q, k, v, causal=causal, window=window,
                                 impl=impl)
         return output_proj(p, o), (k, v)
-    q, k, v = _split_qkv(p, h, cfg, positions)
-    o = blockwise_attention(q, k, v, causal=causal, window=window,
-                            impl=impl)
-    B, S = o.shape[:2]
-    o = constrain_here(o.reshape(B, S, -1), ("batch", None, "heads"),
-                       (B, S, cfg.num_heads * cfg.head_dim))
-    return parallel.reduce(output_proj(p, o)), (k, v)
+    ax = parallel.require_axis()
+    q, k, v = _split_qkv(p, h, cfg, positions, ax)
+    B, S = q.shape[:2]
+    if q.shape[2]:
+        o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                impl=impl).reshape(B, S, -1)
+    else:                                      # in the graph, as k and v
+        o = (q + k + v).reshape(B, S, 0)
+    if cfg.num_heads % ax.world:
+        o = _to_wo_rows(o, p, cfg, ax)
+    else:
+        o = constrain_here(o, ("batch", None, "heads"),
+                           (B, S, cfg.num_heads * cfg.head_dim))
+    return parallel.reduce(output_proj(p, o), ax), (k, v)
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True,

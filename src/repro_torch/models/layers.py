@@ -9,7 +9,8 @@ A leaf split over the ambient ``model`` axis (``models.parallel``) is
 read as it lies: the embedding table's rows by vocab (a masked local
 lookup, then a sum over ``model``), the unembedding's columns by vocab
 (the f32 logits stay split, (..., V / model) on each rank), the MLP's
-gate / up columns and down rows by ffn (then a sum over ``model``).
+gate / up columns and down rows by ffn (then a sum over ``model``), an
+RMSNorm over a split dim by its sum of squares summed over ``model``.
 """
 from __future__ import annotations
 
@@ -40,9 +41,18 @@ def init_weight(shape, dtype, gen: torch.Generator, device) -> torch.Tensor:
 # norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6,
+            width: int | None = None) -> torch.Tensor:
+    """RMSNorm over the last dim; when it is below ``width``, x and the
+    scale are this rank's slice of a dim of ``width`` split over the
+    model axis, and the mean square is the f32 sum of squares summed
+    over ``model`` (forward and backward), over ``width``."""
     x32 = x.to(torch.float32)
-    var = x32.square().mean(dim=-1, keepdim=True)
+    if width is None or width == x.shape[-1]:
+        var = x32.square().mean(dim=-1, keepdim=True)
+    else:
+        var = parallel.all_reduce(
+            x32.square().sum(dim=-1, keepdim=True)) / width
     x32 = x32 * torch.rsqrt(var + eps)
     return (x32 * params["scale"].to(torch.float32)).to(x.dtype)
 

@@ -20,7 +20,12 @@ join the parts:
             slice: the router's logits, which every rank then routes
             alike;
   gather_scatter  forward an all-gather, backward a sum over ``model``
-            and this rank's slice: kv columns that cut a head.
+            and this rank's slice: kv columns that cut a head, and q's
+            columns and the attention's output when wq's cut one
+            (``heads_forced``);
+  all_reduce  forward and backward a sum over ``model``: a statistic of
+            a split dim that every rank's slice then reads (the gated
+            RMSNorm's sum of squares over mamba's split ``d_inner``).
 
 Every sum runs in f32 and is cast back to its operand's dtype.  The
 backward of ``copy`` and ``reduce`` keeps the loss's gradient the same
@@ -97,6 +102,11 @@ def copy(x: torch.Tensor, ax=None) -> torch.Tensor:
 def reduce(x: torch.Tensor, ax=None) -> torch.Tensor:
     ax = ax or require_axis()
     return _Reduce.apply(x, ax)
+
+
+def all_reduce(x: torch.Tensor, ax=None) -> torch.Tensor:
+    ax = ax or require_axis()
+    return _Copy.apply(_Reduce.apply(x, ax), ax)
 
 
 def gather(x: torch.Tensor, dim: int, ax=None) -> torch.Tensor:

@@ -13,12 +13,26 @@ decays, the states and y in f32; the gated y * silu(z) in f32, cast to
 the dtype before the RMSNorm.  The SSM state is f32, the conv caches
 are in the dtype.  No kernel: the reference computes these products as
 einsums outside any Pallas kernel.
+
+Split over the ambient ``model`` axis (the reference's ``ssm_inner``
+and ``ssm_heads`` on ``model``, ``sharding.tree_shardings`` under
+``tp_only_rules``), each rank holds H / model heads: the columns of
+in_z, in_x (and conv_x) and in_dt, its A_log, dt_bias and D, and the
+rows of the row-parallel out, whose output is summed over ``model``.
+The chunked SSD is per head and stays local.  in_B, in_C, conv_B,
+conv_C and norm are replicated: every rank projects B and C whole and
+reads its slice of norm, so their gradients are partial and go through
+``parallel.copy``, as the block's input does.  The gated RMSNorm runs
+over the split d_inner: its sum of squares is summed over ``model`` in
+f32 (``layers.rmsnorm``'s ``width``).  One group (n_groups = 1) and
+d_inner split with the heads (``split_error``).  Decode runs unsplit.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import dtype_of, init_weight, rmsnorm
 
 
@@ -70,9 +84,52 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def split_error(cfg, model: int) -> str | None:
+    """Why a mamba mixer cannot split over a model axis of ``model``
+    ranks (None when it can): ``spec_for``'s divisibility fallback would
+    split d_inner (``ssm_inner``) without the heads (``ssm_heads``), or
+    the heads without d_inner; or the heads span n_groups > 1 groups of
+    B and C."""
+    d_inner, H, G, _ = dims(cfg)
+    if model <= 1 or (d_inner % model and H % model):
+        return None
+    if d_inner % model or H % model:
+        return (f"{cfg.name}: d_inner {d_inner} and {H} ssm heads over a "
+                f"model axis of {model} split apart (a misaligned ssm "
+                f"split)")
+    if G != 1:
+        return (f"{cfg.name}: {G} ssm groups; the port splits the mamba "
+                f"mixer of one group")
+    return None
+
+
+def heads_split(params, cfg) -> bool:
+    """Whether the mixer's heads are split over the model axis (its
+    A_log holds fewer than the config's heads)."""
+    return params["A_log"].shape[-1] != dims(cfg)[1]
+
+
+def _split_view(params, cfg):
+    """A split mixer's leaves as this rank reads them: the replicated
+    ones through ``parallel.copy`` (their gradients are partial), norm's
+    slice of the rank's d_inner."""
+    ax = parallel.require_axis()
+    err = split_error(cfg, ax.world)
+    if err:
+        raise ValueError(err)
+    p = dict(params)
+    for name in ("in_B", "in_C", "conv_B", "conv_C"):
+        p[name] = parallel.copy(params[name], ax)
+    n = params["in_x"].shape[-1]
+    p["norm"] = parallel.copy(params["norm"], ax).narrow(0, ax.rank * n, n)
+    return p, ax
+
+
 def _ssd_inputs(params, xin: torch.Tensor, cfg):
-    """The prefill's projections: (z, x (B,T,H,P), B (B,T,G,N), C, dt)."""
-    d_inner, H, G, N = dims(cfg)
+    """The prefill's projections: (z, x (B,T,H,P), B (B,T,G,N), C, dt),
+    H the heads ``params`` hold."""
+    _, _, G, N = dims(cfg)
+    H = params["A_log"].shape[-1]
     Bsz, T, _ = xin.shape
     z = xin @ params["in_z"]
     x = xin @ params["in_x"]
@@ -82,23 +139,35 @@ def _ssd_inputs(params, xin: torch.Tensor, cfg):
     x = F.silu(_causal_conv(x, params["conv_x"]).float())
     Bp = F.silu(_causal_conv(Bp, params["conv_B"]).float())
     Cp = F.silu(_causal_conv(Cp, params["conv_C"]).float())
-    dt = F.softplus(dtp.float() + params["dt_bias"])            # (B, T, H)
+    dt = F.softplus(dtp.float() + params["dt_bias"])
     return (z, x.reshape(Bsz, T, H, -1), Bp.reshape(Bsz, T, G, N),
             Cp.reshape(Bsz, T, G, N), dt)
 
 
-def _gate_out(params, y: torch.Tensor, z: torch.Tensor, cfg) -> torch.Tensor:
-    """Gated RMSNorm and the out projection: y f32 (..., d_inner)."""
+def _gate_out(params, y: torch.Tensor, z: torch.Tensor, cfg,
+              ax=None) -> torch.Tensor:
+    """Gated RMSNorm and the out projection: y f32 (..., d_inner), or
+    this rank's slice of it under the model axis ``ax`` (the norm over
+    the whole d_inner, the out product summed over ``model``)."""
     y = y * F.silu(z.float())
-    y = rmsnorm({"scale": params["norm"]}, y.to(dtype_of(cfg)), cfg.norm_eps)
-    return y @ params["out"]
+    y = rmsnorm({"scale": params["norm"]}, y.to(dtype_of(cfg)), cfg.norm_eps,
+                width=None if ax is None else dims(cfg)[0])
+    out = y @ params["out"]
+    return out if ax is None else parallel.reduce(out, ax)
 
 
 def mamba(params, xin: torch.Tensor, cfg, initial_state=None,
           return_state: bool = False):
     """xin: (B, T, D) -> (B, T, D), the chunked SSD; with
-    ``return_state`` also the final (B, H, N, P) f32 state."""
-    d_inner, H, G, N = dims(cfg)
+    ``return_state`` also the final (B, H, N, P) f32 state.  Split over
+    the model axis when the heads are (``heads_split``): H is then this
+    rank's heads."""
+    ax = None
+    if heads_split(params, cfg):
+        params, ax = _split_view(params, cfg)
+        xin = parallel.copy(xin, ax)
+    _, _, G, N = dims(cfg)
+    H, d_inner = params["A_log"].shape[-1], params["in_x"].shape[-1]
     HG = H // G
     Bsz, T, _ = xin.shape
     Q = min(cfg.ssm.chunk, T)
@@ -155,7 +224,7 @@ def mamba(params, xin: torch.Tensor, cfg, initial_state=None,
 
     y = (y_intra + y_inter).reshape(Bsz, T, H, P)
     y = y + params["D"][None, None, :, None] * x
-    out = _gate_out(params, y.reshape(Bsz, T, d_inner), z, cfg)
+    out = _gate_out(params, y.reshape(Bsz, T, d_inner), z, cfg, ax)
     return (out, S) if return_state else out
 
 

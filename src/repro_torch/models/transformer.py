@@ -40,24 +40,25 @@ ENCODER_KIND = LayerKind("attn", "mlp")
 
 def require_splittable(cfg: ModelConfig, model: int) -> None:
     """Raise unless the stack runs split over a model axis of ``model``
-    ranks: the dense and MoE decoders, whose query heads ``model``
-    divides (or does not divide H * hd, so wq stays whole).  Mamba
-    mixers, cross-attention (whisper, the VLM) and a split that cuts a
-    head wait for ROADMAP item 7b."""
+    ranks: the dense, MoE, mamba and hybrid decoders.  Attention splits
+    its heads, padded to the reference's head groups where ``model``
+    cuts a head (``attention.head_group``); a mamba mixer its heads and
+    d_inner together, of one group (``ssm.split_error``).  Cross-attention
+    and encoder-decoder models (whisper, the VLM) raise: the BFT steps
+    never pass a context, so they wait for ROADMAP item 7b."""
     if model <= 1:
         return
     kinds = layer_kinds(cfg)
-    if cfg.is_encoder_decoder or any(
-            k.mixer not in ATTN_MIXERS for k in kinds):
+    if cfg.is_encoder_decoder or any(k.mixer == "cross_attn"
+                                     for k in kinds):
         raise ValueError(
-            f"{cfg.name}: a model axis above 1 splits the dense and MoE "
-            f"decoders; mamba and cross-attention layers wait for ROADMAP "
-            f"item 7b")
-    H, hd = cfg.num_heads, cfg.head_dim
-    if H % model and (H * hd) % model == 0:
-        raise ValueError(
-            f"{cfg.name}: {H} query heads over a model axis of {model} cut "
-            f"a head (heads_forced, ROADMAP item 7b)")
+            f"{cfg.name}: a model axis above 1 splits the decoder-only "
+            f"stacks; cross-attention and encoder-decoder models wait for "
+            f"ROADMAP item 7b")
+    if any(k.mixer == "mamba" for k in kinds):
+        err = ssm_mod.split_error(cfg, model)
+        if err:
+            raise ValueError(err)
 
 
 def require_ported(cfg: ModelConfig) -> None:

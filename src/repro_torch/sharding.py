@@ -427,8 +427,9 @@ def constrain(x, mesh, logical: Sequence[str | None],
     give the logical names on ``mesh`` for an activation of shape
     ``full`` (default: ``x``'s own, i.e. a replicated activation);
     returns ``x``.  A dim the mesh does not divide stays whole (the
-    divisibility fallback); ``heads_forced`` is refused, since no rank
-    computes a padded shard."""
+    divisibility fallback); ``heads_forced`` on a dim the mesh does not
+    divide is refused: no rank computes a padded shard (attention keeps
+    a rank's real heads, ``models.attention.head_group``)."""
     full = tuple(x.shape) if full is None else tuple(full)
     if len(full) != len(logical):
         raise ValueError(f"{len(logical)} logical names for a "
@@ -439,8 +440,8 @@ def constrain(x, mesh, logical: Sequence[str | None],
         if name in FORCE_SHARD and n % math.prod(sizes[a]
                                                  for a in _axes(entry)):
             raise ValueError(
-                f"{name!r} pads a dim of {n} over the mesh: the port does "
-                f"not split a head (ROADMAP item 7b, heads_forced)")
+                f"{name!r} pads a dim of {n} over the mesh: a rank "
+                f"holds its real heads, no padded shard (heads_forced)")
     want = _local_of(full, spec, sizes)
     if tuple(x.shape) != want:
         raise ValueError(f"activation {tuple(logical)} of full shape {full}"

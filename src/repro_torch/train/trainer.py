@@ -215,14 +215,22 @@ class Trainer:
         state (``{}``, ``{"mu"}`` or ``{"mu", "nu"}``)."""
         return {k: fn(v) for k, v in state.items()}
 
-    def full_state(self):
-        """(params, opt_state) whole: gathered over the model axis (every
-        rank of it calls this), or this process's own at ``model`` = 1."""
+    def _gather(self, tree):
+        """A parameter-shaped tree whole: gathered over the model axis
+        (every rank of it calls this), or the tree itself at ``model`` =
+        1."""
         if self.placements is None:
-            return self.params, self.opt_state
-        gather = lambda t: convert.gather_params(  # noqa: E731
-            t, self.placements, self.ranks.model)
-        return gather(self.params), self._map_state(gather, self.opt_state)
+            return tree
+        return convert.gather_params(tree, self.placements, self.ranks.model)
+
+    def full_params(self):
+        """The parameters whole (``_gather``)."""
+        return self._gather(self.params)
+
+    def full_state(self):
+        """(params, opt_state) whole (``_gather``)."""
+        return self.full_params(), self._map_state(self._gather,
+                                                   self.opt_state)
 
     def _save(self, st) -> None:
         """Rank 0 (or the one process) writes; with ranks, every rank

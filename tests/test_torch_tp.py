@@ -19,6 +19,9 @@ Beside them, with no reference run: the annotated trees and their
 specs against the reference's, the shard form of the sketch and the
 split vote against the whole leaf's, the noise attack's shards, and
 checkpoints written at ``model`` = 2 restored at 1 and the reverse.
+
+The helpers take a scenario table (``scen``, this file's by default):
+``test_torch_tp_ssm.py`` runs its own through them.
 """
 import dataclasses
 import json
@@ -55,21 +58,22 @@ SCENARIOS = {
 MODEL = 2
 
 
-def cfg_of(get_config, name):
-    arch, over = SCENARIOS[name][:2]
+def cfg_of(get_config, name, scen=SCENARIOS):
+    arch, over = scen[name][:2]
     return dataclasses.replace(get_config(arch).reduced(), dtype="float32",
                                **over)
 
 
-def new_trainer(pkg, name, make):
-    arch, _, mode, attack, byz, seed, filt, _ = SCENARIOS[name]
+def new_trainer(pkg, name, make, scen=SCENARIOS):
+    arch, _, mode, attack, byz, seed, filt, _ = scen[name]
     tc = pkg["TrainerConfig"](seq_len=SEQ, global_batch=BATCH, log_every=0,
                               filter_name=filt)
     mask = np.zeros(N, bool)
     mask[byz] = True
     bft = pkg["BFTConfig"](n=N, f=F, mode=mode, q=0.5, p_assumed=0.6,
                            seed=seed)
-    return make(cfg_of(pkg["get_config"], name), pkg["OptConfig"](**OPT),
+    return make(cfg_of(pkg["get_config"], name, scen),
+                pkg["OptConfig"](**OPT),
                 bft, tc, pkg["AttackConfig"](attack, 0.6, 5.0), mask)
 
 
@@ -77,7 +81,7 @@ def new_trainer(pkg, name, make):
 # the reference, in a subprocess
 # ---------------------------------------------------------------------------
 
-def _reference_main(out_dir, names) -> None:
+def _reference_main(out_dir, names, scen=SCENARIOS) -> None:
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "..", "src"))
@@ -106,9 +110,9 @@ def _reference_main(out_dir, names) -> None:
                            sc=StepConfig(worker_axes=("data",)),
                            true_byzantine=mask)
 
-        tr = new_trainer(pkg, name, make)
+        tr = new_trainer(pkg, name, make, scen)
         init = flat(tr.params)
-        tr.run(SCENARIOS[name][-1])
+        tr.run(scen[name][-1])
         with open(os.path.join(out_dir, f"{name}.json"), "w") as fh:
             json.dump(summary(tr), fh)
         np.savez(os.path.join(out_dir, f"{name}.npz"),
@@ -150,7 +154,7 @@ def ref(ref_proc):
 # ---------------------------------------------------------------------------
 
 def port_job(name, out, *, model=MODEL, params=None, actions=None,
-             ckpt=None, detection="sketch"):
+             ckpt=None, detection="sketch", scen=SCENARIOS):
     from repro_torch.configs import get_config
     from repro_torch.core.randomized import BFTConfig
     from repro_torch.launch.train import Job
@@ -167,24 +171,24 @@ def port_job(name, out, *, model=MODEL, params=None, actions=None,
                                      checkpoint_every=2)
         return Job(cfg, opt, bft, tc, attack,
                    StepConfig(detection=detection), mask,
-                   actions=actions or (("run", SCENARIOS[name][-1]),),
+                   actions=actions or (("run", scen[name][-1]),),
                    device="cpu", backend="gloo", params=params, out=out,
                    keep_params=True, threads=1, timeout_s=120, model=model)
 
-    return new_trainer(pkg, name, make)
+    return new_trainer(pkg, name, make, scen)
 
 
-def template(name):
+def template(name, scen=SCENARIOS):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    return M.abstract_params(cfg_of(get_config, name))
+    return M.abstract_params(cfg_of(get_config, name, scen))
 
 
-def init_from(name, arrays, tmp_path) -> str:
+def init_from(name, arrays, tmp_path, scen=SCENARIOS) -> str:
     from repro_torch.core import tree
 
-    tpl = template(name)
+    tpl = template(name, scen)
     init = tree.unflatten(tpl, [
         torch.from_numpy(np.array(arrays[f"init/{p}"]))
         for p, _ in tree.leaves_with_paths(tpl)])
@@ -193,10 +197,11 @@ def init_from(name, arrays, tmp_path) -> str:
     return str(path)
 
 
-def params_close(name, leaves, arrays, prefix="final") -> None:
+def params_close(name, leaves, arrays, prefix="final",
+                 scen=SCENARIOS) -> None:
     from repro_torch.core import tree
 
-    paths = [p for p, _ in tree.leaves_with_paths(template(name))]
+    paths = [p for p, _ in tree.leaves_with_paths(template(name, scen))]
     for path, leaf in zip(paths, leaves):
         want = arrays[f"{prefix}/{path}"]
         err = float(np.abs(leaf.numpy() - want).max())
@@ -204,25 +209,27 @@ def params_close(name, leaves, arrays, prefix="final") -> None:
         assert err <= 1e-4 * (1.0 + mag), (path, err, mag)
 
 
-def run_port(name, ref, tmp_path):
-    """Scenario ``name`` at W = 2 x model = 2 from the reference's initial
+def run_port(name, ref, tmp_path, scen=SCENARIOS, model=MODEL):
+    """Scenario ``name`` at W = 2 x ``model`` from the reference's initial
     parameters, held against the reference run."""
     from repro_torch.launch.train import spawn
 
     summ, arrays = ref[name]
-    results = spawn(port_job(name, str(tmp_path),
-                             params=init_from(name, arrays, tmp_path)),
-                    (N // 2) * MODEL)
+    results = spawn(port_job(name, str(tmp_path), model=model,
+                             params=init_from(name, arrays, tmp_path, scen),
+                             scen=scen),
+                    (N // 2) * model)
     r0 = results[0]
     for r in results:
-        assert r["agree"] and r["model"] == MODEL and r[
-            "model_counts"]["all_reduce"] > 0
+        assert r["agree"] and r["model"] == model
+        assert model == 1 or r["model_counts"]["all_reduce"] > 0
         assert r["main"] == r0["main"]
         assert all(torch.equal(a, b) for a, b in
                    zip(r["params"]["main"], r0["params"]["main"]))
-    assert [r["model_rank"] for r in results] == [0, 1, 0, 1]
+    assert [r["model_rank"] for r in results] == list(range(model)) * (
+        N // 2)
     assert_same_control(r0["main"], summ)
-    params_close(name, r0["params"]["main"], arrays)
+    params_close(name, r0["params"]["main"], arrays, scen=scen)
     return results, summ
 
 
@@ -548,7 +555,8 @@ def test_dryrun_tp_equals_a_ranks_step(tmp_path):
     under a ``fake`` group of world 2 equals a real rank's fast step at
     model = 2 counted on the CPU (the kernels' plain versions, traced as
     such): FLOPs, bytes and the collectives of each axis; a split it
-    cannot run is reported as skipped."""
+    cannot run (a context model, a misaligned ssm split) is reported as
+    skipped."""
     from repro_torch.configs import get_config
     from repro_torch.core.assignment import fast_assignment
     from repro_torch.data import worker_batches
@@ -575,13 +583,13 @@ def test_dryrun_tp_equals_a_ranks_step(tmp_path):
     assert meta["bytes"] - card["bytes"] == sum(
         v.astype(np.int32).nbytes for v in wb.values())
     assert meta["collective_by_axis"]["model"] > 0
-    skipped = D.run_bft_cells("mamba2-780m", 4, 1, global_batch=8,
+    skipped = D.run_bft_cells("whisper-tiny", 4, 1, global_batch=8,
                               seq_len=16, mesh="tp", model=2)
     assert "item 7b" in skipped["skipped"]
-    forced = D.run_bft_cells("starcoder2-7b", 4, 1, global_batch=8,
-                             seq_len=16, mesh="tp", model=16)
-    assert "heads_forced" in forced["skipped"]
-    assert get_config("starcoder2-7b").num_heads % 16
+    misaligned = D.run_bft_cells(
+        "mamba2-780m", 4, 1, global_batch=8, seq_len=16, mesh="tp",
+        model=32, cfg=get_config("mamba2-780m").reduced())
+    assert "misaligned" in misaligned["skipped"]
 
 
 # ---------------------------------------------------------------------------
