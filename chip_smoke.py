@@ -134,9 +134,11 @@ Phases, in order; any failed check exits nonzero:
      checks at full depth and an all-reduce's bus bandwidth;
    - the training cells' workers split over a model axis
      (``phase_train_tp``, tensor and expert parallel): K4s's shard form
-     at every split leaf's shard of llama3.2-1b and mamba2-780m and
-     ragged blocks against its plain version, reruns bitwise, timed
-     beside ``index_add_``; K6 at a rank's heads and at a ragged head
+     at every split leaf's shard of llama3.2-1b, mamba2-780m (model 2)
+     and jamba (model 4) in bf16, and ragged blocks with misaligned
+     vector starts in bf16 and f32, against its plain version, reruns
+     bitwise, bf16 bitwise its f32 cast, timed in bf16 and f32 beside
+     ``index_add_``; K6 at a rank's heads and at a ragged head
      count (starcoder2-7b's rank of 5 heads at model 8) beside SDPA; (a)
      two gloo ranks sharing the card at model 2, 2 layers, for
      llama3.2-1b and for mamba2-780m (its mixer split by heads, the
@@ -149,7 +151,9 @@ Phases, in order; any failed check exits nonzero:
      than one card is visible, one NCCL rank a card (llama3.2-1b at full
      depth, model 2 x W 2 and model 4; phi3.5-moe at one layer, model 4,
      routed as the one-process run, ``RoutingTape``; mamba2-780m at
-     model 2 x W 2 and model 4), the same checks and a model
+     model 2 x W 2 and model 4, its updates held to its f32 one-process
+     run: no farther than the one-process bf16 run plus 0.05, and its
+     last fast update taken back caught), the same checks and a model
      all-reduce's bus bandwidth; jamba at 5 layers, model 4, which one
      process cannot hold, against its plain versions' split run;
    - the launch tools (``phase_dryrun``, ``DRYRUN``): llama3.2-1b's
@@ -3743,18 +3747,19 @@ def ranks_job(torch, cfg, opt, tc, attack, spec, seed, mask, **kw):
                mask, **kw)
 
 
-def one_process_run(torch, job, keep_steps: bool = False) -> dict:
-    """``job``'s run with every worker in this process: history, the
-    per-step checksums of params and AdamW state, the expected launches,
-    the step walls, the final leaves and, with ``keep_steps``, the
-    params after each step (CPU copies)."""
+def one_process_run(torch, job, keep_steps: bool = False,
+                    params=None) -> dict:
+    """``job``'s run with every worker in this process (from ``params``
+    where given): history, the per-step checksums of params and AdamW
+    state, the expected launches, the step walls, the final leaves and,
+    with ``keep_steps``, the params after each step (CPU copies)."""
     from repro_torch.core import tree
     from repro_torch.kernels import ops
     from repro_torch.train import Trainer
     from repro_torch.train.ranks import checksums
 
     t = Trainer(job.cfg, job.opt, job.bft, job.tc, attack=job.attack,
-                sc=job.sc, true_byzantine=job.true_byzantine)
+                sc=job.sc, true_byzantine=job.true_byzantine, params=params)
     sums, walls, steps = [], [], []
     ops.reset_launch_counts()
     for _ in range(job.actions[0][1]):
@@ -4073,6 +4078,23 @@ def phase_train_ranks(torch, spec, training: dict):
 # every rank's state unchanged.
 TP_LOSS_REL = 1e-4
 TP_SPLIT = 2
+# mamba2-780m's (b) cells hold each leaf's update to the same cell's
+# one-process run in float32 instead (TP_F32_ANCHORED): one rounding
+# more or less moves mamba's bf16 AdamW updates, most under an ulp, by
+# about 0.15 of themselves, so the split lies 0.16-0.17 from the
+# one-process bf16 run, and so does that run with one product rounded
+# in two halves, nothing split (PERF.md section 6).  The f32 run
+# starts from the bf16 run's initial parameters cast to f32 (exact) and
+# takes the same batches, coins and Byzantine workers; per leaf
+# rel(x) = ||x - f32|| / ||f32 - init||, and the split is held to
+# rel(split) <= rel(one) + TP_F32_MARGIN, rel(one) the one-process bf16
+# run's: no farther from the f32 run than one process, within the 0.03
+# by which the split and one-process runs were read apart on every leaf
+# (``scripts/chip_phases.py tp_dtype``).
+# The planted control, the split run with its last fast step's update
+# taken back, must fail it.
+TP_F32_ANCHORED = ("MAMBA_TRAIN",)
+TP_F32_MARGIN = 0.05
 # (a)'s cells, each cut to RANKS_CUT layers: llama3.2-1b and mamba2-780m
 # (the mamba mixer split by heads, its gated RMSNorm over the split
 # d_inner)
@@ -4098,13 +4120,16 @@ TP_CARDS = (("llama model 2 x W 2", "TRAIN", 2, 2),
 # split run (``tp_run``'s "plain" reference)
 TP_SPLIT_ONLY = ("JAMBA_TRAIN",)
 # a split run's reference runs and the limits each is held to: the
-# one-process run (the losses and updates of the note above), the plain
-# versions' split run (the kernels-vs-plain limits of TRAIN_UPDATE_REL's
-# note: the first loss, the loss drops, the updates)
+# one-process run (the losses and updates of the note above; for a cell
+# of TP_F32_ANCHORED its losses, the updates held to the f32 run,
+# ``f32_anchored``), the plain versions' split run (the kernels-vs-plain
+# limits of TRAIN_UPDATE_REL's note: the first loss, the loss drops, the
+# updates)
 REFERENCE_RUN = {"one": "one-process run",
                  "plain": "plain versions' split run"}
 TP_LIMITS = {"one": {"loss_rel": TP_LOSS_REL,
                      "update_rel_max": RANKS_UPDATE_REL},
+             "f32": {"loss_rel": TP_LOSS_REL},
              "plain": {"loss0_rel": TRAIN_LOSS0_REL,
                        "drop_rel": TRAIN_DROP_REL,
                        "update_rel_max": TRAIN_UPDATE_REL}}
@@ -4114,6 +4139,12 @@ TP_LIMITS = {"one": {"loss_rel": TP_LOSS_REL,
 # heads 0, 0, 0, 0, 1 (nine query heads a kv head), so
 # ``attention._local_kv_heads`` gives its five query heads five kv heads
 TP_RAGGED = dict(arch="starcoder2-7b", model=8, rank=1)
+# the shard form's ragged blocks (rows, cols, row width, column offset):
+# odd widths and offsets, whose 16-byte vectors do not line up with the
+# buckets (scalar loads): a column shard, a dim-0 shard at an odd
+# offset, rows of 2-4 slabs from an odd column
+TP_RAGGED_BLOCKS = ((3, 1001, 4097, 3095), (1, 70001, 200000, 129999),
+                    (1500, 600, 1800, 1197))
 
 
 def tp_placements(cfg, W: int, model: int, m: int):
@@ -4126,19 +4157,39 @@ def tp_placements(cfg, W: int, model: int, m: int):
         {"data": 0, "model": m}))
 
 
+def tp_leaf_dtypes(cfg) -> list:
+    """Each leaf's dtype, in ``tp_placements``' order: its gradient's,
+    which the shard form reads (mamba's A_log, dt_bias and D are f32 in
+    a bf16 model)."""
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    return [t.dtype for t in tree.leaves(M.abstract_params(cfg))]
+
+
+def shard_launch_name(dtype) -> str:
+    """The shard form's launch count for blocks of ``dtype``."""
+    return "sketch_shard" if str(dtype) == "torch.bfloat16" else \
+        "sketch_shard_f32"
+
+
 def tp_want(one, cfg, W: int, model: int, m: int) -> dict:
     """The launches of model rank m's W data ranks together in the run:
     K6 as the one-process run's (every worker's forward on the rank's
-    heads), K4s's shard form once a split leaf and check member, the
+    heads), K4s's shard form once a split leaf and check member, by the
+    leaf's dtype (``sketch_shard`` bf16, ``sketch_shard_f32`` f32), the
     single form once a replicated leaf and member on model rank 0, K3
     once a leaf and vote on each data rank (each votes every leaf's
     shard)."""
     pls = tp_placements(cfg, W, model, m)
-    split = sum(pl.sharded for pl in pls)
+    split = [shard_launch_name(dt)
+             for pl, dt in zip(pls, tp_leaf_dtypes(cfg), strict=True)
+             if pl.sharded]
     members = one["want"]["sketch"] // len(pls)
     return {"flash_attention": one["want"]["flash_attention"],
-            "sketch_shard": members * split,
-            "sketch": members * (len(pls) - split) if m == 0 else 0,
+            "sketch_shard": members * split.count("sketch_shard"),
+            "sketch_shard_f32": members * split.count("sketch_shard_f32"),
+            "sketch": members * (len(pls) - len(split)) if m == 0 else 0,
             "pairwise_relmax_batched":
                 W * one["want"]["pairwise_relmax_batched"]}
 
@@ -4185,9 +4236,68 @@ def tp_dryrun(torch, job, W: int, model: int, counted: dict,
     return out
 
 
+def f32_run(torch, job) -> dict:
+    """``job``'s one-process run with its config in float32, from the
+    bf16 run's initial parameters cast to f32 (exact), on the same
+    batches, coins and Byzantine workers: history, walls, the final
+    parameter leaves (CPU)."""
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    params = tree.tree_map(lambda x: x.float(), M.init_train(
+        job.cfg, job.tc.seed, "cuda"))
+    run = one_process_run(torch, dataclasses.replace(
+        job, cfg=dataclasses.replace(job.cfg, dtype="float32")),
+        params=params)
+    return dict(history=run["history"], walls=run["walls"],
+                final=run["final"][:run["n_params"]])
+
+
+def f32_anchored(torch, init, split, one, steps, f32, hist, cfg) -> dict:
+    """TP_F32_ANCHORED's update gate (CPU leaves): over the leaves the
+    f32 run moves, rel(x) = ||x - f32|| / ||f32 - init|| (f32 on the
+    card) of the split run's final leaves ``split`` and of the
+    one-process bf16 run's ``one``, held to rel(split) <= rel(one) +
+    TP_F32_MARGIN; the planted control, ``split`` less the one-process
+    run's last step's update (``steps``, its params after each step),
+    must fail it.  Also whether the f32 run's decisions are ``hist``'s
+    and the last step a fast one."""
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    def ctl(h):
+        return [{k: v for k, v in r.items() if k != "loss"} for r in h]
+
+    paths = [p for p, _ in tree.leaves_with_paths(M.abstract_params(cfg))]
+    rel_split, rel_one, rel_plant, moving = [], [], [], []
+    for i, xs in enumerate(zip(init, split, one, f32["final"], steps[-1],
+                               steps[-2])):
+        p0, a, b, c, b1, b0 = (t.to("cuda").float() for t in xs)
+        moved = float((c - p0).norm())
+        if moved:
+            rel_split.append(float((a - c).norm()) / moved)
+            rel_one.append(float((b - c).norm()) / moved)
+            rel_plant.append(float((a - (b1 - b0) - c).norm()) / moved)
+            moving.append(paths[i])
+        del p0, a, b, c, b1, b0
+    excess = [x - y for x, y in zip(rel_split, rel_one)]
+    plant = [x - y for x, y in zip(rel_plant, rel_one)]
+    w, wp = excess.index(max(excess)), plant.index(max(plant))
+    return dict(leaves=moving, rel_split=rel_split, rel_one=rel_one,
+                rel_planted=rel_plant, excess_max=max(excess),
+                worst_leaf=moving[w],
+                worst=(rel_split[w], rel_one[w]),
+                planted_excess_max=max(plant), planted_leaf=moving[wp],
+                f32_control_equal=ctl(f32["history"]) == ctl(hist),
+                last_step_fast="identified" not in hist[-1]
+                and hist[-1]["f_t"] == 0, f32_walls=f32["walls"],
+                passed=max(excess) <= TP_F32_MARGIN,
+                planted_caught=max(plant) > TP_F32_MARGIN)
+
+
 def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
            label: str, base: dict | None = None,
-           ref: str = "one") -> tuple:
+           ref: str = "one", anchor: bool = False) -> tuple:
     """One split run against a reference run of the same job (see the
     note above TP_LOSS_REL): ``ref`` "one", the one-process run (taken
     from ``base`` when it holds this cell's, and kept there), or
@@ -4202,8 +4312,10 @@ def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
     faulty check leaving every rank's state unchanged; a planted ulp
     caught; the fast step counted on the card equal to the dry-run's
     meta trace (against the plain run also the dry-run's peaks beside
-    the ranks' measured peak).  Returns (report, the ranks' launches
-    summed)."""
+    the ranks' measured peak).  With ``anchor`` (a cell of
+    TP_F32_ANCHORED, ``ref`` "one") the updates are held to the cell's
+    f32 one-process run instead (``f32_anchored``, the f32 run kept in
+    ``base``).  Returns (report, the ranks' launches summed)."""
     import gc
 
     import numpy as np
@@ -4234,6 +4346,8 @@ def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
                 tuple(t.cpu() for t in e) for e in tape.calls],
                         init=[x.detach().cpu() for x in tree.leaves(
                             M.init_train(cfg, tc.seed, "cuda"))])
+        if anchor and "f32" not in base:
+            base["f32"] = f32_run(torch, job)
         one, init = base["one"], base["init"]
         reference = dict(history=one["history"], walls=one["walls"],
                          final=one["final"][:one["n_params"]])
@@ -4279,8 +4393,27 @@ def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
                         reference["final"], rhist, cfg)
     d["loss_rel"] = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
                         for a, b in zip(hist, rhist))
-    limits = TP_LIMITS[ref]
+    limits = TP_LIMITS["f32" if anchor else ref]
     within = d["still_equal"] and all(d[k] <= v for k, v in limits.items())
+    anchored = f32_anchored(
+        torch, init, r0["params"]["main"], reference["final"], one["steps"],
+        base["f32"], rhist, cfg) if anchor else None
+    if anchored is not None:
+        within = within and anchored["passed"]
+        a = anchored
+        print(f"{label}: each leaf's distance to the f32 one-process run "
+              f"(from the bf16 init cast to f32), ||x - f32|| / ||f32 - "
+              f"init|| over the {len(a['leaves'])} leaves it moves: the "
+              f"split {[round(x, 4) for x in a['rel_split']]}, the "
+              f"one-process bf16 run "
+              f"{[round(x, 4) for x in a['rel_one']]}; rel(split) - "
+              f"rel(one) at most {a['excess_max']:.4f} (limit "
+              f"{TP_F32_MARGIN}) at {a['worst_leaf']} ({a['worst'][0]:.4f} "
+              f"against {a['worst'][1]:.4f}); the planted control (the "
+              f"last fast step's update taken back) "
+              f"{a['planted_excess_max']:.4f} at {a['planted_leaf']}; the "
+              f"f32 run's decisions equal {a['f32_control_equal']}, its "
+              f"step walls {[round(x, 3) for x in a['f32_walls']]} s")
     agree = all(r["agree"] and torch.equal(r["params_sum"]["main"],
                                            g[0]["params_sum"]["main"])
                 for g in (results, plain) for r in g) and all(
@@ -4306,7 +4439,7 @@ def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
           f"where it routes: its own would have flipped (flips, choices) "
           f"{flips}): decisions equal {same_ctl} ({ctl(hist)}); Byzantine "
           f"{byz} identified {caught}; losses rel diff {d['loss_rel']:.3e}; "
-          f"{train_diff_text(d, limits['update_rel_max'])}; held to "
+          f"{train_diff_text(d, limits.get('update_rel_max'))}; held to "
           f"{limits}; every rank's gathered params bitwise alike: {agree}; "
           f"launches by model rank over its data ranks {got} (want "
           f"{want}); the plain run's kernel launches {plain_launches}; a "
@@ -4323,7 +4456,16 @@ def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
     check(same_ctl and caught == byz and agree,
           f"{label}: the split run's decisions or ranks differ")
     check(within, f"{label}: the split run drifts from the "
-                  f"{REFERENCE_RUN[ref]}")
+                  f"{REFERENCE_RUN[ref]}" + (
+                      " or lies farther from the f32 run than it"
+                      if anchor else ""))
+    if anchored is not None:
+        check(anchored["f32_control_equal"] and anchored["last_step_fast"],
+              f"{label}: the f32 run's decisions differ, or the last step "
+              f"is not a fast one")
+        check(anchored["planted_caught"],
+              f"{label}: the planted control (the last fast step's update "
+              f"taken back) passes the f32-anchored gate")
     check(got == want and plain_launches == 0,
           f"{label}: launches differ from the protocol's")
     check(all(p["any_fault"] and p["unchanged"] for p in probes),
@@ -4338,7 +4480,8 @@ def tp_run(torch, spec, seed, mask, W: int, model: int, backend: str,
                peak_bytes=[r["peak_bytes"] for r in results],
                data_counts=[r["counts"] for r in results],
                model_counts=[r["model_counts"] for r in results],
-               model_all_reduce_bw=bw, spawn_s=spawn_s, dryrun=dry)
+               model_all_reduce_bw=bw, spawn_s=spawn_s, dryrun=dry,
+               f32_anchored=anchored)
     launches = {k: sum(r["launches"][k] for r in results)
                 for k in r0["launches"]}
     del results, plain, init, reference
@@ -4415,14 +4558,17 @@ def spawn_routed(torch, job, world: int, calls=None) -> tuple:
         shutil.rmtree(out, ignore_errors=True)
 
 
-def tp_kernels(torch, cfg, spec, model: int, tag: str = "") -> dict:
+def tp_shard_rows(torch, cfg, model: int, tag: str = "") -> dict:
     """K4s's shard form at every split leaf's shard on the last model
-    rank (a nonzero offset) of the cut model, a ragged block (odd
-    columns, offset), reruns bitwise, and timed at the largest shard with
-    its plain version and ``index_add_`` over the signed values; K6, for
-    a model with attention, at the rank's head count (H / model query
-    heads, K / model kv heads) at the training rows, timed beside SDPA.
-    Rows ``sketch_shard<tag>`` and ``flash_attention_tp<tag>``."""
+    rank (a nonzero offset) of the cut model, in the leaf's own dtype
+    (its gradient's on the training path: bf16, f32 for mamba's A_log,
+    dt_bias and D): against its plain version and reruns bitwise, a bf16
+    shard also bitwise its sketch of its f32 cast; the ragged blocks of
+    TP_RAGGED_BLOCKS in bf16 and f32; timed at the largest shard in bf16
+    and in f32, beside its plain version and ``index_add_`` over the
+    signed values, the bound at the bytes read.  Rows
+    ``sketch_shard<tag>`` (bf16) and ``sketch_shard_f32<tag>``, each
+    with the worst error of its dtype's checks and timed input."""
     from repro_torch.core.detection import shard_block
     from repro_torch.kernels import ref as _ref
     from repro_torch.kernels import sketch as sk
@@ -4430,67 +4576,105 @@ def tp_kernels(torch, cfg, spec, model: int, tag: str = "") -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(27)
     kk, key = 256, 0x2545F491
-    report, worst, big = {}, 0.0, None
-    for pl in tp_placements(cfg, 1, model, model - 1):
+    bf16, f32 = torch.bfloat16, torch.float32
+    report, worst, big = {}, {bf16: 0.0, f32: 0.0}, None
+    for pl, dt in zip(tp_placements(cfg, 1, model, model - 1),
+                      tp_leaf_dtypes(cfg), strict=True):
         if not pl.sharded:
             continue
-        x = torch.randn(pl.local_shape, generator=gen, device=dev)
+        x = torch.randn(pl.local_shape, generator=gen, device=dev).to(dt)
         block, cfull, c0 = shard_block(x, pl)
         got = sk.sketch_block_cuda(block, key, kk, cfull, c0)
         want = sk.sketch_block_plain(block, key, kk, cfull, c0)
         rel = rel_err(got, want)
-        worst = max(worst, max_err(got, want))
-        check(rel <= 1e-5, f"K4s shard form disagrees at {pl.local_shape}")
+        worst[dt] = max(worst[dt], max_err(got, want))
+        check(rel <= 1e-5, f"K4s shard form disagrees at {pl.local_shape} "
+                           f"{dt}")
         check(bool(torch.equal(got, sk.sketch_block_cuda(block, key, kk,
                                                          cfull, c0))),
-              f"K4s shard form rerun differs at {pl.local_shape}")
+              f"K4s shard form rerun differs at {pl.local_shape} {dt}")
+        if dt == bf16:
+            check(bool(torch.equal(got, sk.sketch_block_cuda(
+                block.float(), key, kk, cfull, c0))),
+                  f"K4s shard form: bf16 differs from its f32 cast at "
+                  f"{pl.local_shape}")
         print(f"K4s shard form at the shard {pl.local_shape} of {pl.shape} "
-              f"(block {tuple(block.shape)}, row {cfull}, column {c0}): "
+              f"{str(dt).removeprefix('torch.')} (block "
+              f"{tuple(block.shape)}, row {cfull}, column {c0}): "
               f"max|kernel-plain| / max(1, max|plain|) = {rel:.3e} "
-              f"(tolerance 1e-5); rerun bitwise equal")
+              f"(tolerance 1e-5); rerun bitwise equal"
+              + ("; the f32 cast bitwise equal" if dt == bf16 else ""))
         if big is None or block.numel() > big[0].numel():
             big = (block, cfull, c0)
-        del x
-    for rows, cols, cfull, c0 in ((3, 1001, 4097, 3095), (1, 70001, 200000,
-                                                          129999)):
-        b = torch.randn(rows, cols, generator=gen, device=dev)
-        got = sk.sketch_block_cuda(b, key, kk, cfull, c0)
-        want = sk.sketch_block_plain(b, key, kk, cfull, c0)
-        check(rel_err(got, want) <= 1e-5,
-              f"K4s shard form disagrees at ({rows}, {cols}) from {c0}")
+        del x, want
+    for rows, cols, cfull, c0 in TP_RAGGED_BLOCKS:
+        for dt in (bf16, f32):
+            flat = torch.randn(rows * cols + 1, generator=gen,
+                               device=dev).to(dt)
+            for off in (0, 1):      # the pointer aligned, one element off
+                b = flat[off:off + rows * cols].view(rows, cols)
+                got = sk.sketch_block_cuda(b, key, kk, cfull, c0)
+                want = sk.sketch_block_plain(b, key, kk, cfull, c0)
+                worst[dt] = max(worst[dt], max_err(got, want))
+                check(rel_err(got, want) <= 1e-5 and bool(torch.equal(
+                    got, sk.sketch_block_cuda(b, key, kk, cfull, c0))),
+                      f"K4s shard form disagrees or reruns apart at "
+                      f"({rows}, {cols}) from {c0}, {dt}, offset {off}")
+    print(f"K4s shard form at the ragged blocks {TP_RAGGED_BLOCKS} in bf16 "
+          f"and f32, from an aligned pointer and one element off: within "
+          f"1e-5 of plain, reruns bitwise")
     block, cfull, c0 = big
     d = block.numel()
-    ms = median_ms(torch, lambda: sk.sketch_block_cuda(block, key, kk, cfull,
-                                                       c0), launches=10)
-    plain_ms = median_ms(torch, lambda: sk.sketch_block_plain(
-        block, key, kk, cfull, c0), reps=3, warm=1)
     r = torch.arange(block.shape[0], device=dev, dtype=torch.int64)
     pos = (r[:, None] * cfull + c0 + torch.arange(
         block.shape[1], device=dev, dtype=torch.int64)[None]).reshape(-1)
-    signed = block.reshape(-1) * _ref.hash_signs_ref(pos, key)
+    signed = block.reshape(-1).float() * _ref.hash_signs_ref(pos, key)
     bucket = pos % kk
     out = torch.zeros(kk, device=dev)
     library_ms = median_ms(torch, lambda: out.zero_().index_add_(
         0, bucket, signed), launches=10)
-    b_ms, b_by = kernel_bound("sketch_shard", d=d, k=kk)
-    report["sketch_shard" + tag] = entry(
-        "sketch_shard" + tag, "sketch.cu", "src/repro/kernels/sketch.py:25",
-        worst, ms, plain_ms, b_ms, b_by, library_ms)
-    print(f"K4s shard form at the largest shard of {cfg.name} ({d} "
-          f"elements): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"index_add_ms={library_ms:.4f} (over the signed values) "
-          f"bound_ms={b_ms:.4f} ({b_by}); {b_ms / ms:.1%} of bound")
-    del block, pos, signed, bucket, r, big
-    if not cfg.num_heads:
-        return report
+    del pos, r
+    for dt, suffix in ((bf16, ""), (f32, "_f32")):
+        blk = block.to(dt)
+        got = sk.sketch_block_cuda(blk, key, kk, cfull, c0)
+        want = sk.sketch_block_plain(blk, key, kk, cfull, c0)
+        check(rel_err(got, want) <= 1e-5,
+              f"K4s shard form disagrees at the timed {dt} block")
+        worst[dt] = max(worst[dt], max_err(got, want))
+        ms = median_ms(torch, lambda: sk.sketch_block_cuda(
+            blk, key, kk, cfull, c0), launches=10)
+        plain_ms = median_ms(torch, lambda: sk.sketch_block_plain(
+            blk, key, kk, cfull, c0), reps=3, warm=1)
+        dtype = str(dt).removeprefix("torch.")
+        b_ms, b_by = kernel_bound("sketch_shard", d=d, k=kk, dtype=dtype)
+        name = "sketch_shard" + suffix + tag
+        report[name] = entry(name, "sketch.cu",
+                             "src/repro/kernels/sketch.py:25", worst[dt], ms,
+                             plain_ms, b_ms, b_by, library_ms)
+        print(f"K4s shard form at the largest shard of {cfg.name} ({d} "
+              f"elements, {tuple(block.shape)}) {dtype}: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} index_add_ms={library_ms:.4f} (over "
+              f"the signed f32 values) bound_ms={b_ms:.4f} ({b_by}, "
+              f"{dtype} read); {b_ms / ms:.1%} of bound; max|kernel-plain| "
+              f"over the {dtype} checks {worst[dt]:.3e}")
+        del blk, got, want
+    del block, signed, bucket, big
+    return report
+
+
+def tp_attention_row(torch, cfg, spec, model: int, tag: str = "") -> dict:
+    """K6 at a rank's head count of the cut model (H / model query
+    heads, K / model kv heads) at the training rows, timed beside SDPA:
+    the row ``flash_attention_tp<tag>``."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
     S, H, K, hd = spec["seq_len"], cfg.num_heads // model, \
         max(1, cfg.num_kv_heads // model), cfg.head_dim
     B = spec["global_batch"] // max(1, spec["n"] // (spec["f"] + 1))
-    q, k, v = [torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
-               for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd))]
-    report["flash_attention_tp" + tag] = split_attention_row(
-        torch, q, k, v, "flash_attention_tp" + tag, "a rank's heads")
-    return report
+    q, k, v = [torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16) for s in ((B, S, H, hd), (B, S, K, hd),
+                                  (B, S, K, hd))]
+    return {"flash_attention_tp" + tag: split_attention_row(
+        torch, q, k, v, "flash_attention_tp" + tag, "a rank's heads")}
 
 
 def split_attention_row(torch, q, k, v, name: str, what: str) -> dict:
@@ -4574,11 +4758,15 @@ def tp_cards(torch, seed, mask, cards: int, cells=None) -> dict:
         ref = "plain" if cell in TP_SPLIT_ONLY else "one"
         try:
             out[label] = tp_run(torch, spec, seed, mask, W, model, "nccl",
-                                f"tp (b) {label}", base, ref)[0]
+                                f"tp (b) {label}", base, ref,
+                                anchor=cell in TP_F32_ANCHORED)[0]
             if ref == "plain":
                 cfg = cell_cfg(spec)
-                out[label]["kernels"] = tp_kernels(
-                    torch, cfg, spec, model, "_" + cfg.name.split("-")[0])
+                tag = "_" + cfg.name.split("-")[0]
+                out[label]["kernels"] = tp_shard_rows(torch, cfg, model, tag)
+                if cfg.num_heads:
+                    out[label]["kernels"].update(
+                        tp_attention_row(torch, cfg, spec, model, tag))
         except SystemExit as e:
             print(e, flush=True)
             out[label] = {"failed": str(e)}
@@ -4619,8 +4807,9 @@ def phase_train_tp(torch, spec):
     """The training cells' workers split over the model axis (see the
     note above TP_LOSS_REL): (a) two gloo ranks sharing the card at
     model 2, RANKS_CUT layers, for each cell of TP_A (``spec``, then
-    mamba2-780m), with the shard form's rows at each cell's leaves, the
-    split K6's and K6's at a ragged head count (TP_RAGGED); (b) one NCCL
+    mamba2-780m), with the shard form's rows at each cell's leaves and
+    at jamba's at model 4, the split K6's and K6's at a ragged head
+    count (TP_RAGGED); (b) one NCCL
     rank a card where more than one is visible.  Returns ({the (a) runs'
     launches summed over their ranks, by path}, the kernels line's rows,
     the report)."""
@@ -4639,7 +4828,12 @@ def phase_train_tp(torch, spec):
     rows, out, launches = {}, {}, {}
     for tag, cell in cells.items():
         cut = dict(cell, layers=RANKS_CUT)
-        rows.update(tp_kernels(torch, cell_cfg(cut), cut, TP_SPLIT, tag))
+        cfg = cell_cfg(cut)
+        rows.update(tp_shard_rows(torch, cfg, TP_SPLIT, tag))
+        if cfg.num_heads:
+            rows.update(tp_attention_row(torch, cfg, cut, TP_SPLIT, tag))
+    # jamba's leaves at (b)'s split, model 4: the shard form alone
+    rows.update(tp_shard_rows(torch, cell_cfg(JAMBA_TRAIN), 4, "_jamba"))
     rows["flash_attention_ragged"] = ragged_attention_row(torch, spec)
     try:
         for tag, cell in cells.items():
@@ -4697,12 +4891,15 @@ def train_run_diffs(torch, init, final, hist, ref_final, ref_hist,
                 moving_leaves=len(rel), still_equal=still, worst_leaf=worst)
 
 
-def train_diff_text(d: dict, update_limit: float = TRAIN_UPDATE_REL) -> str:
+def train_diff_text(d: dict, update_limit: float | None = TRAIN_UPDATE_REL
+                    ) -> str:
+    limit = "not held: the f32 run's gate" if update_limit is None \
+        else f"limit {update_limit}"
     return (f"first loss rel diff {d['loss0_rel']:.3e} (limit "
             f"{TRAIN_LOSS0_REL}), loss drops rel diff {d['drop_rel']:.3e} "
             f"(limit {TRAIN_DROP_REL}), leaf updates rel diff "
             f"{d['update_rel_min']:.4f}..{d['update_rel_max']:.4f} over "
-            f"{d['moving_leaves']} moving leaves (limit {update_limit}; "
+            f"{d['moving_leaves']} moving leaves ({limit}; "
             f"the largest at {d['worst_leaf']}), unmoved leaves equal "
             f"{d['still_equal']}")
 
@@ -5057,8 +5254,13 @@ def run() -> int:
                              if path not in own and path not in by_shape)
     kernels["flash_attention_tp"]["launches"] = \
         launches["training_tp"]["flash_attention"]
-    kernels["sketch_shard_mamba"]["launches"] = \
-        launches["training_tp_mamba"]["sketch_shard"]
+    for key in ("sketch_shard", "sketch_shard_f32"):
+        kernels[key + "_mamba"]["launches"] = \
+            launches["training_tp_mamba"][key]
+    # jamba's rows (its split runs only in (b), on four cards) are checked
+    # and timed and count no launch
+    for key in ("sketch_shard_jamba", "sketch_shard_f32_jamba"):
+        kernels[key]["launches"] = 0
     # no path of this script splits a head: the ragged shape is checked
     # and timed, and its row counts no launch
     kernels["flash_attention_ragged"]["launches"] = 0

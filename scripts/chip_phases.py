@@ -18,8 +18,9 @@ layers (the script cuts it to 8); ``dryrun`` ``phase_dryrun``; ``tp``
 ``phase_train_tp``'s (b) alone, the training cells split over the model
 axis with one NCCL rank a card (llama3.2-1b at model 2 x W 2 and model
 4, phi3.5-moe at one layer with model 4, mamba2-780m at model 2 x W 2
-and model 4, jamba at 5 layers with model 4 against its plain versions'
-split run: four cards; its readings also go to
+and model 4 with its updates held to its f32 one-process run, jamba at
+5 layers with model 4 against its plain versions' split run: four
+cards; its readings also go to
 ``chiprun_out/chip_phases_tp.json``), ``tp_ssm`` the mamba2-780m and
 jamba runs of (b) alone, and ``tp_a`` the phase's one-card part (a);
 ``tp_dtype`` (``tp_dtype``) the mamba2-780m cell of (b) at model 2 x W 2

@@ -22,8 +22,16 @@ Cases and shapes: K1 (the gram sketch tables) at gram_sweep's (66 rows,
 d = 2^20, T = 120, k = 256); K2 at the fused_sweep chunk (64 trials, 66
 rows, d = 2^20), f32 and bf16 rows; K3 at the engine's vote (32, 8,
 256); K3s at the single vote (7, 1e5); K4 at the unfused plane's (66,
-2^20); K4s at the bench's d = 1e6 and the serving audit's 4 x 128256.
-Each pair runs the two versions in turns (other, this; then this,
+2^20); K4s at the bench's d = 1e6 and the serving audit's 4 x 128256;
+K4s's shard form (``sketch_block``) at the split leaves' shards of
+the training cells (llama3.2-1b's embedding at model 2, one row of
+131,334,144; mamba2-780m's, 38,615,040; jamba's expert leaf at model 4,
+two rows of 234,881,024; llama's wq and w1 at model 2, 32,768 rows of
+1024 and 4096 of 2048 and 8192; one row of 2^20, whose 2 MB take a
+call's fixed cost), f32 through both versions'
+``sketch_block`` and bf16 through this version's ``sketch_block_bf16``
+against the other's bf16 path where it has none (an f32 copy, then its
+``sketch_block``, as its ``ops.sketch_shard`` did).  Each pair runs the two versions in turns (other, this; then this,
 other; ...), each measurement the median of CUDA-event timings (K1, K2,
 K4: one call an event pair; K3, K3s, K4s: 50 back-to-back calls an
 event pair) and the profiler's device time (K1, K2, K3, K3s: the kernel
@@ -84,6 +92,11 @@ def typed(libs: dict[str, ctypes.CDLL]) -> dict[str, ctypes.CDLL]:
     sk.sketch_num_spans.restype = i
     sk.sketch_batched.argtypes = [vp, i, ll, i, ctypes.c_uint32, vp, vp, vp]
     sk.sketch_batched.restype = i
+    for name in ("sketch_block", "sketch_block_bf16"):
+        if hasattr(sk, name):
+            getattr(sk, name).argtypes = [vp, ll, ll, ll, ll, i,
+                                          ctypes.c_uint32, vp, vp, vp, vp]
+            getattr(sk, name).restype = i
     return libs
 
 
@@ -186,6 +199,49 @@ def main() -> int:
             raise RuntimeError(f"sketch_batched: CUDA error {st}")
         return out[0]
 
+    # tickets enough for either version's shard form
+    shard_ws = {v: (torch.empty((1024, 256), device=dev),
+                    torch.zeros(64, dtype=torch.int32, device=dev))
+                for v in libs}
+
+    def shard_call(v, g, cfull, c0):
+        """The shard form as each version's ``ops.sketch_shard`` called
+        it: a bf16 block read as it is where the version has
+        ``sketch_block_bf16``, else copied to f32 first."""
+        sk = libs[v]["sketch"]
+        fn = sk.sketch_block
+        if g.dtype == torch.bfloat16:
+            if hasattr(sk, "sketch_block_bf16"):
+                fn = sk.sketch_block_bf16
+            else:
+                g = g.to(torch.float32)
+        part, ticket = shard_ws[v]
+        out = torch.empty(256, device=dev)
+        st = fn(g.data_ptr(), g.shape[0], g.shape[1], cfull, c0, 256, 7,
+                part.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if st:
+            raise RuntimeError(f"sketch_block: CUDA error {st}")
+        return out
+
+    # (label, rows, cols, cfull, c0): a rank's shard of a split leaf
+    shard_shapes = [("llama embed", 1, 131_334_144, 262_668_288, 131_334_144),
+                    ("mamba embed", 1, 38_615_040, 77_230_080, 38_615_040),
+                    ("jamba expert", 2, 234_881_024, 939_524_096,
+                     704_643_072),
+                    ("llama wq", 32768, 1024, 2048, 1024),
+                    ("llama w1", 32768, 4096, 8192, 4096),
+                    ("row 2^20", 1, 1 << 20, 1 << 21, 1 << 20)]
+    if args.cases:
+        shard_shapes = [sh for sh in shard_shapes if any(
+            c.startswith(f"K4s shard {sh[0]}") for c in args.cases)]
+    shard_blocks = {}
+    for label, r, c, cfull, c0 in shard_shapes:
+        x = torch.randn(r, c, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            name = f"K4s shard {label} {str(dt).removeprefix('torch.')}"
+            shard_blocks[name] = (x.to(dt), cfull, c0)
+        del x
     rows = torch.randn(66, 1 << 20, generator=gen, device=dev)
     rows_bf = rows.to(torch.bfloat16)
     W = torch.randn(64, 1 << 20, generator=gen, device=dev)
@@ -210,6 +266,12 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"{label}: this vs other max|d| {cs.max_err(a, b):.3e}")
 
+    for label, (g, cfull, c0) in shard_blocks.items():
+        a, b = shard_call("this", g, cfull, c0), shard_call("other", g, cfull,
+                                                            c0)
+        torch.cuda.synchronize()
+        print(f"{label}: this vs other max|d| / max(1, max|other|) "
+              f"{cs.rel_err(a, b):.3e}")
     # agreement of the two versions before any timing
     for label, x in (("K3", x3), ("K3s", x3s)):
         a, b = k3_call(libs["this"], x, False), k3_call(libs["other"], x, True)
@@ -237,6 +299,12 @@ def main() -> int:
                "relmax_kernel", 50),
         "K3s": (lambda v: lambda: k3_call(libs[v], x3s, v == "other"),
                 "relmax_kernel", 50),
+        # f32: the kernel by name; bf16: the call's kernels (the other's
+        # copy to f32 with its kernel)
+        **{label: ((lambda b: lambda v: lambda: shard_call(v, *b))(blk),
+                   "sketch_block_kernel" if blk[0].dtype == torch.float32
+                   else None, 1 if blk[0].numel() > 1 << 26 else 10)
+           for label, blk in shard_blocks.items()},
     }
     if args.cases:
         cases = {c: v for c, v in cases.items() if c in args.cases}

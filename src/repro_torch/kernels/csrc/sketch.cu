@@ -43,14 +43,41 @@
 // The shard form: a block of a row-major leaf, (rows, cols) of its
 // (rows, C_full) view starting at column c0, sketched under the FULL
 // leaf's flat index p = r * C_full + c0 + c (bucket p % k, sign
-// hash(p)), so the ranks' partial sketches of a leaf split over the
-// model axis sum to the whole leaf's sketch (a split on dim 0 is the
-// view with one row and c0 the shard's offset).  Thread b owns bucket b;
-// each block takes a run of the block's elements in local row-major
-// order and, row segment by row segment, walks the global positions of
-// its bucket (stride k): the lanes of a warp read consecutive floats.
-// The blocks' partials are added by the last block in f64 in a fixed
-// order (the single form's ticket), so reruns are bitwise.
+// hash(p), p truncated to 32 bits as the reference's uint32 iota), so
+// the ranks' partial sketches of a leaf split over the model axis sum
+// to the whole leaf's sketch (a split on dim 0 is the view with one row
+// and c0 the shard's offset).  It reads the leaf in its own dtype, f32
+// or bf16 (widened in registers, exactly), so a bf16 gradient moves 2
+// bytes an element and nothing is copied first: at llama3.2-1b's
+// embedding shard at model 2 (131,334,144 elements) 263 MB, 0.078 ms at
+// 3.35 TB/s (f32: 0.157 ms).  Per element it does one hash (two
+// multiplies, a shift and an xor: hash_sign_flip), one xor into the
+// sign bit and one add, about 6 integer operations for 2 bytes: the
+// H100's integer pipes take that at about 1.5x the byte rate, so the
+// kernel stays bound by bytes as long as the loads keep coming.
+//
+// The shard design.  A thread owns 8 neighbouring buckets (1 where k
+// is not a multiple of 8) and walks slabs of k global positions: 16
+// bytes a slab (two 16-byte loads for f32, one for bf16) where its 8
+// elements lie in the row and the row's vectors are 16-byte aligned,
+// masked scalar loads otherwise (a row's ends, a misaligned row).  f32
+// and bf16 walk alike, so a bf16 block sums bit for bit as its f32
+// cast.  Each batch of loads (128 bytes a thread) is issued before the
+// previous batch's hashes and adds, by double-buffering registers;
+// where a whole batch lies inside one aligned row (the long rows), one
+// test admits it and its loads go out at a fixed stride, without the
+// per-slab bounds and alignment tests of the general walk.  A
+// block takes whole rows, or a span of whole slabs of one row (the long
+// rows of a dim-0 split or an expert shard), two blocks an SM in one
+// wave; its lanes (the threads that cover one slab together) stride
+// over the block's slabs, or, where rows have fewer slabs than there
+// are lanes, each lane takes every L-th row whole.  A row's global
+// start, its bucket offset and its slab count are stepped by addition
+// from row to row: no 64-bit division after a thread's start.  The
+// lanes are added in a fixed order in shared memory and each block
+// writes its partial; the last block adds the partials in f64 in a fixed
+// order, with the single form's batched tail (sum_partials).  No float
+// atomics: reruns are bitwise.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math: the hash compare is exact).
@@ -99,6 +126,72 @@ constexpr int S_THREADS = 256;
 constexpr int S_UNROLL = 8;            // loads in flight per thread
 constexpr int S_SLABS = 4;             // slabs per lane a block aims at
 
+// The end of both one-launch forms: the last block to finish (an
+// integer ticket taken after __threadfence(), reset by that block for the
+// next call) adds the blocks' partials part[0..gridDim.x) (kp floats
+// each, kp a multiple of 4) in f64 in a fixed order, 16 quads in flight
+// a thread, and writes out (k,).  Blocks of S_THREADS threads.
+__device__ __forceinline__ void sum_partials(const float* part, int kp,
+                                             int k, unsigned* ticket,
+                                             float* out) {
+  __shared__ double dsum[S_THREADS * 4];
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) *ticket = 0u;          // every block has taken its ticket
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int nb = gridDim.x;
+  const int QN = kp / 4;                           // bucket quads
+  const int qper = QN < S_THREADS ? QN : S_THREADS;
+  const int S = S_THREADS / qper;                  // block subsets
+  const int sub = tid / qper, qt = tid % qper;
+  constexpr int BATCH = 16;
+  if (sub < S) {
+    for (int qd = qt; qd < QN; qd += qper) {
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      for (int b0 = sub; b0 < nb; b0 += BATCH * S) {
+        float4 f[BATCH];
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          const int b = b0 + j * S;
+          f[j] = b < nb ? __ldcg(reinterpret_cast<const float4*>(
+                              part + (long long)b * kp) + qd)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) {
+          s[0] += (double)f[j].x;
+          s[1] += (double)f[j].y;
+          s[2] += (double)f[j].z;
+          s[3] += (double)f[j].w;
+        }
+      }
+      if (S == 1) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (4 * qd + v < k) out[4 * qd + v] = (float)s[v];
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) dsum[sub * kp + 4 * qd + v] = s[v];
+      }
+    }
+  }
+  if (S > 1) {                       // subsets added in order 0, 1, ...
+    __syncthreads();
+    for (int c = tid; c < k; c += S_THREADS) {
+      double s = 0.0;
+      for (int q = 0; q < S; ++q) s += dsum[q * kp + c];
+      out[c] = (float)s;
+    }
+  }
+}
+
 // One block's partial over slabs [q0, q1) into part[blockIdx.x, 0..kp);
 // the last block adds all partials into out.  V columns per thread.
 template <int V>
@@ -108,8 +201,6 @@ sketch_single_kernel(const float* __restrict__ g, long long d, int k,
                      int kp, unsigned* __restrict__ ticket,
                      float* __restrict__ out) {
   __shared__ float red[S_THREADS * 4];
-  __shared__ double dsum[S_THREADS * 4];
-  __shared__ bool last;
   const int tid = threadIdx.x;
   const int U = (k + V - 1) / V;                   // units per slab
   const int per = U < S_THREADS ? U : S_THREADS;   // threads per slab row
@@ -173,124 +264,381 @@ sketch_single_kernel(const float* __restrict__ g, long long d, int k,
   }
   if (tid < kp - k) mine[k + tid] = 0.0f;   // the quads' padding
 
-  // the last block to finish adds the partials
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    if (last) *ticket = 0u;          // every block has taken its ticket
+  sum_partials(part, kp, k, ticket, out);
+}
+
+constexpr int B_THREADS = 256;
+constexpr int B_V = 8;                 // buckets a thread, k a multiple of 8
+
+// the most blocks a one-launch form uses: the rows of its partials
+// (sketch_single_max_blocks())
+constexpr int MAX_BLOCKS = 1024;
+static_assert(B_THREADS == S_THREADS, "the forms share sum_partials");
+
+// What a block of the shard form walks: the (rows, cols) block of the
+// leaf's (rows, cfull) view from column c0, bucketed by k, its
+// elements f32 (or bf16 when BF16), V neighbouring buckets a thread.
+struct BlockArgs {
+  const void* g;
+  long long rows, cols, cfull, c0;
+  int k;
+  uint32_t key;
+  int A, B;          // cols = A k + B, 0 <= B < k
+  int cm;            // cfull % k: the bucket step from a row to the next
+  int lm;            // (L cfull) % k: the step over L rows (the ROWS walk)
+  int spr, spb;      // spans a row, slabs a span (spr > 1: one row a block)
+  long long rpb;     // rows a block (spr == 1)
+  int a0;            // (address of g / element size) % (16-byte vector)
+  float* part;
+  int kp;
+  unsigned* ticket;
+  float* out;
+};
+
+// The raw bits of the V elements a thread loads from one slab: f32 as
+// they are, bf16 two to a word.
+template <bool BF16, int V>
+struct Raw {
+  static constexpr int W = BF16 ? (V + 1) / 2 : V;
+  uint32_t w[W];
+};
+
+// element v of x as f32 bits: a bf16 is the high half of its f32, so
+// the widening is exact
+template <bool BF16, int V>
+__device__ __forceinline__ uint32_t f32_bits(const Raw<BF16, V>& x, int v) {
+  if constexpr (BF16) {
+    const uint32_t w = x.w[v / 2];
+    return (v & 1) ? (w & 0xFFFF0000u) : (w << 16);
+  } else {
+    return x.w[v];
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const int nb = gridDim.x;
-  const int QN = kp / 4;                           // bucket quads
-  const int qper = QN < S_THREADS ? QN : S_THREADS;
-  const int S = S_THREADS / qper;                  // block subsets
-  const int sub = tid / qper, qt = tid % qper;
-  constexpr int BATCH = 16;
-  if (sub < S) {
-    for (int qd = qt; qd < QN; qd += qper) {
-      double s[4] = {0.0, 0.0, 0.0, 0.0};
-      for (int b0 = sub; b0 < nb; b0 += BATCH * S) {
-        float4 f[BATCH];
+}
+
+// Where a thread's walk stands: row r with its global start P (the
+// position of column 0, r cfull + c0), P % k, the slabs of k it
+// touches, and slab j of it; p the global position of the thread's
+// first element there, o its index in the block.  Rows are entered by
+// addition: no 64-bit division after the start.
+struct Walk {
+  long long r, P, end, shift;   // shift = r cols - P: index minus position
+  long long p, o;
+  int m, n, j;
+  bool vec;                     // the row's 16-byte vectors are aligned
+};
+
+__device__ __forceinline__ int row_slabs(const BlockArgs& a, int m) {
+  const int t = m + a.B;
+  return a.A + (t > a.k ? 2 : (t > 0 ? 1 : 0));
+}
+
+template <int NV>
+__device__ __forceinline__ void enter_row(const BlockArgs& a, Walk& w,
+                                          int uv) {
+  w.end = w.P + a.cols;
+  w.n = row_slabs(a, w.m);
+  w.vec = ((w.shift + a.a0) & (NV - 1)) == 0;
+  w.p = w.P - w.m + (long long)w.j * a.k + uv;
+  w.o = w.p + w.shift;
+}
+
+// the slab's V elements of this thread into x (zero past the row's
+// ends): 16-byte loads (two for f32) where they lie whole in the row and
+// the row's vectors are aligned
+template <bool BF16, int V>
+__device__ __forceinline__ void load_slab(const BlockArgs& a, const Walk& w,
+                                          Raw<BF16, V>& x) {
+  constexpr int E = BF16 ? 2 : 4;
+  if constexpr (V == B_V) {
+    if (w.vec && w.p >= w.P && w.p + V <= w.end) {
+      const uint4* q = reinterpret_cast<const uint4*>(
+          static_cast<const char*>(a.g) + w.o * E);
 #pragma unroll
-        for (int j = 0; j < BATCH; ++j) {
-          const int b = b0 + j * S;
-          f[j] = b < nb ? __ldcg(reinterpret_cast<const float4*>(
-                              part + (long long)b * kp) + qd)
-                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        }
-#pragma unroll
-        for (int j = 0; j < BATCH; ++j) {
-          s[0] += (double)f[j].x;
-          s[1] += (double)f[j].y;
-          s[2] += (double)f[j].z;
-          s[3] += (double)f[j].w;
-        }
+      for (int h = 0; h < V * E / 16; ++h) {
+        const uint4 f = __ldcs(q + h);
+        x.w[4 * h] = f.x;
+        x.w[4 * h + 1] = f.y;
+        x.w[4 * h + 2] = f.z;
+        x.w[4 * h + 3] = f.w;
       }
-      if (S == 1) {
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          if (4 * qd + v < k) out[4 * qd + v] = (float)s[v];
-      } else {
-#pragma unroll
-        for (int v = 0; v < 4; ++v) dsum[sub * kp + 4 * qd + v] = s[v];
-      }
+      return;
     }
   }
-  if (S > 1) {                       // subsets added in order 0, 1, ...
-    __syncthreads();
-    for (int c = tid; c < k; c += S_THREADS) {
-      double s = 0.0;
-      for (int q = 0; q < S; ++q) s += dsum[q * kp + c];
-      out[c] = (float)s;
+#pragma unroll
+  for (int i = 0; i < Raw<BF16, V>::W; ++i) x.w[i] = 0u;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const long long q = w.p + v;
+    if (q >= w.P && q < w.end) {
+      if constexpr (BF16)
+        x.w[v / 2] |= (uint32_t)__ldcs(
+            reinterpret_cast<const unsigned short*>(a.g) + w.o + v)
+            << (16 * (v & 1));
+      else
+        x.w[v] = __ldcs(reinterpret_cast<const unsigned int*>(a.g) + w.o + v);
     }
   }
 }
 
-constexpr int B_THREADS = 256;
+// acc[v] += sign(pos + v) * x[v], the sign as the f32's sign bit
+template <bool BF16, int V>
+__device__ __forceinline__ void add_slab(float (&acc)[V],
+                                         const Raw<BF16, V>& x, uint32_t pos,
+                                         uint32_t key) {
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    acc[v] += __uint_as_float(f32_bits<BF16, V>(x, v) ^
+                              hash_sign_flip(pos + v, key));
+}
 
-// part[blockIdx.x, b] = sum over this block's elements e in [e0, e1) of
-// the (rows, cols) block whose global position p has p % k == b of
-// sign(p) * g[e]; the last block adds the partials into out.
-__global__ void __launch_bounds__(B_THREADS)
-sketch_block_kernel(const float* __restrict__ g, long long rows,
-                    long long cols, long long cfull, long long c0, int k,
-                    long long per_block, uint32_t key,
-                    float* __restrict__ part, int kp,
-                    unsigned* __restrict__ ticket, float* __restrict__ out) {
-  __shared__ bool last;
+// part[blockIdx.x, b] = sum over the block's elements whose global
+// position p has p % k == b of sign(p) * g[e]; the last block adds the
+// partials into out.  ROWS: each lane walks whole rows (every L-th of
+// the block's), slab by slab; else the lanes take every L-th slab of the
+// block's run of slabs (whole rows, or a span of one row when spr > 1).
+// Each batch's loads (128 bytes a thread) are issued before the
+// previous batch's hashes and adds (register double buffering).  f32
+// and bf16 walk alike, so a bf16 block sums as its f32 cast, bit for
+// bit.
+template <bool BF16, int V, bool ROWS>
+__global__ void __launch_bounds__(B_THREADS, 2)
+sketch_block_kernel(const BlockArgs a) {
+  constexpr int E = BF16 ? 2 : 4;                  // bytes an element
+  constexpr int NV = 16 / E;                       // elements a 16-byte load
+  constexpr int BATCH = V == 1 ? 16 : 128 / (V * E);
+  __shared__ float red[B_THREADS * B_V];
   const int tid = threadIdx.x;
-  const long long n = rows * cols;
-  const long long e0 = (long long)blockIdx.x * per_block;
-  const long long e1 = e0 + per_block < n ? e0 + per_block : n;
-  float* mine = part + (long long)blockIdx.x * kp;
-  for (int b = tid; b < k; b += B_THREADS) {
-    float acc = 0.0f;
-    long long e = e0;
-    while (e < e1) {
-      const long long r = e / cols, c = e - r * cols;
-      const long long len = cols - c < e1 - e ? cols - c : e1 - e;
-      const long long gbase = r * cfull + c0;   // global position of col 0
-      const long long lo = gbase + c, hi = lo + len;
-      long long p = lo + (((long long)b - lo % k) % k + k) % k;
-      const float* row = g + r * cols;
-      // batches of 8 loads in flight, then their adds in order
-      for (; p + 7LL * k < hi; p += 8LL * k) {
-        float x[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          x[j] = __ldcs(row + (p + (long long)j * k - gbase));
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc = fmaf(hash_sign((uint32_t)(p + (long long)j * k), key), x[j],
-                     acc);
-      }
-      for (; p < hi; p += k)
-        acc = fmaf(hash_sign((uint32_t)p, key), __ldcs(row + (p - gbase)),
-                   acc);
-      e += len;
-    }
-    mine[b] = acc;
+  const int k = a.k;
+  const int U = k / V;                             // units per slab
+  const int per = U < B_THREADS ? U : B_THREADS;   // threads per slab
+  const int L = B_THREADS / per;                   // lanes
+  const int lane = tid / per, ut = tid % per;
+  long long r0, r1;
+  int j0, j1;
+  if (a.spr > 1) {
+    r0 = blockIdx.x / a.spr;
+    r1 = r0 + 1;
+    j0 = (int)(blockIdx.x % a.spr) * a.spb;
+    j1 = j0 + a.spb;
+  } else {
+    r0 = (long long)blockIdx.x * a.rpb;
+    r1 = r0 + a.rpb < a.rows ? r0 + a.rpb : a.rows;
+    j0 = 0;
+    j1 = 0x7FFFFFFF;
   }
-  for (int b = k + tid; b < kp; b += B_THREADS) mine[b] = 0.0f;
+  const long long dshift = a.cols - a.cfull;       // shift from a row to the next
+  const long long lk = (long long)L * k;
+  float* mine = a.part + (long long)blockIdx.x * a.kp;
 
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    if (last) *ticket = 0u;
+  if (lane < L) {
+    for (int u = ut; u < U; u += per) {
+      const int uv = u * V;
+      float acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+      Walk w;
+      w.r = ROWS ? r0 + lane : r0;
+      w.j = ROWS ? 0 : j0 + lane;
+      w.P = w.r * a.cfull + a.c0;
+      w.m = (int)(w.P % k);
+      w.shift = w.r * a.cols - w.P;
+      w.n = row_slabs(a, w.m);
+      if (!ROWS) {                   // lanes past the first row's end
+        while (w.j >= w.n && w.r < r1) {
+          w.j -= w.n;
+          ++w.r;
+          w.P += a.cfull;
+          w.shift += dshift;
+          w.m += a.cm;
+          if (w.m >= k) w.m -= k;
+          w.n = row_slabs(a, w.m);
+        }
+      }
+      enter_row<NV>(a, w, uv);
+      // the next slab of this thread's walk
+      // the walk `count` slabs on (ROWS: one)
+      auto step = [&](int count) {
+        if (ROWS) {
+          ++w.j;
+          w.p += k;
+          w.o += k;
+          if (w.j >= w.n) {
+            w.j = 0;
+            w.r += L;
+            w.P += (long long)L * a.cfull;
+            w.shift += (long long)L * dshift;
+            w.m += a.lm;
+            if (w.m >= k) w.m -= k;
+            enter_row<NV>(a, w, uv);
+          }
+        } else {
+          w.j += count * L;
+          w.p += count * lk;
+          w.o += count * lk;
+          if (w.j >= w.n) {
+            do {
+              w.j -= w.n;
+              ++w.r;
+              w.P += a.cfull;
+              w.shift += dshift;
+              w.m += a.cm;
+              if (w.m >= k) w.m -= k;
+              w.n = row_slabs(a, w.m);
+            } while (w.j >= w.n && w.r < r1);
+            enter_row<NV>(a, w, uv);
+          }
+        }
+      };
+      auto load_batch = [&](Raw<BF16, V> (&x)[BATCH],
+                            uint32_t (&pos)[BATCH]) {
+        if constexpr (!ROWS && V == B_V) {
+          // the whole batch inside one aligned row: one test, then
+          // BATCH loads at a fixed stride
+          const int last = w.j + (BATCH - 1) * L;
+          if (w.vec && w.r < r1 && last < w.n && last < j1 &&
+              w.p >= w.P && w.p + (BATCH - 1) * lk + V <= w.end) {
+            const uint4* q = reinterpret_cast<const uint4*>(
+                static_cast<const char*>(a.g) + w.o * E);
+            const long long stride = lk * E / 16;   // in 16-byte vectors
+#pragma unroll
+            for (int i = 0; i < BATCH; ++i) {
+#pragma unroll
+              for (int h = 0; h < V * E / 16; ++h) {
+                const uint4 f = __ldcs(q + i * stride + h);
+                x[i].w[4 * h] = f.x;
+                x[i].w[4 * h + 1] = f.y;
+                x[i].w[4 * h + 2] = f.z;
+                x[i].w[4 * h + 3] = f.w;
+              }
+              pos[i] = (uint32_t)w.p + (uint32_t)(i * lk);
+            }
+            step(BATCH);
+            return;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < BATCH; ++i) {
+          if (w.r < r1 && w.j < j1) {
+            load_slab<BF16, V>(a, w, x[i]);
+            pos[i] = (uint32_t)w.p;  // the reference's uint32 index
+            step(1);
+          } else {
+#pragma unroll
+            for (int t = 0; t < Raw<BF16, V>::W; ++t) x[i].w[t] = 0u;
+            pos[i] = 0u;
+          }
+        }
+      };
+      auto add_batch = [&](const Raw<BF16, V> (&x)[BATCH],
+                           const uint32_t (&pos)[BATCH]) {
+#pragma unroll
+        for (int i = 0; i < BATCH; ++i)
+          add_slab<BF16, V>(acc, x[i], pos[i], a.key);
+      };
+      Raw<BF16, V> xa[BATCH], xb[BATCH];
+      uint32_t pa[BATCH], pb[BATCH];
+      load_batch(xa, pa);
+      for (;;) {
+        if (!(w.r < r1 && w.j < j1)) {
+          add_batch(xa, pa);
+          break;
+        }
+        load_batch(xb, pb);
+        add_batch(xa, pa);
+        if (!(w.r < r1 && w.j < j1)) {
+          add_batch(xb, pb);
+          break;
+        }
+        load_batch(xa, pa);
+        add_batch(xb, pb);
+      }
+      if (L == 1) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) mine[uv + v] = acc[v];
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) red[lane * k + uv + v] = acc[v];
+      }
+    }
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int b = tid; b < k; b += B_THREADS) {
-    double s = 0.0;
-    for (unsigned q = 0; q < gridDim.x; ++q)
-      s += (double)__ldcg(part + (long long)q * kp + b);
-    out[b] = (float)s;
+  if (L > 1) {                       // lanes added in order 0, 1, ...
+    __syncthreads();
+    for (int c = tid; c < k; c += B_THREADS) {
+      float s = 0.0f;
+      for (int l = 0; l < L; ++l) s += red[l * k + c];
+      mine[c] = s;
+    }
   }
+  if (tid < a.kp - k) mine[k + tid] = 0.0f;   // the quads' padding
+  sum_partials(a.part, a.kp, k, a.ticket, a.out);
+}
+
+// Plan and launch one shard-form call (see sketch_block below).
+template <bool BF16, int V, bool ROWS>
+static int launch_block(BlockArgs a, cudaStream_t s) {
+  // one wave: two blocks an SM (__launch_bounds__ holds each to half the
+  // register file), the same plan for f32 and bf16
+  long long want = 2LL * sm_count();
+  if (want > MAX_BLOCKS) want = MAX_BLOCKS;
+  const long long nmax = a.A + 2;    // slabs a row touches, at most
+  long long nb;
+  a.spr = 1;
+  a.spb = 0;
+  a.rpb = 1;
+  if (!ROWS && a.rows > 0 && a.rows < want && want / a.rows > 1) {
+    long long spr = want / a.rows;
+    const long long spb = (nmax + spr - 1) / spr;
+    spr = (nmax + spb - 1) / spb;
+    a.spr = (int)spr;
+    a.spb = (int)spb;
+    nb = a.rows * spr;
+  } else {
+    a.rpb = a.rows > want ? (a.rows + want - 1) / want : 1;
+    nb = a.rows > 0 ? (a.rows + a.rpb - 1) / a.rpb : 1;
+  }
+  sketch_block_kernel<BF16, V, ROWS><<<(unsigned)nb, B_THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF16>
+static int sketch_block_any(const void* g, long long rows, long long cols,
+                            long long cfull, long long c0, int k,
+                            unsigned int key, float* part,
+                            unsigned int* ticket, float* out, void* stream) {
+  constexpr int E = BF16 ? 2 : 4;
+  if (k < 1 || cols < 0 || rows < 0 || c0 < 0 || c0 + cols > cfull ||
+      cols / k + 2 > 0x7FFFFFFF || ((uintptr_t)g % E) != 0)
+    return (int)cudaErrorInvalidValue;
+  BlockArgs a;
+  a.g = g;
+  a.rows = cols > 0 ? rows : 0;      // an empty block: one block, zeros
+  a.cols = cols;
+  a.cfull = cfull;
+  a.c0 = c0;
+  a.k = k;
+  a.key = (uint32_t)key;
+  a.A = (int)(cols / k);
+  a.B = (int)(cols % k);
+  a.cm = (int)(cfull % k);
+  a.part = part;
+  a.kp = (k + 3) / 4 * 4;
+  a.ticket = ticket;
+  a.out = out;
+  const bool vec = k % B_V == 0;
+  const int V = vec ? B_V : 1;
+  const int U = k / V;
+  const int L = U < B_THREADS ? B_THREADS / U : 1;
+  a.lm = (int)(((long long)L * (cfull % k)) % k);
+  a.a0 = (int)(((uintptr_t)g / E) % (16 / E));
+  // a lane strides L slabs: through the block's run of slabs where a
+  // row has at least L of them, else row by row
+  const bool rows_walk = a.A < L;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    return rows_walk ? launch_block<BF16, B_V, true>(a, s)
+                     : launch_block<BF16, B_V, false>(a, s);
+  return rows_walk ? launch_block<BF16, 1, true>(a, s)
+                   : launch_block<BF16, 1, false>(a, s);
 }
 
 }  // namespace
@@ -328,7 +676,7 @@ int sketch_batched(const float* g, int B, long long d, int k,
 
 // The most blocks sketch_single uses: its partials are (blocks, kp) f32
 // with kp = k rounded up to a multiple of 4.
-int sketch_single_max_blocks() { return 1024; }
+int sketch_single_max_blocks() { return MAX_BLOCKS; }
 
 // out (k,) f32 from g (d,) f32 under `key`, one launch.  part is
 // (sketch_single_max_blocks(), kp) f32 scratch and ticket one unsigned
@@ -364,30 +712,25 @@ int sketch_single(const float* g, long long d, int k, unsigned int key,
 
 // out (k,) f32: the sketch of a (rows, cols) block of a row-major leaf
 // viewed as (rows, cfull), starting at column c0, under the full leaf's
-// flat index (see the header); g is the block, contiguous.  part and
-// ticket as sketch_single's (the same workspace serves both forms on
-// one stream).  Returns cudaGetLastError().
+// flat index (see the header); g is the block, contiguous, f32.  part and
+// ticket are sketch_single's (the same workspace serves both forms on one
+// stream).  Returns cudaGetLastError().
 int sketch_block(const float* g, long long rows, long long cols,
                  long long cfull, long long c0, int k, unsigned int key,
                  float* part, unsigned int* ticket, float* out,
                  void* stream) {
-  if (k < 1 || cols < 0 || rows < 0 || c0 < 0 || c0 + cols > cfull)
-    return (int)cudaErrorInvalidValue;
-  const int kp = (k + 3) / 4 * 4;
-  const long long n = rows * cols;
-  // about four blocks an SM, each at least 32 buckets' worth of elements
-  const long long floor_elems = 32LL * k;
-  long long nb = 4LL * sm_count() < 1024 ? 4LL * sm_count() : 1024;
-  if (n / floor_elems < nb) nb = n / floor_elems;
-  if (nb < 1) nb = 1;
-  long long per_block = (n + nb - 1) / nb;
-  if (per_block < 1) per_block = 1;
-  nb = n > 0 ? (n + per_block - 1) / per_block : 1;
-  sketch_block_kernel<<<(unsigned)nb, B_THREADS, 0, (cudaStream_t)stream>>>(
-      g, cols > 0 ? rows : 0, cols > 0 ? cols : 1, cfull, c0, k, per_block,
-      (uint32_t)key,
-      part, kp, ticket, out);
-  return (int)cudaGetLastError();
+  return sketch_block_any<false>(g, rows, cols, cfull, c0, k, key, part,
+                                 ticket, out, stream);
+}
+
+// The same on a bf16 block (g: its raw 16-bit values), each value
+// widened to f32 in registers: the sketch of the block's f32 cast.
+int sketch_block_bf16(const void* g, long long rows, long long cols,
+                      long long cfull, long long c0, int k, unsigned int key,
+                      float* part, unsigned int* ticket, float* out,
+                      void* stream) {
+  return sketch_block_any<true>(g, rows, cols, cfull, c0, k, key, part,
+                                ticket, out, stream);
 }
 
 const char* sketch_error_string(int err) {

@@ -250,16 +250,22 @@ def sketch_shard(block: torch.Tensor, key_scalar, k: int, cfull: int,
                  c0: int, *, impl: str | None = None) -> torch.Tensor:
     """(rows, cols) block of a leaf viewed as (rows, cfull) from column
     c0 -> (k,) CountSketch under the full leaf's flat index (K4s's shard
-    form): the shards' sketches of a leaf sum to its ``sketch``."""
+    form): the shards' sketches of a leaf sum to its ``sketch``.  The
+    kernel reads an f32 or bf16 block in its own dtype (no f32 copy)."""
     use = resolve_impl(impl, block.device)
     if use == "torch":
         return _sk.sketch_block_plain(block, key_scalar, k, cfull, c0)
-    x = block.to(torch.float32)
+    if block.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the shard form reads float32 or bfloat16 blocks, "
+                        f"got {block.dtype}")
     fn = _sk.sketch_block_cuda if use == "cuda" else \
-        (lambda t, key, kk, cf, c: t.new_empty(kk))
+        (lambda t, key, kk, cf, c: torch.empty(kk, dtype=torch.float32,
+                                               device=t.device))
     return _account.run("sketch_shard",
-                        lambda: kernel_cost("sketch_shard", d=x.numel(), k=k),
-                        lambda: fn(x, key_scalar, k, cfull, c0))
+                        lambda: kernel_cost(
+                            "sketch_shard", d=block.numel(), k=k,
+                            dtype=str(block.dtype).removeprefix("torch.")),
+                        lambda: fn(block, key_scalar, k, cfull, c0))
 
 
 def batched_coded_encode(coeffs: torch.Tensor, grads: torch.Tensor, *,

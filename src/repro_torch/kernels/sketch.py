@@ -9,7 +9,8 @@ the single form (``ref.sketch_ref``), one launch of its own kernel.
 shard form (``ref.block_sketch_ref``): one rank's shard of a leaf split
 over the model axis, viewed as a (rows, cols) block of the leaf's
 (rows, cfull) view from column c0, hashed and bucketed by the full
-leaf's flat index, one launch.  The
+leaf's flat index, one launch; it reads an f32 or bf16 block as it is
+(a bf16 block sketches as its f32 cast).  The
 CUDA kernels live in ``csrc/sketch.cu``, whose header note says which
 TPU kernels they replace (src/repro/kernels/sketch.py:77 and :25), what
 bounds them on the H100 and what their design does about it.
@@ -25,11 +26,14 @@ from repro_torch.kernels import ref as _ref
 
 DEFAULT_K = 256
 
-# wrapper calls that launched the CUDA kernel, per form
-LAUNCHES = {"sketch_batched": 0, "sketch": 0, "sketch_shard": 0}
+# wrapper calls that launched the CUDA kernel, per form (the shard form
+# per input dtype: bf16 and f32)
+LAUNCHES = {"sketch_batched": 0, "sketch": 0, "sketch_shard": 0,
+            "sketch_shard_f32": 0}
 
-# the single form's partials and ticket, per (device, stream, k): calls on
-# one stream run in order, so they can share them; two streams never do
+# the single and shard forms' partials and tickets, per (device, stream,
+# k): calls on one stream run in order, so they can share them; two
+# streams never do
 _SINGLE_WS: dict = {}
 
 
@@ -62,9 +66,10 @@ def _lib():
         lib.sketch_single.argtypes = [vp, ll, i, ctypes.c_uint32, vp, vp, vp,
                                       vp]
         lib.sketch_single.restype = i
-        lib.sketch_block.argtypes = [vp, ll, ll, ll, ll, i, ctypes.c_uint32,
-                                     vp, vp, vp, vp]
-        lib.sketch_block.restype = i
+        for fn in (lib.sketch_block, lib.sketch_block_bf16):
+            fn.argtypes = [vp, ll, ll, ll, ll, i, ctypes.c_uint32, vp, vp,
+                           vp, vp]
+            fn.restype = i
         lib.sketch_error_string.argtypes = [i]
         lib.sketch_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -137,13 +142,14 @@ def sketch_cuda(flat_g: torch.Tensor, key_scalar,
 @_build.on_operand_device
 def sketch_block_cuda(block: torch.Tensor, key_scalar, k: int, cfull: int,
                       c0: int) -> torch.Tensor:
-    """The shard form on a CUDA (rows, cols) f32 block: one launch of
-    ``sketch_block`` on PyTorch's current stream, no synchronization."""
+    """The shard form on a CUDA (rows, cols) f32 or bf16 block, read in its
+    own dtype: one launch of ``sketch_block`` (``sketch_block_bf16``) on
+    PyTorch's current stream, no synchronization."""
     if block.dim() != 2:
         raise TypeError(f"block must be 2-D (rows, cols), got "
                         f"{tuple(block.shape)}")
     g = _contig(block)
-    _build.require_cuda_tensor(g, "block", 2, (torch.float32,))
+    _build.require_cuda_tensor(g, "block", 2, (torch.float32, torch.bfloat16))
     if k < 1:
         raise ValueError(f"sketch width k must be >= 1, got {k}")
     rows, cols = g.shape
@@ -154,9 +160,12 @@ def sketch_block_cuda(block: torch.Tensor, key_scalar, k: int, cfull: int,
     stream = _build.raw_stream(g.device.index)
     part, ticket = _single_workspace(lib, g.device, stream, k)
     out = torch.empty(k, dtype=torch.float32, device=g.device)
-    _build.check_status(lib.sketch_error_string, lib.sketch_block(
+    fn = lib.sketch_block_bf16 if g.dtype == torch.bfloat16 \
+        else lib.sketch_block
+    _build.check_status(lib.sketch_error_string, fn(
         g.data_ptr(), rows, cols, cfull, c0, k, int(key_scalar) & 0xFFFFFFFF,
         part.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream),
         "sketch_block")
-    LAUNCHES["sketch_shard"] += 1
+    LAUNCHES["sketch_shard" if g.dtype == torch.bfloat16
+             else "sketch_shard_f32"] += 1
     return out

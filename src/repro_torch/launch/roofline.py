@@ -104,7 +104,10 @@ def kernel_cost(name: str, **d) -> KernelCost:
       pairwise_relmax          R, d: the same at B = 1
       sketch_batched           B, d, k: one signed add per element
       sketch                   d, k: the same at B = 1
-      sketch_shard             d, k: the same on a shard of d elements
+      sketch_shard             d, k, dtype: the same on a shard of d
+                               elements, read in their dtype (launches
+                               counted as sketch_shard for bf16 and
+                               sketch_shard_f32 for f32)
       coded_encode_batched     B, n_sym, m, d: 2 B n_sym m d f32
       coded_encode             n_sym, m, d: the same at B = 1
       flash_attention          B, Sq, Sk, H, K, hd, causal, window,
@@ -131,7 +134,8 @@ def kernel_cost(name: str, **d) -> KernelCost:
                           f32)
     if name in ("sketch_batched", "sketch", "sketch_shard"):
         B, dd, k = d.get("B", 1), d["d"], d["k"]
-        return KernelCost(2 * B * dd, B * dd * 4 + B * k * 4, f32)
+        item = 2 if d.get("dtype") == "bfloat16" else 4
+        return KernelCost(2 * B * dd, B * dd * item + B * k * 4, f32)
     if name in ("coded_encode_batched", "coded_encode"):
         B, n, m, dd = d.get("B", 1), d["n_sym"], d["m"], d["d"]
         return KernelCost(2 * B * n * m * dd,

@@ -22,7 +22,13 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    # hand the caching allocator's free blocks back to the card, so that
+    # a later test's ranks sharing the card find its memory free
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _keys(T):
@@ -88,51 +94,81 @@ def test_sketch_single_matches_plain_and_reruns(cuda, d):
                                rtol=2e-5, atol=1e-3)
 
 
-# (rows, cols, row width, column offset): a column shard at an offset,
-# odd widths, a dim-0 shard (one row at an offset), a block narrower
-# than k, and a leaf's shard of 2^28 elements (a split embedding's)
-SHARD_BLOCKS = [(64, 4096, 8192, 4096), (3, 1001, 4097, 3095),
+# (rows, cols, row width, column offset).  Rows whose 16-byte vectors
+# line up with the buckets: a column shard at an offset, rows of one,
+# two and four slabs of 256, a dim-0 shard of 2^28 elements (a split
+# embedding's, one long row).  Misaligned starts: odd widths and
+# offsets, a dim-0 shard at an odd offset, a block narrower than k, rows
+# of 2-4 slabs from an odd column.
+SHARD_BLOCKS = [(64, 4096, 8192, 4096), (4096, 256, 512, 256),
+                (2048, 512, 1024, 512), (2048, 1024, 2048, 1024),
+                (1, 1 << 28, 1 << 29, 1 << 28), (3, 1001, 4097, 3095),
                 (1, 70001, 200000, 129999), (5, 100, 300, 7),
-                (1, 1 << 28, 1 << 29, 1 << 28)]
+                (1500, 600, 1800, 1197)]
 
 
 @pytest.mark.parametrize("rows,cols,cfull,c0", SHARD_BLOCKS)
+@pytest.mark.parametrize("k", [256, 7, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sketch_shard_form_matches_plain_and_reruns(cuda, rows, cols, cfull,
-                                                    c0):
+                                                    c0, k, dtype):
     """K4s's shard form (a block of a leaf's (rows, cfull) view from
-    column c0, hashed by the whole leaf's flat index) against its plain
-    version (and, at 2^28 elements, whose f32 atomic sums of a million
-    terms a bucket stray by about 1e-5, against the same sums in f64),
-    one launch a call, reruns bitwise."""
+    column c0, hashed by the whole leaf's flat index), f32 and bf16 read
+    in their own dtype, against its plain version on the block's f32
+    cast (and, at 2^28 elements, whose f32 sums of a million terms a
+    bucket stray by about 1e-5, against the same sums in f64) within
+    1e-5 of max(1, max|plain|), one launch a call counted under its
+    dtype, reruns bitwise."""
     from repro_torch.kernels import ref
 
-    g = _randn(cuda, rows, cols, seed=cols)
-    before = ops.launch_counts()["sketch_shard"]
-    got = sketch.sketch_block_cuda(g, 0x9E3779B9, 256, cfull, c0)
-    assert ops.launch_counts()["sketch_shard"] == before + 1
+    g = _randn(cuda, rows, cols, seed=cols).to(dtype)
+    name = "sketch_shard" if dtype == torch.bfloat16 else "sketch_shard_f32"
+    before = ops.launch_counts()
+    got = sketch.sketch_block_cuda(g, 0x9E3779B9, k, cfull, c0)
+    after = ops.launch_counts()
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
     if rows * cols < 1 << 24:
-        want = sketch.sketch_block_plain(g, 0x9E3779B9, 256, cfull, c0)
+        want = sketch.sketch_block_plain(g, 0x9E3779B9, k, cfull, c0)
     else:
-        want = torch.zeros(256, dtype=torch.float64, device=cuda)
+        want = torch.zeros(k, dtype=torch.float64, device=cuda)
         for r in range(rows):
             p = r * cfull + c0 + torch.arange(cols, device=cuda)
-            want.index_add_(0, p % 256, g[r].double() * ref.hash_signs_ref(
+            want.index_add_(0, p % k, g[r].double() * ref.hash_signs_ref(
                 p, 0x9E3779B9).double())
             del p
     assert float((got.double() - want.double()).abs().max()) <= 1e-5 * max(
         1.0, float(want.abs().max()))
-    assert torch.equal(got, sketch.sketch_block_cuda(g, 0x9E3779B9, 256,
+    assert torch.equal(got, sketch.sketch_block_cuda(g, 0x9E3779B9, k,
                                                      cfull, c0))
 
 
-def test_sketch_shards_sum_to_the_single_form(cuda):
-    """Two column shards of a (7, 3000) leaf: their sketches add up to the
-    single form's sketch of the whole flat leaf."""
-    full = _randn(cuda, 7, 3000, seed=3)
-    whole = sketch.sketch_cuda(full.reshape(-1), 21)
-    parts = sum(sketch.sketch_block_cuda(full[:, m * 1500:(m + 1) * 1500]
-                                         .contiguous(), 21, 256, 3000,
-                                         m * 1500) for m in range(2))
+def test_sketch_shard_bf16_is_its_f32_cast(cuda):
+    """A bf16 block and its f32 cast sketch bitwise alike: the kernel
+    widens each value exactly and adds in the same order."""
+    for rows, cols, cfull, c0 in SHARD_BLOCKS[:4] + SHARD_BLOCKS[5:]:
+        g = _randn(cuda, rows, cols, seed=rows).to(torch.bfloat16)
+        assert torch.equal(sketch.sketch_block_cuda(g, 3, 256, cfull, c0),
+                           sketch.sketch_block_cuda(g.float(), 3, 256, cfull,
+                                                    c0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [0, 1])
+def test_sketch_shards_sum_to_the_single_form(cuda, dtype, dim):
+    """Two shards of a (7, 3000) leaf, split on either dim: their shard
+    form sketches add up to the single form's sketch of the whole flat
+    leaf (of its f32 cast)."""
+    full = _randn(cuda, 7, 3000, seed=3).to(dtype)
+    whole = sketch.sketch_cuda(full.float().reshape(-1), 21)
+    if dim == 1:                     # (7, 1500) blocks of (7, 3000)
+        shards = [(full[:, m * 1500:(m + 1) * 1500], 3000, m * 1500)
+                  for m in range(2)]
+    else:                            # rows 0-3 and 4-6: one row each
+        shards = [(full[:4].reshape(1, -1), 21000, 0),
+                  (full[4:].reshape(1, -1), 21000, 12000)]
+    parts = sum(sketch.sketch_block_cuda(b.contiguous(), 21, 256, cfull, c0)
+                for b, cfull, c0 in shards)
     torch.testing.assert_close(parts, whole, rtol=1e-5, atol=1e-4)
 
 

@@ -213,4 +213,4 @@ def test_stream_dispatch_contract_on_cpu():
     assert set(before) == {
         "gram_factors", "pairwise_relmax_batched", "pairwise_relmax",
         "fused_step", "sketch_batched", "sketch", "sketch_shard",
-        "coded_encode_batched", "coded_encode", "flash_attention"}
+        "sketch_shard_f32", "coded_encode_batched", "coded_encode", "flash_attention"}

@@ -396,10 +396,14 @@ SKETCH_CASES = [((3, 10, 14), 2), ((6, 7), 0), ((2, 4, 9, 6), 1),
 
 @pytest.mark.parametrize("shape,dim", SKETCH_CASES)
 @pytest.mark.parametrize("k", [256, 7])
-def test_shard_sketch_sums_to_the_whole_leafs(shape, dim, k):
-    """The shards' plain K4s shard form (``ops.sketch_shard``) sums to the
-    reference's sketch of the whole flat leaf (its ``iota``) within 1e-6
-    relative; ``sketch_tree`` over a model axis likewise."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_shard_sketch_sums_to_the_whole_leafs(shape, dim, k, dtype):
+    """The shards' plain K4s shard form (``ops.sketch_shard``) of an f32
+    or bf16 leaf sums to the reference's sketch of the whole flat leaf
+    (its ``iota``; a bf16 leaf's f32 cast) within 1e-6 relative, and a
+    bf16 block sketches bitwise as its f32 cast; ``sketch_tree`` over a
+    model axis likewise."""
     import jax.numpy as jnp
 
     from repro.core import detection as RD
@@ -408,28 +412,32 @@ def test_shard_sketch_sums_to_the_whole_leafs(shape, dim, k):
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(sum(shape) + k)
-    full = rng.standard_normal(shape).astype(np.float32)
+    leaf = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dtype)
+    full = leaf.float().numpy()
     key = 0x1234567
     want = np.asarray(RD.hash_sign_sketch(jnp.asarray(full.reshape(-1)),
                                           key, k))
     logical = tuple("ffn" if i == dim else None for i in range(len(shape)))
-    ann = S.Annotated(shape, logical, torch.float32)
+    ann = S.Annotated(shape, logical, dtype)
     mesh = S.MeshShape(("model",), (2,))
     got = np.zeros(k, np.float32)
     for m in range(2):
         pl = S.placement_of(ann, mesh, S.tp_only_rules(), {"model": m})
         assert pl.split_dim == dim
-        block, cfull, c0 = D.shard_block(
-            pl.take(torch.from_numpy(full)).contiguous(), pl)
-        got += ops.sketch_shard(block, key, k, cfull, c0).numpy()
+        block, cfull, c0 = D.shard_block(pl.take(leaf).contiguous(), pl)
+        part = ops.sketch_shard(block, key, k, cfull, c0)
+        assert torch.equal(part, ops.sketch_shard(block.float(), key, k,
+                                                  cfull, c0))
+        got += part.numpy()
     scale = 1.0 + np.abs(want).max()
     assert np.abs(got - want).max() <= 1e-6 * scale
 
     # a tree of a split and a replicated leaf, over two ranks
-    tree_full = {"a": torch.from_numpy(full),
+    tree_full = {"a": leaf,
                  "b": torch.from_numpy(rng.standard_normal(11).astype(
-                     np.float32))}
-    ann_t = {"a": ann, "b": S.Annotated((11,), ("norm",), torch.float32)}
+                     np.float32)).to(dtype)}
+    ann_t = {"a": ann, "b": S.Annotated((11,), ("norm",), dtype)}
     whole = D.sketch_tree(tree_full, key, k).numpy()
     total = np.zeros(k, np.float32)
     for m in range(2):
