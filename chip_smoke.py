@@ -156,6 +156,21 @@ Phases, in order; any failed check exits nonzero:
      last fast update taken back caught), the same checks and a model
      all-reduce's bus bandwidth; jamba at 5 layers, model 4, which one
      process cannot hold, against its plain versions' split run;
+   - the plain steps with FSDP + TP (``phase_train_fsdp``, ``FSDP``):
+     llama3.2-1b at full width, 2 layers, two gloo ranks sharing the
+     card at data 2 x model 1 (``train.pjit_step`` on a
+     ``train.ranks.StepMesh``): two AdamW train steps on each rank's 8
+     of 16 rows, a prefill and four decode steps teacher-forced by the
+     one-process run's tokens, against the one-process run from the
+     same initial parameters (losses within 1e-4, each leaf's update
+     within 0.1 of the update, logits within 3e-2 * (1 + max|logits|),
+     every rank's gathered parameters bitwise rank 0's), K6's launches
+     (twice a layer a train step, once a layer in the prefill), rank
+     0's first step counted on the card equal to the dry-run's meta
+     trace of the same rank (FLOPs, bytes, collectives by axis) and
+     each rank's allocator peak within 1% of it; K6 at a rank's shape
+     beside SDPA; ``scripts/chip_phases.py fsdp`` runs ``FSDP_CARDS``
+     on four cards;
    - the launch tools (``phase_dryrun``, ``DRYRUN``): llama3.2-1b's
      plain train (16 x 256, AdamW), prefill (4 x 4096) and decode (one
      token against a 4 x 4128 cache) steps at full width, each traced
@@ -228,6 +243,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2048,12 +2064,14 @@ def logits_tol(logits, rel: float) -> float:
 
 def cell_cfg(sv):
     """The cell's config: the arch at full width, its depth cut to
-    ``sv["layers"]`` where set."""
+    ``sv["layers"]`` where set, in ``sv["dtype"]`` where set."""
     from repro_torch.configs import get_config
 
     cfg = get_config(sv["arch"])
     if sv.get("layers"):
         cfg = dataclasses.replace(cfg, num_layers=sv["layers"])
+    if sv.get("dtype"):
+        cfg = dataclasses.replace(cfg, dtype=sv["dtype"])
     return cfg
 
 
@@ -2322,11 +2340,14 @@ class RoutingTape:
         one)."""
         import torch
 
+        from repro_torch.kernels import _account
+        from repro_torch.models import moe as moe_mod
+
         calls = iter(self.calls)
 
         def fn(real, *a):
             out = real(*a)
-            probs, idx, _, _, _, C = out
+            probs, idx, _, _, _, C, _ = out
             key = a[0]["router"].data_ptr()
             if self._recompute():
                 self.recomputes += 1
@@ -2347,9 +2368,14 @@ class RoutingTape:
                 self._last[key] = (r_idx, r_slot, r_keep)
                 self.flips += int((idx != r_idx).sum())
                 self.choices += idx.numel()
+            check(_account.COUNTER is None,
+                  "a replayed routing is no operator of the model: a step "
+                  "counted for the dry-run routes as its own routing says")
             g = probs.gather(1, r_idx)
             g = g / torch.clamp(g.sum(dim=-1, keepdim=True), min=1e-9)
-            return probs, r_idx, g * r_keep.to(g.dtype), r_slot, r_keep, C
+            _, local = moe_mod.exclusive_slots(r_idx, probs.shape[-1])
+            return (probs, r_idx, g * r_keep.to(g.dtype), r_slot, r_keep, C,
+                    local)
 
         return self._patched(fn)
 
@@ -4855,6 +4881,609 @@ def phase_train_tp(torch, spec):
     return launches, rows, out
 
 
+# ---------------------------------------------------------------------------
+# the plain steps with FSDP + TP (``train.pjit_step`` on a mesh's ranks)
+# ---------------------------------------------------------------------------
+
+# phase_train_fsdp's cell: llama3.2-1b at full width, bf16, cut to
+# RANKS_CUT layers, as two gloo ranks sharing the card at data 2 x model 1
+# (every collective staged through host memory): two AdamW train steps on
+# the global batch of 16 x 256 (each rank its 8 rows), a prefill of the
+# same tokens and four decode steps, against the same steps in one
+# process from the same initial parameters (``M.init_train`` drawn on the
+# card from ``seed``, on every rank alike)
+FSDP = dict(arch="llama3.2-1b", layers=RANKS_CUT, global_batch=16,
+            seq_len=256, steps=2, decode=4, data=2, model=1, seed=11)
+# ``scripts/chip_phases.py fsdp``: one NCCL rank a card, four cards;
+# (label, cell, reference): the one-process run, or for starcoder2-7b,
+# whose AdamW state (56 GB in f32 beside 14 GB of bf16 weights) one card
+# cannot hold with its activations, the plain versions' split run.  The
+# float32 cells (``fsdp_f32``) are llama3.2-1b's and phi3.5-moe's 2 x 2
+# cells with the config in float32 on both sides, under the same gates
+FSDP_CARDS = (
+    ("llama3.2-1b data 2 x model 2",
+     dict(FSDP, layers=None, steps=3, decode=8, model=2), "one"),
+    ("llama3.2-1b data 4 x model 1",
+     dict(FSDP, layers=None, steps=3, decode=8, data=4), "one"),
+    ("phi3.5-moe 1 layer data 2 x model 2",
+     dict(FSDP, arch="phi3.5-moe-42b-a6.6b", layers=1, steps=3, decode=8,
+          model=2), "one"),
+    ("starcoder2-7b data 2 x model 2",
+     dict(FSDP, arch="starcoder2-7b", layers=None, steps=3, decode=0,
+          model=2), "plain"),
+    ("llama3.2-1b data 2 x model 2, float32",
+     dict(FSDP, layers=None, steps=3, decode=8, model=2, dtype="float32"),
+     "one"),
+    ("phi3.5-moe 1 layer data 2 x model 2, float32",
+     dict(FSDP, arch="phi3.5-moe-42b-a6.6b", layers=1, steps=3, decode=8,
+          model=2, dtype="float32"), "one"))
+FSDP_F32_CELLS = tuple(c[0] for c in FSDP_CARDS if c[1].get("dtype"))
+# the limits: against the one-process run TP_LIMITS["one"] (the losses
+# within TP_LOSS_REL, each leaf's update within RANKS_UPDATE_REL of the
+# one-process update); against the plain versions' split run
+# TP_LIMITS["plain"]; the prefill's and each teacher-forced decode
+# step's logits within FSDP_LOGITS_REL * (1 + max|logits|) of the
+# reference run's (serving's kernels-vs-plain limit: bf16 weights a few
+# rounded updates apart), the greedy tokens equal where the reference's
+# top-2 margin exceeds twice the difference; a rank's measured peak of
+# its first train step within FSDP_PEAK_REL of the dry-run's meta trace
+# of the same rank's step
+FSDP_LOGITS_REL = 3e-2
+FSDP_PEAK_REL = 0.01
+
+
+def fsdp_opt():
+    """The training cells' AdamW (TRAIN's learning rate, warm-up 1)."""
+    from repro_torch.optim import OptConfig
+
+    return OptConfig(kind="adamw", peak_lr=TRAIN["lr"], warmup_steps=1,
+                     total_steps=100)
+
+
+def warm_blas(torch, dev) -> None:
+    """A product and its backward in bf16 and f32 on ``dev``: the cuBLAS
+    handles of this thread and of autograd's device thread take their
+    workspaces from the caching allocator at their first product, which
+    a step's measured peak should not count (the dry-run does not)."""
+    for dt in (torch.bfloat16, torch.float32):
+        w = torch.ones(64, 64, device=dev, dtype=dt, requires_grad=True)
+        (w @ w).sum().backward()
+    torch.cuda.synchronize(dev)
+
+
+def fsdp_batch(torch, cfg, spec, dev):
+    """The cell's global tokens and labels (int32), seeded on the card."""
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 1)
+    B, S = spec["global_batch"], spec["seq_len"]
+    return tuple(torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                               device=dev, dtype=torch.int32)
+                 for _ in range(2))
+
+
+def fsdp_serve(torch, cfg, spec, params, tokens, prefill, decode,
+               full_logits, rows, forced=None, mesh=None):
+    """The prefill of ``tokens`` (this run's rows ``rows``; a rank's
+    cache under ``mesh``) and ``spec["decode"]`` decode steps; greedy,
+    or fed ``forced`` (the reference's input tokens, teacher-forced).
+    Returns (prefill logits (B, V), [each step's logits (B, V)], [each
+    step's input tokens]) on the CPU."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import set_mesh
+
+    S, n = spec["seq_len"], spec["decode"]
+    logits, cache = prefill(params, {"tokens": rows(tokens)})
+    first = full_logits(logits)
+    with set_mesh(mesh):
+        padded = M.allocate_cache(cfg, rows(tokens).shape[0], S + n,
+                                  logits.device)
+    for k in ("k", "v"):
+        if k in padded:
+            padded[k][:, :, :S] = cache[k]
+    del cache
+    tok = first.argmax(-1).to(torch.int32)
+    steps, inputs = [], []
+    for t in range(n):
+        if forced is not None:
+            tok = forced[t].to(logits.device)
+        inputs.append(tok.cpu())
+        lg, padded = decode(params, rows(tok), S + t, padded)
+        lg = full_logits(lg)
+        steps.append(lg.cpu())
+        tok = lg.argmax(-1).to(torch.int32)
+    return first.cpu(), steps, inputs
+
+
+def fsdp_one(torch, spec, tape=None) -> dict:
+    """The cell's steps in one process on the card (``pjit_step`` with no
+    mesh): history, walls, K6 launches, initial and final parameters
+    (CPU), the prefill's and the greedy decode's logits and input
+    tokens.  The MoE routing is recorded on ``tape``."""
+    import gc
+
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import pjit_step
+
+    dev = torch.device("cuda")
+    cfg, opt = cell_cfg(spec), fsdp_opt()
+    params = M.init_train(cfg, spec["seed"], dev)
+    init = [t.to("cpu", copy=True) for t in tree.leaves(params)]
+    state = init_opt_state(opt, params)
+    tokens, labels = fsdp_batch(torch, cfg, spec, dev)
+    step = pjit_step.make_train_step(cfg, opt)
+    hist, walls = [], []
+    with contextlib.nullcontext() if tape is None else tape.record():
+        ops.reset_launch_counts()
+        for i in range(spec["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, {"tokens": tokens,
+                                                    "labels": labels}, i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            hist.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"])})
+        del state
+        gc.collect()
+        serve = None
+        if spec["decode"]:
+            serve = fsdp_serve(torch, cfg, spec, params, tokens,
+                               pjit_step.make_prefill_step(cfg),
+                               pjit_step.make_decode_step(cfg),
+                               lambda x: x, lambda x: x)
+        launches = ops.launch_counts()
+    out = dict(history=hist, walls=walls, launches=launches, init=init,
+               final=[t.cpu() for t in tree.leaves(params)], serve=serve)
+    del params, tokens, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_leaf_diffs(torch, mesh, init, final, ref) -> list:
+    """Per leaf (||final - ref||, ||ref - init||, unmoved and equal) over
+    the mesh from each rank's blocks (CPU tensors): the squares summed
+    over every rank, so a replicated block counts once a rank on both
+    sides of the ratio."""
+    import torch.distributed as dist
+
+    rows = []
+    for p0, a, b in zip(init, final, ref):
+        p0, a, b = (t.to(mesh.device).float() for t in (p0, a, b))
+        moved = float((b - p0).square().sum())
+        rows.append([float((a - b).square().sum()), moved,
+                     float(moved == 0.0 and bool((a == p0).all()))])
+    t = torch.tensor(rows, dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t)
+    return t.cpu().tolist()
+
+
+def fsdp_bandwidth(torch, ax, nbytes: int) -> dict:
+    """One all-reduce of ``nbytes`` f32 over axis ``ax``
+    (``all_reduce_ordered`` on a data-like axis, ``all_reduce_sum`` on
+    ``model``), timed once warm: its bus bandwidth,
+    2 (n - 1) / n x bytes / s."""
+    t = torch.ones(nbytes // 4, dtype=torch.float32, device=ax.device)
+    run = getattr(ax, "all_reduce_ordered", None) or ax.all_reduce_sum
+    run(t[:1024])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(t)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    n = ax.world
+    return {"bytes": nbytes, "s": s,
+            "bus_GBps": 2 * (n - 1) / n * nbytes / s / 1e9}
+
+
+def fsdp_rank(rank: int, world: int, port: int, out: str, spec: dict,
+              backend: str, ref_path: str, ref: str) -> None:
+    """One rank of a FSDP + TP cell (``spec``: data x model ranks,
+    ``backend``): the train steps on its blocks and rows (the first
+    under ``memprobe.measure_peak``), their walls, the prefill and the
+    decode teacher-forced by the reference's tokens, its launches and
+    collectives, the per-leaf differences from the reference run at
+    ``ref_path`` ("one": the one-process run's final parameters, sharded
+    here; "plain": this rank's own run of the plain versions after the
+    kernels' run, from the same initial parameters), the gathered
+    parameters' checksums, each axis's bus bandwidth; the result to
+    ``out/rank<r>.pt``.  The first train step is also counted on the
+    card as the dry-run counts it on meta (``count_step``): in the run
+    itself, or, where the run replays the one-process routing
+    (``RoutingTape``, whose replay is no operator of the model), in a
+    step of its own before the run, from the same initial parameters
+    and batch, routed as the rank's own routing says."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import memprobe
+    from repro_torch.launch.mesh import make_step_mesh
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import pjit_step
+    from repro_torch.train import ranks as R
+
+    dev = R.rank_device(backend, "cuda", rank)
+    R.init(backend, rank, world, init_method=f"tcp://localhost:{port}",
+           device=dev)
+    mesh = R.StepMesh(make_step_mesh(spec["data"], spec["model"],
+                                     device_type="cuda"), dev)
+    cfg, opt = cell_cfg(spec), fsdp_opt()
+    pls = convert.placements(cfg, mesh.mesh, rules=sharding.PARAM_RULES)
+    reference = torch.load(ref_path, mmap=True) if ref == "one" else {}
+    tape = None
+    if reference.get("tape") is not None:
+        tape = RoutingTape()
+        n = mesh.batch_parts
+        tape.calls = [tuple(t.chunk(n)[mesh.batch_index] for t in e)
+                      for e in reference["tape"]]
+
+    def rows(x):
+        return mesh.local_rows(x).clone()
+
+    def setup(impl):
+        full = M.init_train(cfg, spec["seed"], dev)
+        params = convert.shard_params(full, pls)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_opt_state(opt, params)
+        tokens, labels = fsdp_batch(torch, cfg, spec, dev)
+        batch = {"tokens": rows(tokens), "labels": rows(labels)}
+        step = pjit_step.make_train_step(cfg, opt, impl=impl, mesh=mesh)
+        return params, state, tokens, batch, step
+
+    def counted_step():
+        params, state, _, batch, step = setup(None)
+        counted = D.count_step(step, (params, state, batch, 0), "cuda",
+                               group=world)[1]
+        del params, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return counted
+
+    def run(impl, counted=None):
+        params, state, tokens, batch, step = setup(impl)
+        init = [t.to("cpu", copy=True) for t in tree.leaves(params)]
+        warm_blas(torch, dev)
+        hist, walls, mem = [], [], None
+        ops.reset_launch_counts()
+        for i in range(spec["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0 and impl is None:
+                # step 0's allocator peak read, and the step counted on
+                # the card unless it was counted on its own
+                if counted is None:
+                    (res, counted), mem = memprobe.measure_peak(
+                        lambda *a: D.count_step(step, a, "cuda",
+                                                group=world),
+                        (params, state, batch, 0), dev)
+                else:
+                    res, mem = memprobe.measure_peak(
+                        step, (params, state, batch, 0), dev)
+            else:
+                res = step(params, state, batch, i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            params, state, m = res
+            hist.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"])})
+            del res, m
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve = None
+        if spec["decode"] and impl is None:
+            forced = reference["serve"][2] if reference else None
+            serve = fsdp_serve(
+                torch, cfg, spec, params, tokens,
+                pjit_step.make_prefill_step(cfg, mesh=mesh),
+                pjit_step.make_decode_step(cfg, mesh=mesh),
+                lambda lg: mesh.full_logits(lg, cfg.vocab_size), rows,
+                forced, mesh)
+        launches = ops.launch_counts()
+        return dict(history=hist, walls=walls, peak=mem, launches=launches,
+                    init=init, params=params, serve=serve, counted=counted)
+
+    counted = counted_step() if tape else None
+    base = mesh.counts()
+    with tape.replay(then_own=True) if tape else contextlib.nullcontext():
+        kern = run(None, counted)
+    counts = {a: {k: n - base[a][k] for k, n in c.items()}
+              for a, c in mesh.counts().items()}
+    final = [t.cpu() for t in tree.leaves(kern["params"])]
+    full = convert.gather_params(kern["params"], pls, mesh)
+    sums = R.checksums(full).cpu()
+    del full, kern["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    if ref == "one":
+        ref_final = convert.shard_params(tree.unflatten(
+            M.abstract_params(cfg), reference["final"]), pls)
+        ref_final, ref_hist = tree.leaves(ref_final), reference["history"]
+    else:
+        plain = run("torch")
+        ref_final = [t.cpu() for t in tree.leaves(plain["params"])]
+        ref_hist = plain["history"]
+        del plain
+    diffs = fsdp_leaf_diffs(torch, mesh, kern["init"], final, ref_final)
+    bw = {a: fsdp_bandwidth(torch, ax, 64 << 20 if ax.staged else 1 << 30)
+          for a, ax in mesh.axes.items()}
+    result = dict(history=kern["history"], ref_history=ref_hist,
+                  walls=kern["walls"], peak=kern["peak"],
+                  counted=kern["counted"],
+                  launches=kern["launches"], counts=counts, sums=sums,
+                  diffs=diffs, bandwidth=bw,
+                  serve=kern["serve"],
+                  coords=mesh.coords, batch_index=mesh.batch_index)
+    if tape is not None:
+        result.update(flips=tape.flips, choices=tape.choices)
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def fsdp_run(torch, label: str, spec: dict, backend: str, ref: str,
+             strict: bool = True) -> tuple:
+    """One FSDP + TP cell: its reference run (``fsdp_one`` for "one"),
+    its ranks (``fsdp_rank``, data x model of them, ``backend``), the
+    dry-run's meta trace of rank 0's first train step, held to rank 0's
+    step counted on the card (FLOPs, bytes, collectives); every gate of
+    the note above FSDP_LOGITS_REL held (``strict``: failed at once;
+    else listed in the report's ``fails``).  Returns (the report, K6's
+    launches summed over the ranks)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import tree
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as launch
+    from repro_torch.models import model as M
+    from repro_torch.sharding import MeshShape
+
+    t_run = time.perf_counter()
+    cfg = cell_cfg(spec)
+    world = spec["data"] * spec["model"]
+    B, S, L = spec["global_batch"], spec["seq_len"], cfg.num_layers
+    shape = ShapeConfig("fsdp", S, B, "train")
+    meta = D.lower_compile(cfg, shape, fsdp_opt(), mesh=MeshShape(
+        ("data", "model"), (spec["data"], spec["model"])))
+    out_dir = Path(tempfile.mkdtemp(prefix="fsdp_", dir=ROOT / "build"))
+    try:
+        one = None
+        ref_path = out_dir / "ref.pt"
+        if ref == "one":
+            tape = RoutingTape() if cfg.moe is not None else None
+            one = fsdp_one(torch, spec, tape)
+            torch.save({"final": one["final"], "history": one["history"],
+                        "serve": one["serve"],
+                        "tape": None if tape is None else [
+                            tuple(t.cpu() for t in e) for e in tape.calls]},
+                       ref_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launch.start_ranks(fsdp_rank, (world, launch.free_port(),
+                                       str(out_dir), spec, backend,
+                                       str(ref_path), ref), world)
+        results = [torch.load(out_dir / f"rank{r}.pt")
+                   for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = results[0]
+    paths = [p for p, _ in tree.leaves_with_paths(M.abstract_params(cfg))]
+    rel = [math.sqrt(d / m) if m else 0.0 for d, m, _ in r0["diffs"]]
+    still = all(s == world for d, m, s in r0["diffs"] if m == 0.0)
+    worst = paths[rel.index(max(rel))]
+    hist, ref_hist = r0["history"], r0["ref_history"]
+    limits = TP_LIMITS[ref]
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(hist, ref_hist))
+    report = dict(label=label, backend=backend, world=world, ref=ref,
+                  history=hist, ref_history=ref_hist, update_rel=rel,
+                  update_rel_max=max(rel), worst_leaf=worst,
+                  unmoved_equal=still, loss_rel=loss_rel,
+                  walls=[r["walls"] for r in results],
+                  one_process_walls=one and one["walls"],
+                  peaks=[r["peak"]["peak_bytes"] for r in results],
+                  meta_peak=meta["peak_bytes"],
+                  meta_collective_by_axis=meta["collective_by_axis"],
+                  counts=[r["counts"] for r in results],
+                  bandwidth=[r["bandwidth"] for r in results],
+                  launches=[r["launches"] for r in results])
+    fails = []
+
+    def holds(cond: bool, msg: str) -> None:
+        if not cond:
+            fails.append(msg)
+
+    for r in results:
+        holds(torch.equal(r["sums"], r0["sums"]),
+              f"fsdp {label}: rank {r['coords']} holds other bits than "
+              f"rank 0 (a replicated leaf or a gathered block)")
+        holds(r["history"] == hist, f"fsdp {label}: ranks disagree on the "
+                                    f"losses")
+    if ref == "one":
+        holds(loss_rel <= limits["loss_rel"],
+              f"fsdp {label}: losses {loss_rel:.3e} from the one-process "
+              f"run's (limit {limits['loss_rel']})")
+    else:
+        d = train_run_diffs_from(hist, ref_hist)
+        report.update(d)
+        holds(d["loss0_rel"] <= limits["loss0_rel"] and
+              d["drop_rel"] <= limits["drop_rel"],
+              f"fsdp {label}: losses off the plain versions' split run "
+              f"({d})")
+    holds(max(rel) <= limits["update_rel_max"] and still,
+          f"fsdp {label}: a leaf's update lies {max(rel):.4f} from the "
+          f"reference's (limit {limits['update_rel_max']}, at {worst}); "
+          f"unmoved leaves equal {still}")
+    want_k6 = (2 * spec["steps"] + (1 if spec["decode"] else 0)) * L \
+        if cfg.num_heads else 0
+    k6 = [r["launches"]["flash_attention"] for r in results]
+    holds(all(n == want_k6 for n in k6),
+          f"fsdp {label}: K6 launched {k6} a rank, {want_k6} expected "
+          f"(twice a layer a train step under the checkpoint, once in the "
+          f"prefill)")
+    card = r0["counted"]
+    equal = {k: card[k] == meta[k] for k in ("flops", "bytes",
+                                             "collective_by_axis")}
+    report.update(counted_peak=card["peak_bytes"], counted_equal=equal)
+    holds(all(equal.values()), f"fsdp {label}: rank 0's first step counted "
+          f"on the card differs from the dry-run's meta trace ({equal}: "
+          f"flops {card['flops']} / {meta['flops']}, bytes {card['bytes']} "
+          f"/ {meta['bytes']})")
+    peak_rel = [p / meta["peak_bytes"] - 1 for p in report["peaks"]]
+    report["peak_rel"] = peak_rel
+    holds(all(abs(x) <= FSDP_PEAK_REL for x in peak_rel),
+          f"fsdp {label}: a rank's peak lies {peak_rel} off the dry-run's "
+          f"{meta['peak_bytes']} bytes (limit {FSDP_PEAK_REL})")
+    if spec["decode"] and ref == "one":
+        first, steps_, _ = r0["serve"]
+        rfirst, rsteps, _ = one["serve"]
+        errs, held, total = [], 0, 0
+        for got, ref_lg in zip([first] + list(steps_),
+                               [rfirst] + list(rsteps)):
+            err = float((got - ref_lg).abs().max())
+            errs.append(err / (FSDP_LOGITS_REL * (
+                1 + float(ref_lg.abs().max()))))
+            top = ref_lg.topk(2, dim=-1).values
+            clear = (top[:, 0] - top[:, 1]) > 2 * err
+            same = got.argmax(-1) == ref_lg.argmax(-1)
+            held += int((same | ~clear).sum())
+            total += same.numel()
+        report.update(logits_err_over_tol=max(errs), tokens_held=held,
+                      tokens=total)
+        holds(max(errs) <= 1.0 and held == total,
+              f"fsdp {label}: prefill / decode logits {max(errs):.3f} of "
+              f"the limit, tokens held {held} of {total}")
+    if cfg.moe is not None:
+        report["flips"] = sum(r.get("flips", 0) for r in results)
+        report["choices"] = sum(r.get("choices", 0) for r in results)
+    report["run_s"] = time.perf_counter() - t_run
+    mib = [round(p / 2**30, 4) for p in report["peaks"]]
+    coll = {a: sum(c[a]["bytes"] for c in report["counts"]) / world
+            for a in report["counts"][0]}
+    bus = {a: round(b[a]["bus_GBps"], 2) for b in report["bandwidth"][:1]
+           for a in b}
+    losses = [round(h["loss"], 6) for h in hist]
+    ref_losses = [round(h["loss"], 6) for h in ref_hist]
+    print(f"fsdp {label} ({backend}, {world} ranks): losses {losses} "
+          f"vs {ref} {ref_losses} (rel "
+          f"{loss_rel:.2e}); leaf updates within {max(rel):.4f} of the "
+          f"reference's (at {worst}); ranks bitwise; walls a rank "
+          f"{[[round(w, 3) for w in ws] for ws in report['walls']]} s"
+          + (f", one process {[round(w, 3) for w in one['walls']]} s"
+             if one else "")
+          + f"; peaks {mib} GiB vs the dry-run's "
+          f"{meta['peak_bytes'] / 2**30:.4f} "
+          f"({[f'{x:+.3%}' for x in peak_rel]}; "
+          f"the counter on the card {card['peak_bytes'] / 2**30:.4f}, FLOPs, "
+          f"bytes and collectives equal to meta's {equal}); "
+          f"collective result bytes a rank by axis {coll} (meta wire bytes "
+          f"{meta['collective_by_axis']}); bus {bus} GB/s; K6 {k6} a rank"
+          + (f"; logits {report['logits_err_over_tol']:.3f} of the limit, "
+             f"tokens held {report['tokens_held']}/{report['tokens']}"
+             if "tokens" in report else "")
+          + (f"; routing replayed, {report['flips']} of "
+             f"{report['choices']} choices flip" if "flips" in report
+             else "")
+          + f"; {report['run_s']:.1f} s")
+    report["fails"] = fails
+    for msg in fails if strict else ():
+        check(False, msg)
+    return report, sum(k6)
+
+
+def train_run_diffs_from(hist, ref_hist) -> dict:
+    """The loss terms of two runs' histories: the first loss's relative
+    difference, and the largest difference of a later loss's drop from
+    the first over the reference's drop."""
+    loss0_rel = abs(hist[0]["loss"] - ref_hist[0]["loss"]) / abs(
+        ref_hist[0]["loss"])
+    drop_rel = max(
+        abs((a["loss"] - hist[0]["loss"]) - (b["loss"] - ref_hist[0]["loss"]))
+        / abs(b["loss"] - ref_hist[0]["loss"])
+        for a, b in zip(hist[1:], ref_hist[1:]))
+    return dict(loss0_rel=loss0_rel, drop_rel=drop_rel)
+
+
+def fsdp_attention_row(torch, spec, tag: str = "") -> dict:
+    """K6 at a FSDP + TP rank's shape: its rows of the batch (global /
+    (data)), its heads (H / model, K / model), the row
+    ``flash_attention_fsdp<tag>``."""
+    cfg = cell_cfg(spec)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    B = spec["global_batch"] // spec["data"]
+    S, H, K, hd = spec["seq_len"], cfg.num_heads // spec["model"], \
+        max(1, cfg.num_kv_heads // spec["model"]), cfg.head_dim
+    q, k, v = [torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16) for s in ((B, S, H, hd), (B, S, K, hd),
+                                  (B, S, K, hd))]
+    return {"flash_attention_fsdp" + tag: split_attention_row(
+        torch, q, k, v, "flash_attention_fsdp" + tag,
+        f"a FSDP rank's rows and heads ({spec['arch']}, data "
+        f"{spec['data']} x model {spec['model']})")}
+
+
+def phase_train_fsdp(torch, spec=FSDP):
+    """The plain steps with FSDP + TP (see FSDP's note): two gloo ranks
+    sharing the card against the one-process run, K6 at a rank's shape.
+    Returns ({"training_fsdp": K6's launches over the ranks}, the
+    kernels line's row, the report)."""
+    from repro_torch.launch import train as launch
+
+    t_phase = time.perf_counter()
+    row = fsdp_attention_row(torch, spec)
+    try:
+        report, k6 = fsdp_run(
+            torch, f"{spec['arch']} {cell_cfg(spec).num_layers} layers, data "
+            f"{spec['data']} x model {spec['model']}, two gloo ranks on one "
+            f"card", spec, "gloo", "one")
+    finally:
+        launch.stop_rank_server()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase_train_fsdp: {report['phase_s']:.1f} s")
+    return {"training_fsdp": {"flash_attention": k6}}, row, report
+
+
+def fsdp_cards(torch, cells=None) -> dict:
+    """FSDP_CARDS (``cells`` by label, all by default) with one NCCL rank
+    a card, and K6 at each cell's rank shape."""
+    from repro_torch.launch import train as launch
+
+    out = {}
+    try:
+        for label, spec, ref in FSDP_CARDS:
+            if cells is not None and label not in cells:
+                continue
+            out[label], _ = fsdp_run(torch, label, spec, "nccl", ref,
+                                     strict=False)
+            tag = "_" + spec["arch"].split("-")[0].replace(".", "") + \
+                f"_{spec['data']}x{spec['model']}"
+            out[label]["kernel_row"] = fsdp_attention_row(torch, spec, tag)
+    finally:
+        launch.stop_rank_server()
+    return out
+
+
+def fsdp_cards_passed(report: dict) -> None:
+    """Fail on the first gate any cell of ``fsdp_cards`` missed."""
+    for cell in report.values():
+        for msg in cell["fails"]:
+            check(False, msg)
+
+
 def train_run_diffs(torch, init, final, hist, ref_final, ref_hist,
                     cfg=None) -> dict:
     """How far a training run lies from a reference run from the same
@@ -4863,12 +5492,7 @@ def train_run_diffs(torch, init, final, hist, ref_final, ref_hist,
     the reference's drop, and per leaf ||final - ref|| / ||ref - init||
     (f32 on the card) over the leaves the reference moves; with ``cfg``
     the path of the leaf where it is largest."""
-    loss0_rel = abs(hist[0]["loss"] - ref_hist[0]["loss"]) / abs(
-        ref_hist[0]["loss"])
-    drop_rel = max(
-        abs((a["loss"] - hist[0]["loss"]) - (b["loss"] - ref_hist[0]["loss"]))
-        / abs(b["loss"] - ref_hist[0]["loss"])
-        for a, b in zip(hist[1:], ref_hist[1:]))
+    losses = train_run_diffs_from(hist, ref_hist)
     rel, moving, still = [], [], True
     for i, (p0, a, b) in enumerate(zip(init, final, ref_final)):
         p0, a, b = (t.to("cuda").float() for t in (p0, a, b))
@@ -4886,9 +5510,9 @@ def train_run_diffs(torch, init, final, hist, ref_final, ref_hist,
 
         paths = [p for p, _ in tree.leaves_with_paths(M.abstract_params(cfg))]
         worst = paths[moving[rel.index(max(rel))]]
-    return dict(loss0_rel=loss0_rel, drop_rel=drop_rel, update_rel=rel,
-                update_rel_max=max(rel), update_rel_min=min(rel),
-                moving_leaves=len(rel), still_equal=still, worst_leaf=worst)
+    return dict(losses, update_rel=rel, update_rel_max=max(rel),
+                update_rel_min=min(rel), moving_leaves=len(rel),
+                still_equal=still, worst_leaf=worst)
 
 
 def train_diff_text(d: dict, update_limit: float | None = TRAIN_UPDATE_REL
@@ -5218,6 +5842,8 @@ def run() -> int:
         torch, TRAIN, training)
     tp_launches, tp_report, training_tp = phase_train_tp(torch, TRAIN)
     launches.update(tp_launches)
+    fsdp_launches, fsdp_row, training_fsdp = phase_train_fsdp(torch)
+    launches.update(fsdp_launches)
     dryrun = phase_dryrun(torch, training)
     launches["serving_mamba"], mserve_report, serving_mamba = \
         phase_serving_replayed(torch, attention, MAMBA_SERVE)
@@ -5249,11 +5875,14 @@ def run() -> int:
     # mamba row counts the mamba split's; K6 at a rank's heads counts the
     # llama split's K6 launches (also in K6's row)
     kernels.update(tp_report)
+    kernels.update(fsdp_row)
     for key, kv in kernels.items():
         kv["launches"] = sum(run.get(key, 0) for path, run in launches.items()
                              if path not in own and path not in by_shape)
     kernels["flash_attention_tp"]["launches"] = \
         launches["training_tp"]["flash_attention"]
+    kernels["flash_attention_fsdp"]["launches"] = \
+        launches["training_fsdp"]["flash_attention"]
     for key in ("sketch_shard", "sketch_shard_f32"):
         kernels[key + "_mamba"]["launches"] = \
             launches["training_tp_mamba"][key]
@@ -5276,6 +5905,7 @@ def run() -> int:
                      small_vs_cpu_w_err=small, serving=serving,
                      attention=attention, training=training,
                      training_ranks=training_ranks, training_tp=training_tp,
+                     training_fsdp=training_fsdp,
                      serving_mamba=serving_mamba,
                      training_mamba=training_mamba, serving_moe=serving_moe,
                      training_moe=training_moe,

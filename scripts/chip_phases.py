@@ -8,6 +8,9 @@ first phase (the card's name and power limit, the kernels' build):
     python3 scripts/chip_phases.py tp_ssm         # its mamba, jamba runs
     python3 scripts/chip_phases.py tp_dtype       # mamba's split in f32
     python3 scripts/chip_phases.py tp_round tp_plain
+    python3 scripts/chip_phases.py fsdp           # FSDP + TP, four cards
+    python3 scripts/chip_phases.py fsdp_f32       # its float32 cells
+    python3 scripts/chip_phases.py fsdp_a         # phase_train_fsdp
 
 ``kernels`` runs ``phase_kernels`` and ``phase_stream_kernels``;
 ``split`` the trials split over every visible card (with two or more,
@@ -31,7 +34,21 @@ projection's partial products summed in f32
 one-process run of that cell against itself with one rounding of the
 split's added (``tp_round``); ``tp_plain`` ``tp_run``'s plain-versions
 reference on one card (TRAIN at RANKS_CUT layers, two gloo ranks,
-model 2), the route (b) takes for jamba.
+model 2), the route (b) takes for jamba.  ``fsdp`` runs
+``chip_smoke.FSDP_CARDS``, the plain steps with FSDP + TP (``train.pjit_step``
+on a (data, model) mesh) with one NCCL rank a card: llama3.2-1b at full
+width at data 2 x model 2 and data 4 x model 1 and phi3.5-moe at one
+layer at 2 x 2 against the one-process run (three AdamW train steps at
+16 x 256, a prefill and eight teacher-forced decode steps), starcoder2-7b
+at full width at 2 x 2 against its plain versions' split run; each
+rank's walls and peak (against the dry-run's meta trace of the same
+rank's step), collective bytes by axis, bus bandwidth, K6 at each cell's
+rank shape (``chiprun_out/chip_phases_fsdp.json``), and llama3.2-1b's
+and phi3.5-moe's 2 x 2 cells again with the config in float32 on both
+sides, under the same gates; ``fsdp_f32`` those two float32 cells
+alone; ``fsdp_a`` the
+script's one-card phase (``phase_train_fsdp``: two gloo ranks sharing
+the card at data 2).
 Run from the root of a checkout; the phases print their readings and
 raise on a failed check.
 """
@@ -41,7 +58,7 @@ import time
 
 PHASES = ("kernels", "split", "train", "dryrun", "mamba", "mamba_full",
           "moe", "tp", "tp_ssm", "tp_a", "tp_dtype", "tp_round",
-          "tp_plain")
+          "tp_plain", "fsdp", "fsdp_f32", "fsdp_a")
 
 
 def _f32_out_rank(rank: int, world: int, job) -> None:
@@ -255,6 +272,22 @@ def main(which) -> int:
                           "mamba_train")
         if "moe" in which:
             C.phase_train(torch, C.MOE_TRAIN, "moe_train")
+        if {"fsdp", "fsdp_f32", "fsdp_a"} & set(which):
+            import json
+
+            out = {}
+            if "fsdp_a" in which:
+                out["a"] = C.phase_train_fsdp(torch)[2]
+            if "fsdp" in which or "fsdp_f32" in which:
+                out["cards"] = C.fsdp_cards(
+                    torch, None if "fsdp" in which else C.FSDP_F32_CELLS)
+            path = root / "chiprun_out" / (
+                "chip_phases_fsdp.json" if "fsdp_f32" not in which else
+                "chip_phases_fsdp_f32.json")
+            path.parent.mkdir(exist_ok=True)
+            path.write_text(json.dumps(out, indent=1, default=str))
+            if "cards" in out:
+                C.fsdp_cards_passed(out["cards"])
         if {"tp", "tp_ssm", "tp_a", "tp_dtype", "tp_round",
                 "tp_plain"} & set(which):
             import json

@@ -14,7 +14,9 @@ operator:
     moves data (views, aliases and empty allocations move none), the
     eager counterpart of XLA's "bytes accessed", without fusion;
   - live bytes: each storage the step creates is held by a weak
-    reference from its creation to its release, and their peak;
+    reference from its creation to its release, and their peak (the
+    composite backwards that autograd runs in place, but out of place
+    under a dispatch mode, run in place here too: ``_IN_PLACE``);
   - a layer checkpointed under ``cfg.remat`` as it runs: its forward
     once in the forward pass and again, up to what the backward needs,
     in the backward (``torch.utils.checkpoint``), and the activations
@@ -44,6 +46,18 @@ arch the model axis cannot split yet (cross-attention, an
 encoder-decoder, a misaligned ssm split) is reported as skipped, with
 the reason.
 
+The plain cells run on one card (``run_cell``, ``--mesh single``) or,
+as the reference lowers them, on its production meshes (``--mesh
+production`` without ``--bft``): rank 0 of 16x16 and of 2x16x16 traced
+under a ``fake`` process group (``lower_compile(mesh=)``), the plain
+steps with FSDP + TP (``train.pjit_step`` on rank 0's blocks and rows,
+``specs.input_specs(mesh=)``): per-rank FLOPs, bytes, peak and
+``fits_hbm``, the collectives' wire bytes by axis (``data``, ``model``,
+``pod``), a roofline over the mesh's 256 or 512 chips, the MFU numerator
+at 16x16 only (as the reference gives it).  whisper and the VLM are
+skipped with ``require_splittable``'s reason, ``long_500k`` with the
+sequence-parallel cache's (``LONG_SKIP``).
+
 The same counter runs on the card, so a meta trace and a real step can
 be compared count for count (``chip_smoke.py``'s ``phase_dryrun``).
 Eager tracing visits every layer, so ``run_cell`` uses the full trace
@@ -58,6 +72,7 @@ optimizer state in place, as the reference donates them.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --mesh workers
     PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --mesh tp --model 2
     PYTHONPATH=src python -m repro_torch.launch.dryrun --bft --mesh production
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh production
 """
 from __future__ import annotations
 
@@ -92,12 +107,22 @@ _NO_DATA = {_aten.empty, _aten.empty_strided, _aten.empty_like,
             _aten.new_empty, _aten.new_empty_strided}
 # the c10d collectives the steps issue (``train.ranks``); the first
 # argument holds the result
-_COLLECTIVES = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather"}
+_COLLECTIVES = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather",
+                "alltoall_base_": "all-to-all"}
 # operators whose CPU and CUDA kernels give the output the layout of the
 # argument at this index where the meta kernel returns a dense one (the
 # SSD's dt gradient arrives permuted, and the product after softplus's
 # backward then copies it on a card): on meta the output is laid out so
 _META_LAYOUT = {_aten.softplus_backward.default: 0}
+# composite backwards (gather's, index_select's, indexing's) that fill a
+# fresh ``new_zeros`` tensor: autograd runs them in place, but out of
+# place under any dispatch mode (its tensor-subclass branch), which would
+# count a second buffer of the parameter's size that a step run without
+# a counter never holds; the counter runs them in place on the fresh
+# zeros, as the uncounted step does
+_IN_PLACE = {_aten.scatter_add.default: _aten.scatter_add_.default,
+             _aten.index_add.default: _aten.index_add_.default,
+             _aten.index_put.default: _aten.index_put_.default}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -137,6 +162,7 @@ class StepCounter(TorchDispatchMode):
         self._args: set[int] = set()
         self._live: dict[int, tuple] = {}
         self._in_kernel = 0
+        self._fresh = None          # the last op's new_zeros result
 
     # -- inputs and storages --------------------------------------------
     def _counts(self, t: torch.Tensor) -> bool:
@@ -222,7 +248,12 @@ class StepCounter(TorchDispatchMode):
     # -- the operators ----------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        fresh, self._fresh = self._fresh, None
+        if func in _IN_PLACE and fresh is not None and args[0] is fresh():
+            func = _IN_PLACE[func]
         out = func(*args, **kwargs)
+        if func is _aten.new_zeros.default:
+            self._fresh = weakref.ref(out)
         if func in _META_LAYOUT and out.device.type == "meta":
             out = torch.empty_like(args[_META_LAYOUT[func]], dtype=out.dtype)
         if func.namespace == "c10d":
@@ -334,23 +365,63 @@ def step_args(specs: dict, kind: str) -> tuple:
             specs["cache"])
 
 
-def step_for(cfg, kind: str, opt: OptConfig, impl: str | None = None):
+def step_for(cfg, kind: str, opt: OptConfig, impl: str | None = None,
+             mesh=None):
     if kind == "train":
-        return make_train_step(cfg, opt, impl=impl)
+        return make_train_step(cfg, opt, impl=impl, mesh=mesh)
     if kind == "prefill":
-        return make_prefill_step(cfg, impl=impl)
-    return make_decode_step(cfg)
+        return make_prefill_step(cfg, impl=impl, mesh=mesh)
+    return make_decode_step(cfg, mesh=mesh)
 
 
-def lower_compile(cfg, shape: ShapeConfig,
-                  opt: OptConfig | None = None) -> dict:
-    """Trace one step on meta tensors; the reference's keys (no
-    collectives on one card), plus ``flops_by_dtype`` and ``kernels``."""
+def lower_compile(cfg, shape: ShapeConfig, opt: OptConfig | None = None,
+                  mesh=None, impl: str | None = None) -> dict:
+    """Trace one step on meta tensors; the reference's keys, plus
+    ``flops_by_dtype``, ``kernels`` and the collectives by axis.  With
+    ``mesh`` (a ``sharding.MeshShape``, e.g. a production mesh) the step
+    is rank 0's (``train.pjit_step`` on its blocks, ``specs.input_specs``)
+    under a ``fake`` process group of the mesh's world.  ``impl="torch"``
+    traces the kernels' plain versions (what a CPU rank runs)."""
     opt = opt or OptConfig()
-    specs = input_specs(cfg, shape, opt)
-    _, res = count_step(step_for(cfg, shape.kind, opt),
-                        step_args(specs, shape.kind), "meta")
+    if mesh is None:
+        specs = input_specs(cfg, shape, opt)
+        _, res = count_step(step_for(cfg, shape.kind, opt, impl),
+                            step_args(specs, shape.kind), "meta")
+        return res
+    step_mesh = _fake_step_mesh(mesh)
+    try:
+        specs = input_specs(cfg, shape, opt, mesh=mesh)
+        _, res = count_step(step_for(cfg, shape.kind, opt, impl,
+                                     mesh=step_mesh),
+                            step_args(specs, shape.kind), "meta",
+                            group=step_mesh.world)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return res
+
+
+def _fake_step_mesh(mesh):
+    """Rank 0 of a ``fake`` process group over the axes of ``mesh`` (a
+    ``MeshShape``), as the plain steps' ``train.ranks.StepMesh`` on
+    ``meta``: its collectives return at once and move nothing."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_step_mesh
+    from repro_torch.train.ranks import StepMesh
+
+    if dist.is_initialized():
+        raise RuntimeError("the mesh dry-run needs its own process group; "
+                           "one is already initialized")
+    sizes = dict(mesh.shape)
+    world = int(np.prod(list(sizes.values())))
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    return StepMesh(make_step_mesh(sizes["data"], sizes.get("model", 1),
+                                   sizes.get("pod", 1), device_type="cpu"),
+                    "meta")
 
 
 def cost_by_decomposition(cfg, shape: ShapeConfig,
@@ -388,31 +459,70 @@ def tokens_of(shape: ShapeConfig) -> int:
 
 
 def roofline_of(cfg, shape: ShapeConfig, cost: dict,
-                chips: int = 1) -> RL.Roofline:
+                chips: int = 1, model_flops: bool = True) -> RL.Roofline:
+    """The cell's roofline; ``model_flops`` False leaves out the MFU
+    numerator (the reference gives it at 16x16 only)."""
     return RL.Roofline(
         flops_per_device=cost["flops"], bytes_per_device=cost["bytes"],
         collective_bytes_per_device=cost.get("collective_bytes", 0.0),
-        model_flops_total=RL.model_flops(cfg, tokens=tokens_of(shape),
-                                         training=shape.kind == "train"),
+        model_flops_total=RL.model_flops(
+            cfg, tokens=tokens_of(shape), training=shape.kind == "train")
+        if model_flops else 0.0,
         chips=chips, flops_by_dtype=cost.get("flops_by_dtype"))
 
 
+#: the plain steps' production meshes (``--mesh production``)
+PLAIN_PRODUCTION = ("16x16", "2x16x16")
+LONG_SKIP = ("sequence-parallel decode cache (decode_seq on data) not "
+             "ported: its cache splits the sequence over data, which needs "
+             "a decode attention whose softmax is combined across ranks")
+
+
 def run_cell(arch: str, shape_name: str, *, opt: OptConfig | None = None,
-             with_cost: bool = True) -> dict:
-    """One (arch x shape) cell on one card: the full trace, whether its
-    peak fits the card's memory, and its roofline."""
+             with_cost: bool = True, mesh: str = "single") -> dict:
+    """One (arch x shape) cell: on one card (``mesh`` "single"), or rank 0
+    of the reference's production mesh ("16x16" or "2x16x16", the plain
+    steps with FSDP + TP, ``lower_compile(mesh=)``): the full trace
+    (per-rank FLOPs, bytes, peak, collective bytes by axis), whether the
+    peak fits a card's memory, and the roofline over the mesh's chips,
+    with the MFU numerator on one card and at 16x16, as the reference
+    gives it.  A model the model axis cannot split (whisper, the VLM)
+    and ``long_500k`` on a mesh are skipped, with the reason."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, reason = shape_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "skipped": reason}
-    full = lower_compile(cfg, shape, opt)
-    res = {"arch": arch, "shape": shape_name, "mesh": "1xH100", "chips": 1,
+    if mesh == "single":
+        full = lower_compile(cfg, shape, opt)
+        chips, label, pm = 1, "1xH100", None
+    else:
+        from repro_torch.launch.mesh import make_production_mesh
+        from repro_torch.models.transformer import require_splittable
+
+        if mesh not in PLAIN_PRODUCTION:
+            raise ValueError(f"mesh {mesh!r}: single or one of "
+                             f"{PLAIN_PRODUCTION}")
+        pm = make_production_mesh(multi_pod=mesh == "2x16x16")
+        chips, label = int(np.prod(pm.axis_sizes)), mesh
+        base = {"arch": arch, "shape": shape_name, "mesh": label,
+                "chips": chips}
+        try:
+            require_splittable(cfg, pm.shape["model"])
+        except ValueError as e:
+            return {**base, "skipped": str(e)}
+        if shape.seq_len >= 262144:
+            return {**base, "skipped": LONG_SKIP}
+        full = lower_compile(cfg, shape, opt, mesh=pm)
+    res = {"arch": arch, "shape": shape_name, "mesh": label, "chips": chips,
            "full": full, "fits_hbm": full["peak_bytes"] <= RL.HBM_PER_CARD}
     if with_cost:
         res["cost_method"] = "full_trace"
-        res["roofline"] = roofline_of(cfg, shape, full).as_dict()
-        res["collective_detail"] = {}
+        res["roofline"] = roofline_of(
+            cfg, shape, full, chips,
+            model_flops=mesh in ("single", "16x16")).as_dict()
+        res["collective_detail"] = full["collective_detail"]
+        res["collective_by_axis"] = full["collective_by_axis"]
     return res
 
 
@@ -606,7 +716,9 @@ def main(argv=None) -> None:
                          "process); workers (with --bft): n ranks on the "
                          "data axis, one worker each, collectives counted; "
                          "tp: n x --model ranks; production: the "
-                         "reference's 16x16 and 2x16x16 BFT cells")
+                         "reference's 16x16 and 2x16x16 cells, rank 0 of "
+                         "the plain steps with FSDP + TP (with --bft: "
+                         "the BFT cells)")
     ap.add_argument("--model", type=int, default=2,
                     help="ranks a worker is split over (--mesh tp)")
     ap.add_argument("--bft", action="store_true",
@@ -615,7 +727,7 @@ def main(argv=None) -> None:
     ap.add_argument("--no-cost", action="store_true")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
-    if args.mesh != "single" and not args.bft:
+    if args.mesh in ("workers", "tp") and not args.bft:
         raise SystemExit(f"--mesh {args.mesh} traces the BFT steps: add "
                          f"--bft")
     archs = ASSIGNED if args.arch == "all" else args.arch.split(",")
@@ -658,11 +770,13 @@ def main(argv=None) -> None:
                     arch, mesh=args.mesh, model=args.model)
             write(f"bft_{arch}_{args.mesh}", {"arch": arch}, fn)
         return
+    meshes = PLAIN_PRODUCTION if args.mesh == "production" else ("single",)
     for arch in archs:
         for name in shapes:
-            write(f"{arch}_{name}_single", {"arch": arch, "shape": name},
-                  lambda arch=arch, name=name: run_cell(
-                      arch, name, with_cost=not args.no_cost))
+            for m in meshes:
+                write(f"{arch}_{name}_{m}", {"arch": arch, "shape": name},
+                      lambda arch=arch, name=name, m=m: run_cell(
+                          arch, name, with_cost=not args.no_cost, mesh=m))
 
 if __name__ == "__main__":
     main()

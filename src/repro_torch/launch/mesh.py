@@ -30,17 +30,30 @@ def make_worker_mesh(n_ranks: int, model: int = 1, *,
     the reference's row-major ``make_mesh((n, model))``.
     ``device_type`` defaults to "cuda" under NCCL and "cpu" otherwise
     (two gloo ranks sharing one card pass "cuda")."""
+    return make_step_mesh(n_ranks, model, device_type=device_type)
+
+
+def make_step_mesh(data: int, model: int = 1, pod: int = 1, *,
+                   device_type: str | None = None):
+    """The plain steps' ``DeviceMesh`` (``train.pjit_step``): (``pod``,)
+    ``data``, ``model``, the reference's production layout at any size,
+    over the initialized process group (world ``pod * data * model``);
+    global rank (p * data + d) * model + m sits at (p, d, m).  ``pod``
+    is left out at 1, as the single-pod mesh has none."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
-        raise RuntimeError("make_worker_mesh needs an initialized "
-                           "process group (train.ranks.init)")
-    if dist.get_world_size() != n_ranks * model:
-        raise ValueError(f"a {n_ranks} x {model} mesh over a world of "
-                         f"{dist.get_world_size()} ranks")
+        raise RuntimeError("a mesh needs an initialized process group "
+                           "(train.ranks.init)")
+    shape, names = (data, model), ("data", "model")
+    if pod > 1:
+        shape, names = (pod,) + shape, ("pod",) + names
+    if dist.get_world_size() != pod * data * model:
+        raise ValueError(f"a {' x '.join(map(str, shape))} mesh over a "
+                         f"world of {dist.get_world_size()} ranks")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return make_mesh((n_ranks, model), ("data", "model"), device_type)
+    return make_mesh(shape, names, device_type)
 
 
 def make_pod_worker_mesh(pods: int = 8, data: int = 4,

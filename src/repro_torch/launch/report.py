@@ -4,7 +4,10 @@ dry-run matrix, the one-card roofline and the BFT steps.
 Port of ``repro.launch.report``; the same tables, for one H100: the fit
 column reads "fits 80G" (``roofline.HBM_PER_CARD``) and the roofline's
 figures are bounds from the card's constants, not measurements.
-``--kind summary`` folds every cell into one row an arch.  The BFT
+``--kind summary`` folds every cell into one row an arch.  The plain
+cells of ``--mesh production`` (rank 0 of 16x16 and 2x16x16, FSDP + TP)
+get a per-device table each (``production_table``), the reference's
+single-pod roofline table.  The BFT
 cells of ``--mesh workers`` (n ranks on ``data``) also get a table of
 their collectives: all-reduce and all-gather calls, result and wire
 bytes a rank, and the collective term at NVLink's rate.
@@ -103,6 +106,41 @@ def roofline_table(cells: list[dict]) -> str:
             f"| **{rl['dominant']}** | {rl['useful_flops_fraction']:.2f} "
             f"| {rl['roofline_fraction']:.3f} |"
         )
+    return "\n".join(lines)
+
+
+PRODUCTION = ("16x16", "2x16x16")
+
+
+def production_table(cells: list[dict], mesh: str = "16x16") -> str:
+    """Rank 0 of a production mesh (``dryrun --mesh production``), per
+    device per step: the peak and its fit, the roofline's terms, the
+    collectives' wire bytes by axis, and at 16x16 MODEL / counted FLOPs
+    over the mesh's chips (the reference's per-device table)."""
+    lines = [
+        "| arch | shape | peak/dev | fits 80G | compute | memory | collective "
+        "| wire bytes by axis | dominant | MODEL/HLO FLOPs | roofline frac |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in sorted(cells, key=sort_key):
+        if r.get("mesh") != mesh:
+            continue
+        if "skipped" in r or "error" in r:
+            why = r.get("skipped") or r["error"]
+            lines.append(f"| {r['arch']} | {r['shape']} | — | — | — | — "
+                         f"| — | — | SKIP: {why} | | |")
+            continue
+        rl = r["roofline"]
+        axes = ", ".join(f"{a} {fmt_b(b)}" for a, b in
+                         r.get("collective_by_axis", {}).items())
+        mf = (f"{rl['useful_flops_fraction']:.2f}"
+              if rl["model_flops_total"] else "—")
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {fmt_b(r['full']['peak_bytes'])} "
+            f"| {'Y' if r['fits_hbm'] else 'N*'} | {fmt_s(rl['compute_s'])} "
+            f"| {fmt_s(rl['memory_s'])} | {fmt_s(rl['collective_s'])} "
+            f"| {axes} | **{rl['dominant']}** | {mf} "
+            f"| {rl['roofline_fraction']:.3f} |")
     return "\n".join(lines)
 
 
@@ -209,6 +247,8 @@ def main(argv=None) -> None:
     cells = load(args.dir)
     bft = [c for c in cells if "fast" in c or ("error" in c and "shape" not in c)]
     reg = [c for c in cells if c not in bft]
+    prod = [c for c in reg if c.get("mesh") in PRODUCTION]
+    one = [c for c in reg if c not in prod]
     if args.kind in ("all", "dryrun"):
         print("### Dry-run matrix\n")
         print(dryrun_table(reg))
@@ -216,8 +256,15 @@ def main(argv=None) -> None:
     if args.kind in ("all", "roofline"):
         print("### Roofline (one H100, per step; bounds from the card's "
               "constants, not measured)\n")
-        print(roofline_table(reg))
+        print(roofline_table(one))
         print()
+        for mesh in PRODUCTION:
+            if any(c.get("mesh") == mesh for c in prod):
+                print(f"### Roofline ({mesh}, rank 0, per device per step; "
+                      f"FSDP + TP, bounds from the card's constants, not "
+                      f"measured)\n")
+                print(production_table(prod, mesh))
+                print()
     if args.kind in ("all", "bft") and bft:
         print("### BFT step dry-runs\n")
         print(bft_table(bft))
@@ -228,7 +275,7 @@ def main(argv=None) -> None:
     if args.kind == "summary":
         print("### One H100: predicted peak, fit and roofline bound a cell"
               " (bounds from the card's constants, not measured)\n")
-        print(summary_table(reg, bft))
+        print(summary_table(one, bft))
 
 
 if __name__ == "__main__":

@@ -11,15 +11,23 @@ keyword arguments of the step that ``launch.dryrun`` traces for that
 ``params`` is ``model.abstract_params`` (the stacked training layout),
 ``opt_state`` ``optim.abstract_opt_state``, ``cache``
 ``model.abstract_cache``; tokens and labels are int32, as the
-reference's.  One device holds everything, so there is no sharding.
-``step`` and ``pos`` are host values in the port's steps (a 0-d int32
-CPU tensor here): step 0, and the decode token at the last position of
-a full ``seq_len`` cache, so decode attends to every cached key.
+reference's.  Without a mesh one device holds everything.  With one
+(``input_specs(cfg, shape, opt, mesh=...)``, a ``sharding.MeshShape``
+such as ``launch.mesh.make_production_mesh``'s, and a rank's
+``coords``, rank 0 by default) every tensor is that rank's block, the
+reference's ``NamedSharding(mesh, spec).shard_shape``: the parameters
+and the AdamW state under ``sharding.PARAM_RULES``,
+the batch and the token over (``pod``, ``data``) and the cache under
+``ACT_RULES`` (``model.local_cache_layout``).  ``step`` and ``pos`` are
+host values in the port's steps (a 0-d int32 CPU tensor here): step 0,
+and the decode token at the last position of a full ``seq_len`` cache,
+so decode attends to every cached key.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import model as M
 from repro_torch.models.layers import dtype_of
@@ -28,44 +36,82 @@ from repro_torch.optim import OptConfig, abstract_opt_state
 META = torch.device("meta")
 
 
+def _local(shape: tuple, logical: tuple, mesh, coords) -> tuple:
+    """``shape`` as a rank of ``mesh`` holds it under ``ACT_RULES``."""
+    if mesh is None:
+        return tuple(shape)
+    a = sharding.Annotated(tuple(shape), logical, None)
+    return sharding.placement_of(a, mesh, sharding.ACT_RULES,
+                                 coords).local_shape
+
+
 def batch_specs(cfg: ModelConfig, *, global_batch: int, seq_len: int,
-                labels: bool = True) -> dict:
-    out = {"tokens": torch.empty((global_batch, seq_len), dtype=torch.int32,
-                                 device=META)}
+                labels: bool = True, mesh=None, coords=None) -> dict:
+    shape = _local((global_batch, seq_len), ("batch", "seq"), mesh, coords)
+    out = {"tokens": torch.empty(shape, dtype=torch.int32, device=META)}
     if labels:
-        out["labels"] = torch.empty((global_batch, seq_len),
-                                    dtype=torch.int32, device=META)
+        out["labels"] = torch.empty(shape, dtype=torch.int32, device=META)
     if cfg.family in ("vlm", "audio"):
         tctx = (cfg.num_encoder_positions if cfg.is_encoder_decoder
                 else cfg.num_vision_tokens)
-        out["ctx"] = torch.empty((global_batch, tctx, cfg.d_model),
-                                 dtype=dtype_of(cfg), device=META)
+        out["ctx"] = torch.empty(
+            _local((global_batch, tctx, cfg.d_model),
+                   ("batch", "seq", "embed"), mesh, coords),
+            dtype=dtype_of(cfg), device=META)
     return out
 
 
+def param_structs(cfg: ModelConfig, mesh=None, coords=None):
+    """The parameters as ``meta`` tensors, a rank's blocks under
+    ``PARAM_RULES`` when ``mesh`` is given."""
+    if mesh is None:
+        return M.abstract_params(cfg)
+    return sharding.tree_structs(M.annotated_params(cfg), mesh,
+                                 sharding.PARAM_RULES, coords)
+
+
+def cache_structs(cfg: ModelConfig, *, batch: int, seq_len: int,
+                  long_context: bool = False, mesh=None, coords=None):
+    """The decode cache as ``meta`` tensors: activation state, placed by
+    ``ACT_RULES`` (not the parameters' rules), a rank's part of it when
+    ``mesh`` is given."""
+    if mesh is None:
+        return M.abstract_cache(cfg, batch, seq_len, long_context)
+    return M.map_params(
+        lambda leaf: torch.empty(leaf[0], dtype=leaf[1], device=META),
+        M.local_cache_layout(cfg, batch, seq_len, mesh, coords,
+                             long_context))
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,
-                opt: OptConfig | None = None) -> dict:
-    """Full kwargs of the step traced for this cell."""
-    params = M.abstract_params(cfg)
+                opt: OptConfig | None = None, *, mesh=None,
+                coords=None) -> dict:
+    """Full kwargs of the step traced for this cell, as one device holds
+    them or, given ``mesh``, as the rank at ``coords`` (rank 0 by
+    default) does."""
+    params = param_structs(cfg, mesh, coords)
+    B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         opt = opt or OptConfig()
         return {
             "params": params,
             "opt_state": abstract_opt_state(opt, params),
-            "batch": batch_specs(cfg, global_batch=shape.global_batch,
-                                 seq_len=shape.seq_len),
+            "batch": batch_specs(cfg, global_batch=B, seq_len=S, mesh=mesh,
+                                 coords=coords),
             "step": torch.zeros((), dtype=torch.int32),
         }
     if shape.kind == "prefill":
         return {"params": params,
-                "batch": batch_specs(cfg, global_batch=shape.global_batch,
-                                     seq_len=shape.seq_len, labels=False)}
+                "batch": batch_specs(cfg, global_batch=B, seq_len=S,
+                                     labels=False, mesh=mesh,
+                                     coords=coords)}
     # decode: one new token against a seq_len cache
     return {
         "params": params,
-        "token": torch.empty((shape.global_batch,), dtype=torch.int32,
-                             device=META),
-        "pos": torch.tensor(shape.seq_len - 1, dtype=torch.int32),
-        "cache": M.abstract_cache(cfg, shape.global_batch, shape.seq_len,
-                                  long_context=shape.seq_len >= 262144),
+        "token": torch.empty(_local((B,), ("batch",), mesh, coords),
+                             dtype=torch.int32, device=META),
+        "pos": torch.tensor(S - 1, dtype=torch.int32),
+        "cache": cache_structs(cfg, batch=B, seq_len=S,
+                               long_context=S >= 262144, mesh=mesh,
+                               coords=coords),
     }

@@ -37,7 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import parallel
 from repro_torch.models.layers import (apply_rope, dtype_of, init_weight,
                                        l2norm)
-from repro_torch.sharding import constrain_here
+from repro_torch.sharding import batch_rows, constrain_here
 
 
 def init_attention(cfg, gen: torch.Generator, device,
@@ -126,8 +126,12 @@ def _local_kv_heads(k, v, first: int, Hl: int, G: int):
 
 def _split_qkv(p, h, cfg, positions, ax):
     """This rank's q (B, S, Hl, hd), its heads [first, first + Hl)
-    (``head_group``), and the k, v they read, under the model axis
-    ``ax``."""
+    (``head_group``), the k, v they read, and this rank's columns of the
+    KV cache (B, S, cols): the cache's ``kv`` dim placed as wk's columns
+    are (``ACT_RULES`` and ``PARAM_RULES`` both put ``kv`` on
+    ``model``), all K heads where they are replicated, the rank's slice
+    of the whole k, v (after qk-norm and rope, which read whole heads)
+    where wk's columns cut a head, under the model axis ``ax``."""
     tp = ax.world
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, S, _ = h.shape
@@ -141,7 +145,8 @@ def _split_qkv(p, h, cfg, positions, ax):
     hf = parallel.copy(h, ax)
     if H % tp == 0:
         q = constrain_here(project_q(pp, hf, cfg, positions),
-                           ("batch", None, "heads", None), (B, S, H, hd))
+                           ("batch", None, "heads", None),
+                           (batch_rows(B), S, H, hd))
     else:                                      # wq's columns cut a head
         q = parallel.gather_scatter(hf @ p["wq"], -1, ax)
         q = q[..., first * hd:(first + Hl) * hd].reshape(B, S, Hl, hd)
@@ -151,22 +156,26 @@ def _split_qkv(p, h, cfg, positions, ax):
         pp["wk"] = parallel.copy(p["wk"], ax)
         pp["wv"] = parallel.copy(p["wv"], ax)
         k, v = project_kv(pp, hf, cfg, positions)
+        cache = (k.reshape(B, S, -1), v.reshape(B, S, -1))
     elif K % tp == 0:                          # kv heads split with q's
         k, v = project_kv(pp, hf, cfg, positions)
-        k = constrain_here(k, ("batch", None, "kv", None), (B, S, K, hd))
-        return q, k, v
+        k = constrain_here(k, ("batch", None, "kv", None),
+                           (batch_rows(B), S, K, hd))
+        return q, k, v, (k.reshape(B, S, -1), v.reshape(B, S, -1))
     else:                                      # wk's columns cut a head
         k = parallel.gather_scatter(hf @ p["wk"], -1, ax).reshape(
             B, S, K, hd)
         v = parallel.gather_scatter(hf @ p["wv"], -1, ax).reshape(
             B, S, K, hd)
         k = _finish_k(pp, k, cfg, positions, True)
+        cache = tuple(t.reshape(B, S, -1).narrow(-1, ax.rank * kcols, kcols)
+                      for t in (k, v))
     if Hl == 0:
         # no head here: empty k, v that keep the gathers' backward (a
         # collective every rank joins) on this rank's graph
-        return q, k[:, :, :0], v[:, :, :0]
+        return q, k[:, :, :0], v[:, :, :0], cache
     k, v = _local_kv_heads(k, v, first, Hl, G)
-    return q, k, v
+    return q, k, v, cache
 
 
 def _to_wo_rows(o: torch.Tensor, p, cfg, ax) -> torch.Tensor:
@@ -185,9 +194,11 @@ def _to_wo_rows(o: torch.Tensor, p, cfg, ax) -> torch.Tensor:
 def self_attention(p, h: torch.Tensor, cfg, positions, *, causal: bool,
                    window: int | None, impl: str | None = None):
     """A self-attention sub-block on h (B, S, D): (output (B, S, D),
-    (k, v) as K6 read them).  Split over the model axis when wq's
-    columns are (``heads_split``); a rank with no head (``head_group``)
-    launches no K6 and returns empty k, v."""
+    (k, v)): as K6 read them, (B, S, K, hd); split over the model axis
+    when wq's columns are (``heads_split``), this rank's columns of the
+    KV cache, (B, S, cols) (``_split_qkv``).  A rank with no head
+    (``head_group``) launches no K6.  Under a batch split the rank's
+    heads see the rank's rows only: B is its rows."""
     if not heads_split(p, cfg):
         q = project_q(p, h, cfg, positions)
         k, v = project_kv(p, h, cfg, positions)
@@ -195,19 +206,73 @@ def self_attention(p, h: torch.Tensor, cfg, positions, *, causal: bool,
                                 impl=impl)
         return output_proj(p, o), (k, v)
     ax = parallel.require_axis()
-    q, k, v = _split_qkv(p, h, cfg, positions, ax)
+    q, k, v, cache = _split_qkv(p, h, cfg, positions, ax)
     B, S = q.shape[:2]
     if q.shape[2]:
         o = blockwise_attention(q, k, v, causal=causal, window=window,
                                 impl=impl).reshape(B, S, -1)
     else:                                      # in the graph, as k and v
         o = (q + k + v).reshape(B, S, 0)
+    return _split_out(o, p, cfg, ax), cache
+
+
+def _split_out(o: torch.Tensor, p, cfg, ax) -> torch.Tensor:
+    """The rank's heads' outputs (B, S, Hl * hd) through its rows of wo,
+    summed over ``model``."""
+    B, S = o.shape[:2]
     if cfg.num_heads % ax.world:
         o = _to_wo_rows(o, p, cfg, ax)
     else:
         o = constrain_here(o, ("batch", None, "heads"),
-                           (B, S, cfg.num_heads * cfg.head_dim))
-    return parallel.reduce(output_proj(p, o), ax), (k, v)
+                           (batch_rows(B), S, cfg.num_heads * cfg.head_dim))
+    return parallel.reduce(output_proj(p, o), ax)
+
+
+def decode_self_attention(p, h: torch.Tensor, cfg, positions,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          pos: int, window: int | None) -> torch.Tensor:
+    """One token's self-attention sub-block on h (B, 1, D) against a
+    layer's cache (B, S, cols): the token's k, v written in place at
+    ``pos``, then ``decode_attention`` over the visible keys; returns
+    (B, 1, D).  Split over the model axis as ``self_attention``: the
+    cache holds this rank's columns (``_split_qkv``); its query heads
+    read their own kv heads from it when ``model`` divides K, else from
+    the visible part of the cache gathered over ``model`` (where wk's
+    columns cut a head) or from the whole one (where they are
+    replicated)."""
+    B = h.shape[0]
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    if not heads_split(p, cfg):
+        q = project_q(p, h, cfg, positions)
+        k_new, v_new = project_kv(p, h, cfg, positions)
+        update_cache(cache_k, cache_v, k_new.reshape(B, 1, K * hd),
+                     v_new.reshape(B, 1, K * hd), pos)
+        S = cache_k.shape[1]
+        o = decode_attention(
+            q, cache_k.reshape(B, S, K, hd), cache_v.reshape(B, S, K, hd),
+            valid_len=pos + 1, window=window)
+        return output_proj(p, o)
+    ax = parallel.require_axis()
+    q, _, _, (kc, vc) = _split_qkv(p, h, cfg, positions, ax)
+    update_cache(cache_k, cache_v, kc, vc, pos)
+    first, Hl = head_group(cfg.num_heads, ax.world, ax.rank)
+    if Hl == 0:
+        return _split_out(q.reshape(B, 1, 0), p, cfg, ax)
+    cols = cache_k.shape[-1]
+    if K % ax.world == 0 and cols != K * hd:   # the rank's own kv heads
+        S = cache_k.shape[1]
+        ks = cache_k.reshape(B, S, cols // hd, hd)
+        vs = cache_v.reshape(B, S, cols // hd, hd)
+    else:
+        ks, vs = cache_k[:, :pos + 1], cache_v[:, :pos + 1]
+        if cols != K * hd:                     # columns that cut a head
+            ks, vs = ax.gather_dim(ks, -1), ax.gather_dim(vs, -1)
+        S = ks.shape[1]
+        ks, vs = _local_kv_heads(ks.reshape(B, S, K, hd),
+                                 vs.reshape(B, S, K, hd), first, Hl,
+                                 cfg.num_heads // K)
+    o = decode_attention(q, ks, vs, valid_len=pos + 1, window=window)
+    return _split_out(o.reshape(B, 1, -1), p, cfg, ax)
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True,

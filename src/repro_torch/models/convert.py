@@ -16,9 +16,13 @@ encoder-decoder model's ``ln_cross`` and ``cross`` as the dense layers'
 do; its ``encoder`` stack the same way, and ``encoder_norm``.
 
 ``shard_params`` keeps one rank's shard of a full tree (each leaf's
-``sharding.Placement``, ``placements``) and ``gather_params`` joins the
-shards of a worker's ``model`` ranks back into the full tree, so a
-checkpoint has one layout whatever the ``model`` axis.
+``sharding.Placement``, ``placements``): under the trainer's rules a
+leaf split over ``model``, under the plain steps' ``PARAM_RULES`` a
+(``pod``, ``data``, ``model``) rank's 2-d block (d_model over ``data``
+too).  ``gather_params`` joins the shards back over both axes into the
+full tree, so a checkpoint has one layout whatever the mesh, and
+``from_jax_train_params`` carries the reference's parameters across
+before ``shard_params``, unchanged.
 """
 from __future__ import annotations
 
@@ -64,13 +68,15 @@ def from_jax_params(cfg: ModelConfig, tree, device=None):
     return M.map_params(lambda a: to_tensor(a).to(dev), params)
 
 
-def placements(cfg: ModelConfig, mesh, coords=None):
+def placements(cfg: ModelConfig, mesh, coords=None, rules=None):
     """Each leaf's ``sharding.Placement`` on one rank of ``mesh`` (this
-    rank of a ``DeviceMesh`` unless ``coords``) under the trainer's
-    ``tp_only_rules``."""
+    rank of a ``DeviceMesh`` unless ``coords``) under ``rules``: the
+    trainer's ``tp_only_rules`` by default, ``sharding.PARAM_RULES`` for
+    the plain steps."""
     from repro_torch.sharding import tp_only_rules, tree_shardings
 
-    return tree_shardings(M.annotated_params(cfg), mesh, tp_only_rules(),
+    return tree_shardings(M.annotated_params(cfg), mesh,
+                          tp_only_rules() if rules is None else rules,
                           coords)
 
 
@@ -85,11 +91,20 @@ def shard_params(tree, shardings):
 
 
 def gather_params(tree, shardings, axis):
-    """This rank's shards -> the full tree, gathered over the ``model``
-    axis (``train.ranks.ModelAxis``) along each leaf's split dim; every
-    rank of the axis calls it, in the same leaf order."""
+    """This rank's shards -> the full tree, each leaf gathered along each
+    split dim over that dim's axis: ``axis`` is the ``model`` axis
+    (``train.ranks.ModelAxis``) or a plain steps' mesh
+    (``train.ranks.StepMesh``: ``model``, then ``data``); every rank of
+    the axes calls it, in the same leaf order.  The same function takes
+    a tree of AdamW state, placed as the parameters are."""
     from repro_torch.core import tree as tree_mod
+    from repro_torch.sharding import axis_of
 
-    return tree_mod.tree_map(
-        lambda leaf, pl: axis.gather_dim(leaf, pl.split_dim)
-        if pl.sharded else leaf, tree, shardings)
+    def full(leaf, pl):
+        for name in ("model", "data"):
+            dim = pl.dim_on(name)
+            if dim is not None:
+                leaf = axis_of(axis, name).gather_dim(leaf, dim)
+        return leaf
+
+    return tree_mod.tree_map(full, tree, shardings)

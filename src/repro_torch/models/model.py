@@ -43,6 +43,16 @@ the group's repeats, so the tree flattens to the reference's leaves
 ``train_loss`` runs ``forward`` on per-layer views of those leaves
 (``layer_views``, one ``unbind`` a leaf, whose backward is one
 ``stack``).
+
+Under the plain steps' mesh (``train.pjit_step``: FSDP over ``data``,
+TP over ``model``, the batch over ``pod`` and ``data``) the leaves are a
+rank's blocks: ``fsdp_view`` gathers a tree's d_model dims over
+``data`` just before use (each layer in ``transformer.fsdp_layer``, the
+tables once for the lookup and the unembed), the activations
+are the rank's rows, ``train_loss`` is the reference's global mean (this
+rank's rows over the global token count, summed over the batch axes),
+and the caches are the rank's part (``local_cache_layout``: batch over
+``pod`` and ``data``, kv over ``model``).
 """
 from __future__ import annotations
 
@@ -58,7 +68,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (dtype_of, embed, init_weight,
                                        rmsnorm, unembed)
-from repro_torch.sharding import constrain_here
+from repro_torch import sharding
+from repro_torch.sharding import batch_rows, constrain_here
 
 MOE_AUX_COEF = 0.01
 
@@ -261,6 +272,39 @@ def _logical_of(path: str, shape: tuple) -> tuple:
     return (("layers",) if stacked else ()) + names
 
 
+def leaf_logical(path: str, ndim: int) -> tuple:
+    """The logical axes of a leaf of the per-layer layout (or of the
+    ``embed`` dict) by its path's last key and its rank."""
+    key = path.split("/")[-1]
+    if key == "tokens":
+        return ("vocab", "embed")
+    if key == "head":
+        return ("embed", "vocab")
+    if key in ("gate", "up", "down"):
+        return _FFN_LOGICAL[ndim][key]
+    return _LOGICAL[key]
+
+
+def fsdp_view(tree, cfg: ModelConfig):
+    """``tree`` (a layer's leaves or the ``embed`` dict) as the TP code
+    reads it: each leaf whose d_model (``embed``) dim is split over the
+    ambient ``data`` axis gathered along it (``parallel.fsdp_gather``;
+    a dim the axis does not divide stays whole, as ``spec_for`` left
+    it); ``tree`` itself without a data axis."""
+    ax = parallel.data_axis()
+    if ax is None:
+        return tree
+
+    def view(path, t):
+        for j, name in enumerate(leaf_logical(path, t.dim())):
+            if name == "embed" and t.shape[j] != cfg.d_model:
+                return parallel.fsdp_gather(t, j, ax)
+        return t
+
+    return tree_mod.unflatten(tree, [
+        view(path, t) for path, t in tree_mod.leaves_with_paths(tree)])
+
+
 def annotated_params(cfg: ModelConfig):
     """``abstract_params``'s tree with each leaf an ``Annotated``: its
     shape, the reference's logical axes (``layers`` first on a stacked
@@ -294,9 +338,16 @@ def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
     else:
         lse, label_logit = _split_ce_terms(logits, labels)
     nll = lse - label_logit
-    denom = torch.clamp(valid.sum(), min=1)
-    ce = torch.where(valid, nll, 0.0).sum() / denom
+    count = valid.sum()
+    if sharding.batch_mesh() is not None:
+        # the reference's global mean: this rank's rows over the global
+        # token count, the shares summed over the batch axes
+        count = parallel.batch_sum(count)
+        aux = parallel.batch_sum(aux)
+    denom = torch.clamp(count, min=1)
+    ce = parallel.batch_sum(torch.where(valid, nll, 0.0).sum() / denom)
     return ce + MOE_AUX_COEF * aux, {"ce": ce, "moe_aux": aux}
+
 
 
 def _split_ce_terms(logits: torch.Tensor, labels: torch.Tensor):
@@ -354,9 +405,13 @@ def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
     ctx = _context(params, batch, cfg, impl)
     dev = params_device(params)
     tokens = _tokens(batch["tokens"], dev)
-    S = tokens.shape[1]
-    x = constrain_here(embed(params["embed"], tokens, cfg),
-                       ("batch", "seq", "embed"))
+    B, S = tokens.shape
+    # under FSDP the tables are gathered once for the lookup and the
+    # unembed, so their gradients meet before one reduce-scatter, as one
+    # process adds them
+    emb = fsdp_view(params["embed"], cfg)
+    x = constrain_here(embed(emb, tokens, cfg), ("batch", "seq", "embed"),
+                       (batch_rows(B), S, cfg.d_model))
     positions = torch.arange(S, device=dev)[None]
     x, kv_all, aux = tfm.run_stack(params["layers"], x, cfg,
                                    positions=positions, ctx=ctx,
@@ -364,9 +419,10 @@ def forward(params, batch, cfg: ModelConfig, collect_kv: bool = False, *,
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg)
+    logits = unembed(emb, x, cfg)
     logits = constrain_here(logits, ("batch", "seq", "vocab"),
-                            logits.shape[:-1] + (cfg.vocab_size,))
+                            (batch_rows(B),) + tuple(logits.shape[1:-1])
+                            + (cfg.vocab_size,))
     return logits, kv_all, aux
 
 
@@ -399,6 +455,50 @@ def cache_layout(cfg: ModelConfig, batch: int, seq_len: int):
     return cache
 
 
+def cache_logical(cfg: ModelConfig, long_context: bool = False):
+    """The logical axes of each cache tensor (the reference's
+    ``abstract_cache``), which ``ACT_RULES`` place: batch over (``pod``,
+    ``data``), kv and ``ssm_inner`` over ``model``, the SSM state's
+    heads whole (``ACT_RULES`` has no ``ssm_heads``); ``long_context``
+    puts the sequence on ``data`` (``decode_seq``)."""
+    seq = "decode_seq" if long_context else None
+    names = {"k": ("layers", "batch", seq, "kv"),
+             "v": ("layers", "batch", seq, "kv"),
+             "cross_k": ("layers", "batch", None, "kv"),
+             "cross_v": ("layers", "batch", None, "kv"),
+             "state": ("layers", "batch", "ssm_heads", None, None),
+             "conv_x": ("layers", "batch", None, "ssm_inner"),
+             "conv_B": ("layers", "batch", None, "ssm_state"),
+             "conv_C": ("layers", "batch", None, "ssm_state")}
+    layout = cache_layout(cfg, 1, 1)
+    return {k: ({n: names[n] for n in v} if k == "mamba" else names[k])
+            for k, v in layout.items()}
+
+
+def local_cache_layout(cfg: ModelConfig, batch: int, seq_len: int,
+                       mesh=None, coords=None, long_context: bool = False):
+    """``cache_layout`` of a global ``batch`` as one rank of ``mesh``
+    (default: the ambient mesh, ``batch`` then this rank's rows, the
+    global batch ``batch_rows(batch)``) holds it under ``ACT_RULES``;
+    ``cache_layout`` itself without a mesh."""
+    ambient = mesh is None
+    mesh = sharding.ambient_mesh() if ambient else mesh
+    if mesh is None:
+        return cache_layout(cfg, batch, seq_len)
+    full = cache_layout(cfg, batch_rows(batch, mesh) if ambient else batch,
+                        seq_len)
+    names = cache_logical(cfg, long_context)
+
+    def local(leaf, logical):
+        a = sharding.Annotated(leaf[0], logical, leaf[1])
+        pl = sharding.placement_of(a, mesh, sharding.ACT_RULES, coords)
+        return (pl.local_shape, leaf[1])
+
+    return {k: ({n: local(full[k][n], names[k][n]) for n in full[k]}
+                if k == "mamba" else local(full[k], names[k]))
+            for k in full}
+
+
 def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int,
                    long_context: bool = False):
     """``cache_layout`` as ``meta`` tensors.  ``long_context`` changes
@@ -411,10 +511,12 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
-    """``cache_layout`` filled with zeros on ``device``."""
+    """``cache_layout`` filled with zeros on ``device``; under an ambient
+    mesh this rank's part of it, ``batch`` its rows
+    (``local_cache_layout``)."""
     return map_params(lambda leaf: torch.zeros(leaf[0], dtype=leaf[1],
                                                device=device),
-                      cache_layout(cfg, batch, seq_len))
+                      local_cache_layout(cfg, batch, seq_len))
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int | None = None, *,
@@ -465,13 +567,13 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     tfm.require_ported(cfg)
     dev = params_device(params)
     token = _tokens(token, dev)
-    B = token.shape[0]
-    K, hd = cfg.num_kv_heads, cfg.head_dim
-    x = embed(params["embed"], token[:, None], cfg)            # (B, 1, D)
+    emb = fsdp_view(params["embed"], cfg)
+    x = embed(emb, token[:, None], cfg)
     positions = torch.full((1, 1), int(pos), device=dev)
     new_mamba = {n: [] for n in cache.get("mamba", {})}
     attn_i = cross_i = 0
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        p = fsdp_view(p, cfg)          # dropped when the next layer runs
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         if kind.mixer == "mamba":
             i = len(new_mamba["state"])
@@ -486,16 +588,9 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
             x = x + mix * torch.tanh(p["mixer"]["gate_attn"].to(mix.dtype))
             cross_i += 1
         else:
-            q = attn.project_q(p["mixer"], h, cfg, positions)
-            k_new, v_new = attn.project_kv(p["mixer"], h, cfg, positions)
-            ck, cv = cache["k"][attn_i], cache["v"][attn_i]
-            attn.update_cache(ck, cv, k_new.reshape(B, 1, K * hd),
-                              v_new.reshape(B, 1, K * hd), int(pos))
-            S = ck.shape[1]
-            o = attn.decode_attention(
-                q, ck.reshape(B, S, K, hd), cv.reshape(B, S, K, hd),
-                valid_len=int(pos) + 1, window=tfm.window_of(kind, cfg))
-            x = x + attn.output_proj(p["mixer"], o)
+            x = x + attn.decode_self_attention(
+                p["mixer"], h, cfg, positions, cache["k"][attn_i],
+                cache["v"][attn_i], int(pos), tfm.window_of(kind, cfg))
             attn_i += 1
         if "cross" in p:
             h = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
@@ -507,4 +602,4 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     if new_mamba:
         new_cache["mamba"] = {n: torch.stack(ts) for n, ts in
                               new_mamba.items()}
-    return unembed(params["embed"], x[:, 0], cfg), new_cache
+    return unembed(emb, x[:, 0], cfg), new_cache

@@ -16,8 +16,11 @@ partial outputs are summed over ``model``.
 Each (token, choice) gets a slot in its expert's capacity buffer from
 an exclusive cumulative sum over the routing one-hots, token-major and
 choice-minor; choices past the capacity C are dropped and their gate is
-zero.  The expert FFNs are three batched products over the (E, C, D)
-buffer.  Precision follows the reference: routing (the router product,
+zero.  Under the plain steps' batch split (``pod``, ``data``) the
+routing stays the global one: the global C, slots counted across the
+data ranks (``route_logits``), each rank's kept choices in a buffer of
+its own and the aux loss its share of the global one.  The expert FFNs
+are three batched products over the (E, C, D) buffer.  Precision follows the reference: routing (the router product,
 softmax, top-k, renormalization) in f32; the expert products in the
 config's dtype, the SiLU in f32 cast back; the combine an f32 weighted
 sum over the choices, cast to the input's dtype; the shared expert
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.models import parallel
 from repro_torch.models.layers import dtype_of, init_weight, mlp
 
@@ -107,30 +111,52 @@ class _Gather(torch.autograd.Function):
 def routing(params, xt: torch.Tensor, cfg):
     """The routing pass of ``xt`` (N, D): (probs (N, E) f32, expert_idx
     (N, K), gates (N, K) f32 renormalized and zeroed where dropped, slot
-    (N, K) within the expert, keep (N, K) bool, C)."""
+    (N, K) within the expert, keep (N, K) bool, C, local (N, K): the
+    slot within this rank's choices of the expert, ``slot`` itself with
+    no batch split)."""
     logits = xt.to(torch.float32) @ params["router"].to(torch.float32)
     if logits.shape[-1] != cfg.moe.num_experts:       # router columns split
         logits = parallel.gather(logits, -1)
     return route_logits(logits, cfg)
 
 
+def exclusive_slots(expert_idx: torch.Tensor, E: int):
+    """(the routing one-hots (N*K, E) int64, each choice's count of the
+    earlier choices of its expert in (token, choice) order (N, K)): an
+    exclusive cumulative sum over the one-hots, token-major and
+    choice-minor."""
+    N, K = expert_idx.shape
+    # the one-hots by a compare: ``one_hot`` takes other operators on
+    # each device (the dry-run holds meta and card counts equal)
+    flat = (expert_idx[..., None] == torch.arange(
+        E, device=expert_idx.device)).to(torch.int64).reshape(N * K, E)
+    return flat, ((flat.cumsum(dim=0) - flat) * flat).sum(dim=-1).reshape(
+        N, K)
+
+
 def route_logits(logits: torch.Tensor, cfg):
-    """``routing`` from the router's f32 logits (N, E)."""
+    """``routing`` from the router's f32 logits (N, E).  Under a batch
+    split the routing is the reference's global one (``LOCAL_DISPATCH``
+    off): C is the capacity of the global N, and a choice's slot counts
+    the earlier choices of its expert over the global (token, choice)
+    order, the data ranks before this one included (their per-expert
+    counts all-gathered over the batch axes, an exclusive scan)."""
     m = cfg.moe
     N = logits.shape[0]
     E, K = m.num_experts, m.top_k
-    C = capacity(cfg, N)
+    mesh = sharding.batch_mesh()
+    C = capacity(cfg, N * (mesh.batch_parts if mesh else 1))
     probs = torch.softmax(logits, dim=-1)
     gates, expert_idx = torch.topk(probs, K, dim=-1)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
-    # the one-hots by a compare: ``one_hot`` takes other operators on
-    # each device (the dry-run holds meta and card counts equal)
-    flat = (expert_idx[..., None] == torch.arange(E, device=logits.device)).to(
-        torch.int64).reshape(N * K, E)
-    slot = ((flat.cumsum(dim=0) - flat) * flat).sum(dim=-1).reshape(N, K)
+    flat, local = exclusive_slots(expert_idx, E)
+    slot = local
+    if mesh is not None:
+        counts = mesh.batch_gather(flat.sum(dim=0)[None])
+        slot = local + counts[:mesh.batch_index].sum(dim=0)[expert_idx]
     keep = slot < C
     gates = gates * keep.to(gates.dtype)
-    return probs, expert_idx, gates, slot, keep, C
+    return probs, expert_idx, gates, slot, keep, C, local
 
 
 def moe(params, x: torch.Tensor, cfg):
@@ -146,7 +172,12 @@ def moe(params, x: torch.Tensor, cfg):
     if split:
         ax = parallel.require_axis()
         xt = parallel.copy(xt, ax)
-    probs, expert_idx, gates, slot, keep, C = routing(params, xt, cfg)
+    probs, expert_idx, gates, _, keep, C, slot = routing(params, xt, cfg)
+    mesh = sharding.batch_mesh()
+    if mesh is not None:
+        # this rank's kept choices fill its buffer from 0 (``local``), in
+        # the global order: at most N of its tokens reach one expert
+        C = min(C, N)
 
     # (token, choice) -> its row of this rank's (El*C) buffer, El*C where
     # dropped or another rank's; each row's token (N where empty) and
@@ -186,6 +217,14 @@ def moe(params, x: torch.Tensor, cfg):
     choices = expert_idx.reshape(-1)
     counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
         0, choices, torch.ones_like(choices))
-    frac = counts.to(torch.float32) / (N * K)
-    aux = E * torch.sum(frac * probs.mean(dim=0))
+    if mesh is None:
+        frac = counts.to(torch.float32) / (N * K)
+        aux = E * torch.sum(frac * probs.mean(dim=0))
+    else:
+        # this rank's share of the global aux: the global fractions times
+        # its rows' probabilities over the global N (``train_loss`` sums
+        # the shares over the batch axes)
+        Ng = N * mesh.batch_parts
+        frac = mesh.batch_sum(counts.to(torch.float32)) / (Ng * K)
+        aux = E * torch.sum(frac * probs.sum(dim=0) / Ng)
     return y.reshape(B, S, D), aux

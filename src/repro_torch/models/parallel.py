@@ -27,6 +27,21 @@ join the parts:
             a split dim that every rank's slice then reads (the gated
             RMSNorm's sum of squares over mamba's split ``d_inner``).
 
+FSDP over the ambient ``data`` axis (the plain steps, ``PARAM_RULES``'
+``embed`` on ``data``; ``train.ranks.DataAxis``):
+
+  fsdp_gather  forward an all-gather of a leaf's d_model dim over
+            ``data``, backward a reduce-scatter sum over ``data`` in f32
+            in rank order, keeping this rank's slice: each data rank's
+            rows add their part of the gradient.  A leaf split on both
+            axes (wq's (D / data, H hd / model)) is gathered to its
+            ``model`` shard, which the TP code above then reads; its
+            gradient passes TP's ``copy`` / ``reduce`` backward first,
+            as autograd orders it, then the reduce-scatter;
+  batch_sum  forward a sum over the batch axes (``data``, ``pod``) in
+            rank order, backward the identity: the loss's share of each
+            data rank, whose gradient is each rank's own.
+
 Every sum runs in f32 and is cast back to its operand's dtype.  The
 backward of ``copy`` and ``reduce`` keeps the loss's gradient the same
 bits on every rank of a worker, so the replicated leaves' gradients
@@ -41,7 +56,12 @@ from repro_torch import sharding
 
 def axis():
     """The ambient ``model`` axis, or None outside one."""
-    return sharding.ambient_mesh()
+    return sharding.axis_of(sharding.ambient_mesh(), "model")
+
+
+def data_axis():
+    """The ambient ``data`` axis (above 1), or None."""
+    return sharding.axis_of(sharding.ambient_mesh(), "data")
 
 
 def require_axis():
@@ -117,3 +137,39 @@ def gather(x: torch.Tensor, dim: int, ax=None) -> torch.Tensor:
 def gather_scatter(x: torch.Tensor, dim: int, ax=None) -> torch.Tensor:
     ax = ax or require_axis()
     return _Gather.apply(x, ax, dim % x.dim(), True)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.dtype = ax, dim, x.dtype
+        return ax.gather_dim(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax.reduce_scatter_sum(g, ctx.dim).to(ctx.dtype), None, \
+            None
+
+
+class _BatchSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.batch_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, ax=None) -> torch.Tensor:
+    """The leaf ``x``, this rank's d_model slice along ``dim``, gathered
+    over ``data``; under autograd its gradient is reduce-scattered back."""
+    ax = ax or data_axis()
+    return _FsdpGather.apply(x, ax, dim % x.dim())
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ambient mesh's batch axes (identity
+    without them); its gradient is each rank's own."""
+    mesh = sharding.batch_mesh()
+    return x if mesh is None else _BatchSum.apply(x, mesh)

@@ -25,7 +25,11 @@ reads its slice of norm, so their gradients are partial and go through
 ``parallel.copy``, as the block's input does.  The gated RMSNorm runs
 over the split d_inner: its sum of squares is summed over ``model`` in
 f32 (``layers.rmsnorm``'s ``width``).  One group (n_groups = 1) and
-d_inner split with the heads (``split_error``).  Decode runs unsplit.
+d_inner split with the heads (``split_error``).  Decode splits the same
+way (``mamba_decode_step``).  Under FSDP (the plain steps) the layer's
+d_model dims are gathered over ``data`` before the mixer runs
+(``transformer.fsdp_layer``), so in_* and out arrive as the split
+above reads them; B and C stay whole over ``model``.
 """
 from __future__ import annotations
 
@@ -268,9 +272,20 @@ def _conv_step(x_new: torch.Tensor, conv_cache: torch.Tensor,
 def mamba_decode_step(params, xin: torch.Tensor, cache, cfg):
     """One token.  xin: (B, D); cache: {state, conv_x, conv_B, conv_C} of
     one layer.  Returns (out (B, D), new cache): new tensors, the input
-    cache untouched (a replayed step starts from the same state)."""
-    d_inner, H, G, N = dims(cfg)
+    cache untouched (a replayed step starts from the same state).  Split
+    over the model axis as ``mamba``: conv_x holds this rank's d_inner
+    (``ACT_RULES``' ``ssm_inner``), the state every head (``ACT_RULES``
+    places no ``ssm_heads``): the rank updates its heads' slice and the
+    new state is gathered over ``model``."""
+    ax = None
+    if heads_split(params, cfg):
+        params, ax = _split_view(params, cfg)
+    _, _, G, N = dims(cfg)
+    H, d_inner = params["A_log"].shape[-1], params["in_x"].shape[-1]
     HG = H // G
+    state = cache["state"]
+    if ax is not None:
+        state = state.narrow(1, ax.rank * H, H)
     z = xin @ params["in_z"]
     x, ncx = _conv_step(xin @ params["in_x"], cache["conv_x"],
                         params["conv_x"])
@@ -284,9 +299,11 @@ def mamba_decode_step(params, xin: torch.Tensor, cache, cfg):
     Ch = F.silu(Cp.float()).reshape(-1, G, N).repeat_interleave(HG, dim=1)
     dt = F.softplus(dtp.float() + params["dt_bias"])            # (B, H)
     a = torch.exp(dt * -torch.exp(params["A_log"]))             # (B, H)
-    S = cache["state"] * a[:, :, None, None] + torch.einsum(
+    S = state * a[:, :, None, None] + torch.einsum(
         "bhn,bhp,bh->bhnp", Bh, x, dt)
     y = torch.einsum("bhn,bhnp->bhp", Ch, S) + params["D"][None, :, None] * x
-    out = _gate_out(params, y.reshape(-1, d_inner), z, cfg)
+    out = _gate_out(params, y.reshape(-1, d_inner), z, cfg, ax)
+    if ax is not None:
+        S = ax.gather_dim(S, 1)
     return out, {"state": S, "conv_x": ncx, "conv_B": ncb, "conv_C": ncc}
 

@@ -4,10 +4,13 @@ and Mamba2 mixers; the SwiGLU MLP, the MoE layer or no ffn.
 
 Port of ``repro.models.transformer``.  The reference scans periodic
 layer groups with ``lax.scan`` (and remat); here the layers are a
-Python list run in order.  A ``cross_attn`` layer (llama-3.2-vision)
-attends from the sequence to the context without rope and gates its
-output by tanh(gate_attn); every decoder layer of an encoder-decoder
-model (whisper) has a ``cross`` sub-block after its mixer, ungated.
+Python list run in order; under FSDP (an ambient ``data`` axis, the
+plain steps of ``train.pjit_step``) each layer gathers its leaves'
+d_model dims just before it runs (``fsdp_layer``).  A ``cross_attn``
+layer (llama-3.2-vision) attends from the sequence to the context
+without rope and gates its output by tanh(gate_attn); every decoder
+layer of an encoder-decoder model (whisper) has a ``cross`` sub-block
+after its mixer, ungated.
 
 Under ``cfg.remat``, when autograd records, each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
@@ -29,6 +32,7 @@ from repro_torch.configs.base import LayerKind, ModelConfig, layer_kinds
 from repro_torch.core import tree as _tree
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, rmsnorm
 
@@ -154,13 +158,36 @@ def apply_ffn(kind: LayerKind, p, x: torch.Tensor, cfg: ModelConfig):
     return x + f, aux
 
 
+def fsdp_layer(kind: LayerKind, p, x: torch.Tensor, cfg: ModelConfig,
+               **kw):
+    """``apply_layer`` on a layer whose leaves are FSDP shards over the
+    ambient ``data`` axis: each leaf's d_model dim gathered just before
+    the layer (``model.fsdp_view``), the gathered weights dropped when
+    it returns.
+
+    Under autograd a product saves its weight operand, which would keep
+    every layer's gathered weights alive until the backward and undo
+    FSDP's memory.  So ``run_stack`` checkpoints this function, gather
+    included, whenever autograd records under FSDP, ``cfg.remat`` or
+    not: the forward keeps only the shards and the layer's input, and
+    the backward gathers the layer's weights again in the recompute,
+    then reduce-scatters their gradients (``parallel.fsdp_gather``).
+    That reuses the checkpoint the stack already has and needs no hooks
+    on saved tensors; its cost is the recompute, which remat pays
+    anyway."""
+    from repro_torch.models.model import fsdp_view
+
+    return apply_layer(kind, fsdp_view(p, cfg), x, cfg, **kw)
+
+
 def remat_active(cfg: ModelConfig, layers, x: torch.Tensor,
                  ctx: torch.Tensor | None = None) -> bool:
-    """Whether ``run_stack`` checkpoints its layers: ``cfg.remat`` and
-    autograd recording through the stack (grad enabled and the input,
-    the context or a layer's parameter requiring grad), so serving and
-    a forward under ``no_grad`` run as before."""
-    if not (cfg.remat and torch.is_grad_enabled()):
+    """Whether ``run_stack`` checkpoints its layers: ``cfg.remat`` (or
+    FSDP, below) and autograd recording through the stack (grad enabled
+    and the input, the context or a layer's parameter requiring grad),
+    so serving and a forward under ``no_grad`` run as before."""
+    fsdp = parallel.data_axis() is not None
+    if not ((cfg.remat or fsdp) and torch.is_grad_enabled()):
         return False
     if x.requires_grad or (ctx is not None and ctx.requires_grad):
         return True
@@ -178,16 +205,17 @@ def run_stack(layers, x: torch.Tensor, cfg: ModelConfig, *,
     kv_all = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat_active(cfg, layers, x, ctx)
+    layer = fsdp_layer if parallel.data_axis() is not None else apply_layer
     for kind, p in zip(layer_kinds(cfg) if kinds is None else kinds, layers):
         kw = dict(positions=positions, ctx=ctx, causal=causal,
                   collect_kv=collect_kv, impl=impl)
         if remat:
             # the forward draws no random numbers: no RNG state to keep
-            x, kv, aux = checkpoint(apply_layer, kind, p, x, cfg,
+            x, kv, aux = checkpoint(layer, kind, p, x, cfg,
                                     use_reentrant=False,
                                     preserve_rng_state=False, **kw)
         else:
-            x, kv, aux = apply_layer(kind, p, x, cfg, **kw)
+            x, kv, aux = layer(kind, p, x, cfg, **kw)
         if kv is not None:
             kv_all.append(kv)
         if aux is not None:

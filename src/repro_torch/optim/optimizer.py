@@ -73,20 +73,42 @@ def init_opt_state(opt: OptConfig, params):
 
 def global_norm(grads, axis=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares.
-    ``axis``: the worker's model axis when the leaves are its shards
-    (``axis.placements``): the split leaves' squares summed over it,
-    each replicated leaf's counted once."""
+    ``axis``: the mesh the leaves are shards on, with each leaf's
+    ``placements``: the worker's model axis (a ``train.ranks.ModelAxis``)
+    or the plain steps' ``train.ranks.StepMesh``.  Each leaf's squares
+    are summed over exactly the axes it is split on, so every element
+    counts once: the leaves are grouped by those axes, each group's sum
+    reduced over them (``model`` by ``all_reduce_sum``, ``data`` in rank
+    order), the groups added in a fixed order, the replicated leaves
+    last; every rank reads the same bits."""
     sq = [g.to(torch.float32).square().sum() for g in tree.leaves(grads)]
     if axis is None:
         return torch.sqrt(torch.stack(sq).sum())
-    split = [s for s, pl in zip(sq, axis.placements) if pl.sharded]
-    whole = [s for s, pl in zip(sq, axis.placements) if not pl.sharded]
-    total = torch.stack(split).sum().reshape(1) if split else \
-        torch.zeros(1, dtype=torch.float32, device=sq[0].device)
-    axis.all_reduce_sum(total)
-    if whole:
-        total = total + torch.stack(whole).sum()
+    groups: dict[tuple, list] = {}
+    for s, pl in zip(sq, axis.placements):
+        groups.setdefault(tuple(sorted(pl.split_axes)), []).append(s)
+    total = None
+    for names in sorted(n for n in groups if n):
+        part = torch.stack(groups[names]).sum().reshape(1)
+        for name in names:
+            part = _sum_over(axis, name, part)
+        total = part if total is None else total + part
+    if total is None:
+        total = torch.zeros(1, dtype=torch.float32, device=sq[0].device)
+    if () in groups:
+        total = total + torch.stack(groups[()]).sum()
     return torch.sqrt(total[0])
+
+
+def _sum_over(axis, name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over mesh axis ``name`` of ``axis`` (a one-axis
+    ``Ranks`` or a ``StepMesh``)."""
+    from repro_torch.sharding import axis_of
+
+    ax = axis_of(axis, name)
+    if hasattr(ax, "all_reduce_ordered"):
+        return ax.all_reduce_ordered(t)
+    return ax.all_reduce_sum(t)
 
 
 @torch.no_grad()

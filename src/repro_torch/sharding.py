@@ -30,8 +30,15 @@ Inside a worker the model code reads the ambient ``model`` axis: a
 this rank's coordinate and its collectives), ``ambient_mesh`` reads
 it, and ``constrain`` / ``constrain_here``
 check that a local activation has the shard shape its logical names
-give under ``ACT_RULES``.  The reference's ``with_sharding_constraint``
-places an array; here every rank computes its shard explicitly, so the
+give under ``ACT_RULES``.  The plain steps (``train.pjit_step``) run on
+a rank of a (``pod``,) ``data``, ``model`` mesh with the parameters
+placed by ``PARAM_RULES`` as they stand (d_model on ``data`` beside
+the ``model`` dims, so a leaf may be split on two dims) and install a
+``train.ranks.StepMesh``, which holds every axis (``axis_of``); the
+batch is split over ``BATCH_AXES``, and the model code passes the
+global batch (``batch_rows``) to the checks.  The reference's
+``with_sharding_constraint`` places an array; here every rank computes
+its shard explicitly, so the
 constraint is a check that raises on a wrong shape, and outside a mesh
 context ``constrain_here`` is a no-op, as in the reference.
 
@@ -197,6 +204,10 @@ ACT_RULES: dict[str, Any] = {
 FORCE_SHARD = {"heads_forced"}
 
 
+#: the mesh axes that carry the batch, in the order its shards lie
+BATCH_AXES = ("pod", "data")
+
+
 def tp_only_rules() -> dict[str, Any]:
     """The trainer's rules: ``PARAM_RULES`` with ``embed`` replicated, so
     the parameters are replicated over the worker (data) axes and every
@@ -286,12 +297,16 @@ class Annotated:
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """One leaf on one rank: the full ``shape``, the shards of each dim
-    (``parts``, from ``spec_for``'s placement) and this rank's shard of
-    each (``index``)."""
+    (``parts``, from ``spec_for``'s placement), this rank's shard of
+    each (``index``) and the mesh axes each dim is split over
+    (``axes``).  Under ``PARAM_RULES`` a leaf may be split on two dims:
+    d_model over ``data`` (FSDP) and heads, kv, ffn, vocab or experts
+    over ``model``; its local block is then 2-d."""
 
     shape: tuple[int, ...]
     parts: tuple[int, ...]
     index: tuple[int, ...]
+    axes: tuple[tuple[str, ...], ...] = ()
 
     @property
     def local_shape(self) -> tuple[int, ...]:
@@ -310,6 +325,19 @@ class Placement:
             raise ValueError(f"a leaf split on dims {dims}: the port "
                              f"splits at most one dim of a leaf")
         return dims[0] if dims else None
+
+    def dim_on(self, axis: str) -> int | None:
+        """The dim split over mesh axis ``axis`` (None when none is)."""
+        for i, (p, names) in enumerate(zip(self.parts, self.axes)):
+            if p > 1 and axis in names:
+                return i
+        return None
+
+    @property
+    def split_axes(self) -> tuple[str, ...]:
+        """The mesh axes the leaf is split over, in dim order."""
+        return tuple(a for p, names in zip(self.parts, self.axes)
+                     if p > 1 for a in names)
 
     @property
     def slices(self) -> tuple[slice, ...]:
@@ -341,6 +369,8 @@ def tree_specs(annotated_tree, mesh, rules=None):
 def mesh_coordinate(mesh) -> dict[str, int]:
     """This rank's coordinate on each axis of a ``DeviceMesh`` (zeros on
     a ``MeshShape``, which holds no rank)."""
+    if hasattr(mesh, "coords"):           # a train.ranks.StepMesh
+        return dict(mesh.coords)
     names = tuple(mesh.axis_names if isinstance(mesh, MeshShape)
                   else mesh.mesh_dim_names)
     if isinstance(mesh, MeshShape):
@@ -363,7 +393,8 @@ def placement_of(a: Annotated, mesh, rules=None,
             p, i = p * sizes[ax], i * sizes[ax] + int(coords.get(ax, 0))
         parts.append(p)
         index.append(i)
-    return Placement(tuple(a.shape), tuple(parts), tuple(index))
+    return Placement(tuple(a.shape), tuple(parts), tuple(index),
+                     tuple(_axes(e) for e in spec))
 
 
 def tree_shardings(annotated_tree, mesh, rules=None, coords=None):
@@ -414,6 +445,37 @@ def set_mesh(mesh):
 def ambient_mesh():
     """The ambient mesh, or None when no mesh is installed."""
     return _AMBIENT[-1] if _AMBIENT else None
+
+
+def axis_of(mesh, name: str):
+    """The object that runs mesh axis ``name``'s collectives: a step
+    mesh's (``train.ranks.StepMesh``, which holds one a named axis) or
+    the mesh itself when it is one axis (a ``ModelAxis``); None when the
+    mesh has no such axis or no mesh is given."""
+    if mesh is None:
+        return None
+    if hasattr(mesh, "axes"):
+        return mesh.axes.get(name)
+    return mesh if name in mesh.shape else None
+
+
+def batch_mesh():
+    """The ambient mesh when it splits the batch (a step mesh with a
+    ``pod`` or ``data`` axis above 1), else None."""
+    mesh = ambient_mesh()
+    return mesh if getattr(mesh, "batch_axes", ()) else None
+
+
+def batch_rows(n: int, mesh=None) -> int:
+    """The global batch of ``n`` local rows: ``n`` times the sizes of
+    the batch axes (``BATCH_AXES``) of ``mesh`` (default: the ambient
+    one); the full shape that ``constrain_here`` checks a local
+    activation against."""
+    mesh = ambient_mesh() if mesh is None else mesh
+    if mesh is None:
+        return n
+    sizes = mesh_axis_sizes(mesh)
+    return n * math.prod(sizes.get(a, 1) for a in BATCH_AXES)
 
 
 def _local_of(full: Sequence[int], spec: tuple, sizes) -> tuple[int, ...]:

@@ -32,6 +32,12 @@ ambient mesh (``sharding.set_mesh``) for its collectives:
   all_reduce_max   the vote's relative differences, the CE's row max;
   all_gather_rows  the router's logits, kv columns.
 
+The plain steps (``train.pjit_step``) run on a ``StepMesh`` instead: a
+rank of a (``pod``,) ``data``, ``model`` mesh with every axis's
+collectives, ``DataAxis`` for the batch axes (FSDP over ``data``: the
+all-gather of a leaf's d_model dim and the reduce-scatter of its
+gradient, both in rank order) and ``ModelAxis`` for ``model``.
+
 Backends are named at init (``init``): ``nccl`` for one rank per card,
 ``gloo`` on the CPU.  Two ranks sharing one card run gloo on CUDA
 tensors; PyTorch's backend table lists only ``broadcast`` and
@@ -137,8 +143,8 @@ class Ranks:
         self.backend = dist.get_backend(group)
         self.device = torch.device(device)
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
-        self.counts = {"all_reduce": 0, "all_gather": 0, "bytes": 0,
-                       "staged_bytes": 0}
+        self.counts = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0,
+                       "bytes": 0, "staged_bytes": 0}
         self.disagree: torch.Tensor | None = None
         self.model: ModelAxis | None = None
         self.mesh = None
@@ -209,6 +215,13 @@ class Ranks:
         self._count("all_gather", out)
         return out
 
+    def gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in rank order."""
+        rows = self.all_gather_rows(t.movedim(dim, 0).contiguous())
+        parts = rows.reshape((self.world, t.shape[dim]) + tuple(
+            rows.shape[1:]))
+        return parts.reshape((-1,) + tuple(parts.shape[2:])).movedim(0, dim)
+
     def barrier(self) -> None:
         if self.backend == "nccl":
             dist.barrier(group=self.group, device_ids=[self.device.index])
@@ -243,9 +256,150 @@ class ModelAxis(Ranks):
     def shape(self) -> dict[str, int]:
         return {"model": self.world}
 
-    def gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along ``dim`` in rank order."""
-        rows = self.all_gather_rows(t.movedim(dim, 0).contiguous())
-        parts = rows.reshape((self.world, t.shape[dim]) + tuple(
-            rows.shape[1:]))
-        return parts.reshape((-1,) + tuple(parts.shape[2:])).movedim(0, dim)
+
+class DataAxis(Ranks):
+    """A batch axis of the plain steps: ``data``, whose ranks hold one
+    FSDP shard each of every leaf's d_model dim, or ``pod`` (pure data
+    parallelism).  Beside ``Ranks``' collectives:
+
+      reduce_scatter_sum  this rank's slice of the sum of every rank's
+                          tensor, in f32, added in rank order (an
+                          all-to-all of the slices, then the sums), so
+                          it has the same bits on any backend and run;
+      all_reduce_ordered  the sum in f32 in rank order, the same bits on
+                          every rank (``reduce_scatter_sum``, then an
+                          all-gather of the summed slices).
+    """
+
+    def __init__(self, group, device, axis: str = "data"):
+        super().__init__(group, device)
+        self.axis = axis
+
+    def _all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        """(W, ...) with slice j for rank j -> (W, ...) with rank i's
+        slice for this rank at i."""
+        with _account.collective(self.axis, self.world):
+            if self.staged:
+                with _account.staging():
+                    src = send.cpu()
+                out = torch.empty_like(src)
+                dist.all_to_all_single(out, src, group=self.group)
+                self.counts["staged_bytes"] += 2 * _nbytes(src)
+                with _account.staging():
+                    out = out.to(self.device)
+            else:
+                out = torch.empty_like(send)
+                dist.all_to_all_single(out, send, group=self.group)
+        self._count("all_to_all", out)
+        return out
+
+    def reduce_scatter_sum(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the ranks of ``t``, this rank's 1/W slice along
+        ``dim``, in f32: each rank's slice summed in rank order."""
+        W = self.world
+        n = t.shape[dim] // W
+        if n * W != t.shape[dim]:
+            raise ValueError(f"{W} ranks do not divide dim {dim} of "
+                             f"{tuple(t.shape)}")
+        moved = t.movedim(dim, 0)
+        send = moved.reshape((W, n) + tuple(moved.shape[1:])).to(
+            torch.float32).contiguous()
+        parts = self._all_to_all(send)
+        out = parts[0]
+        for i in range(1, W):
+            out = out + parts[i]
+        return out.movedim(0, dim)
+
+    def all_reduce_ordered(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of ``t`` in f32, added in rank order and
+        the same bits on every rank; a new tensor of ``t``'s dtype."""
+        flat = t.reshape(-1).to(torch.float32)
+        pad = -flat.numel() % self.world
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        part = self.reduce_scatter_sum(flat, 0)
+        full = self.all_gather_rows(part)[:t.numel()]
+        return full.reshape(t.shape).to(t.dtype)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class StepMesh:
+    """A rank's place on the plain steps' mesh (``pod``, ``data``,
+    ``model``; ``launch.mesh.make_step_mesh``): the ambient mesh of the
+    model code under ``pjit_step`` (``sharding.set_mesh``).  ``shape``
+    holds every axis's size and ``axes`` the collectives of each axis
+    above 1 (``ModelAxis`` for ``model``, ``DataAxis`` for ``data`` and
+    ``pod``); ``sharding.axis_of`` reads them.  The batch is split over
+    ``sharding.BATCH_AXES``, rank ``pod * data_size + data`` holding
+    the ``batch_index``-th block of rows.  ``placements`` is each
+    parameter leaf's ``sharding.Placement`` on this rank (the optimizer's
+    norm reads them)."""
+
+    def __init__(self, mesh, device):
+        from repro_torch.sharding import BATCH_AXES, mesh_coordinate
+
+        self.mesh = mesh
+        self.device = torch.device(device)
+        self.shape = {n: int(s) for n, s in zip(mesh.mesh_dim_names,
+                                                mesh.shape)}
+        self.coords = mesh_coordinate(mesh)
+        self.axes: dict[str, Ranks] = {}
+        for name, size in self.shape.items():
+            if size > 1:
+                group = mesh.get_group(name)
+                self.axes[name] = ModelAxis(group, device) \
+                    if name == "model" else DataAxis(group, device, name)
+        self.model = self.axes.get("model")
+        self.batch_axes = tuple(a for a in BATCH_AXES if a in self.axes)
+        self.batch_parts = 1
+        self.batch_index = 0
+        for a in BATCH_AXES:
+            size = self.shape.get(a, 1)
+            self.batch_parts *= size
+            self.batch_index = self.batch_index * size + self.coords.get(a, 0)
+        self.placements = None
+
+    @property
+    def world(self) -> int:
+        n = 1
+        for s in self.shape.values():
+            n *= s
+        return n
+
+    def local_rows(self, x):
+        """This rank's block of rows of a global-batch tensor (dim 0)."""
+        x = torch.as_tensor(x)
+        n = x.shape[0] // self.batch_parts
+        if n * self.batch_parts != x.shape[0]:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"over {self.batch_parts} batch shards")
+        return x[self.batch_index * n:(self.batch_index + 1) * n]
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the batch axes (``data``, then ``pod``),
+        in f32, in rank order; the same bits on every rank."""
+        for a in ("data", "pod"):
+            if a in self.axes:
+                t = self.axes[a].all_reduce_ordered(t)
+        return t
+
+    def batch_gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows in global batch order."""
+        for a in ("data", "pod"):
+            if a in self.axes:
+                rows = self.axes[a].all_gather_rows(rows)
+        return rows
+
+    def full_logits(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
+        """Local logits (rows, V / model) of a vocab of ``vocab`` -> the
+        global (B, V) on every rank: the vocab gathered over ``model``
+        where it is split, the rows over the batch axes."""
+        if logits.shape[-1] != vocab:
+            logits = self.model.gather_dim(logits, -1)
+        return self.batch_gather(logits)
+
+    def counts(self) -> dict:
+        return {a: dict(ax.counts) for a, ax in self.axes.items()}

@@ -1449,3 +1449,78 @@ def test_kernel_on_a_card_that_is_not_current(cuda, name):
         assert torch.equal(a.cpu(), c.cpu())
         tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-3
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def _fsdp_rank(rank, world, port, out):
+    """One of two gloo ranks sharing the card as a data axis of 2: a
+    leaf's shard gathered (``parallel.fsdp_gather``) and its gradient
+    reduce-scattered, twice; an ordered all-reduce."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_step_mesh
+    from repro_torch.models import parallel
+    from repro_torch.sharding import set_mesh
+    from repro_torch.train import ranks as R
+
+    dev = R.rank_device("gloo", "cuda", rank)
+    R.init("gloo", rank, world, init_method=f"tcp://localhost:{port}",
+           device=dev, timeout_s=120)
+    mesh = R.StepMesh(make_step_mesh(world, 1, device_type="cuda"), dev)
+    g = torch.Generator(device=dev).manual_seed(rank)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = []
+        for _ in range(2):
+            shard = torch.randn(96, 1000, generator=torch.Generator(
+                device=dev).manual_seed(10 + rank), device=dev).to(dtype)
+            grad = torch.randn(96, 2000, generator=torch.Generator(
+                device=dev).manual_seed(20 + rank), device=dev).to(dtype)
+            leaf = shard.requires_grad_()
+            with set_mesh(mesh):
+                full = parallel.fsdp_gather(leaf, 1)
+            full.backward(grad)
+            runs.append((full.detach().cpu(), leaf.grad.cpu()))
+        res[str(dtype)] = runs
+    t = torch.randn(12345, generator=g, device=dev)
+    res["ordered"] = mesh.axes["data"].all_reduce_ordered(t).cpu()
+    res["staged"] = mesh.axes["data"].staged
+    res["counts"] = mesh.counts()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def test_fsdp_gather_and_reduce_scatter_on_one_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card (operands staged through host
+    memory) on a data axis of 2: ``fsdp_gather``'s forward is both
+    shards side by side along the leaf's d_model dim, its backward each
+    rank's slice of the two gradients summed in f32 (rank 0's first)
+    and cast to the leaf's dtype, bitwise on a rerun, in f32 and bf16;
+    ``all_reduce_ordered`` gives both ranks the same bits, the f32 sum
+    in rank order."""
+    from repro_torch.launch.train import free_port, start_ranks
+
+    start_ranks(_fsdp_rank, (2, free_port(), str(tmp_path)), 2)
+    r = [torch.load(tmp_path / f"rank{i}.pt") for i in range(2)]
+
+    def draw(seed, cols, dtype):
+        return torch.randn(96, cols, generator=torch.Generator(
+            device=cuda).manual_seed(seed), device=cuda).to(dtype).cpu()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        shards = [draw(10 + i, 1000, dtype) for i in range(2)]
+        grads = [draw(20 + i, 2000, dtype) for i in range(2)]
+        whole = torch.cat(shards, 1)
+        summed = (grads[0].float() + grads[1].float()).to(dtype)
+        for i in range(2):
+            (f0, g0), (f1, g1) = r[i][str(dtype)]
+            assert torch.equal(f0, whole) and torch.equal(f1, whole)
+            assert torch.equal(g0, g1)
+            assert torch.equal(g0, summed[:, i * 1000:(i + 1) * 1000])
+    assert torch.equal(r[0]["ordered"], r[1]["ordered"])
+    ts = [torch.randn(12345, generator=torch.Generator(
+        device=cuda).manual_seed(i), device=cuda).cpu() for i in range(2)]
+    assert torch.equal(r[0]["ordered"], ts[0] + ts[1])
+    assert all(x["staged"] and x["counts"]["data"]["all_to_all"] > 0 and
+               x["counts"]["data"]["staged_bytes"] > 0 for x in r)

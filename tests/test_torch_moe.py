@@ -110,7 +110,7 @@ def test_routing_is_exact(name, cf, label):
     jp, tp = _params(name)
     xt = _inputs(3, 32).reshape(-1, D)
     probs, idx, slot, keep = _jax_routing(jp, jnp.asarray(xt), jc)
-    t_probs, t_idx, t_gates, t_slot, t_keep, C = moe.routing(
+    t_probs, t_idx, t_gates, t_slot, t_keep, C, _ = moe.routing(
         tp, torch.from_numpy(xt), tc)
     K = tc.moe.top_k
     srt = np.sort(np.asarray(probs), axis=-1)[:, ::-1]
@@ -208,7 +208,7 @@ def test_gather_backward_equals_advanced_indexing():
     _, tc = _cfgs(ARCHS[0], 0.5)
     _, tp = _params(ARCHS[0])
     x = torch.from_numpy(_inputs(3, 32, seed=4)).reshape(-1, D)
-    _, idx, _, slot, keep, C = moe.routing(tp, x, tc)
+    _, idx, _, slot, keep, C, _ = moe.routing(tp, x, tc)
     N, K, E = x.shape[0], tc.moe.top_k, tc.moe.num_experts
     dest = torch.where(keep, idx * C + slot, E * C).reshape(-1)
     src = torch.full((E * C + 1,), N * K).scatter_(
