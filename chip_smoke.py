@@ -170,7 +170,21 @@ Phases, in order; any failed check exits nonzero:
      trace of the same rank (FLOPs, bytes, collectives by axis) and
      each rank's allocator peak within 1% of it; K6 at a rank's shape
      beside SDPA; ``scripts/chip_phases.py fsdp`` runs ``FSDP_CARDS``
-     on four cards;
+     on four cards (its bf16 llama and phi 2 x 2 cells held to their
+     float32 one-process run, ``FSDP_ANCHORED``);
+   - ``long_500k``'s decode (``phase_long_decode``, ``LONG_DECODE``):
+     gemma3-1b at full width, two gloo ranks sharing the card at data
+     2, batch 1 on both, each holding half of a 524,288-position KV
+     cache filled from the seed (keys scaled so that a softmax over
+     them is peaked), three greedy steps across the block boundary fed
+     the one-process run's tokens, against the one-process decode on
+     the same cache (logits within 3e-2 * (1 + max|logits|), tokens
+     held, ranks bitwise), a global layers' combine that leaves out
+     rank 0's P.V partial as the planted control (it must fail),
+     rank 0's first step counted on the card equal to the dry-run's
+     meta trace at the same position and each rank's peak within 1%
+     of it; ``scripts/chip_phases.py long`` runs ``LONG_CARDS`` on four
+     cards;
    - the launch tools (``phase_dryrun``, ``DRYRUN``): llama3.2-1b's
      plain train (16 x 256, AdamW), prefill (4 x 4096) and decode (one
      token against a 4 x 4128 cache) steps at full width, each traced
@@ -4918,6 +4932,41 @@ FSDP_CARDS = (
      dict(FSDP, arch="phi3.5-moe-42b-a6.6b", layers=1, steps=3, decode=8,
           model=2, dtype="float32"), "one"))
 FSDP_F32_CELLS = tuple(c[0] for c in FSDP_CARDS if c[1].get("dtype"))
+# FSDP_ANCHORED: the two bf16 cells whose split lies a rounding's width
+# from the one-process run (llama's wk update 0.1065 of it, limit
+# RANKS_UPDATE_REL; phi's losses 2.5e-4, limit TP_LOSS_REL, logits 3.0x
+# the limit), while their float32 cells meet those gates by orders of
+# magnitude.  The one-process run with the split's rounding emulated and
+# nothing split (``scripts/chip_phases.py fsdp_round``: each weight
+# gradient formed from the data parts' partials, each rounded to bf16,
+# summed in f32, rounded again; the model axis's partial products and
+# input gradients rounded likewise, ``model_halves``) reads llama's
+# updates at 0.095-0.106 on every matrix (its split 0.095-0.107) and
+# phi's logits at 2.98x (its split 3.0x), its losses 5.2e-4; at data 4
+# (data only, each part's forward at a rank's shapes) 0.0667 against
+# the split's 0.0663: the misses are bf16 rounding (PERF.md section 6).
+# These cells are held to their one-process run in float32 instead
+# (``fsdp_one(..., f32=True)``: from the bf16 initial parameters cast to
+# f32, the routing replayed, the decode fed the same tokens), each
+# measure no farther from it than the one-process bf16 run's by a
+# margin, and each with a planted control that must fail it:
+#   updates  per leaf ||x - f32|| / ||f32 - init||, margin TP_F32_MARGIN
+#            (TP_F32_ANCHORED's); plant: the split less the one-process
+#            run's last update (``anchored_updates``);
+#   losses   per step |x - f32| / |f32|, margin FSDP_F32_LOSS_MARGIN;
+#            plant: the split run whose reduce-scatter drops a data
+#            rank's partial (``dropped_partial``, ``anchored_losses``);
+#   logits   per prefill / decode step the largest error over
+#            FSDP_LOGITS_REL * (1 + max|f32 logits|), margin
+#            FSDP_F32_LOGITS_MARGIN; the same plant (``anchored_logits``).
+# The emulated split's excess read <= 0.0026 (updates), 5.5e-6
+# (losses) and 0.26 (logits), its plants' >= 0.19, 0.023 and 17: the
+# margins lie between, a factor >= 3.8 from each side.  The tokens are
+# held to the one-process run's as in every cell.
+FSDP_ANCHORED = ("llama3.2-1b data 2 x model 2",
+                 "phi3.5-moe 1 layer data 2 x model 2")
+FSDP_F32_LOSS_MARGIN = 1e-3
+FSDP_F32_LOGITS_MARGIN = 1.0
 # the limits: against the one-process run TP_LIMITS["one"] (the losses
 # within TP_LOSS_REL, each leaf's update within RANKS_UPDATE_REL of the
 # one-process update); against the plain versions' split run
@@ -4993,11 +5042,18 @@ def fsdp_serve(torch, cfg, spec, params, tokens, prefill, decode,
     return first.cpu(), steps, inputs
 
 
-def fsdp_one(torch, spec, tape=None) -> dict:
+def fsdp_one(torch, spec, tape=None, *, replay: bool = False,
+             make_step=None, f32: bool = False, forced=None,
+             keep_last: bool = False) -> dict:
     """The cell's steps in one process on the card (``pjit_step`` with no
     mesh): history, walls, K6 launches, initial and final parameters
-    (CPU), the prefill's and the greedy decode's logits and input
-    tokens.  The MoE routing is recorded on ``tape``."""
+    (CPU), the prefill's and the decode's logits and input tokens
+    (greedy, or fed ``forced``).  The MoE routing is recorded on
+    ``tape``, or replayed from it (``replay``).  ``make_step`` replaces
+    ``pjit_step.make_train_step``; ``f32`` runs the config in float32
+    from the bf16 run's initial parameters cast to f32 (exact);
+    ``keep_last`` also returns the parameters before the last step
+    (``prev``, CPU)."""
     import gc
 
     from repro_torch.core import tree
@@ -5009,14 +5065,21 @@ def fsdp_one(torch, spec, tape=None) -> dict:
     dev = torch.device("cuda")
     cfg, opt = cell_cfg(spec), fsdp_opt()
     params = M.init_train(cfg, spec["seed"], dev)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = tree.tree_map(lambda x: x.float(), params)
     init = [t.to("cpu", copy=True) for t in tree.leaves(params)]
     state = init_opt_state(opt, params)
     tokens, labels = fsdp_batch(torch, cfg, spec, dev)
-    step = pjit_step.make_train_step(cfg, opt)
-    hist, walls = [], []
-    with contextlib.nullcontext() if tape is None else tape.record():
+    step = (make_step or pjit_step.make_train_step)(cfg, opt)
+    hist, walls, prev = [], [], None
+    routed = contextlib.nullcontext() if tape is None else (
+        tape.replay() if replay else tape.record())
+    with routed:
         ops.reset_launch_counts()
         for i in range(spec["steps"]):
+            if keep_last and i == spec["steps"] - 1:
+                prev = [t.to("cpu", copy=True) for t in tree.leaves(params)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, state, m = step(params, state, {"tokens": tokens,
@@ -5032,14 +5095,139 @@ def fsdp_one(torch, spec, tape=None) -> dict:
             serve = fsdp_serve(torch, cfg, spec, params, tokens,
                                pjit_step.make_prefill_step(cfg),
                                pjit_step.make_decode_step(cfg),
-                               lambda x: x, lambda x: x)
+                               lambda x: x, lambda x: x, forced)
         launches = ops.launch_counts()
     out = dict(history=hist, walls=walls, launches=launches, init=init,
-               final=[t.cpu() for t in tree.leaves(params)], serve=serve)
+               final=[t.cpu() for t in tree.leaves(params)], serve=serve,
+               prev=prev)
     del params, tokens, labels
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def anchored_updates(sums) -> dict:
+    """FSDP_ANCHORED's update measure from per-leaf squared norms, each
+    summed over the ranks' blocks (``fsdp_anchor_sums``): [||split -
+    f32||^2, ||one - f32||^2, ||plant - f32||^2, ||f32 - init||^2], with
+    ``plant`` the split's leaves less the one-process run's last update.
+    Over the leaves the f32 run moves, rel(x) = ||x - f32|| / ||f32 -
+    init||; the split passes where rel(split) <= rel(one) +
+    TP_F32_MARGIN on every leaf, and the plant must not."""
+    excess, planted = [], []
+    for a, b, c, m in sums:
+        if m:
+            excess.append(math.sqrt(a / m) - math.sqrt(b / m))
+            planted.append(math.sqrt(c / m) - math.sqrt(b / m))
+    return dict(excess=excess, excess_max=max(excess),
+                planted_excess_max=max(planted),
+                passed=max(excess) <= TP_F32_MARGIN,
+                planted_caught=max(planted) > TP_F32_MARGIN)
+
+
+def anchored_losses(split, one, f32, plant) -> dict:
+    """FSDP_ANCHORED's loss measure over the train steps' losses (lists
+    of floats): per step d(x) = |x - f32| / |f32|; the split passes where
+    d(split) <= d(one) + FSDP_F32_LOSS_MARGIN at every step, and the
+    plant (the split run whose reduce-scatter drops a data rank's
+    partial, ``dropped_partial``) must not."""
+    def ex(xs):
+        return max((abs(x - c) - abs(o - c)) / abs(c)
+                   for x, o, c in zip(xs, one, f32))
+
+    e, pe = ex(split), ex(plant)
+    return dict(excess_max=e, planted_excess_max=pe,
+                passed=e <= FSDP_F32_LOSS_MARGIN,
+                planted_caught=pe > FSDP_F32_LOSS_MARGIN)
+
+
+def anchored_logits(split, one, f32, plant) -> dict:
+    """FSDP_ANCHORED's logits measure over ``fsdp_serve``'s prefill and
+    decode logits: per step the largest error from the f32 run's logits
+    over FSDP_LOGITS_REL * (1 + max|f32 logits|) (``serve_measure``);
+    the split passes where its error exceeds the one-process bf16 run's
+    by at most FSDP_F32_LOGITS_MARGIN at every step, and the plant must
+    not."""
+    def errs(serve):
+        return [logits_err(a, b) for a, b in zip(
+            [serve[0]] + list(serve[1]), [f32[0]] + list(f32[1]))]
+
+    base = errs(one)
+    e = max(x - y for x, y in zip(errs(split), base))
+    pe = max(x - y for x, y in zip(errs(plant), base))
+    return dict(excess_max=e, planted_excess_max=pe,
+                passed=e <= FSDP_F32_LOGITS_MARGIN,
+                planted_caught=pe > FSDP_F32_LOGITS_MARGIN)
+
+
+@contextlib.contextmanager
+def dropped_partial():
+    """The planted fault of FSDP_ANCHORED's losses and logits: the
+    reduce-scatter of every FSDP leaf's gradient leaves out the last
+    data rank's partial (that rank sends zeros), as a split that lost
+    one rank's share of the batch would."""
+    import torch
+
+    from repro_torch.models import parallel
+
+    real = parallel._FsdpGather.backward
+
+    def backward(ctx, g):
+        if ctx.ax.rank == ctx.ax.world - 1:
+            g = torch.zeros_like(g)
+        return real(ctx, g)
+
+    parallel._FsdpGather.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        parallel._FsdpGather.backward = staticmethod(real)
+
+
+def logits_err(got, ref) -> float:
+    """The largest error of logits ``got`` from ``ref`` over
+    FSDP_LOGITS_REL * (1 + max|ref|)."""
+    return float((got - ref).abs().max()) / (
+        FSDP_LOGITS_REL * (1 + float(ref.abs().max())))
+
+
+def serve_measure(serve, ref_serve) -> dict:
+    """``fsdp_serve``'s prefill and decode logits against a reference
+    run's: the largest error over FSDP_LOGITS_REL * (1 + max|ref|)
+    (``logits_err_over_tol``), and the tokens held, equal wherever the
+    reference's top-2 margin exceeds twice the error, of all."""
+    (first, steps, _), (rfirst, rsteps, _) = serve, ref_serve
+    errs, held, total = [], 0, 0
+    for got, ref_lg in zip([first] + list(steps), [rfirst] + list(rsteps)):
+        err = float((got - ref_lg).abs().max())
+        errs.append(logits_err(got, ref_lg))
+        top = ref_lg.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > 2 * err
+        same = got.argmax(-1) == ref_lg.argmax(-1)
+        held += int((same | ~clear).sum())
+        total += same.numel()
+    return dict(logits_err_over_tol=max(errs), tokens_held=held,
+                tokens=total)
+
+
+def fsdp_anchor_sums(torch, mesh, init, final, one, prev, f32) -> list:
+    """Per leaf [||split - f32||^2, ||one - f32||^2, ||plant - f32||^2,
+    ||f32 - init||^2] over the mesh from each rank's blocks (CPU
+    tensors; ``anchored_updates``): ``plant`` the split's leaves less the
+    one-process run's last update (one - prev); the squares summed over
+    every rank, as ``fsdp_leaf_diffs`` sums them."""
+    import torch.distributed as dist
+
+    rows = []
+    for xs in zip(init, final, one, prev, f32):
+        p0, a, b, b0, c = (t.to(mesh.device).float() for t in xs)
+        rows.append([float((a - c).square().sum()),
+                     float((b - c).square().sum()),
+                     float((a - (b - b0) - c).square().sum()),
+                     float((c - p0).square().sum())])
+    t = torch.tensor(rows, dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t)
+    return t.cpu().tolist()
 
 
 def fsdp_leaf_diffs(torch, mesh, init, final, ref) -> list:
@@ -5151,7 +5339,7 @@ def fsdp_rank(rank: int, world: int, port: int, out: str, spec: dict,
         torch.cuda.empty_cache()
         return counted
 
-    def run(impl, counted=None):
+    def run(impl, counted=None, probe=True):
         params, state, tokens, batch, step = setup(impl)
         init = [t.to("cpu", copy=True) for t in tree.leaves(params)]
         warm_blas(torch, dev)
@@ -5160,7 +5348,7 @@ def fsdp_rank(rank: int, world: int, port: int, out: str, spec: dict,
         for i in range(spec["steps"]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if i == 0 and impl is None:
+            if i == 0 and impl is None and probe:
                 # step 0's allocator peak read, and the step counted on
                 # the card unless it was counted on its own
                 if counted is None:
@@ -5217,6 +5405,21 @@ def fsdp_rank(rank: int, world: int, port: int, out: str, spec: dict,
         ref_hist = plain["history"]
         del plain
     diffs = fsdp_leaf_diffs(torch, mesh, kern["init"], final, ref_final)
+    anchored = {}
+    if reference.get("f32") is not None:
+        def shard(leaves):
+            return tree.leaves(convert.shard_params(tree.unflatten(
+                M.abstract_params(cfg), leaves), pls))
+
+        anchored["anchor"] = fsdp_anchor_sums(
+            torch, mesh, kern["init"], final, ref_final,
+            shard(reference["prev"]), shard(reference["f32"]["final"]))
+        with dropped_partial(), tape.replay(then_own=True) if tape else \
+                contextlib.nullcontext():
+            plant = run(None, probe=False)
+        anchored.update(plant_history=plant["history"],
+                        plant_serve=plant["serve"])
+        del plant
     bw = {a: fsdp_bandwidth(torch, ax, 64 << 20 if ax.staged else 1 << 30)
           for a, ax in mesh.axes.items()}
     result = dict(history=kern["history"], ref_history=ref_hist,
@@ -5225,7 +5428,8 @@ def fsdp_rank(rank: int, world: int, port: int, out: str, spec: dict,
                   launches=kern["launches"], counts=counts, sums=sums,
                   diffs=diffs, bandwidth=bw,
                   serve=kern["serve"],
-                  coords=mesh.coords, batch_index=mesh.batch_index)
+                  coords=mesh.coords, batch_index=mesh.batch_index,
+                  **anchored)
     if tape is not None:
         result.update(flips=tape.flips, choices=tape.choices)
     torch.save(result, os.path.join(out, f"rank{rank}.pt"))
@@ -5254,6 +5458,8 @@ def fsdp_run(torch, label: str, spec: dict, backend: str, ref: str,
 
     t_run = time.perf_counter()
     cfg = cell_cfg(spec)
+    anchored = label in FSDP_ANCHORED and ref == "one"
+    f32 = None
     world = spec["data"] * spec["model"]
     B, S, L = spec["global_batch"], spec["seq_len"], cfg.num_layers
     shape = ShapeConfig("fsdp", S, B, "train")
@@ -5265,9 +5471,15 @@ def fsdp_run(torch, label: str, spec: dict, backend: str, ref: str,
         ref_path = out_dir / "ref.pt"
         if ref == "one":
             tape = RoutingTape() if cfg.moe is not None else None
-            one = fsdp_one(torch, spec, tape)
+            one = fsdp_one(torch, spec, tape, keep_last=anchored)
+            if anchored:
+                # the f32 anchor: routed and fed the tokens as the split is
+                f32 = fsdp_one(torch, spec, tape, replay=True, f32=True,
+                               forced=one["serve"][2])
+                f32.pop("init")
             torch.save({"final": one["final"], "history": one["history"],
-                        "serve": one["serve"],
+                        "serve": one["serve"], "prev": one.pop("prev"),
+                        "f32": f32,
                         "tape": None if tape is None else [
                             tuple(t.cpu() for t in e) for e in tape.calls]},
                        ref_path)
@@ -5313,7 +5525,24 @@ def fsdp_run(torch, label: str, spec: dict, backend: str, ref: str,
               f"rank 0 (a replicated leaf or a gathered block)")
         holds(r["history"] == hist, f"fsdp {label}: ranks disagree on the "
                                     f"losses")
-    if ref == "one":
+    if anchored:
+        losses = [[h["loss"] for h in x] for x in (
+            hist, ref_hist, f32["history"], r0["plant_history"])]
+        report["anchored"] = dict(
+            updates=anchored_updates(r0["anchor"]),
+            losses=anchored_losses(*losses),
+            logits=anchored_logits(r0["serve"], one["serve"], f32["serve"],
+                                   r0["plant_serve"]),
+            f32_losses=losses[2], plant_losses=losses[3])
+        for what in ("updates", "losses", "logits"):
+            m = report["anchored"][what]
+            holds(m["passed"], f"fsdp {label}: the split's {what} lie "
+                  f"{m['excess_max']:.4g} farther from the f32 run than "
+                  f"the one-process bf16 run's (FSDP_ANCHORED)")
+            holds(m["planted_caught"], f"fsdp {label}: the {what} measure "
+                  f"passes its planted control (excess "
+                  f"{m['planted_excess_max']:.4g}): it cannot tell a fault")
+    elif ref == "one":
         holds(loss_rel <= limits["loss_rel"],
               f"fsdp {label}: losses {loss_rel:.3e} from the one-process "
               f"run's (limit {limits['loss_rel']})")
@@ -5324,7 +5553,7 @@ def fsdp_run(torch, label: str, spec: dict, backend: str, ref: str,
               d["drop_rel"] <= limits["drop_rel"],
               f"fsdp {label}: losses off the plain versions' split run "
               f"({d})")
-    holds(max(rel) <= limits["update_rel_max"] and still,
+    holds((anchored or max(rel) <= limits["update_rel_max"]) and still,
           f"fsdp {label}: a leaf's update lies {max(rel):.4f} from the "
           f"reference's (limit {limits['update_rel_max']}, at {worst}); "
           f"unmoved leaves equal {still}")
@@ -5349,24 +5578,12 @@ def fsdp_run(torch, label: str, spec: dict, backend: str, ref: str,
           f"fsdp {label}: a rank's peak lies {peak_rel} off the dry-run's "
           f"{meta['peak_bytes']} bytes (limit {FSDP_PEAK_REL})")
     if spec["decode"] and ref == "one":
-        first, steps_, _ = r0["serve"]
-        rfirst, rsteps, _ = one["serve"]
-        errs, held, total = [], 0, 0
-        for got, ref_lg in zip([first] + list(steps_),
-                               [rfirst] + list(rsteps)):
-            err = float((got - ref_lg).abs().max())
-            errs.append(err / (FSDP_LOGITS_REL * (
-                1 + float(ref_lg.abs().max()))))
-            top = ref_lg.topk(2, dim=-1).values
-            clear = (top[:, 0] - top[:, 1]) > 2 * err
-            same = got.argmax(-1) == ref_lg.argmax(-1)
-            held += int((same | ~clear).sum())
-            total += same.numel()
-        report.update(logits_err_over_tol=max(errs), tokens_held=held,
-                      tokens=total)
-        holds(max(errs) <= 1.0 and held == total,
-              f"fsdp {label}: prefill / decode logits {max(errs):.3f} of "
-              f"the limit, tokens held {held} of {total}")
+        report.update(serve_measure(r0["serve"], one["serve"]))
+        holds((anchored or report["logits_err_over_tol"] <= 1.0) and
+              report["tokens_held"] == report["tokens"],
+              f"fsdp {label}: prefill / decode logits "
+              f"{report['logits_err_over_tol']:.3f} of the limit, tokens "
+              f"held {report['tokens_held']} of {report['tokens']}")
     if cfg.moe is not None:
         report["flips"] = sum(r.get("flips", 0) for r in results)
         report["choices"] = sum(r.get("choices", 0) for r in results)
@@ -5398,6 +5615,11 @@ def fsdp_run(torch, label: str, spec: dict, backend: str, ref: str,
           + (f"; routing replayed, {report['flips']} of "
              f"{report['choices']} choices flip" if "flips" in report
              else "")
+          + ("; anchored to the f32 run (split's excess over one "
+             "process's distance, its plant's): " + ", ".join(
+                 f"{k} {m['excess_max']:.4g} / {m['planted_excess_max']:.4g}"
+                 for k, m in report["anchored"].items() if k in (
+                     "updates", "losses", "logits")) if anchored else "")
           + f"; {report['run_s']:.1f} s")
     report["fails"] = fails
     for msg in fails if strict else ():
@@ -5482,6 +5704,421 @@ def fsdp_cards_passed(report: dict) -> None:
     for cell in report.values():
         for msg in cell["fails"]:
             check(False, msg)
+
+
+# ``long_500k``'s decode (ROADMAP item 7b.1): batch 1 on every rank
+# (``StepMesh.for_batch``), the KV cache's 524,288 positions split over
+# ``data`` (``make_decode_step(..., long_context=True)``), the decode
+# attention combining the ranks' blocks (the logits' max all-reduced, the
+# f32 sums and P.V partials summed in rank order).  The cache is filled
+# from the seed below the block boundary S / 2 (LONG_CHUNK positions a
+# seeded draw, so each rank draws its block alone, with the bits of the
+# one-process run's; the keys times LONG_KEY_SCALE), then ``steps``
+# greedy steps from S / 2 - 1 cross
+# it; every run is fed the one-process run's tokens.  Held against the
+# one-process decode on the same cache on the same card: the logits
+# within FSDP_LOGITS_REL * (1 + max|logits|), the tokens equal where the
+# one-process run's top-2 margin exceeds twice the error, every rank's
+# logits bitwise alike; rank 0's first step counted on the card equal to
+# the dry-run's meta trace of that rank at the same position (FLOPs,
+# bytes, collectives), and each rank's peak in its first step within
+# FSDP_PEAK_REL of the meta trace of that rank (whose block of the cache
+# the step reads).  A decode step before the run, its outputs dropped,
+# takes the libraries' lazy workspaces, which no trace holds (it writes
+# the first step's k, v, the same values again; the mamba state is
+# functional).  The planted control, a combine over ``data`` that leaves
+# out one rank's share (in the global layers, rank 0's P.V partial: the
+# values of a block that at data 4 only they read; for a model without a
+# KV cache, a rank's slice of each gathered weight: ``left_out_block``),
+# must fail the logits gate.  The
+# script's phase: gemma3-1b at full width (26 layers,
+# one kv head of 256, window 512 on the local layers) as two gloo ranks
+# on one card at data 2; ``scripts/chip_phases.py long``: LONG_CARDS with
+# one NCCL rank a card
+LONG_DECODE = dict(arch="gemma3-1b", seq_len=524288, data=2, model=1,
+                   steps=3, seed=41)
+LONG_CARDS = (
+    ("gemma3-1b data 4", dict(LONG_DECODE, data=4)),
+    ("gemma3-1b data 2 x model 2", dict(LONG_DECODE, model=2)),
+    ("mamba2-780m data 4", dict(LONG_DECODE, arch="mamba2-780m", data=4)),
+    # jamba at full width cut to layers 0-7, one attention layer among
+    # seven mamba layers and four MoE layers (26.6 GB in bf16): what one
+    # card's one-process run holds beside the cache
+    ("jamba 8 layers data 2 x model 2",
+     dict(LONG_DECODE, arch="jamba-v0.1-52b", layers=8, model=2)))
+LONG_CHUNK = 4096
+# the seeded keys' scale: a query of unit RMS a head dim (gemma3's
+# qk-norm) reads a logit of about this standard deviation from each, so
+# over S / 2 keys the softmax weight lies on some tens of them, in every
+# block alike (at 1 it spreads over all, and a global layer's output is
+# about the mean of S / 2 random values, nearly 0: a gate would not see
+# a block of them go missing)
+LONG_KEY_SCALE = 3.0
+
+
+def long_first(spec) -> int:
+    """The first decode position: one before the block boundary S / 2."""
+    return spec["seq_len"] // 2 - 1
+
+
+def long_cache(torch, cfg, spec, dev):
+    """The cell's decode cache on ``dev``, this rank's part under the
+    ambient mesh (``models.model.allocate_cache(..., long_context=True)``):
+    k (times LONG_KEY_SCALE), v drawn from the seed LONG_CHUNK positions a
+    draw below ``long_first``, zero from there; each mamba tensor a draw a
+    layer.
+    A rank draws only the chunks of its block and takes its columns, so
+    its bits are the one-process cache's."""
+    from repro_torch.models import model as M
+
+    S, filled = spec["seq_len"], long_first(spec)
+    cache = M.allocate_cache(cfg, 1, S, dev, long_context=True)
+    pls = M.cache_placements(cfg, 1, S, long_context=True)
+    full = M.cache_layout(cfg, 1, S)
+    leaves = [(k, None) for k in ("k", "v") if k in full] + [
+        ("mamba", n) for n in full.get("mamba", {})]
+    for i, (k, n) in enumerate(leaves):
+        t = cache[k] if n is None else cache[k][n]
+        shape = full[k][0] if n is None else full[k][n][0]
+        pl = None if pls is None else (pls[k] if n is None else pls[k][n])
+        sl = pl.slices if pl is not None and pl.sharded else tuple(
+            slice(0, d) for d in shape)
+
+        def draw(dims, layer, chunk=0):
+            g = torch.Generator(device=dev).manual_seed(
+                ((spec["seed"] * 131 + i) * 1009 + layer) * 100003 + chunk)
+            x = torch.randn(dims, generator=g, device=dev,
+                            dtype=torch.float32)
+            return (x * LONG_KEY_SCALE if k == "k" else x).to(t.dtype)
+
+        for layer in range(shape[0]):
+            if n is not None:
+                t[layer] = draw(shape[1:], layer)[sl[1:]]
+                continue
+            lo, hi = sl[2].start, sl[2].stop
+            for c in range(lo // LONG_CHUNK, min(hi, filled) // LONG_CHUNK
+                           + 1):
+                a = max(c * LONG_CHUNK, lo)
+                b = min((c + 1) * LONG_CHUNK, filled, hi)
+                if b > a:
+                    x = draw((shape[1], LONG_CHUNK, shape[3]), layer, c)
+                    t[layer, :, a - lo:b - lo] = x[
+                        :, a - c * LONG_CHUNK:b - c * LONG_CHUNK, sl[3]]
+    return cache
+
+
+def long_tokens(torch, cfg, spec):
+    """The cell's first input token (one row, int32), from the seed."""
+    g = torch.Generator().manual_seed(spec["seed"])
+    return torch.randint(0, cfg.vocab_size, (1,), generator=g,
+                         dtype=torch.int32)
+
+
+def long_one(torch, spec) -> dict:
+    """The cell's greedy decode in one process on the card: each step's
+    logits and input token (CPU), walls."""
+    import gc
+
+    from repro_torch.models import model as M
+    from repro_torch.train import pjit_step
+
+    dev = torch.device("cuda")
+    cfg = cell_cfg(spec)
+    params = M.init_train(cfg, spec["seed"], dev)
+    cache = long_cache(torch, cfg, spec, dev)
+    decode = pjit_step.make_decode_step(cfg)
+    tok = long_tokens(torch, cfg, spec).to(dev)
+    logits, inputs, walls = [], [], []
+    for t in range(spec["steps"]):
+        inputs.append(tok.cpu())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = decode(params, tok, long_first(spec) + t, cache)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        logits.append(lg.cpu())
+        tok = lg.argmax(-1).to(torch.int32)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(logits=logits, inputs=inputs, walls=walls)
+
+
+@contextlib.contextmanager
+def left_out_block(has_cache: bool, rank: int = 0):
+    """The long decode's planted control: the combine over ``data``
+    leaves out data rank ``rank``'s share.  With a KV cache, the global
+    layers' combine (``decode_attention`` without a window) sums every
+    rank's P.V partial but that rank's, whose block's values then count
+    for nothing in those layers while its softmax weights still divide
+    the others' (at data 4 with the steps from LONG_DECODE's first
+    position, rank 0's block is one that only the global layers read);
+    without one (mamba2), the gathers of the weights' d_model slices
+    take zeros for that rank's slice."""
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.train import ranks as R
+
+    class Left:
+        """A data axis whose ordered sum of P.V partials (the (B, K, G,
+        hd) operand) takes zeros from rank ``rank``."""
+
+        def __init__(self, ax):
+            self.ax = ax
+
+        def __getattr__(self, name):
+            return getattr(self.ax, name)
+
+        def all_reduce_ordered(self, t):
+            if t.dim() == 4 and self.ax.rank == rank:
+                t = torch.zeros_like(t)
+            return self.ax.all_reduce_ordered(t)
+
+    def attention(*a, window=None, seq=None, **kw):
+        if seq is not None and window is None:
+            seq = (Left(seq[0]), seq[1])
+        return real(*a, window=window, seq=seq, **kw)
+
+    def gathered(self, rows):
+        out = real(self, rows)
+        if self.axis == "data":
+            n = rows.shape[0]
+            out[rank * n:(rank + 1) * n] = 0
+        return out
+
+    owner, name = (A, "decode_attention") if has_cache else (
+        R.DataAxis, "all_gather_rows")
+    real = getattr(owner, name)
+    setattr(owner, name, attention if has_cache else gathered)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def long_rank(rank: int, world: int, port: int, out: str, spec: dict,
+              backend: str, ref_path: str) -> None:
+    """One rank of a long-decode cell (data x model ranks, ``backend``):
+    its blocks of the parameters (``PARAM_RULES``) and of the seeded
+    cache, the decode steps fed the one-process run's tokens (the first
+    under ``memprobe.measure_peak`` and counted as the dry-run counts it),
+    their walls, logits, collectives, each axis's bus bandwidth; then the
+    planted control's steps on a fresh cache (``left_out_block``); to
+    ``out/rank<r>.pt``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import memprobe
+    from repro_torch.launch.mesh import make_step_mesh
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.train import pjit_step
+    from repro_torch.train import ranks as R
+
+    dev = R.rank_device(backend, "cuda", rank)
+    R.init(backend, rank, world, init_method=f"tcp://localhost:{port}",
+           device=dev)
+    mesh = R.StepMesh(make_step_mesh(spec["data"], spec["model"],
+                                     device_type="cuda"), dev).for_batch(1)
+    cfg = cell_cfg(spec)
+    full = M.init_train(cfg, spec["seed"], dev)
+    params = convert.shard_params(full, convert.placements(
+        cfg, mesh.mesh, rules=sharding.PARAM_RULES))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    forced = torch.load(ref_path)["inputs"]
+    decode = pjit_step.make_decode_step(cfg, mesh=mesh, long_context=True)
+    warm_blas(torch, dev)
+
+    def steps(probe: bool):
+        with sharding.set_mesh(mesh):
+            cache = long_cache(torch, cfg, spec, dev)
+        if probe:
+            decode(params, mesh.local_rows(forced[0].to(dev)),
+                   long_first(spec), cache)
+            torch.cuda.synchronize()
+        logits, walls, mem, counted = [], [], None, None
+        for t in range(spec["steps"]):
+            args = (params, mesh.local_rows(forced[t].to(dev)),
+                    long_first(spec) + t, cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if t == 0 and probe:
+                (res, counted), mem = memprobe.measure_peak(
+                    lambda *a: D.count_step(decode, a, "cuda", group=world),
+                    args, dev)
+            else:
+                res = decode(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            lg, cache = res
+            logits.append(mesh.full_logits(lg, cfg.vocab_size).cpu())
+            del res, lg
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        return logits, walls, mem, counted
+
+    base = mesh.counts()
+    ops.reset_launch_counts()
+    logits, walls, mem, counted = steps(True)
+    launches = ops.launch_counts()
+    counts = {a: {k: n - base[a][k] for k, n in c.items()}
+              for a, c in mesh.counts().items()}
+    has_cache = "k" in M.cache_layout(cfg, 1, 1)
+    with left_out_block(has_cache, 0 if has_cache else long_first(spec)
+                        // (spec["seq_len"] // spec["data"])):
+        planted = steps(False)[0]
+    bw = {a: fsdp_bandwidth(torch, ax, 64 << 20 if ax.staged else 1 << 30)
+          for a, ax in mesh.axes.items()}
+    torch.save(dict(logits=logits, walls=walls, peak=mem, counted=counted,
+                    launches=launches, counts=counts, planted=planted,
+                    bandwidth=bw, coords=mesh.coords),
+               os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def long_run(torch, label: str, spec: dict, backend: str,
+             strict: bool = True) -> dict:
+    """One long-decode cell (see LONG_DECODE's note): the dry-run's meta
+    trace of rank 0's first step, the one-process run, the ranks
+    (``long_rank``), the gates (``strict``: failed at once; else listed
+    in the report's ``fails``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as launch
+    from repro_torch.sharding import MeshShape
+
+    t_run = time.perf_counter()
+    cfg = cell_cfg(spec)
+    world = spec["data"] * spec["model"]
+    shape = ShapeConfig("long", spec["seq_len"], 1, "decode")
+    pm = MeshShape(("data", "model"), (spec["data"], spec["model"]))
+    metas = [D.lower_compile(cfg, shape, mesh=pm, pos=long_first(spec),
+                             rank=r) for r in range(world)]
+    meta = metas[0]
+    one = long_one(torch, spec)
+    out_dir = Path(tempfile.mkdtemp(prefix="long_", dir=ROOT / "build"))
+    try:
+        torch.save({"inputs": one["inputs"]}, out_dir / "ref.pt")
+        launch.start_ranks(long_rank, (world, launch.free_port(),
+                                       str(out_dir), spec, backend,
+                                       str(out_dir / "ref.pt")), world)
+        results = [torch.load(out_dir / f"rank{r}.pt")
+                   for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = results[0]
+    ref = (one["logits"][0], one["logits"][1:], None)
+    measure = serve_measure((r0["logits"][0], r0["logits"][1:], None), ref)
+    planted = serve_measure((r0["planted"][0], r0["planted"][1:], None),
+                            ref)
+    card = r0["counted"]
+    equal = {k: card[k] == meta[k] for k in ("flops", "bytes",
+                                             "collective_by_axis")}
+    peaks = [r["peak"]["peak_bytes"] for r in results]
+    meta_peaks = [m["peak_bytes"] for m in metas]
+    peak_rel = [p / m - 1 for p, m in zip(peaks, meta_peaks)]
+    report = dict(label=label, backend=backend, world=world,
+                  walls_ms=[[w * 1e3 for w in r["walls"]] for r in results],
+                  one_process_walls_ms=[w * 1e3 for w in one["walls"]],
+                  peaks=peaks, meta_peaks=meta_peaks,
+                  peak_rel=peak_rel, counted_equal=equal,
+                  meta_collective_by_axis=meta["collective_by_axis"],
+                  counts=[r["counts"] for r in results],
+                  bandwidth=[r["bandwidth"] for r in results],
+                  launches=r0["launches"], planted=planted, **measure)
+    fails = []
+
+    def holds(cond: bool, msg: str) -> None:
+        if not cond:
+            fails.append(msg)
+
+    for r in results:
+        holds(all(torch.equal(a, b) for a, b in zip(r["logits"],
+                                                    r0["logits"])),
+              f"long {label}: rank {r['coords']}'s logits are not rank 0's")
+    holds(measure["logits_err_over_tol"] <= 1.0 and
+          measure["tokens_held"] == measure["tokens"],
+          f"long {label}: logits {measure['logits_err_over_tol']:.3f} of the "
+          f"limit, tokens held {measure['tokens_held']} of "
+          f"{measure['tokens']}")
+    holds(not planted["logits_err_over_tol"] <= 1.0,
+          f"long {label}: the planted control (a combine that leaves out a "
+          f"rank's block) passes the logits gate "
+          f"({planted['logits_err_over_tol']:.3f} of the limit)")
+    holds(all(equal.values()), f"long {label}: rank 0's first step counted "
+          f"on the card differs from the dry-run's meta trace ({equal}: "
+          f"flops {card['flops']} / {meta['flops']}, bytes {card['bytes']} "
+          f"/ {meta['bytes']})")
+    holds(all(abs(x) <= FSDP_PEAK_REL for x in peak_rel),
+          f"long {label}: a rank's peak lies {peak_rel} off the dry-run's "
+          f"trace of that rank, {meta_peaks} bytes (limit {FSDP_PEAK_REL})")
+    report["run_s"] = time.perf_counter() - t_run
+    coll = {a: sum(c[a]["bytes"] for c in report["counts"]) / world
+            for a in report["counts"][0]}
+    bus = {a: round(b[a]["bus_GBps"], 2) for b in report["bandwidth"][:1]
+           for a in b}
+    print(f"long {label} ({backend}, {world} ranks, {spec['seq_len']} "
+          f"positions, steps from {long_first(spec)}): logits "
+          f"{measure['logits_err_over_tol']:.4f} of the limit, tokens held "
+          f"{measure['tokens_held']}/{measure['tokens']}, ranks bitwise; "
+          f"plant {planted['logits_err_over_tol']:.2f} of the limit; step "
+          f"ms a rank {[[round(w, 2) for w in ws] for ws in report['walls_ms']]}"
+          f" (one process {[round(w, 2) for w in report['one_process_walls_ms']]}"
+          f"); peaks {[round(p / 2**30, 4) for p in peaks]} GiB vs the "
+          f"dry-run's {[round(p / 2**30, 4) for p in meta_peaks]} "
+          f"({[f'{x:+.3%}' for x in peak_rel]}); FLOPs, bytes, collectives "
+          f"equal to meta's {equal}; collective result bytes a rank by axis "
+          f"{coll} (meta wire bytes {meta['collective_by_axis']}); bus {bus} "
+          f"GB/s; {report['run_s']:.1f} s", flush=True)
+    report["fails"] = fails
+    for msg in fails if strict else ():
+        check(False, msg)
+    return report
+
+
+def phase_long_decode(torch, spec=LONG_DECODE):
+    """The long decode (see LONG_DECODE's note) as two gloo ranks sharing
+    the card.  Returns ({"serving_long": its kernels' launches}, the
+    report)."""
+    from repro_torch.launch import train as launch
+
+    t_phase = time.perf_counter()
+    try:
+        report = long_run(torch, f"{spec['arch']}, data {spec['data']}, two "
+                          f"gloo ranks on one card", spec, "gloo")
+    finally:
+        launch.stop_rank_server()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase_long_decode: {report['phase_s']:.1f} s")
+    return {"serving_long": report["launches"]}, report
+
+
+def long_cards(torch, cells=None) -> dict:
+    """LONG_CARDS (``cells`` by label, all by default) with one NCCL rank
+    a card."""
+    from repro_torch.launch import train as launch
+
+    out = {}
+    try:
+        for label, spec in LONG_CARDS:
+            if cells is None or label in cells:
+                out[label] = long_run(torch, label, spec, "nccl",
+                                      strict=False)
+    finally:
+        launch.stop_rank_server()
+    return out
 
 
 def train_run_diffs(torch, init, final, hist, ref_final, ref_hist,
@@ -5844,6 +6481,8 @@ def run() -> int:
     launches.update(tp_launches)
     fsdp_launches, fsdp_row, training_fsdp = phase_train_fsdp(torch)
     launches.update(fsdp_launches)
+    long_launches, serving_long = phase_long_decode(torch)
+    launches.update(long_launches)
     dryrun = phase_dryrun(torch, training)
     launches["serving_mamba"], mserve_report, serving_mamba = \
         phase_serving_replayed(torch, attention, MAMBA_SERVE)
@@ -5906,6 +6545,7 @@ def run() -> int:
                      attention=attention, training=training,
                      training_ranks=training_ranks, training_tp=training_tp,
                      training_fsdp=training_fsdp,
+                     serving_long=serving_long,
                      serving_mamba=serving_mamba,
                      training_mamba=training_mamba, serving_moe=serving_moe,
                      training_moe=training_moe,

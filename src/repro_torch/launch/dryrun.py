@@ -55,8 +55,10 @@ steps with FSDP + TP (``train.pjit_step`` on rank 0's blocks and rows,
 ``fits_hbm``, the collectives' wire bytes by axis (``data``, ``model``,
 ``pod``), a roofline over the mesh's 256 or 512 chips, the MFU numerator
 at 16x16 only (as the reference gives it).  whisper and the VLM are
-skipped with ``require_splittable``'s reason, ``long_500k`` with the
-sequence-parallel cache's (``LONG_SKIP``).
+skipped with ``require_splittable``'s reason.  ``long_500k`` (the
+sub-quadratic archs: mamba2-780m, jamba, gemma3-1b) decodes its batch of
+1 on every rank (``StepMesh.for_batch``) against a KV cache whose
+sequence is split over ``data`` (``specs.long_context``).
 
 The same counter runs on the card, so a meta trace and a real step can
 be compared count for count (``chip_smoke.py``'s ``phase_dryrun``).
@@ -96,7 +98,7 @@ from repro_torch.configs import (ASSIGNED, SHAPES, ShapeConfig, get_config,
 from repro_torch.configs.base import shape_applicable
 from repro_torch.kernels import _account
 from repro_torch.launch import roofline as RL
-from repro_torch.launch.specs import input_specs
+from repro_torch.launch.specs import input_specs, long_context
 from repro_torch.optim import OptConfig
 from repro_torch.train.pjit_step import (make_decode_step, make_prefill_step,
                                          make_train_step)
@@ -366,34 +368,39 @@ def step_args(specs: dict, kind: str) -> tuple:
 
 
 def step_for(cfg, kind: str, opt: OptConfig, impl: str | None = None,
-             mesh=None):
+             mesh=None, long_context: bool = False):
     if kind == "train":
         return make_train_step(cfg, opt, impl=impl, mesh=mesh)
     if kind == "prefill":
         return make_prefill_step(cfg, impl=impl, mesh=mesh)
-    return make_decode_step(cfg, mesh=mesh)
+    return make_decode_step(cfg, mesh=mesh, long_context=long_context)
 
 
 def lower_compile(cfg, shape: ShapeConfig, opt: OptConfig | None = None,
-                  mesh=None, impl: str | None = None) -> dict:
+                  mesh=None, impl: str | None = None,
+                  pos: int | None = None, rank: int = 0) -> dict:
     """Trace one step on meta tensors; the reference's keys, plus
     ``flops_by_dtype``, ``kernels`` and the collectives by axis.  With
     ``mesh`` (a ``sharding.MeshShape``, e.g. a production mesh) the step
     is rank 0's (``train.pjit_step`` on its blocks, ``specs.input_specs``)
     under a ``fake`` process group of the mesh's world.  ``impl="torch"``
-    traces the kernels' plain versions (what a CPU rank runs)."""
+    traces the kernels' plain versions (what a CPU rank runs); ``pos`` a
+    decode step's position (the cache's last by default); ``rank`` the
+    rank of ``mesh`` traced (0 by default: its blocks, its rows)."""
     opt = opt or OptConfig()
     if mesh is None:
-        specs = input_specs(cfg, shape, opt)
+        specs = input_specs(cfg, shape, opt, pos=pos)
         _, res = count_step(step_for(cfg, shape.kind, opt, impl),
                             step_args(specs, shape.kind), "meta")
         return res
-    step_mesh = _fake_step_mesh(mesh)
+    step_mesh = _fake_step_mesh(mesh, rank)
     try:
-        specs = input_specs(cfg, shape, opt, mesh=mesh)
-        _, res = count_step(step_for(cfg, shape.kind, opt, impl,
-                                     mesh=step_mesh),
-                            step_args(specs, shape.kind), "meta",
+        specs = input_specs(cfg, shape, opt, mesh=mesh,
+                            coords=step_mesh.coords, pos=pos)
+        step = step_for(cfg, shape.kind, opt, impl,
+                        mesh=step_mesh.for_batch(shape.global_batch),
+                        long_context=long_context(shape))
+        _, res = count_step(step, step_args(specs, shape.kind), "meta",
                             group=step_mesh.world)
     finally:
         import torch.distributed as dist
@@ -402,10 +409,10 @@ def lower_compile(cfg, shape: ShapeConfig, opt: OptConfig | None = None,
     return res
 
 
-def _fake_step_mesh(mesh):
-    """Rank 0 of a ``fake`` process group over the axes of ``mesh`` (a
-    ``MeshShape``), as the plain steps' ``train.ranks.StepMesh`` on
-    ``meta``: its collectives return at once and move nothing."""
+def _fake_step_mesh(mesh, rank: int = 0):
+    """Rank ``rank`` of a ``fake`` process group over the axes of
+    ``mesh`` (a ``MeshShape``), as the plain steps' ``train.ranks.StepMesh``
+    on ``meta``: its collectives return at once and move nothing."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -417,7 +424,7 @@ def _fake_step_mesh(mesh):
                            "one is already initialized")
     sizes = dict(mesh.shape)
     world = int(np.prod(list(sizes.values())))
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
     return StepMesh(make_step_mesh(sizes["data"], sizes.get("model", 1),
                                    sizes.get("pod", 1), device_type="cpu"),
@@ -473,9 +480,6 @@ def roofline_of(cfg, shape: ShapeConfig, cost: dict,
 
 #: the plain steps' production meshes (``--mesh production``)
 PLAIN_PRODUCTION = ("16x16", "2x16x16")
-LONG_SKIP = ("sequence-parallel decode cache (decode_seq on data) not "
-             "ported: its cache splits the sequence over data, which needs "
-             "a decode attention whose softmax is combined across ranks")
 
 
 def run_cell(arch: str, shape_name: str, *, opt: OptConfig | None = None,
@@ -486,8 +490,9 @@ def run_cell(arch: str, shape_name: str, *, opt: OptConfig | None = None,
     (per-rank FLOPs, bytes, peak, collective bytes by axis), whether the
     peak fits a card's memory, and the roofline over the mesh's chips,
     with the MFU numerator on one card and at 16x16, as the reference
-    gives it.  A model the model axis cannot split (whisper, the VLM)
-    and ``long_500k`` on a mesh are skipped, with the reason."""
+    gives it.  A model the model axis cannot split (whisper, the VLM) is
+    skipped on a mesh, with the reason; ``long_500k`` runs its batch of
+    1 on every rank and its cache's sequence split over ``data``."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, reason = shape_applicable(cfg, shape)
@@ -511,8 +516,6 @@ def run_cell(arch: str, shape_name: str, *, opt: OptConfig | None = None,
             require_splittable(cfg, pm.shape["model"])
         except ValueError as e:
             return {**base, "skipped": str(e)}
-        if shape.seq_len >= 262144:
-            return {**base, "skipped": LONG_SKIP}
         full = lower_compile(cfg, shape, opt, mesh=pm)
     res = {"arch": arch, "shape": shape_name, "mesh": label, "chips": chips,
            "full": full, "fits_hbm": full["peak_bytes"] <= RL.HBM_PER_CARD}

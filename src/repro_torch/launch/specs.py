@@ -83,12 +83,20 @@ def cache_structs(cfg: ModelConfig, *, batch: int, seq_len: int,
                              long_context))
 
 
+def long_context(shape: ShapeConfig) -> bool:
+    """Whether a decode cell's cache splits its sequence over ``data``
+    (the reference's ``decode_seq``): from 262144 positions on, as the
+    reference's dry-run decides (``long_500k``)."""
+    return shape.kind == "decode" and shape.seq_len >= 262144
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,
                 opt: OptConfig | None = None, *, mesh=None,
-                coords=None) -> dict:
+                coords=None, pos: int | None = None) -> dict:
     """Full kwargs of the step traced for this cell, as one device holds
     them or, given ``mesh``, as the rank at ``coords`` (rank 0 by
-    default) does."""
+    default) does; a decode step at position ``pos`` (the cache's last,
+    S - 1, by default: what the step reads depends on it)."""
     params = param_structs(cfg, mesh, coords)
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
@@ -110,8 +118,9 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
         "params": params,
         "token": torch.empty(_local((B,), ("batch",), mesh, coords),
                              dtype=torch.int32, device=META),
-        "pos": torch.tensor(S - 1, dtype=torch.int32),
+        "pos": torch.tensor(S - 1 if pos is None else pos,
+                            dtype=torch.int32),
         "cache": cache_structs(cfg, batch=B, seq_len=S,
-                               long_context=S >= 262144, mesh=mesh,
-                               coords=coords),
+                               long_context=long_context(shape),
+                               mesh=mesh, coords=coords),
     }

@@ -7,7 +7,10 @@ reference's flash-style prefill attention; here it is
 ``ops.flash_attention``: on a CUDA tensor the hand-written kernel K6,
 on a CPU tensor (or with ``impl="torch"``) its plain version, the port
 of the reference's blockwise loop.  ``decode_attention`` stays plain
-PyTorch, as the reference computes it outside any kernel.
+PyTorch, as the reference computes it outside any kernel; with the KV
+cache's sequence split over ``data`` (``long_500k``, the reference's
+``decode_seq``) each rank holds a block of positions and the softmax is
+combined over the ranks, as XLA partitions the reference's.
 
 ``self_attention`` is a layer's projections, K6 and output projection.
 When wq's columns are split over the ambient ``model`` axis (the
@@ -230,7 +233,8 @@ def _split_out(o: torch.Tensor, p, cfg, ax) -> torch.Tensor:
 
 def decode_self_attention(p, h: torch.Tensor, cfg, positions,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
-                          pos: int, window: int | None) -> torch.Tensor:
+                          pos: int, window: int | None,
+                          seq=None) -> torch.Tensor:
     """One token's self-attention sub-block on h (B, 1, D) against a
     layer's cache (B, S, cols): the token's k, v written in place at
     ``pos``, then ``decode_attention`` over the visible keys; returns
@@ -239,40 +243,64 @@ def decode_self_attention(p, h: torch.Tensor, cfg, positions,
     read their own kv heads from it when ``model`` divides K, else from
     the visible part of the cache gathered over ``model`` (where wk's
     columns cut a head) or from the whole one (where they are
-    replicated)."""
+    replicated).  ``seq`` (data axis, first position): the cache is this
+    rank's block [first, first + S) of a sequence split over ``data``
+    (``long_500k``); the token is written by the rank whose block holds
+    ``pos``, the visible part is the block's, in block-local rows, and
+    ``decode_attention`` combines the ranks."""
     B = h.shape[0]
     K, hd = cfg.num_kv_heads, cfg.head_dim
+    first = None if seq is None else seq[1]
     if not heads_split(p, cfg):
         q = project_q(p, h, cfg, positions)
         k_new, v_new = project_kv(p, h, cfg, positions)
         update_cache(cache_k, cache_v, k_new.reshape(B, 1, K * hd),
-                     v_new.reshape(B, 1, K * hd), pos)
+                     v_new.reshape(B, 1, K * hd), pos, first)
         S = cache_k.shape[1]
         o = decode_attention(
             q, cache_k.reshape(B, S, K, hd), cache_v.reshape(B, S, K, hd),
-            valid_len=pos + 1, window=window)
+            valid_len=pos + 1, window=window, seq=seq)
         return output_proj(p, o)
     ax = parallel.require_axis()
     q, _, _, (kc, vc) = _split_qkv(p, h, cfg, positions, ax)
-    update_cache(cache_k, cache_v, kc, vc, pos)
-    first, Hl = head_group(cfg.num_heads, ax.world, ax.rank)
-    if Hl == 0:
-        return _split_out(q.reshape(B, 1, 0), p, cfg, ax)
+    update_cache(cache_k, cache_v, kc, vc, pos, first)
+    lead, Hl = head_group(cfg.num_heads, ax.world, ax.rank)
     cols = cache_k.shape[-1]
     if K % ax.world == 0 and cols != K * hd:   # the rank's own kv heads
         S = cache_k.shape[1]
-        ks = cache_k.reshape(B, S, cols // hd, hd)
-        vs = cache_v.reshape(B, S, cols // hd, hd)
-    else:
-        ks, vs = cache_k[:, :pos + 1], cache_v[:, :pos + 1]
-        if cols != K * hd:                     # columns that cut a head
-            ks, vs = ax.gather_dim(ks, -1), ax.gather_dim(vs, -1)
-        S = ks.shape[1]
-        ks, vs = _local_kv_heads(ks.reshape(B, S, K, hd),
-                                 vs.reshape(B, S, K, hd), first, Hl,
-                                 cfg.num_heads // K)
-    o = decode_attention(q, ks, vs, valid_len=pos + 1, window=window)
+        o = decode_attention(q, cache_k.reshape(B, S, cols // hd, hd),
+                             cache_v.reshape(B, S, cols // hd, hd),
+                             valid_len=pos + 1, window=window, seq=seq)
+        return _split_out(o.reshape(B, 1, -1), p, cfg, ax)
+    # the rows up to ``pos`` (under ``seq`` the block's visible rows),
+    # gathered over ``model`` where wk's columns cut a head: every model
+    # rank joins the gather, a rank with no head too; the ranks of one
+    # block skip it together where the block holds no visible row
+    lo = 0 if window is None or seq is None else max(0, pos + 1 - window)
+    a, b = _visible(lo, pos + 1, first or 0, cache_k.shape[1])
+    ks, vs = cache_k[:, a:b], cache_v[:, a:b]
+    if cols != K * hd and b > a:               # columns that cut a head
+        ks, vs = ax.gather_dim(ks, -1), ax.gather_dim(vs, -1)
+    elif cols != K * hd:
+        ks = vs = ks.new_empty((B, 0, K * hd))
+    if Hl == 0:
+        return _split_out(q.reshape(B, 1, 0), p, cfg, ax)
+    S = ks.shape[1]
+    ks, vs = _local_kv_heads(ks.reshape(B, S, K, hd),
+                             vs.reshape(B, S, K, hd), lead, Hl,
+                             cfg.num_heads // K)
+    if seq is not None:
+        seq = (seq[0], first + a)
+    o = decode_attention(q, ks, vs, valid_len=pos + 1, window=window,
+                         seq=seq)
     return _split_out(o.reshape(B, 1, -1), p, cfg, ax)
+
+
+def _visible(lo: int, hi: int, first: int, S: int) -> tuple[int, int]:
+    """The rows [a, b) of a block of positions [first, first + S) that
+    lie in [lo, hi), in block-local rows (a == b where none does)."""
+    a = min(max(lo - first, 0), S)
+    return a, max(a, min(hi - first, S))
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True,
@@ -286,7 +314,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 def decode_attention(q1: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, *, valid_len: int,
                      window: int | None = None,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None, seq=None) -> torch.Tensor:
     """Single-token attention against a KV cache.
 
     q1: (B,1,H,hd); cache_k/v: (B,S,K,hd) with the new token's k/v already
@@ -296,26 +324,61 @@ def decode_attention(q1: torch.Tensor, cache_k: torch.Tensor,
     0.  The reference's rounding is kept: logits in f32 from the operands
     (an f32 copy of the visible cache, exact for bf16), p cast to the
     cache's dtype before P.V with f32 sums.
+
+    ``seq`` (a ``train.ranks.DataAxis``, first): the cache holds global
+    positions [first, first + S) of a sequence split over that axis,
+    every rank its block, each with the same q1.  The softmax is the
+    one a single device would take, combined as XLA partitions the
+    reference's: the logits' max all-reduced over the axis, each rank's
+    exp(l - max) over its visible keys (none on a rank whose block the
+    window or ``valid_len`` leaves out: zero weight, no NaN), their f32
+    sum all-reduced in rank order, p = e / sum cast to the cache's dtype,
+    the f32 P.V partials summed in rank order.  Every rank returns the
+    same bits.
     """
     B, _, H, hd = q1.shape
     K = cache_k.shape[2]
     G = H // K
     scale = (1.0 / math.sqrt(hd)) if scale is None else scale
     lo = max(0, valid_len - window) if window is not None else 0
-    ck = cache_k[:, lo:valid_len].to(torch.float32)
-    cv = cache_v[:, lo:valid_len]
+    first = 0 if seq is None else seq[1]
+    a, b = _visible(lo, valid_len, first, cache_k.shape[1])
+    ck = cache_k[:, a:b].to(torch.float32)
+    cv = cache_v[:, a:b]
     qg = q1.reshape(B, K, G, hd).to(torch.float32)
     logits = torch.einsum("bkgh,bskh->bkgs", qg, ck) * scale
-    p = torch.softmax(logits, dim=-1).to(cv.dtype)
+    if seq is None:
+        p = torch.softmax(logits, dim=-1).to(cv.dtype)
+    else:
+        ax = seq[0]
+        top = logits.amax(dim=-1) if b > a else logits.new_full(
+            logits.shape[:-1], -math.inf)
+        ax.all_reduce_max(top)
+        e = torch.exp(logits - top[..., None])
+        total = ax.all_reduce_ordered(e.sum(dim=-1))
+        p = (e / total[..., None]).to(cv.dtype)
     o = torch.einsum("bkgs,bskh->bkgh", p.to(torch.float32),
                      cv.to(torch.float32))
+    if seq is not None:
+        o = seq[0].all_reduce_ordered(o)
     return o.reshape(B, 1, H, hd).to(q1.dtype)
 
 
 def update_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> None:
+                 k_new: torch.Tensor, v_new: torch.Tensor, pos: int,
+                 first: int | None = None) -> None:
     """Write the new tokens' k/v (B, T, K*hd) at positions pos.. in place
-    (the reference's functional ``dynamic_update_slice``)."""
+    (the reference's functional ``dynamic_update_slice``).  ``first``:
+    the cache is a rank's block of a sequence split over ``data``,
+    starting at global position ``first``: only the positions that fall
+    in the block are written (none on the other ranks)."""
     T = k_new.shape[1]
-    cache_k[:, pos:pos + T] = k_new
-    cache_v[:, pos:pos + T] = v_new
+    if first is None:
+        cache_k[:, pos:pos + T] = k_new
+        cache_v[:, pos:pos + T] = v_new
+        return
+    a, b = _visible(pos, pos + T, first, cache_k.shape[1])
+    if b > a:
+        off = first + a - pos
+        cache_k[:, a:b] = k_new[:, off:off + b - a]
+        cache_v[:, a:b] = v_new[:, off:off + b - a]

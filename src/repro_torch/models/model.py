@@ -319,17 +319,13 @@ def annotated_params(cfg: ModelConfig):
         for path, t in tree_mod.leaves_with_paths(meta)])
 
 
-def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
-    """Mean next-token cross-entropy of the stacked-layout ``params`` on
-    {tokens, labels (B, S)[, ctx]} (labels < 0 ignored) plus
-    ``MOE_AUX_COEF`` times the MoE layers' summed aux loss; returns
-    (loss, {"ce", "moe_aux"}).  CE = logsumexp - label logit over the
-    f32 logits: the gather equals the reference's one-hot contraction,
-    whose other terms are exact zeros.  Differentiable: attention goes
-    through ``ops.flash_attention``'s autograd form."""
-    logits, _, aux = forward(layer_views(params, cfg), batch, cfg,
-                             impl=impl)
-    labels = _tokens(batch["labels"], logits.device)
+def token_nll(logits: torch.Tensor, labels, cfg: ModelConfig):
+    """(nll, valid): each token's next-token cross-entropy over the f32
+    ``logits`` (0 where its label is < 0) and the valid labels' mask.
+    CE = logsumexp - label logit: the gather equals the reference's
+    one-hot contraction, whose other terms are exact zeros; from this
+    rank's columns under a vocab split (``_split_ce_terms``)."""
+    labels = _tokens(labels, logits.device)
     valid = labels >= 0
     if logits.shape[-1] == cfg.vocab_size:
         lse = torch.logsumexp(logits, dim=-1)
@@ -337,7 +333,18 @@ def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
             ..., 0]
     else:
         lse, label_logit = _split_ce_terms(logits, labels)
-    nll = lse - label_logit
+    return torch.where(valid, lse - label_logit, 0.0), valid
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
+    """Mean next-token cross-entropy (``token_nll``) of the
+    stacked-layout ``params`` on {tokens, labels (B, S)[, ctx]} (labels <
+    0 ignored) plus ``MOE_AUX_COEF`` times the MoE layers' summed aux
+    loss; returns (loss, {"ce", "moe_aux"}).  Differentiable: attention
+    goes through ``ops.flash_attention``'s autograd form."""
+    logits, _, aux = forward(layer_views(params, cfg), batch, cfg,
+                             impl=impl)
+    nll, valid = token_nll(logits, batch["labels"], cfg)
     count = valid.sum()
     if sharding.batch_mesh() is not None:
         # the reference's global mean: this rank's rows over the global
@@ -345,7 +352,7 @@ def train_loss(params, batch, cfg: ModelConfig, *, impl: str | None = None):
         count = parallel.batch_sum(count)
         aux = parallel.batch_sum(aux)
     denom = torch.clamp(count, min=1)
-    ce = parallel.batch_sum(torch.where(valid, nll, 0.0).sum() / denom)
+    ce = parallel.batch_sum(nll.sum() / denom)
     return ce + MOE_AUX_COEF * aux, {"ce": ce, "moe_aux": aux}
 
 
@@ -475,28 +482,54 @@ def cache_logical(cfg: ModelConfig, long_context: bool = False):
             for k, v in layout.items()}
 
 
-def local_cache_layout(cfg: ModelConfig, batch: int, seq_len: int,
-                       mesh=None, coords=None, long_context: bool = False):
-    """``cache_layout`` of a global ``batch`` as one rank of ``mesh``
+def cache_placements(cfg: ModelConfig, batch: int, seq_len: int,
+                     mesh=None, coords=None, long_context: bool = False):
+    """Each cache tensor's ``sharding.Placement`` on one rank of ``mesh``
     (default: the ambient mesh, ``batch`` then this rank's rows, the
-    global batch ``batch_rows(batch)``) holds it under ``ACT_RULES``;
-    ``cache_layout`` itself without a mesh."""
+    global batch ``batch_rows(batch)``) under ``ACT_RULES``; None
+    without a mesh.  ``long_context``: the sequence split over ``data``
+    (``decode_seq``), rank d holding positions [d S / data, (d + 1) S /
+    data); a ``data`` axis that does not divide ``seq_len`` raises (the
+    reference would replicate the sequence, which a step told it is
+    split would misplace)."""
     ambient = mesh is None
     mesh = sharding.ambient_mesh() if ambient else mesh
     if mesh is None:
-        return cache_layout(cfg, batch, seq_len)
+        return None
     full = cache_layout(cfg, batch_rows(batch, mesh) if ambient else batch,
                         seq_len)
+    data = sharding.mesh_axis_sizes(mesh).get("data", 1)
+    if long_context and "k" in full and seq_len % data:
+        raise ValueError(f"a sequence of {seq_len} does not split over "
+                         f"data {data}")
     names = cache_logical(cfg, long_context)
 
-    def local(leaf, logical):
-        a = sharding.Annotated(leaf[0], logical, leaf[1])
-        pl = sharding.placement_of(a, mesh, sharding.ACT_RULES, coords)
+    def place(leaf, logical):
+        return sharding.placement_of(sharding.Annotated(leaf[0], logical,
+                                                        leaf[1]),
+                                     mesh, sharding.ACT_RULES, coords)
+
+    return {k: ({n: place(full[k][n], names[k][n]) for n in full[k]}
+                if k == "mamba" else place(full[k], names[k]))
+            for k in full}
+
+
+def local_cache_layout(cfg: ModelConfig, batch: int, seq_len: int,
+                       mesh=None, coords=None, long_context: bool = False):
+    """``cache_layout`` of a global ``batch`` as one rank of ``mesh``
+    holds it (``cache_placements``); ``cache_layout`` itself without a
+    mesh."""
+    pls = cache_placements(cfg, batch, seq_len, mesh, coords, long_context)
+    if pls is None:
+        return cache_layout(cfg, batch, seq_len)
+    dtypes = cache_layout(cfg, 1, 1)
+
+    def local(pl, leaf):
         return (pl.local_shape, leaf[1])
 
-    return {k: ({n: local(full[k][n], names[k][n]) for n in full[k]}
-                if k == "mamba" else local(full[k], names[k]))
-            for k in full}
+    return {k: ({n: local(pl, dtypes[k][n]) for n, pl in v.items()}
+                if k == "mamba" else local(v, dtypes[k]))
+            for k, v in pls.items()}
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -510,13 +543,15 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int,
                       cache_layout(cfg, batch, seq_len))
 
 
-def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
+def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int, device,
+                   long_context: bool = False):
     """``cache_layout`` filled with zeros on ``device``; under an ambient
-    mesh this rank's part of it, ``batch`` its rows
-    (``local_cache_layout``)."""
+    mesh this rank's part of it, ``batch`` its rows, its block of the
+    sequence under ``long_context`` (``local_cache_layout``)."""
     return map_params(lambda leaf: torch.zeros(leaf[0], dtype=leaf[1],
                                                device=device),
-                      local_cache_layout(cfg, batch, seq_len))
+                      local_cache_layout(cfg, batch, seq_len,
+                                         long_context=long_context))
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int | None = None, *,
@@ -548,9 +583,15 @@ def _decode_cross(p, h: torch.Tensor, cache, i: int, cfg: ModelConfig):
     return attn.output_proj(p, o)
 
 
-def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
+def decode_step(params, token, pos: int, cache, cfg: ModelConfig,
+                long_context: bool = False):
     """One decode step.  token: (B,) int; pos: the position the new token
     occupies (the cache holds pos valid entries before the call).
+    ``long_context``: under an ambient mesh with a ``data`` axis the KV
+    cache is this rank's block of the sequence (``local_cache_layout``):
+    the token's k/v are written by the rank whose block holds ``pos``
+    and attention combines the ranks' blocks
+    (``attention.decode_attention``'s ``seq``).
 
     Returns (logits (B, V) f32, new cache).  The new token's k/v are
     written into ``cache``'s k/v in place at ``pos``: run twice on the
@@ -572,6 +613,12 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
     positions = torch.full((1, 1), int(pos), device=dev)
     new_mamba = {n: [] for n in cache.get("mamba", {})}
     attn_i = cross_i = 0
+    seq = None
+    if long_context and "k" in cache:
+        mesh = sharding.ambient_mesh()
+        ax = sharding.axis_of(mesh, "data")
+        if ax is not None:
+            seq = (ax, mesh.coords["data"] * cache["k"].shape[2])
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
         p = fsdp_view(p, cfg)          # dropped when the next layer runs
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -590,7 +637,8 @@ def decode_step(params, token, pos: int, cache, cfg: ModelConfig):
         else:
             x = x + attn.decode_self_attention(
                 p["mixer"], h, cfg, positions, cache["k"][attn_i],
-                cache["v"][attn_i], int(pos), tfm.window_of(kind, cfg))
+                cache["v"][attn_i], int(pos), tfm.window_of(kind, cfg),
+                seq)
             attn_i += 1
         if "cross" in p:
             h = rmsnorm(p["ln_cross"], x, cfg.norm_eps)

@@ -140,7 +140,10 @@ def route_logits(logits: torch.Tensor, cfg):
     off): C is the capacity of the global N, and a choice's slot counts
     the earlier choices of its expert over the global (token, choice)
     order, the data ranks before this one included (their per-expert
-    counts all-gathered over the batch axes, an exclusive scan)."""
+    counts all-gathered over the axes that split the batch, an exclusive
+    scan).  A batch those axes replicate (``StepMesh.for_batch``: the
+    batch of 1 of ``long_500k``'s decode) is routed as one process
+    routes it, on every rank alike: its tokens are counted once."""
     m = cfg.moe
     N = logits.shape[0]
     E, K = m.num_experts, m.top_k
@@ -223,7 +226,7 @@ def moe(params, x: torch.Tensor, cfg):
     else:
         # this rank's share of the global aux: the global fractions times
         # its rows' probabilities over the global N (``train_loss`` sums
-        # the shares over the batch axes)
+        # the shares over the axes that split the batch)
         Ng = N * mesh.batch_parts
         frac = mesh.batch_sum(counts.to(torch.float32)) / (Ng * K)
         aux = E * torch.sum(frac * probs.sum(dim=0) / Ng)

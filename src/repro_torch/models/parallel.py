@@ -38,9 +38,10 @@ FSDP over the ambient ``data`` axis (the plain steps, ``PARAM_RULES``'
             ``model`` shard, which the TP code above then reads; its
             gradient passes TP's ``copy`` / ``reduce`` backward first,
             as autograd orders it, then the reduce-scatter;
-  batch_sum  forward a sum over the batch axes (``data``, ``pod``) in
-            rank order, backward the identity: the loss's share of each
-            data rank, whose gradient is each rank's own.
+  batch_sum  forward a sum over the axes that split the batch
+            (``data``, ``pod``; none where it is replicated) in rank
+            order, backward the identity: the loss's share of each data
+            rank, whose gradient is each rank's own.
 
 Every sum runs in f32 and is cast back to its operand's dtype.  The
 backward of ``copy`` and ``reduce`` keeps the loss's gradient the same

@@ -35,7 +35,8 @@ a rank of a (``pod``,) ``data``, ``model`` mesh with the parameters
 placed by ``PARAM_RULES`` as they stand (d_model on ``data`` beside
 the ``model`` dims, so a leaf may be split on two dims) and install a
 ``train.ranks.StepMesh``, which holds every axis (``axis_of``); the
-batch is split over ``BATCH_AXES``, and the model code passes the
+batch is split over ``BATCH_AXES`` (those that divide it: a batch of 1
+is replicated, ``StepMesh.for_batch``), and the model code passes the
 global batch (``batch_rows``) to the checks.  The reference's
 ``with_sharding_constraint`` places an array; here every rank computes
 its shard explicitly, so the
@@ -468,12 +469,16 @@ def batch_mesh():
 
 def batch_rows(n: int, mesh=None) -> int:
     """The global batch of ``n`` local rows: ``n`` times the sizes of
-    the batch axes (``BATCH_AXES``) of ``mesh`` (default: the ambient
-    one); the full shape that ``constrain_here`` checks a local
-    activation against."""
+    the axes that split the batch of ``mesh`` (default: the ambient
+    one): a step mesh's ``batch_axes`` (none where the batch is
+    replicated, ``train.ranks.StepMesh.for_batch``), else every batch
+    axis (``BATCH_AXES``); the full shape that ``constrain_here`` checks
+    a local activation against."""
     mesh = ambient_mesh() if mesh is None else mesh
     if mesh is None:
         return n
+    if hasattr(mesh, "batch_parts"):
+        return n * mesh.batch_parts
     sizes = mesh_axis_sizes(mesh)
     return n * math.prod(sizes.get(a, 1) for a in BATCH_AXES)
 

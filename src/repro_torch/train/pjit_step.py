@@ -14,10 +14,14 @@ ambient mesh of the model code:
     over ``data`` (FSDP), heads, kv, ffn, vocab and experts over
     ``model`` (TP and EP), replicated over ``pod``;
   - the batch, the decode token and the caches are this rank's rows
-    (``StepMesh.local_rows``): the batch split over (``pod``, ``data``);
-    the caches' kv and ``ssm_inner`` over ``model``
+    (``StepMesh.local_rows``): the batch split over (``pod``, ``data``),
+    or replicated over an axis that does not divide it (the reference's
+    divisibility fallback, ``StepMesh.for_batch``: ``long_500k``'s batch
+    of 1); the caches' kv and ``ssm_inner`` over ``model``
     (``models.model.local_cache_layout``, the reference's
-    ``cache_structs``);
+    ``cache_structs``), under ``long_context`` the KV cache's sequence
+    over ``data`` (``decode_seq``), each rank's block combined by the
+    decode attention;
   - each layer gathers its d_model dims over ``data`` just before it
     runs (``models.transformer.fsdp_layer``); a leaf's gradient is
     reduce-scattered over ``data`` by the gather's backward, a leaf that
@@ -79,6 +83,9 @@ def make_train_step(cfg, opt: OptConfig, *, impl: str | None = None,
     Under ``mesh`` they are this rank's blocks and ``batch`` its rows;
     the loss and the norm are the global ones on every rank."""
     m = _mesh_of(cfg, mesh, placed=True)
+    if m is not None and not m.batch_whole:
+        raise ValueError("a train step splits its batch over every batch "
+                         "axis: the gradients are summed over them")
 
     def train_step(params, opt_state, batch, step):
         req = [p.detach().requires_grad_() for p in tree.leaves(params)]
@@ -111,12 +118,19 @@ def make_prefill_step(cfg, *, impl: str | None = None, mesh=None):
     return prefill_step
 
 
-def make_decode_step(cfg, *, mesh=None):
+def make_decode_step(cfg, *, mesh=None, long_context: bool = False):
+    """decode_step(params, token, pos, cache) -> (logits, cache).  Under
+    ``mesh`` ``token`` is this rank's rows of the view's batch (a batch
+    that the batch axes do not all divide takes ``mesh.for_batch(B)``:
+    ``long_500k``'s batch of 1 is on every rank) and ``cache`` its part
+    of the cache; ``long_context``: the cache's sequence split over
+    ``data`` (``models.model.allocate_cache(..., long_context=True)``,
+    as ``launch.specs.input_specs`` sets it from S >= 262144)."""
     m = _mesh_of(cfg, mesh)
 
     def decode_step(params, token, pos, cache):
         with sharding.set_mesh(m):
             return M.decode_step(M.layer_views(params, cfg), token, pos,
-                                 cache, cfg)
+                                 cache, cfg, long_context=long_context)
 
     return decode_step

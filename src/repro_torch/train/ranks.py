@@ -49,6 +49,7 @@ joins ends the run instead of hanging it.
 """
 from __future__ import annotations
 
+import copy
 import datetime
 
 import torch
@@ -333,10 +334,14 @@ class StepMesh:
     holds every axis's size and ``axes`` the collectives of each axis
     above 1 (``ModelAxis`` for ``model``, ``DataAxis`` for ``data`` and
     ``pod``); ``sharding.axis_of`` reads them.  The batch is split over
-    ``sharding.BATCH_AXES``, rank ``pod * data_size + data`` holding
-    the ``batch_index``-th block of rows.  ``placements`` is each
-    parameter leaf's ``sharding.Placement`` on this rank (the optimizer's
-    norm reads them)."""
+    ``batch_axes``, rank ``pod * data_size + data`` holding the
+    ``batch_index``-th of ``batch_parts`` blocks of rows: every batch
+    axis above 1 (``sharding.BATCH_AXES``), or, on the view of a given
+    global batch (``for_batch``), the axes the reference's ``spec_for``
+    keeps for it (a batch of 1 is replicated over them all, as
+    ``long_500k``'s is).  ``placements`` is each parameter leaf's
+    ``sharding.Placement`` on this rank (the optimizer's norm reads
+    them)."""
 
     def __init__(self, mesh, device):
         from repro_torch.sharding import BATCH_AXES, mesh_coordinate
@@ -353,14 +358,45 @@ class StepMesh:
                 self.axes[name] = ModelAxis(group, device) \
                     if name == "model" else DataAxis(group, device, name)
         self.model = self.axes.get("model")
-        self.batch_axes = tuple(a for a in BATCH_AXES if a in self.axes)
-        self.batch_parts = 1
-        self.batch_index = 0
-        for a in BATCH_AXES:
-            size = self.shape.get(a, 1)
+        self._split_batch(tuple(a for a in BATCH_AXES if a in self.axes))
+        self.placements = None
+
+    def _split_batch(self, axes: tuple) -> None:
+        self.batch_axes = axes
+        self.batch_parts, self.batch_index = 1, 0
+        for a in axes:
+            size = self.shape[a]
             self.batch_parts *= size
             self.batch_index = self.batch_index * size + self.coords.get(a, 0)
-        self.placements = None
+
+    def batch_split(self, batch: int) -> tuple:
+        """The batch axes above 1 that split a global batch of ``batch``
+        rows: the reference's ``spec_for(("batch",), ...)`` under
+        ``ACT_RULES``, which drops an axis that does not divide it."""
+        from repro_torch.sharding import ACT_RULES, spec_for
+
+        entry = spec_for(("batch",), self, (batch,), ACT_RULES)[0]
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        return tuple(a for a in names if a in self.axes)
+
+    def for_batch(self, batch: int) -> "StepMesh":
+        """This mesh as the steps see a global batch of ``batch`` rows:
+        the same axes and collectives, the batch split over
+        ``batch_split(batch)`` only (replicated over the others, every
+        rank of them holding the same rows)."""
+        view = copy.copy(self)
+        view._split_batch(self.batch_split(batch))
+        return view
+
+    @property
+    def batch_whole(self) -> bool:
+        """Whether the batch is split over every batch axis above 1 (a
+        train step's gradients are summed over them)."""
+        from repro_torch.sharding import BATCH_AXES
+
+        return self.batch_axes == tuple(a for a in BATCH_AXES
+                                        if a in self.axes)
 
     @property
     def world(self) -> int:
@@ -370,26 +406,33 @@ class StepMesh:
         return n
 
     def local_rows(self, x):
-        """This rank's block of rows of a global-batch tensor (dim 0)."""
+        """This rank's block of rows of a global-batch tensor (dim 0),
+        over ``batch_axes``; a batch that splits otherwise (the
+        reference's ``spec_for`` drops an axis that does not divide it)
+        raises: the steps take that batch on ``for_batch(B)``."""
         x = torch.as_tensor(x)
+        if self.batch_split(x.shape[0]) != self.batch_axes:
+            raise ValueError(
+                f"a batch of {x.shape[0]} rows splits over "
+                f"{self.batch_split(x.shape[0])}, not {self.batch_axes}: "
+                f"take it on mesh.for_batch({x.shape[0]})")
         n = x.shape[0] // self.batch_parts
-        if n * self.batch_parts != x.shape[0]:
-            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
-                             f"over {self.batch_parts} batch shards")
         return x[self.batch_index * n:(self.batch_index + 1) * n]
 
     def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the batch axes (``data``, then ``pod``),
-        in f32, in rank order; the same bits on every rank."""
+        """The sum of ``t`` over the axes that split the batch (``data``,
+        then ``pod``), in f32, in rank order; the same bits on every
+        rank."""
         for a in ("data", "pod"):
-            if a in self.axes:
+            if a in self.batch_axes:
                 t = self.axes[a].all_reduce_ordered(t)
         return t
 
     def batch_gather(self, rows: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows in global batch order."""
+        """Every rank's rows in global batch order (a replicated batch
+        counted once)."""
         for a in ("data", "pod"):
-            if a in self.axes:
+            if a in self.batch_axes:
                 rows = self.axes[a].all_gather_rows(rows)
         return rows
 

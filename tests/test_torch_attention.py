@@ -20,6 +20,7 @@ from repro.models import attention as jattn
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

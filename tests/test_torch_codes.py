@@ -21,6 +21,7 @@ from repro.core import identification as jident
 from repro_torch import core as tcore
 from repro_torch.core import codes, draco, filters, identification
 from repro_torch.core import tree
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 
 def _t(a):

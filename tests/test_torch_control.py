@@ -17,6 +17,7 @@ from repro_torch.core import engine as tengine
 from repro_torch.core.engine_torch import build_schedule as tbuild_schedule
 from repro_torch.core.engineplan import plan as tplan
 from repro_torch.obs import oblog as toblog
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 _EV = (dict(step=6, kind="crash", workers=(1,)),
        dict(step=15, kind="recover", workers=(1,)))

@@ -51,6 +51,7 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import ServeEngine, token_agreement
 from repro_torch.serving.engine import sketches_agree
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 WHISPER, VISION = "whisper-tiny", "llama-3.2-vision-90b"
 ARCHS = [WHISPER, VISION]

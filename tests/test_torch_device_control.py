@@ -35,6 +35,7 @@ from repro_torch.obs import metrics as tmetrics
 
 from make_golden import FAMILY_PICKS, _pick_spec
 from test_torch_control import CASES, _assert_same_control, _specs, _stack
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "control_traces.npz"
 W_RTOL = W_ATOL = 1e-4

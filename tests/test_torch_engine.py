@@ -28,6 +28,7 @@ import repro_torch
 from repro_torch.core import carry
 from repro_torch.core.engine_torch import gram_matrix
 from repro_torch.core.engineplan import stepcore as tstepcore
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 W_RTOL = W_ATOL = 1e-4
 LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-4

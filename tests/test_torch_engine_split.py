@@ -39,6 +39,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 W_TOL = 1e-4

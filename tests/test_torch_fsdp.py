@@ -42,6 +42,7 @@ import torch
 
 from test_torch_tp import _ref_mesh
 from test_torch_trainer import rank_server  # noqa: F401 (its teardown)
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 B, S, DEC = 8, 16, 4
 STEPS = 3
@@ -61,6 +62,26 @@ SCENARIOS = {
     "mamba_2x2": ("mamba2-780m", {}, (1, 2, 2), 2),
     "llama_pod": ("llama3.2-1b", {}, (2, 2, 1), 3),
 }
+
+
+# decode-only scenarios of ``long_500k``'s form: batch 1 on every rank, the
+# KV cache's sequence split over ``data`` (``abstract_cache(...,
+# long_context=True)``), at LONG_S positions: blocks of 32 at data 4 and
+# 64 at data 2, so the reduced window of 32 straddles a block; a seeded
+# cache filled below LONG_POS (a block boundary less 2), then LONG_STEPS
+# greedy steps across the boundary.  name -> (arch, (pod, data, model),
+# seed)
+LONG = {
+    "gemma_long_4x1": ("gemma3-1b", (1, 4, 1), 4),
+    "gemma_long_2x2": ("gemma3-1b", (1, 2, 2), 5),
+    "jamba_long_2x2": ("jamba-v0.1-52b", (1, 2, 2), 6),
+}
+LONG_S, LONG_POS, LONG_STEPS = 128, 62, 4
+
+
+def long_cfg(get_config, name):
+    return dataclasses.replace(get_config(LONG[name][0]).reduced(),
+                               dtype="float32")
 
 
 def cfg_of(get_config, name):
@@ -112,6 +133,9 @@ def _reference_main(out_dir, names, opt_kw=None) -> None:
                 for path, leaf in paths}
 
     for name in names:
+        if name in LONG:
+            _reference_long(name, out_dir, flat)
+            continue
         arch, _, (pod, data, model), seed = SCENARIOS[name]
         cfg = cfg_of(get_config, name)
         if pod > 1:
@@ -177,18 +201,75 @@ def _reference_main(out_dir, names, opt_kw=None) -> None:
     print("REFERENCE_DONE")
 
 
+def _reference_long(name, out_dir, flat) -> None:
+    """A LONG scenario in the reference: ``jax.jit(make_decode_step)`` on
+    its mesh, the parameters placed by ``PARAM_RULES``, the seeded cache
+    by its ``abstract_cache(cfg, 1, LONG_S, long_context=True)``
+    shardings under ``ACT_RULES`` (the sequence over ``data``); the
+    initial parameters and cache, each step's logits and greedy token
+    and the final cache to ``out_dir/name.npz``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+
+    from repro.configs import get_config
+    from repro.models import model as RM
+    from repro.sharding import (ACT_RULES, Annotated, PARAM_RULES,
+                                make_mesh, set_mesh, spec_for, tree_specs)
+    from repro.train import pjit_step as jp
+
+    _, (pod, data, model), seed = LONG[name]
+    cfg = long_cfg(get_config, name)
+    mesh = make_mesh((data, model), ("data", "model"))
+    params = RM.init(cfg, jax.random.PRNGKey(seed))
+    specs = tree_specs(RM.abstract_params(cfg), mesh, PARAM_RULES)
+    params = jax.tree.map(
+        lambda x, s: jax.device_put(x, NamedSharding(mesh, s)), params, specs)
+    rng = np.random.default_rng(seed)
+
+    def seeded(a):
+        x = rng.standard_normal(a.shape).astype(np.float32).astype(a.dtype)
+        if len(a.shape) == 4 and a.logical[2] == "decode_seq":
+            x[:, :, LONG_POS:] = 0                       # k, v: the prompt
+        return jax.device_put(x, NamedSharding(mesh, spec_for(
+            a.logical, mesh, a.shape, ACT_RULES)))
+
+    cache = jax.tree.map(seeded, RM.abstract_cache(cfg, 1, LONG_S,
+                                                   long_context=True),
+                         is_leaf=lambda x: isinstance(x, Annotated))
+    arrays = {**{f"init/{k}": v for k, v in flat(params).items()},
+              **{f"cache0/{k}": v for k, v in flat(cache).items()}}
+    tok = jnp.asarray([seed + 7], jnp.int32)
+    arrays["token"] = np.asarray(tok)
+    logits, toks = [], []
+    with set_mesh(mesh):
+        decode = jax.jit(jp.make_decode_step(cfg))
+        for t in range(LONG_STEPS):
+            lg, cache = decode(params, tok, jnp.int32(LONG_POS + t), cache)
+            tok = jnp.argmax(lg, -1).astype(jnp.int32)
+            logits.append(np.asarray(lg))
+            toks.append(np.asarray(tok))
+    arrays.update({f"cachef/{k}": v for k, v in flat(cache).items()},
+                  logits=np.stack(logits), tokens=np.stack(toks))
+    np.savez(os.path.join(out_dir, f"{name}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as fh:
+        json.dump({}, fh)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def ref_proc(tmp_path_factory):
     """The reference's runs, started when the module starts, so the
     tests that need none run while they compute: two subprocesses of
-    two scenarios each, their compiles side by side."""
+    two scenarios and one or two LONG scenarios each, their compiles side
+    by side."""
     out = tmp_path_factory.mktemp("fsdp_ref")
     names = list(SCENARIOS)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(out), *part],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env={**os.environ, "JAX_PLATFORMS": "cpu"})
-        for part in (names[:2], names[2:])]
+        for part in (names[:2] + ["jamba_long_2x2"],
+                     names[2:] + ["gemma_long_4x1", "gemma_long_2x2"])]
     yield procs, out
     for proc in procs:
         if proc.poll() is None:
@@ -204,7 +285,7 @@ def ref(ref_proc):
         assert proc.returncode == 0 and "REFERENCE_DONE" in stdout, \
             stderr[-4000:]
     res = {}
-    for name in SCENARIOS:
+    for name in [*SCENARIOS, *LONG]:
         with open(out / f"{name}.json") as fh:
             res[name] = (json.load(fh), dict(np.load(out / f"{name}.npz")))
     return res
@@ -313,6 +394,106 @@ def _rank_main(rank, world, port, out, name, shape, init_path, count, opt):
     dist.destroy_process_group()
 
 
+def _shard_cache(M, cfg, cache):
+    """This rank's block of a whole long-context cache tree (every tensor
+    (layers, B, S, ...)) under the ambient mesh, as ``M.allocate_cache(...,
+    long_context=True)`` lays it out (views)."""
+    from repro_torch import sharding
+    from repro_torch.core import tree
+
+    batch = tree.leaves(cache)[0].shape[1]
+    seq = cache["k"].shape[2] if "k" in cache else 1
+    pls = M.cache_placements(cfg, batch, seq, mesh=sharding.ambient_mesh(),
+                             long_context=True)
+    return {k: ({n: pl.take(cache[k][n]) for n, pl in v.items()}
+                if k == "mamba" else v.take(cache[k]))
+            for k, v in pls.items()}
+
+
+def _long_rank_main(rank, world, port, out, name, inputs_path):
+    """One gloo rank of a LONG scenario: its blocks of the parameters
+    (``PARAM_RULES``) and of the seeded cache (batch 1 on every rank,
+    the sequence over ``data``: ``_shard_cache``), then
+    LONG_STEPS greedy ``make_decode_step(..., long_context=True)`` steps;
+    the gathered logits, tokens and the rank's final cache (with its
+    coordinates) to ``out/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_step_mesh
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.train import pjit_step
+    from repro_torch.train import ranks as R
+
+    torch.set_num_threads(1)
+    R.init("gloo", rank, world, init_method=f"tcp://localhost:{port}",
+           timeout_s=120)
+    pod, data, model = LONG[name][1]
+    mesh = R.StepMesh(make_step_mesh(data, model, pod, device_type="cpu"),
+                      "cpu").for_batch(1)
+    cfg = long_cfg(get_config, name)
+    inputs = torch.load(inputs_path)
+    params = convert.shard_params(inputs["params"], convert.placements(
+        cfg, mesh.mesh, rules=sharding.PARAM_RULES))
+    with sharding.set_mesh(mesh):
+        cache = M.map_params(torch.clone, _shard_cache(
+            M, cfg, inputs["cache"]))
+    decode = pjit_step.make_decode_step(cfg, mesh=mesh, long_context=True)
+    tok, logits, toks = mesh.local_rows(inputs["token"]), [], []
+    for t in range(LONG_STEPS):
+        lg, cache = decode(params, tok, LONG_POS + t, cache)
+        lg = mesh.full_logits(lg, cfg.vocab_size)
+        tok = lg.argmax(-1)
+        logits.append(lg)
+        toks.append(tok)
+    torch.save({"logits": torch.stack(logits), "tokens": torch.stack(toks),
+                "cache": cache, "coords": mesh.coords,
+                "counts": mesh.counts()},
+               os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_long(name, inputs, tmp_path) -> list:
+    from repro_torch.launch.train import free_port, start_ranks
+
+    pod, data, model = LONG[name][1]
+    world = pod * data * model
+    path = str(tmp_path / f"{name}_inputs.pt")
+    torch.save(inputs, path)
+    start_ranks(_long_rank_main, (world, free_port(), str(tmp_path), name,
+                                  path), world)
+    return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+
+
+def gather_long_cache(cfg, name, results):
+    """The ranks' final caches laid back into the whole tree
+    (``cache_placements`` at each rank's coordinates); a block that
+    several ranks hold must hold the same bits on each."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding import MeshShape
+
+    _, (pod, data, model), _ = LONG[name]
+    ms = MeshShape(("pod", "data", "model"), (pod, data, model))
+    full = M.map_params(lambda leaf: torch.full(leaf[0], float("nan"),
+                                                dtype=leaf[1]),
+                        M.cache_layout(cfg, 1, LONG_S))
+    for r in results:
+        pls = M.cache_placements(cfg, 1, LONG_S, ms, r["coords"],
+                                 long_context=True)
+        for k, v in pls.items():
+            pairs = [(pl, full[k][n], r["cache"][k][n]) for n, pl in
+                     v.items()] if k == "mamba" else [(v, full[k],
+                                                        r["cache"][k])]
+            for pl, whole, local in pairs:
+                held = whole[pl.slices]
+                seen = ~torch.isnan(held)
+                assert torch.equal(held[seen], local[seen]), (k, r["coords"])
+                held.copy_(local)
+    return full
+
+
 def run_ranks(name, init_tree, tmp_path, shape=None, count=False,
               opt=None) -> list:
     from repro_torch.launch.train import free_port, start_ranks
@@ -404,6 +585,15 @@ def test_rank0_shapes_are_the_references_shard_shapes(arch, mesh):
     assert [tuple(t.shape) for t in tree.leaves(dec["cache"])] == want(
         RM.abstract_cache(rc, ds.global_batch, ds.seq_len), RS.ACT_RULES)
     assert all(t.is_meta for t in tree.leaves(dec["cache"]))
+    if cfg.sub_quadratic:
+        # long_500k: batch 1 replicated, the KV cache's sequence on data
+        long = input_specs(cfg, SHAPES["long_500k"], mesh=pm)
+        ls = RSHAPES["long_500k"]
+        assert tuple(long["token"].shape) == act(("batch",),
+                                                 (ls.global_batch,)) == (1,)
+        assert [tuple(t.shape) for t in tree.leaves(long["cache"])] == want(
+            RM.abstract_cache(rc, ls.global_batch, ls.seq_len,
+                              long_context=True), RS.ACT_RULES)
 
 
 def test_world_one_mesh_is_the_one_process_step(tmp_path):
@@ -466,9 +656,12 @@ def test_dryrun_fsdp_equals_a_ranks_step(tmp_path):
     rank's step counted on the CPU (the kernels' plain versions):
     FLOPs, bytes, the collectives of each axis and their result bytes; the
     production plain cell of a reduced arch traces (``run_cell`` keys),
-    and whisper, the VLM and ``long_500k`` are skipped with a reason."""
-    from repro_torch.configs import ShapeConfig, get_config
+    a ``long_500k``-form decode of reduced gemma3-1b is traced, not
+    skipped (its cache's sequence combined over ``data``), and whisper
+    and the VLM are skipped with a reason."""
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
     from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.sharding import MeshShape
 
     meta, _ = _meta_and_counted("llama_2x2", tmp_path)
@@ -477,8 +670,14 @@ def test_dryrun_fsdp_equals_a_ranks_step(tmp_path):
     for m in D.PLAIN_PRODUCTION:
         skip = D.run_cell("whisper-tiny", "train_4k", mesh=m)
         assert "item 7b" in skip["skipped"]
-        long = D.run_cell("mamba2-780m", "long_500k", mesh=m)
-        assert "sequence-parallel" in long["skipped"]
+    long = SHAPES["long_500k"]
+    assert D.long_context(long) and not D.long_context(SHAPES["decode_32k"])
+    gemma = get_config("gemma3-1b").reduced()
+    for multi in (False, True):
+        traced = D.lower_compile(gemma, long, mesh=make_production_mesh(
+            multi_pod=multi))
+        assert traced["peak_bytes"] > 0 and traced["collective_by_axis"][
+            "data"] > 0
     pm = MeshShape(("pod", "data", "model"), (2, 2, 2))
     small = get_config("phi3.5-moe-42b-a6.6b").reduced()
     for kind in ("train", "prefill", "decode"):
@@ -541,6 +740,47 @@ def test_fsdp_steps_match_reference(name, ref, tmp_path):
             np.testing.assert_array_equal(keep.numpy(),
                                           arrays["route_keep"][rows])
         assert not arrays["route_keep"].all()             # drops present
+
+
+@pytest.mark.parametrize("name", list(LONG))
+def test_long_decode_matches_reference(name, ref, tmp_path):
+    """``make_decode_step(..., long_context=True)`` as gloo ranks, batch 1
+    on every rank and the KV cache's sequence split over ``data``,
+    against the reference's jitted decode under its ``long_context``
+    shardings: each step's logits within 1e-4 * (1 + max|logits|), the
+    greedy tokens equal, the final cache gathered within 1e-4 * (1 +
+    max|cache|), every rank's logits, tokens and replicated cache blocks
+    bitwise alike; the decode attention combines the ranks over
+    ``data`` (an all-reduce of the max, two ordered sums a layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import model as M
+
+    _, arrays = ref[name]
+    cfg = long_cfg(get_config, name)
+    layout = M.cache_layout(cfg, 1, LONG_S)
+    cache = {k: ({n: torch.from_numpy(arrays[f"cache0/mamba/{n}"])
+                  for n in v} if k == "mamba" else
+                 torch.from_numpy(arrays[f"cache0/{k}"]))
+             for k, v in layout.items()}
+    results = run_long(name, {"params": _init_tree(cfg, arrays),
+                              "cache": cache,
+                              "token": torch.from_numpy(arrays["token"])},
+                       tmp_path)
+    r0 = results[0]
+    for r in results:
+        assert torch.equal(r["logits"], r0["logits"])
+        assert torch.equal(r["tokens"], r0["tokens"])
+    want = arrays["logits"]
+    assert float(np.abs(r0["logits"].numpy() - want).max()) <= \
+        1e-4 * (1.0 + float(np.abs(want).max()))
+    np.testing.assert_array_equal(r0["tokens"].numpy(), arrays["tokens"])
+    full = gather_long_cache(cfg, name, results)
+    for path, leaf in tree.leaves_with_paths(full):
+        want = arrays[f"cachef/{path}"]
+        err = float(np.abs(leaf.numpy() - want).max())
+        assert err <= 1e-4 * (1.0 + float(np.abs(want).max())), (path, err)
+    assert all(r["counts"]["data"]["all_reduce"] > 0 for r in results)
 
 
 if __name__ == "__main__":

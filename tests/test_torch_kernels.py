@@ -21,6 +21,7 @@ from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import majority_vote as tmv
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 
 def _keys(T):

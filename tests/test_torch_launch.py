@@ -33,6 +33,7 @@ from repro_torch.launch.specs import input_specs
 from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.optim import OptConfig, abstract_opt_state, init_opt_state
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 SMALL_TRAIN = ShapeConfig("small", 32, 2, "train")
 SPEC_ARCHS = ("llama3.2-1b", "whisper-tiny", "llama-3.2-vision-90b",

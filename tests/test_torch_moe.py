@@ -39,6 +39,7 @@ from repro.models.layers import materialize
 from repro_torch.configs import get_config
 from repro_torch.models import moe
 from repro_torch.models.convert import to_tensor
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 ARCHS = ["phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"]
 # (capacity factor, label): the config's own, and one that drops

@@ -47,6 +47,7 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import ServeEngine, token_agreement
 from repro_torch.serving.engine import sketches_agree
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 PHI, LLAMA4, JAMBA = ("phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
                       "jamba-v0.1-52b")

@@ -42,6 +42,7 @@ from repro_torch.core import simulation as tsim
 from make_golden import FAMILY_PICKS, _pick_spec
 from test_torch_control import _stack
 from test_torch_device_control import _golden_trace
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "control_traces.npz"
 STEPS = 96

@@ -26,6 +26,7 @@ from repro_torch.core import adaptive
 from repro_torch.obs import metrics, oblog, report, trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.telemetry import TEL_KEYS, Telemetry, zero_counts
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 OBS = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "obs"
 

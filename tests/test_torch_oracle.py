@@ -23,6 +23,7 @@ from repro_torch.core.engine_torch import build_schedule as tbuild_schedule
 
 from test_torch_control import CASES, _specs
 from test_torch_numpy_engine import family_specs, meters
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 W_RTOL = W_ATOL = 1e-4
 LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-4

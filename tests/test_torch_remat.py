@@ -34,6 +34,7 @@ from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 ARCHS = ["llama3.2-1b", "mamba2-780m", "phi3.5-moe-42b-a6.6b"]
 B, S = 3, 32

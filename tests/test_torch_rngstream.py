@@ -26,6 +26,7 @@ from repro_torch.core import adaptive as tadaptive
 from repro_torch.core import rngstream as trng
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "control_traces.npz"
 STREAM_SEED = 0xC0FFEE           # tests/make_golden.py's stream seed

@@ -32,6 +32,7 @@ from repro_torch.core import detection as tdet
 from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.serving import ServeEngine, audit_decode, token_agreement
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 ARCHS = ["llama3.2-1b", "gemma3-1b", "qwen3-4b"]
 B, S, STEPS = 2, 40, 8            # S is past the reduced window of 32

@@ -34,6 +34,7 @@ from repro_torch.launch import mesh as LM
 from repro_torch.launch import report
 from repro_torch.launch import roofline as RL
 from repro_torch.models import model as M
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 MESHES = {"16x16": (("data", "model"), (16, 16)),
           "2x16x16": (("pod", "data", "model"), (2, 16, 16)),

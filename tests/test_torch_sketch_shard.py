@@ -13,6 +13,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 
 @pytest.mark.parametrize("dtype,item", [("float32", 4), ("bfloat16", 2)])

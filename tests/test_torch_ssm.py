@@ -45,6 +45,7 @@ from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 NAME = "mamba2-780m"
 B = 2

@@ -36,6 +36,7 @@ from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import trace as ttrace
 from repro_torch.serving import ServeEngine, audit_decode, token_agreement
 from repro_torch.serving.engine import sketches_agree
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 NAME = "mamba2-780m"
 B, S, STEPS = 2, 32, 8             # a two-chunk prompt

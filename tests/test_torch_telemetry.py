@@ -30,6 +30,7 @@ import repro_torch
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import trace as ttrace
 from repro_torch.obs.telemetry import TEL_KEYS
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 CHUNK_RTOL, CHUNK_ATOL = 1e-5, 1e-6
 

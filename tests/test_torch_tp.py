@@ -37,6 +37,7 @@ import torch
 from test_torch_trainer import assert_same_control
 from test_torch_trainer import rank_server  # noqa: F401 (its teardown)
 from test_torch_trainer import summary
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 N, F = 4, 1
 SEQ, BATCH = 16, 8

@@ -34,6 +34,7 @@ import torch
 import test_torch_tp as T
 from test_torch_trainer import assert_same_control
 from test_torch_trainer import rank_server  # noqa: F401 (its teardown)
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 # name -> (arch, config overrides, mode, attack, byzantine workers, seed,
 #          filter, steps)

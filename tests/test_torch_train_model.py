@@ -39,6 +39,7 @@ from repro_torch.models import model as M
 from repro_torch.optim import optimizer as opt_mod
 from repro_torch.train import pjit_step, steps
 from test_torch_train_parts import ARCHS, _cfg, _jcfg, _jparams, _same_tree
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,7 @@ from repro_torch.models import model as M
 from repro_torch.optim import compression as comp
 from repro_torch.optim import optimizer as opt_mod
 from repro_torch.train import steps
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 ARCHS = ["llama3.2-1b", "gemma3-1b", "qwen3-4b"]
 

@@ -31,6 +31,7 @@ import tempfile
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 N, F = 8, 2
 SEQ, BATCH = 16, 16

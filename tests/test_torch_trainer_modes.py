@@ -9,6 +9,7 @@ import pytest
 from test_torch_trainer import (assert_params_close, check_scenario, port,
                                 rank_server,  # noqa: F401
                                 reference, run_ranked)
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 NAMES = ["filter", "full", "none", "adaptive"]
 

@@ -10,6 +10,7 @@ reference subprocess and the tolerances (control exact, losses within
 import pytest
 
 from test_torch_trainer import assert_params_close, check_scenario, reference
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 NAMES = ["moe_deterministic"]
 

@@ -21,6 +21,7 @@ import torch
 from test_torch_trainer import SCENARIOS, job_of
 from test_torch_trainer import rank_server  # noqa: F401 (its teardown)
 from test_torch_trainer import ranked_cfg as _cfg
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 

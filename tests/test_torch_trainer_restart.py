@@ -9,6 +9,7 @@ from test_torch_trainer import (assert_params_close, assert_same_control,
                                 check_scenario, params_close, rank_server,
                                 ranks_bitwise, reference, run_ranked,
                                 summary)
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 NAMES = ["restart", "elastic"]
 

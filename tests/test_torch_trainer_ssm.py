@@ -8,6 +8,7 @@ those of ``tests/test_torch_trainer.py``, which holds them."""
 import pytest
 
 from test_torch_trainer import assert_params_close, check_scenario, reference
+from torch_threads import one_thread  # noqa: F401 (one thread)
 
 NAMES = ["ssm_randomized", "ssm_deterministic"]
 
